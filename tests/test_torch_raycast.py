@@ -1,0 +1,135 @@
+"""The port's raycast (gvom_tpu_torch.ops.raycast, the plain twin of kernel
+K1) against gvom_tpu's XLA raycast, bitwise, on the CPU.
+
+The inputs are made once with numpy and fed to both packages. The JAX side
+is ray_pass_counts_xla, which tests/test_pallas_kernels.py pins bitwise to
+the Pallas kernel; the numpy oracle is a second witness."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gvom_tpu.config import GvomConfig
+from gvom_tpu.io import synthetic
+from gvom_tpu.ops import binning as jbinning
+from gvom_tpu.ops import grid as jgrid
+from gvom_tpu.ops import raycast as jraycast
+from gvom_tpu.oracle import NumpyOracle
+
+from gvom_tpu_torch.ops import binning as tbinning
+from gvom_tpu_torch.ops import grid as tgrid
+from gvom_tpu_torch.ops import kernels as tkernels
+from gvom_tpu_torch.ops import raycast as traycast
+
+from conftest import make_scan
+from helpers import canonical
+from torch_helpers import tcfg
+
+
+def both_raycasts(cfg, pad, mask, ego, origin=None):
+    """(jax passes, port passes, port origin) for one numpy scan."""
+    e = np.float32(ego)
+    pw, keep = jbinning.prepare_points(cfg, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
+    jo = jgrid.compute_origin(cfg, jnp.asarray(e)) if origin is None else jnp.asarray(origin)
+    ref = np.asarray(jax.jit(lambda *a: jraycast.ray_pass_counts_xla(cfg, *a))(pw, keep, jnp.asarray(e), jo))
+
+    c = tcfg(cfg)
+    te = torch.from_numpy(e.copy())
+    tp, tk = tbinning.prepare_points(c, torch.from_numpy(pad), torch.from_numpy(mask), te)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(pw))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(keep))
+    to = tgrid.compute_origin(c, te) if origin is None else torch.from_numpy(np.asarray(origin, np.int32))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    out = traycast.ray_pass_counts(c, tp, tk, te, to)
+    return ref, out.numpy(), to.numpy()
+
+
+@pytest.fixture(scope="module")
+def scene(small_cfg):
+    ego = np.array([0.3, -0.2, 1.5])
+    pts = make_scan(synthetic.composite_terrain(), ego, cfg=small_cfg)
+    pad, mask = synthetic.pad_scan(pts, small_cfg.max_points)
+    return small_cfg, pts, pad, mask, ego
+
+
+def test_raycast_scene_bitwise_and_oracle(scene):
+    cfg, pts, pad, mask, ego = scene
+    launches = tkernels.RAY.launches
+    ref, out, origin = both_raycasts(cfg, pad, mask, ego)
+    np.testing.assert_array_equal(out, ref)
+    assert ref.sum() > 0
+    # second witness: the numpy oracle's pass counts (window layout)
+    sm = NumpyOracle(cfg).process_pointcloud(pts, ego)
+    np.testing.assert_array_equal(canonical(out, origin), sm.passes)
+    # a CPU tensor takes the plain version: no kernel launch is counted
+    assert tkernels.RAY.launches == launches
+
+
+@pytest.mark.parametrize("kind", ["z_dominant", "empty", "moving_ego"])
+def test_raycast_variants_bitwise(scene, kind):
+    cfg, _, pad, mask, ego = scene
+    if kind == "z_dominant":
+        # endpoints mostly straight down/up from the ego (kernel groups 4/5)
+        rng = np.random.default_rng(7)
+        n = 256
+        d = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n),
+                      np.where(rng.random(n) < 0.5, -1.0, 1.0) * rng.uniform(2.0, 5.0, n)], axis=1)
+        pad = np.zeros((cfg.max_points, 3), np.float32)
+        pad[:n] = np.float32(ego)[None, :] + d
+        mask = np.zeros((cfg.max_points,), bool)
+        mask[:n] = True
+    elif kind == "empty":
+        mask = np.zeros_like(mask)
+    else:
+        ego = ego + np.array([3.3, -2.1, 0.15])
+        pts = make_scan(synthetic.composite_terrain(), ego, seed=4, cfg=cfg)
+        pad, mask = synthetic.pad_scan(pts, cfg.max_points)
+    ref, out, _ = both_raycasts(cfg, pad, mask, ego)
+    np.testing.assert_array_equal(out, ref)
+    assert (ref.sum() == 0) == (kind == "empty")
+
+
+def test_raycast_knife_edge_dominant_row_exact():
+    """The knife-edge input of test_raycast_knife_edge_dominant_row_exact:
+    start_x = fl32(5 − 2⁻²⁰), so at step 27 the f32 sum start+27 rounds up
+    to 32.0 while the true row is 31. The integer row convention keeps both
+    packages on row 31."""
+    cfg = GvomConfig(xy_size=64, z_size=32, max_points=256, xy_resolution=1.0, z_resolution=1.0)
+    ex = np.float32(5.0) - np.float32(2.0 ** -20)
+    ego = np.array([ex, 10.0, 5.0], np.float32)
+    pts = np.zeros((cfg.max_points, 3), np.float32)
+    pts[0] = ego + np.array([50.0, 2.0, 1.0], np.float32)
+    keep = np.zeros((cfg.max_points,), bool)
+    keep[0] = True
+    ref, out, _ = both_raycasts(cfg, pts, keep, ego, origin=np.zeros(3, np.int32))
+    np.testing.assert_array_equal(out, ref)
+    assert out[4 + 27].sum() == 1 and out[4 + 28].sum() == 1
+
+
+@pytest.mark.parametrize("egoi", [0, 1, 2])
+def test_ray_geometry_length_and_budget_bitwise(scene, egoi):
+    """length and budget (the liveness bound of every step) round exactly
+    as the JAX package's compiled ray_geometry, including the 3-term sum of
+    squares; so do step, delta and the dominant axis."""
+    cfg, _, _, _, ego0 = scene
+    ego = ego0 + np.array([[0.0, 0.0, 0.0], [1.37, -0.91, 0.05], [-2.2, 3.3, -0.4]])[egoi]
+    pts = make_scan(synthetic.composite_terrain(), ego, seed=egoi, cfg=cfg)
+    pad, mask = synthetic.pad_scan(pts, cfg.max_points)
+    e = np.float32(ego)
+    pw, keep = jbinning.prepare_points(cfg, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
+    j_start, j_step, j_delta, j_budget, j_dom = (np.asarray(a) for a in jax.jit(
+        lambda *a: jraycast.ray_geometry(cfg, *a))(pw, keep, jnp.asarray(e)))
+    c = tcfg(cfg)
+    tp, tk = tbinning.prepare_points(c, torch.from_numpy(pad), torch.from_numpy(mask), torch.from_numpy(e.copy()))
+    start, step, delta, budget, dom, length = (a.numpy() for a in traycast.ray_geometry(
+        c, tp, tk, torch.from_numpy(e.copy())))
+    live = j_budget > -1.0
+    assert live.sum() > 500
+    np.testing.assert_array_equal(start, j_start)
+    np.testing.assert_array_equal(length[live], j_budget[live] + np.float32(1.0))
+    np.testing.assert_array_equal(budget, j_budget)
+    np.testing.assert_array_equal(step[live], j_step[live])
+    np.testing.assert_array_equal(delta[live], j_delta[live])
+    np.testing.assert_array_equal(dom[live], j_dom[live])
