@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py [--out FILE.json] [--scans N]
 
-Builds the main path's four CUDA kernels from gvom_tpu_torch/csrc (one nvcc
-per source, all started together), then, at the upstream deployment (a
-256×256×64 grid at 0.4 m, a ring buffer of 4 scans, 131,072 points per
-scan from a synthetic OS1-128 sweep of the composite terrain, made from
-fixed seeds):
+Builds the port's CUDA kernels from gvom_tpu_torch/csrc (one nvcc per source,
+all started together), then, at the upstream deployment (a 256×256×64 grid
+at 0.4 m, a ring buffer of 4 scans, 131,072 points per scan from a
+synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
 
   1. holds each kernel against its plain PyTorch version on the card, on the
      same inputs, over a drive with a moving ego (re-origin, decay veto):
      K1 pass counts, K2 hit and min_height and the moment count n, and every
      K4 output but the moments bitwise; the other moment channels within
-     MOM_RTOL / MOM_ATOL (f32 sums in another order);
+     MOM_RTOL / MOM_ATOL (f32 sums in another order). K5 (the epilogue into
+     a fresh tensor) with the occupancy mask on and off. The slab forms of
+     K1, K2 and K5 for the four quarter slabs of a scan whose window seam
+     falls inside a slab, each against its plain version AND against the
+     rows of the full-grid kernel's output, and ingest_scan(y_window=) side
+     by side against ingest_scan(). K1 on a near-tier scene (every ray
+     shorter than 30 steps, the tier of the JAX package's step-pair kernel);
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
      and read just after, and checks the 5-tuple it returns;
@@ -26,7 +31,15 @@ fixed seeds):
      each kernel's bound from this run's inputs: the bytes it must move
      over the memory rate, or its operations over their rate, whichever is
      larger. K1's and K2's operations are atomics, whose rate the script
-     measures with a probe kernel (csrc/atomic_rate.cu).
+     measures with a probe kernel (csrc/atomic_rate.cu);
+  5. drives the batched step (make_batched_step): two steps of 4 scans held
+     against the same step with every kernel swapped for its plain version,
+     then two steps of 32 scans of 131,072 points (the second merges with a
+     live world at a moved origin), timed, with the launch counts set to 0
+     just before and read just after;
+  6. runs batched_replay over a synthesized log of 8 scans on a small grid,
+     batch 4, against the same replay on the CPU, with a checkpoint written,
+     loaded, and the resumed run's world equal to the straight run's.
 
 Prints the timings, one JSON line {"kernels": [...]}, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
@@ -37,13 +50,17 @@ non-zero without that line when there is no CUDA device or a phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
@@ -56,6 +73,15 @@ ROOT = Path(__file__).resolve().parent
 # thousand near the ego
 MOM_RTOL = 1e-4
 MOM_ATOL = 1e-3
+# a batched step sums every scan of its batch into one voxel: up to 32 times
+# the terms, and the absolute error of an unordered f32 sum grows with them.
+# Seen on an H100 (700 W): max abs error 9.8e-4 for one scan, 3.9e-3 for a
+# batch of 4 (8 to 16 % of rtol·|b| + atol where it is largest) and 1.6e-2 to
+# 2.3e-2 for a batch of 32, at a voxel of 7,432 points (5 to 6 %)
+MOM_ATOL_BATCH = 1e-2
+BATCH = 32                   # scans per batched step, the JAX package's bench default
+BATCH_CHECK = 4              # scans per step of the batched step held against the plain versions
+NEAR_TIER_STEPS = 30         # the step-pair kernel of the JAX package covers steps 1..30
 # log and atan2 of CUDA and of the CPU may differ by an ulp or so
 ROUGH_ATOL = 1e-4
 
@@ -107,15 +133,26 @@ def exact(name, a, b):
     return 0.0
 
 
-def close(name, a, b):
+def close(name, a, b, atol=MOM_ATOL):
     import torch
 
     check(a.shape == b.shape, f"{name}: shape {a.shape} vs {b.shape}")
-    ok = torch.isclose(a, b, rtol=MOM_RTOL, atol=MOM_ATOL)
+    ok = torch.isclose(a, b, rtol=MOM_RTOL, atol=atol)
     n = int((~ok).sum())
     err = float((a - b).abs().max()) if a.numel() else 0.0
-    check(n == 0, f"{name}: {n} elements outside rtol={MOM_RTOL} atol={MOM_ATOL} (max abs err {err})")
+    check(n == 0, f"{name}: {n} elements outside rtol={MOM_RTOL} atol={atol} (max abs err {err})")
     return err
+
+
+def tol_share(a, b, atol):
+    """The largest |a − b| as a share of its tolerance atol + MOM_RTOL·|b|."""
+    return float(((a - b).abs() / (atol + MOM_RTOL * b.abs())).max())
+
+
+def moments_close(name, a, b, atol=MOM_ATOL):
+    """[10, ...] moments: the count n bitwise, the nine sums within tolerance."""
+    exact(f"{name} n", a[0], b[0])
+    return close(f"{name} moments", a, b, atol)
 
 
 def cuda_ms(fn, reps, warm=1):
@@ -200,6 +237,16 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         exact("K3 untouched slot", ko[0], po[0])
         exact("K3 n", ko[1, 0], po[1, 0])
         err["ingest_epilogue"] = max(err["ingest_epilogue"], close("K3 moments", ko[1], po[1]))
+        # K5: the same box into a fresh tensor, the occupancy mask on and off
+        for mask in (True, False):
+            km = kernels.moments_epilogue(cfg, kb.sums, kb.hit, origin, occupancy_mask=mask)
+            pm = moments.moments_epilogue_plain(cfg, kb.sums, kb.hit, origin, occupancy_mask=mask)
+            err["moments_epilogue"] = max(err["moments_epilogue"], moments_close(f"K5 mask={mask}", km, pm))
+            if mask:
+                exact("K5 masked vs K3's slot", km, ko[1])
+            else:
+                check(bool((km[:, kb.hit == 0] != 0).any()), "K5 mask off: no moments at voxels without a hit")
+            del km, pm
         del ko, po, pb
 
         buf, scan_ok = pipeline.ingest_and_insert(cfg, buf, pts, valid, ego)
@@ -221,10 +268,115 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         log(f"phase 1 scan {i}: origin {origin.tolist()}, {int(keep.sum())} points kept, "
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan): "
-            "K1-K4 agree with their plain versions")
+            "K1-K5 agree with their plain versions")
         last = dict(pts=pts, valid=valid, ego=ego, m=m, origin=origin, pn=pn, keep=keep, bins=kb,
                     target=target)
     return err, buf, world, last
+
+
+def scan_tensors(scan, dev):
+    import torch
+
+    pad, mask, ego_np = scan
+    return (torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev),
+            torch.tensor(ego_np, dtype=torch.float32, device=dev))
+
+
+def phase1_slabs(cfg, scan, dev, log, err):
+    """The slab forms (y_window) of K1, K2 and K5 on one scan whose window
+    seam falls inside a slab: each of the four quarter slabs against its
+    plain version and against the rows of the full-grid kernel's output;
+    then ingest_scan(y_window=) side by side against ingest_scan(), with the
+    launch counts set to 0 just before and read just after. Returns the
+    launches and the inputs of the slab that holds the seam (for the
+    timings)."""
+    import torch
+
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.ops import binning, kernels, moments, raycast
+    from gvom_tpu_torch.ops import grid as gridops
+
+    pts, valid, ego = scan_tensors(scan, dev)
+    p, keep = binning.prepare_points(cfg, pts, valid, ego)
+    origin = gridops.compute_origin(cfg, ego)
+    pn = gridops.map_local(cfg, p, origin)
+    m = raycast.march_inputs(cfg, p, keep, ego, origin)
+    Y = cfg.xy_size
+    Ys = Y // 4
+    seam = int(origin[1]) % Y          # the torus row of window row 0
+    check(seam % Ys != 0, f"the window seam (torus row {seam}) lies on a slab boundary, not inside a slab")
+    full_pass = kernels.ray_pass_counts(cfg, m, origin)
+    full_bins = kernels.bin_points(cfg, pn, keep, origin)
+    full_mom = {mask: kernels.moments_epilogue(cfg, full_bins.sums, full_bins.hit, origin, occupancy_mask=mask)
+                for mask in (True, False)}
+    for k in range(4):
+        yw = (k * Ys, Ys)
+        rows = slice(k * Ys, (k + 1) * Ys)
+        kp = kernels.ray_pass_counts(cfg, m, origin, y_window=yw)
+        exact(f"K1 slab {k} vs plain", kp, raycast.ray_pass_counts_plain(cfg, m, origin, yw))
+        exact(f"K1 slab {k} vs the full grid's rows", kp, full_pass[:, rows].contiguous())
+        kb, pb = kernels.bin_points(cfg, pn, keep, origin, yw), binning.bin_points(cfg, pn, keep, origin, yw)
+        for name in ("hit", "min_height"):
+            exact(f"K2 slab {k} {name} vs plain", getattr(kb, name), getattr(pb, name))
+            exact(f"K2 slab {k} {name} vs the full grid's rows", getattr(kb, name),
+                  getattr(full_bins, name)[:, rows].contiguous())
+        err["bin_points_slab"] = max(err["bin_points_slab"], moments_close(f"K2 slab {k} sums", kb.sums, pb.sums))
+        for mask in (True, False):
+            km = kernels.moments_epilogue(cfg, kb.sums, kb.hit, origin, yw, mask)
+            pm = moments.moments_epilogue_plain(cfg, kb.sums, kb.hit, origin, yw, mask)
+            e1 = moments_close(f"K5 slab {k} mask={mask} vs plain", km, pm)
+            e2 = moments_close(f"K5 slab {k} mask={mask} vs the full grid's rows", km,
+                               full_mom[mask][:, :, rows].contiguous())
+            err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], e1, e2)
+        if k * Ys <= seam < (k + 1) * Ys:
+            last = dict(m=m, origin=origin, pn=pn, keep=keep, bins=kb, y_window=yw, full_n=full_bins.sums[0],
+                        full_hit=full_bins.hit)
+    del full_mom, full_pass
+
+    kernels.reset_launches()
+    grid, ok = pipeline.ingest_scan(cfg, pts, valid, ego)
+    slabs = [pipeline.ingest_scan(cfg, pts, valid, ego, y_window=(k * Ys, Ys)) for k in range(4)]
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    for name in ("ray_pass_counts", "bin_points", "moments_epilogue"):
+        check(launches[name] == 1 and launches[name + "_slab"] == 4,
+              f"ingest_scan: {name} launched {launches[name]} times, its slab form {launches[name + '_slab']}")
+    check(bool(ok), "ingest_scan: scan_ok is False")
+    for name in ("hit", "miss", "min_height"):
+        exact(f"ingest_scan slabs side by side: {name}", torch.cat([getattr(g, name) for g, _ in slabs], dim=1),
+              getattr(grid, name))
+    e = moments_close("ingest_scan slabs side by side", torch.cat([g.mom for g, _ in slabs], dim=2), grid.mom)
+    err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], e)
+    for k, (g, sok) in enumerate(slabs):
+        check(bool(sok) == bool((grid.hit[:, k * Ys:(k + 1) * Ys] > 0).any()), f"ingest_scan slab {k}: scan_ok")
+    log(f"phase 1 slabs: origin {origin.tolist()} (seam at torus row {seam}), four slabs of {Ys} rows: K1, K2, K5 "
+        f"agree with their plain versions and with the full grid's rows; ingest_scan(y_window=) side by side "
+        f"equals ingest_scan(); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    return launches, last
+
+
+def phase1_near_tier(cfg, scan, dev, log):
+    """K1 on a near-tier scene: the scan's returns pulled in until every ray
+    ends before step NEAR_TIER_STEPS, the tier that the JAX package's
+    step-pair kernel covers. csrc/raycast.cu is that kernel's counterpart."""
+    import torch
+
+    from gvom_tpu_torch.ops import binning, kernels, raycast
+    from gvom_tpu_torch.ops import grid as gridops
+
+    pts, valid, ego = scan_tensors(scan, dev)
+    d = pts - ego
+    lim = (NEAR_TIER_STEPS - 1.5) * min(cfg.xy_resolution, cfg.z_resolution)
+    near = ego + d * torch.clamp(lim / d.norm(dim=1).clamp(min=1e-6), max=1.0)[:, None]
+    p, keep = binning.prepare_points(cfg, near, valid, ego)
+    origin = gridops.compute_origin(cfg, ego)
+    m = raycast.march_inputs(cfg, p, keep, ego, origin)
+    k = kernels.ray_pass_counts(cfg, m, origin)
+    exact("K1 near tier vs plain", k, raycast.ray_pass_counts_plain(cfg, m, origin))
+    short = dataclasses.replace(cfg, ray_steps_override=NEAR_TIER_STEPS)
+    exact(f"K1 near tier: a ray goes beyond step {NEAR_TIER_STEPS}", kernels.ray_pass_counts(short, m, origin), k)
+    check(int(k.sum()) > int(keep.sum()), "near tier: no passes")
+    log(f"phase 1 near tier: {int(keep.sum())} rays of under {NEAR_TIER_STEPS} steps, {int(k.sum())} passes: K1 "
+        "agrees with its plain version")
 
 
 def phase2_facade(cfg, scans, log):
@@ -260,8 +412,9 @@ def phase2_facade(cfg, scans, log):
             check(bool(np.isfinite(a).all()), f"{name} is not finite")
         check(int(vis.sum()) > 0 and int((pos > 0).sum()) > 0, f"facade combine {i}: empty maps")
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
+        check(launches[name] == len(scans), f"kernel {name} was launched {launches[name]} times on the facade's path, "
+              f"not once per scan")
     occ = g.get_map_as_occupancy_grid()
     check(occ.shape == cfg.grid_shape and occ.any(), "occupancy grid")
     warm = slice(1, None)
@@ -335,9 +488,73 @@ def atomic_rates(probe, dev, log):
     return rates
 
 
-def phase4_timings(cfg, buf, world, last, rates, dev, log):
+def kernel_row(k, fn, plain, reps, plain_reps, lib, bytes_moved, ops_s, log):
+    """One row of the kernels line: ms of the kernel, of its plain version
+    and of the library call, and the bound from bytes_moved and ops_s, the
+    least time of the kernel's operations (float32 arithmetic at the
+    published rate, or atomics at the probed rate)."""
+    ms = cuda_ms(fn, reps)
+    pms = cuda_ms(plain, plain_reps)
+    lms = cuda_ms(lib, reps) if lib is not None else None
+    bytes_s = bytes_moved / HBM_BYTES_PER_S
+    b_ms = 1e3 * max(bytes_s, ops_s)
+    r = dict(name=k.name, route="cuda", source=str(k.source.relative_to(ROOT)),
+             replaces=", ".join(re.findall(r"[\w/]+\.py:\d+", k.replaces)), ms=ms, plain_ms=pms, bound_ms=b_ms,
+             bound_by="bytes" if bytes_s >= ops_s else "operations",
+             library_ms=lms, bytes=bytes_moved, bytes_ms=1e3 * bytes_s, ops_ms=1e3 * ops_s)
+    log(f"timing {k.name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+        f"{'n/a' if lms is None else f'{lms:.4f} ms'}, bound {b_ms:.4f} ms ({r['bound_by']}; "
+        f"bytes {1e3 * bytes_s:.4f} ms, operations {1e3 * ops_s:.4f} ms)")
+    return r
+
+
+def index_add_inputs(cfg, pn, keep, origin, y_window=None):
+    """(flat scratch index [n], values [10, n]) of the points that K2 sums:
+    the inputs of the one index_add_ that computes K2's ten own-voxel sums."""
+    import torch
+
+    from gvom_tpu_torch.ops import binning
+
+    vox = torch.floor(pn).to(torch.int32)
+    pieces = binning.scratch_pieces(cfg, vox, keep, origin, y_window)
+    flat = torch.cat([f[sel].long() for sel, f in pieces])
+    lk = torch.cat([(pn - vox.float())[sel] for sel, _ in pieces])
+    vals = torch.stack([torch.ones_like(lk[:, 0]), lk[:, 0], lk[:, 1], lk[:, 2]]
+                       + [lk[:, a] * lk[:, b] for a, b in binning.PAIRS], dim=0).contiguous()
+    return flat, vals
+
+
+def epilogue_bound(cfg, n_w, targets_w, n_out, mask):
+    """What the moments epilogue (K3, K5) must move and compute on this data.
+    n_w: the own-voxel count n on the padded window [Xp, Yp, Zp]; targets_w:
+    bool [X, Y, Z], window layout, the voxels whose box is taken (the
+    occupied ones with the mask on, all of them with it off; of a slab, only
+    its rows); n_out: voxels of the output. It writes ten channels, reads
+    hit when it masks, reads n over the voxels that a target's box reaches
+    and the nine other channels where n > 0 there; about 52 operations per
+    (target, non-empty neighbour) term. Returns (bytes, terms, reach,
+    reach_nonempty)."""
+    import torch
+
+    from gvom_tpu_torch.ops import binning
+
+    r = binning.moment_pad(cfg)
+    box = tuple(2 * q + 1 for q in r)
+    tp = torch.nn.functional.pad(targets_w.float(), (r[2], r[2], r[1], r[1], r[0], r[0]))
+    reach = torch.nn.functional.max_pool3d(tp[None], box, stride=1, padding=r)[0] > 0
+    nz = n_w > 0
+    n_reach, n_reach_nz = int(reach.sum()), int((reach & nz).sum())
+    counts = torch.nn.functional.avg_pool3d(nz[None].float(), box, stride=1)[0] * (box[0] * box[1] * box[2])
+    terms = int(counts.round()[targets_w].sum())
+    f32 = 4
+    return ((n_out * f32 if mask else 0) + 10 * n_out * f32 + n_reach * f32 + 9 * n_reach_nz * f32, terms,
+            n_reach, n_reach_nz)
+
+
+def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     """ms, plain_ms, library_ms and bound_ms of each kernel at the upstream
-    shapes, on the last phase-1 scan and the phase-1 buffer and world."""
+    shapes, on the last phase-1 scan and the phase-1 buffer and world, and of
+    the slab forms on phase 1's slab."""
     import torch
 
     from gvom_tpu_torch.models import pipeline
@@ -362,16 +579,7 @@ def phase4_timings(cfg, buf, world, last, rates, dev, log):
 
     # the same function in one PyTorch call, where there is one: K2's ten
     # own-voxel sums are one index_add_ of the points' values
-    vox = torch.floor(pn).to(torch.int32)
-    vp = vox + torch.tensor(binning.moment_pad(cfg), dtype=torch.int32, device=dev)
-    pshape = torch.tensor(binning.padded_shape(cfg), dtype=torch.int32, device=dev)
-    sel = keep & torch.all((vp >= 0) & (vp < pshape), dim=1)
-    vp = vp[sel].long()
-    Yp, Zp = binning.padded_shape(cfg)[1:]
-    pflat = (vp[:, 0] * Yp + vp[:, 1]) * Zp + vp[:, 2]
-    lk = pn[sel] - vox[sel].float()
-    vals = torch.stack([torch.ones_like(lk[:, 0]), lk[:, 0], lk[:, 1], lk[:, 2]]
-                       + [lk[:, a] * lk[:, b] for a, b in binning.PAIRS], dim=0).contiguous()
+    pflat, vals = index_add_inputs(cfg, pn, keep, origin)
     sums_lib = torch.zeros((10, P), dtype=torch.float32, device=dev)
     wconv = box_conv_weights(cfg, dev)
     conv_in = bins.sums[None]
@@ -382,21 +590,8 @@ def phase4_timings(cfg, buf, world, last, rates, dev, log):
     f32 = 4
     rows = []
 
-    def row(k, fn, plain, reps, plain_reps, lib, bytes_moved, ops_s):
-        """ops_s: the least time of the kernel's operations (float32 arithmetic
-        at the published rate, or atomics at the probed rate)."""
-        ms = cuda_ms(fn, reps)
-        pms = cuda_ms(plain, plain_reps)
-        lms = cuda_ms(lib, reps) if lib is not None else None
-        bytes_s = bytes_moved / HBM_BYTES_PER_S
-        b_ms = 1e3 * max(bytes_s, ops_s)
-        rows.append(dict(name=k.name, route="cuda", source=str(k.source.relative_to(ROOT)),
-                         replaces=k.replaces.split(" ")[0], ms=ms, plain_ms=pms, bound_ms=b_ms,
-                         bound_by="bytes" if bytes_s >= ops_s else "operations",
-                         library_ms=lms, bytes=bytes_moved, bytes_ms=1e3 * bytes_s, ops_ms=1e3 * ops_s))
-        log(f"timing {k.name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
-            f"{'n/a' if lms is None else f'{lms:.4f} ms'}, bound {b_ms:.4f} ms ({rows[-1]['bound_by']}; "
-            f"bytes {1e3 * bytes_s:.4f} ms, operations {1e3 * ops_s:.4f} ms)")
+    def row(*a):
+        rows.append(kernel_row(*a, log))
 
     # K1: reads the per-ray march inputs, writes the grid; one int32 atomic
     # (and about 8 float operations) per live ray step
@@ -415,30 +610,294 @@ def phase4_timings(cfg, buf, world, last, rates, dev, log):
         N * (3 * f32 + 1) + 2 * V * f32 + 10 * P * f32,
         max(30 * n_kept / F32_OPS_PER_S, 2 * n_grid / rates["int32"] + 10 * n_win / rates["float32"]))
     # K3: reads hit and writes the slot's ten channels everywhere; reads the
-    # sums only inside the ±r box of an occupied voxel: n there, and the
-    # other nine channels where n > 0. About 52 operations per (occupied
-    # voxel, non-empty neighbour) term
-    r = binning.moment_pad(cfg)
-    box = tuple(2 * q + 1 for q in r)
-    occ_w = gridops.torus_to_window((bins.hit > 0).float(), origin)
-    occ_p = torch.nn.functional.pad(occ_w, (r[2], r[2], r[1], r[1], r[0], r[0]))
-    reach = torch.nn.functional.max_pool3d(occ_p[None], box, stride=1, padding=r)[0] > 0
-    nz = bins.sums[0] > 0
-    n_reach, n_reach_nz = int(reach.sum()), int((reach & nz).sum())
-    terms = int((torch.nn.functional.avg_pool3d(nz[None].float(), box, stride=1)[0] * (box[0] * box[1] * box[2])
-                 ).round()[occ_w > 0].sum())
+    # sums only inside the ±r box of an occupied voxel (epilogue_bound)
+    occ_w = gridops.torus_to_window(bins.hit > 0, origin)
+    k3_bytes, terms, n_reach, n_reach_nz = epilogue_bound(cfg, bins.sums[0], occ_w, V, True)
     row(kernels.EPI, lambda: kernels.ingest_epilogue(cfg, bins.sums, bins.hit, origin, out, slot),
         lambda: moments.ingest_epilogue_plain(cfg, bins.sums, bins.hit, origin, out, slot), 20, 5,
-        lambda: torch.nn.functional.conv3d(conv_in, wconv),
-        V * f32 + 10 * V * f32 + n_reach * f32 + 9 * n_reach_nz * f32, 52 * terms / F32_OPS_PER_S)
+        lambda: torch.nn.functional.conv3d(conv_in, wconv), k3_bytes, 52 * terms / F32_OPS_PER_S)
     # K4: reads B slots and the old world (3 channels + moments, and the
     # evidence), writes 4 channels, the moments and five [X, Y] maps
     row(kernels.CMB, lambda: kernels.combine(cfg, buf, world, target, ego),
         lambda: pipeline.fuse_plain(cfg, buf, world, target, ego), 20, 3, None,
         (B + 1) * (3 + 10) * V * f32 + V * f32 + (4 + 10) * V * f32 + 5 * X * Y * f32, 40 * V / F32_OPS_PER_S)
-    return rows, dict(points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
+
+    # ---- the slab forms, on the slab that holds the window seam ----
+    sm, so, spn, skeep, sbins, yw = (slab[k] for k in ("m", "origin", "pn", "keep", "bins", "y_window"))
+    ys0, Ys = yw
+    Vs = X * Ys * Z
+    Ps = sbins.sums[0].numel()
+    # K1 slab: the same rays, the slab's grid; one atomic per live step that
+    # lands in the slab (the march itself walks every step of every ray)
+    n_pass_s = int(kernels.ray_pass_counts(cfg, sm, so, y_window=yw).sum())
+    row(kernels.RAY_SLAB, lambda: kernels.ray_pass_counts(cfg, sm, so, y_window=yw),
+        lambda: raycast.ray_pass_counts_plain(cfg, sm, so, yw), 20, 3, None,
+        N * (3 + 1 + 1 + 1) * f32 + Vs * f32, max(8 * n_pass_s / F32_OPS_PER_S, n_pass_s / rates["int32"]))
+    # K2 slab: the same points, the slab's hit, min_height and scratch
+    sflat, svals = index_add_inputs(cfg, spn, skeep, so, yw)
+    s_lib = torch.zeros((10, Ps), dtype=torch.float32, device=dev)
+    n_grid_s, n_win_s = int(sbins.hit.sum()), int(sbins.sums[0].sum())
+    row(kernels.BIN_SLAB, lambda: kernels.bin_points(cfg, spn, skeep, so, yw),
+        lambda: binning.bin_points(cfg, spn, skeep, so, yw), 20, 5,
+        lambda: s_lib.index_add_(1, sflat, svals),
+        N * (3 * f32 + 1) + 2 * Vs * f32 + 10 * Ps * f32,
+        max(30 * int(skeep.sum()) / F32_OPS_PER_S, 2 * n_grid_s / rates["int32"] + 10 * n_win_s / rates["float32"]))
+    # K5 slab, mask on (as ingest_scan calls it): K3's count on the slab's rows
+    in_slab = torch.zeros((Y,), dtype=torch.bool, device=dev)
+    in_slab[ys0:ys0 + Ys] = True
+    targets = gridops.torus_to_window((slab["full_hit"] > 0) & in_slab[None, :, None], so)
+    s_bytes, s_terms, _, _ = epilogue_bound(cfg, slab["full_n"], targets, Vs, True)
+    s_conv_in = sbins.sums[None]
+    row(kernels.XBOX_SLAB, lambda: kernels.moments_epilogue(cfg, sbins.sums, sbins.hit, so, yw),
+        lambda: moments.moments_epilogue_plain(cfg, sbins.sums, sbins.hit, so, yw), 20, 5,
+        lambda: torch.nn.functional.conv3d(s_conv_in, wconv), s_bytes, 52 * s_terms / F32_OPS_PER_S)
+    return rows, dict(slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
+                                points_in_scratch=n_win_s, box_terms=s_terms),
+                      points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
                       occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
                       box_terms=terms, atomic_rates_per_s=rates, conv_vs_plain_max_abs_err=err_conv)
+
+
+def batched_cfg(cfg, batch):
+    """cfg with the static DDA budget of a batched step over this batch's
+    egos, as batched_replay derives it from a log's: the centered bound plus
+    the worst in-batch ego drift."""
+    from gvom_tpu_torch.engine.replay import batched_ray_steps
+
+    egos = batch[2].cpu().numpy()
+    return dataclasses.replace(cfg, ray_steps_override=batched_ray_steps(cfg, egos, len(egos)))
+
+
+def make_batch(scans_dev, batch, step_index):
+    """(scans [B,N,3], valid [B,N], egos [B,3]) of one batched step: the
+    drive's distinct scans repeated, egos advancing (0.02, 0.01, 0) m per
+    scan from a start that moves (0.3, 0.15, 0) m per step, each scan's
+    points shifted rigidly with its ego (a replayed log's scans are captured
+    AT their ego, so the work per step stays constant)."""
+    import torch
+
+    pts, masks, egos = scans_dev
+    dev = pts.device
+    reps = torch.arange(batch, device=dev) % pts.shape[0]
+    ego0 = egos[0] + step_index * torch.tensor([0.3, 0.15, 0.0], device=dev)
+    begos = ego0[None, :] + torch.arange(batch, dtype=torch.float32, device=dev)[:, None] * torch.tensor(
+        [0.02, 0.01, 0.0], device=dev)
+    shift = begos - egos[reps]
+    return (pts[reps] + shift[:, None, :]).contiguous(), masks[reps].contiguous(), begos.contiguous()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside, the batched step's two kernel wrappers run their plain
+    versions on whatever device the tensors are on."""
+    from gvom_tpu_torch.ops import kernels, moments, raycast
+
+    saved = kernels.ray_pass_counts, kernels.point_moments
+    kernels.ray_pass_counts = (lambda cfg, m, origin, y_window=None, out=None:
+                               raycast.ray_pass_counts_plain(cfg, m, origin, y_window, out))
+    kernels.point_moments = moments.point_moments
+    try:
+        yield
+    finally:
+        kernels.ray_pass_counts, kernels.point_moments = saved
+
+
+PRODUCT_FIELDS = ("origin", "height", "inferred_height", "slope_x", "slope_y", "roughness",
+                  "guessed_height_delta", "positive_obstacle", "negative_obstacle", "visibility")
+
+
+def same_world(what, a, b, atol, err=None):
+    """Two worlds of the port: every channel bitwise but the nine non-n
+    moments. Returns the moments' max abs error."""
+    for name in ("hit", "miss", "min_height", "origin"):
+        exact(f"{what}: {name}", getattr(a.grid, name), getattr(b.grid, name))
+    exact(f"{what}: evidence", a.evidence, b.evidence)
+    check(bool(a.valid) == bool(b.valid), f"{what}: valid")
+    return moments_close(f"{what}:", a.grid.mom, b.grid.mom, atol)
+
+
+def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
+    """The batched step at the upstream config. Two steps of BATCH_CHECK
+    scans against the same step with the kernels swapped for their plain
+    versions; then two steps of BATCH scans, timed, with the launch counts
+    set to 0 just before and read just after; then K2 and K5 against their
+    plain versions, and their times and bounds, on the merged points of a
+    whole batch."""
+    import numpy as np
+    import torch
+
+    from gvom_tpu_torch import make_batched_step
+    from gvom_tpu_torch.parallel.sharding import prepare_batch
+    from gvom_tpu_torch.ops import binning, kernels, moments
+    from gvom_tpu_torch.ops import grid as gridops
+    from gvom_tpu_torch.types import empty_world_state
+
+    scans_dev = (torch.stack([torch.from_numpy(p) for p, _, _ in scans]).to(dev),
+                 torch.stack([torch.from_numpy(v) for _, v, _ in scans]).to(dev),
+                 torch.from_numpy(np.stack([e for _, _, e in scans]).astype(np.float32)).to(dev))
+    X, Y, Z = cfg.grid_shape
+    V = X * Y * Z
+
+    # ---- against the plain versions, a batch small enough for the plain raycast ----
+    # (at the full batch's ray budget, so the kernel configuration that is held here is the one timed below)
+    batches = [make_batch(scans_dev, BATCH, i) for i in range(2)]
+    cb = batched_cfg(cfg, batches[0])
+    step4 = make_batched_step(cb)
+    wk = wp = empty_world_state(cfg, dev)
+    for i in range(2):
+        b = make_batch(scans_dev, BATCH_CHECK, i)
+        wk, pk = step4(wk, *b)
+        with plain_kernels():
+            wp, pp = step4(wp, *b)
+        e = same_world(f"batched step {i} of {BATCH_CHECK} scans", wk, wp, MOM_ATOL_BATCH)
+        share4 = tol_share(wk.grid.mom, wp.grid.mom, MOM_ATOL_BATCH)
+        err["moments_epilogue"] = max(err["moments_epilogue"], e)
+        for name in PRODUCT_FIELDS:
+            exact(f"batched step {i} product {name}", getattr(pk, name), getattr(pp, name))
+    log(f"phase 5: two batched steps of {BATCH_CHECK} scans (ray_steps {cb.ray_steps}, the full batch's) agree with the same steps on "
+        f"the plain versions; world occupied {int((wk.grid.hit > 0).sum())}, moments max abs err {e} "
+        f"({100 * share4:.1f} % of the tolerance rtol={MOM_RTOL} atol={MOM_ATOL_BATCH})")
+    del wk, wp, pk, pp
+
+    # ---- the full batch ----
+    step = make_batched_step(cb)
+    step(empty_world_state(cfg, dev), *batches[0])      # warm: allocator and kernels
+    torch.cuda.synchronize()
+    world = empty_world_state(cfg, dev)
+    step_ms, step_wall_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for i, b in enumerate(batches):
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        world, products = step(world, *b)
+        z.record()
+        torch.cuda.synchronize()
+        step_wall_ms.append(1e3 * (time.perf_counter() - t0))
+        step_ms.append(a.elapsed_time(z))
+        if i == 0:
+            first_origin = world.grid.origin
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(ray_pass_counts=2 * BATCH, bin_points=2, moments_epilogue=2)
+    for name, n in want.items():
+        check(launches[name] == n, f"batched path: {name} launched {launches[name]} times, expected {n}")
+    for name in PRODUCT_FIELDS[1:]:
+        a = getattr(products, name)
+        check(tuple(a.shape) == cfg.map_shape and bool(torch.isfinite(a.float()).all()), f"batched product {name}")
+    fresh, _ = step(empty_world_state(cfg, dev), *batches[1])
+    kept = int(((world.grid.hit > 0) & ~(fresh.grid.hit > 0)).sum())
+    check(not torch.equal(first_origin, world.grid.origin), "batched path: the origin did not move between steps")
+    check(kept > 0, "batched path: the second step kept no voxel of the first step's world")
+    check(int(products.visibility.sum()) > 0 and int((products.positive_obstacle > 0).sum()) > 0,
+          "batched path: empty maps")
+    check(bool((world.grid.mom[:, world.grid.hit == 0] == 0).all()), "batched path: moments outside the occupancy")
+    res = dict(batch=BATCH, ray_steps=cb.ray_steps, check_tolerance_share=share4, step_ms=step_ms, step_wall_ms=step_wall_ms,
+               scans_per_s=[1e3 * BATCH / t for t in step_wall_ms], peak_bytes=peak,
+               world_occupied=int((world.grid.hit > 0).sum()), kept_from_first_step=kept,
+               visible_cells=int(products.visibility.sum()))
+    log(f"phase 5 batched path: two steps of {BATCH} scans of {scans_dev[0].shape[1]} points (ray_steps "
+        f"{cb.ray_steps}); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}; step "
+        f"{step_ms[0]:.2f} and {step_ms[1]:.2f} ms (CUDA events), {step_wall_ms[0]:.2f} and {step_wall_ms[1]:.2f} ms "
+        f"(host clock with sync) = {res['scans_per_s'][1]:.1f} scans/s; peak device memory {peak / 2**30:.3f} GiB; "
+        f"world occupied {res['world_occupied']} ({kept} kept from the first step)")
+    del fresh, world
+
+    # ---- K5 and K2 on a whole batch's merged points ----
+    origin, pw, keep, _ = prepare_batch(cb, *batches[1])
+    pn = gridops.map_local(cb, pw, origin)
+    bins = kernels.bin_points(cb, pn, keep, origin)
+    pb = binning.bin_points(cb, pn, keep, origin)
+    exact(f"K2 hit on {BATCH} scans' merged points", bins.hit, pb.hit)
+    exact(f"K2 min_height on {BATCH} scans' merged points", bins.min_height, pb.min_height)
+    e2 = moments_close(f"K2 sums on {BATCH} scans' merged points", bins.sums, pb.sums, MOM_ATOL_BATCH)
+    err["bin_points"] = max(err["bin_points"], e2)
+    log(f"K2 on {BATCH} scans' merged points vs plain: hit, min_height and n bitwise, sums max abs err {e2}, "
+        f"{100 * tol_share(bins.sums, pb.sums, MOM_ATOL_BATCH):.1f} % of the tolerance (largest voxel hit count "
+        f"{int(bins.hit.max())})")
+    del pb
+    pm = moments.moments_epilogue_plain(cb, bins.sums, bins.hit, origin, occupancy_mask=False)
+    km = kernels.moments_epilogue(cb, bins.sums, bins.hit, origin, occupancy_mask=False)
+    e = moments_close(f"K5 mask off on {BATCH} scans' merged points", km, pm, MOM_ATOL_BATCH)
+    err["moments_epilogue"] = max(err["moments_epilogue"], e)
+    log(f"K5 mask off on {BATCH} scans' merged points vs plain: max abs err {e}, "
+        f"{100 * tol_share(km, pm, MOM_ATOL_BATCH):.1f} % of the tolerance (largest voxel count "
+        f"{int(bins.sums[0].max())})")
+    del pm, km
+    wconv = box_conv_weights(cb, dev)
+    conv_in = bins.sums[None]
+    everywhere = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
+    k5_bytes, k5_terms, _, k5_nz = epilogue_bound(cb, bins.sums[0], everywhere, V, False)
+    row = kernel_row(kernels.XBOX,
+                     lambda: kernels.moments_epilogue(cb, bins.sums, bins.hit, origin, occupancy_mask=False),
+                     lambda: moments.moments_epilogue_plain(cb, bins.sums, bins.hit, origin, occupancy_mask=False),
+                     20, 5, lambda: torch.nn.functional.conv3d(conv_in, wconv), k5_bytes,
+                     52 * k5_terms / F32_OPS_PER_S, log)
+    # K2 at N = BATCH · max_points (its row in the kernels line is one scan's)
+    N, P, f32 = pn.shape[0], bins.sums[0].numel(), 4
+    n_grid, n_win = int(bins.hit.sum()), int(bins.sums[0].sum())
+    k2_ms = cuda_ms(lambda: kernels.bin_points(cb, pn, keep, origin), 10)
+    k2_plain_ms = cuda_ms(lambda: binning.bin_points(cb, pn, keep, origin), 3)
+    k2_bytes_ms = 1e3 * (N * (3 * f32 + 1) + 2 * V * f32 + 10 * P * f32) / HBM_BYTES_PER_S
+    k2_ops_ms = 1e3 * (2 * n_grid / rates["int32"] + 10 * n_win / rates["float32"])
+    k5_on_ms = cuda_ms(lambda: kernels.moments_epilogue(cb, bins.sums, bins.hit, origin), 20)
+    log(f"timing bin_points on {N} merged points: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+        f"{max(k2_bytes_ms, k2_ops_ms):.4f} ms (bytes {k2_bytes_ms:.4f} ms, atomics {k2_ops_ms:.4f} ms); "
+        f"moments_epilogue with the mask on, same sums: {k5_on_ms:.4f} ms")
+    res.update(merged=dict(points=N, points_kept=int(keep.sum()), points_in_grid=n_grid, points_in_window=n_win,
+                           nonempty_voxels=k5_nz, box_terms=k5_terms, max_voxel_count=int(bins.sums[0].max()),
+                           bin_points_ms=k2_ms, bin_points_plain_ms=k2_plain_ms, bin_points_bytes_ms=k2_bytes_ms,
+                           bin_points_atomics_ms=k2_ops_ms, moments_epilogue_mask_on_ms=k5_on_ms))
+    if profile:
+        w0 = empty_world_state(cfg, dev)    # the step leaves its input world untouched
+        res["profile"] = profile_calls(dict(batched_step=lambda: step(w0, *batches[0])), log)
+    return launches, row, res
+
+
+def phase6_replay(log):
+    """batched_replay over a synthesized log on a small grid, on the card
+    against the CPU (which runs the plain versions), with a checkpoint
+    written after every batch, loaded, and the resumed run's world equal to
+    the straight run's."""
+    import numpy as np
+
+    from gvom_tpu_torch import GvomConfig, batched_replay
+    from gvom_tpu_torch.engine.replay import batched_ray_steps
+    from gvom_tpu_torch.io.logio import synthesize_log
+    from gvom_tpu_torch.utils import convert
+    from gvom_tpu_torch.utils.checkpoint import load_world
+
+    cfg = GvomConfig(xy_size=64, z_size=32, max_points=4096, buffer_size=3)
+    slog = synthesize_log(8, channels=32, azimuth_steps=128, max_range=25.0, seed=1)
+    # pin the budget, so a resumed run rasterizes as the straight one did
+    egos = np.stack([e for _, e, _ in slog])
+    cfg = dataclasses.replace(cfg, ray_steps_override=batched_ray_steps(cfg, egos, 4))
+    with tempfile.TemporaryDirectory() as tmp:
+        world, prods, met = batched_replay(cfg, slog, 4, checkpoint_dir=tmp, checkpoint_every=1)
+        files = sorted(os.listdir(tmp))
+        check(files == ["world_b1.npz", "world_b2.npz"], f"replay checkpoints: {files}")
+        resumed, prods2, met2 = batched_replay(cfg, slog, 4, resume_from=os.path.join(tmp, "world_b1.npz"),
+                                               skip_batches=1)
+        final = load_world(os.path.join(tmp, "world_b2.npz"))
+    cpu_world, cpu_prods, _ = batched_replay(cfg, slog, 4, device="cpu")
+    check(len(prods) == 2 and len(prods2) == 1 and met2.snapshot()["counters"]["skipped_batches"] == 1,
+          "replay: batch counts")
+    same_world("resumed replay vs straight", resumed, world, MOM_ATOL)
+    exact("checkpoint of the last batch: hit", final.grid.hit, world.grid.hit)
+    exact("checkpoint of the last batch: moments", final.grid.mom, world.grid.mom)
+    a, b = convert.to_numpy(world), convert.to_numpy(cpu_world)
+    for k in a:
+        if k == "mom":
+            check(bool(np.array_equal(a[k][0], b[k][0])), "replay vs CPU: moment n differs")
+            check(bool(np.allclose(a[k], b[k], rtol=MOM_RTOL, atol=MOM_ATOL)), "replay vs CPU: moments")
+        else:
+            check(bool(np.array_equal(a[k], b[k])), f"replay vs CPU: {k} differs")
+    for name in ("positive_obstacle", "negative_obstacle", "visibility", "height"):
+        check(bool(np.array_equal(getattr(prods[-1], name).cpu().numpy(), getattr(cpu_prods[-1], name).numpy())),
+              f"replay vs CPU: product {name}")
+    log(f"phase 6: batched_replay of 8 scans in batches of 4 on a 64×64×32 grid matches the CPU replay; resumed "
+        f"from the first checkpoint it ends in the straight run's world ({int((world.grid.hit > 0).sum())} occupied)")
 
 
 def phase_end_to_end(cfg, scans, dev, log):
@@ -474,21 +933,13 @@ def phase_end_to_end(cfg, scans, dev, log):
     return dict(ingest_ms=ingest_ms, combine_ms=combine_ms, peak_bytes=peak)
 
 
-def phase_profile(cfg, scans, dev, log):
-    """torch.profiler over one warm ingest_and_insert and one warm combine:
-    device time by kernel, kernel launches, and the device's busy share of
-    the host-clock span."""
+def profile_calls(steps, log):
+    """torch.profiler over one warm call of each function in `steps`: device
+    time by kernel, kernel launches, and the device's busy share of the
+    host-clock span."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
-
-    buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
-    p, v, e = (torch.from_numpy(scans[0][0]).to(dev), torch.from_numpy(scans[0][1]).to(dev),
-               torch.tensor(scans[0][2], dtype=torch.float32, device=dev))
-    steps = dict(ingest=lambda: pipeline.ingest_and_insert(cfg, buf, p, v, e),
-                 combine=lambda: pipeline.combine(cfg, buf, world, e))
     out = {}
     for name, fn in steps.items():
         fn()
@@ -516,12 +967,23 @@ def phase_profile(cfg, scans, dev, log):
     return out
 
 
+def phase_profile(cfg, scans, dev, log):
+    """torch.profiler over one warm ingest_and_insert and one warm combine."""
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
+
+    buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
+    p, v, e = scan_tensors(scans[0], dev)
+    return profile_calls(dict(ingest=lambda: pipeline.ingest_and_insert(cfg, buf, p, v, e),
+                              combine=lambda: pipeline.combine(cfg, buf, world, e)), log)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--scans", type=int, default=8, help="scans of the facade drive (default 8)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one ingest and one combine with torch.profiler")
+                    help="also trace one ingest, one combine and one batched step with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -549,11 +1011,11 @@ def main(argv=None) -> int:
     reports = kernels.build_all()
     reports[probe.name] = probe.finish_build(probe_build)
     report["build_s"] = time.perf_counter() - t0
-    for name, text in reports.items():
+    for source, text in sorted({k.source.name: reports[k.name] for k in kernels.KERNELS + [probe]}.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
-    log(f"built {len(reports)} kernel libraries in {report['build_s']:.1f} s")
+                log(f"ptxas {source}: {line.strip()}")
+    log(f"built {len({k.source for k in kernels.KERNELS + [probe]})} kernel libraries in {report['build_s']:.1f} s")
 
     dev = torch.device(DEVICE)
     cfg = GvomConfig()
@@ -563,18 +1025,31 @@ def main(argv=None) -> int:
         f"(grid {cfg.grid_shape}, buffer {cfg.buffer_size})")
 
     err, buf, world, last = phase1_kernels_vs_plain(cfg, scans[:4], dev, log)
+    slab_launches, slab = phase1_slabs(cfg, scans[0], dev, log, err)
+    phase1_near_tier(cfg, scans[1], dev, log)
     launches, report["facade"], _ = phase2_facade(cfg, scans, log)
     phase3_small_reference(log)
     rates = atomic_rates(probe, dev, log)
-    rows, report["inputs"] = phase4_timings(cfg, buf, world, last, rates, dev, log)
-    del buf, world, last
+    rows, report["inputs"] = phase4_timings(cfg, buf, world, last, slab, rates, dev, log)
+    del buf, world, last, slab
     report["end_to_end"] = phase_end_to_end(cfg, scans, dev, log)
+    batched_launches, k5_row, report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err, args.profile)
+    phase6_replay(log)
     if args.profile:
         report["profile"] = phase_profile(cfg, scans, dev, log)
 
+    # each kernel's launches on the path that is its own: the facade's for
+    # K1-K4, the batched step's for K5, ingest_scan(y_window=)'s for the slabs
+    rows.insert(4, k5_row)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        own = (slab_launches if r["name"].endswith("_slab") else
+               batched_launches if r["name"] == "moments_epilogue" else launches)
+        r["launches"] = own[r["name"]]
+        r["launches_batched_path"] = batched_launches[r["name"]]
+        r["launches_slab_path"] = slab_launches[r["name"]]
         r["max_abs_err"] = err[r["name"]]
+        check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")
+    check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS], "the kernels line misses a kernel")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     line = {"kernels": [{k: r[k] for k in keys} for r in rows]}

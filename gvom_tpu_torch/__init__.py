@@ -10,12 +10,20 @@ Public API:
     Gvom        — reference-shaped engine facade (process_pointcloud /
                   combine_maps / get_map_as_occupancy_grid); runs on the GPU
                   unless device="cpu" is passed
-    pipeline    — the functions under the facade (ingest_and_insert, combine,
-                  full_step)
+    pipeline    — the functions under the facade (ingest_scan,
+                  ingest_and_insert, combine, full_step)
+    make_batched_step, batched_step
+                — a batch of (scan, ego) pairs fused into the world per step
+    sequential_replay, batched_replay
+                — scan-log replay functions (io.logio holds the log format,
+                  utils.checkpoint the world snapshots)
 """
 
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.engine.gvom import Gvom
+from gvom_tpu_torch.engine.replay import batched_replay, sequential_replay
 from gvom_tpu_torch.models import pipeline
+from gvom_tpu_torch.parallel.sharding import batched_step, make_batched_step
 
-__all__ = ["GvomConfig", "Gvom", "pipeline"]
+__all__ = ["GvomConfig", "Gvom", "pipeline", "make_batched_step", "batched_step", "sequential_replay",
+           "batched_replay"]

@@ -8,6 +8,23 @@
 // each traversed voxel with an int32 atomicAdd into the torus-placed
 // [X, Y, Z] grid.
 //
+// It is also the counterpart of _run_hist_steppair, which computes the same
+// counts for steps 1..30 and differs only in packing two steps into one
+// matmul row: a per-ray march has no matmul rows to pair.
+//
+// The kernel ADDS into `out`, so a caller can accumulate several scans into
+// one grid (the batched step's miss grid); the wrapper zeroes a fresh one.
+//
+// Slab form (ray_pass_counts_matmul(y_window=)): with (ys0, Ys) the output
+// is [X, Ys, Z], the torus rows [ys0, ys0+Ys) of the full grid; a step whose
+// torus row lies outside the slab is dropped. The full grid is ys0 = 0,
+// Ys = Y (SLAB = false compiles the row test away). The TPU form's slab
+// economies (the kmax cut, the relabeled worklist, the entry buckets) trim
+// streamed matmul rows; a per-ray march needs none of them to be right.
+// Ending a ray once it has passed the slab for good (y is monotone along a
+// ray) was tried on an H100 and was no faster, since a warp runs as long as
+// its longest ray. It is left out.
+//
 // Bound: atomics. A scan issues one atomic per live (ray, step) pair
 // (~130 per ray at the upstream config), and rays fan out from the ego, so
 // the voxels next to it take thousands of adds each. Integer adds commute,
@@ -31,6 +48,7 @@ __device__ __forceinline__ int pmod(int a, int n) {
     return r < 0 ? r + n : r;
 }
 
+template <bool SLAB>
 __global__ void ray_pass_counts_kernel(
     const float* __restrict__ start_rel,  // [3]
     const int* __restrict__ start_i,      // [3]
@@ -39,8 +57,8 @@ __global__ void ray_pass_counts_kernel(
     const float* __restrict__ budget,     // [N]
     const int* __restrict__ dom,          // [N]
     const int* __restrict__ origin,       // [3]
-    int n, int ray_steps, int X, int Y, int Z,
-    int* __restrict__ out)                // [X, Y, Z]
+    int n, int ray_steps, int X, int Y, int Z, int ys0, int Ys,
+    int* __restrict__ out)                // [X, Ys, Z], added into
 {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
@@ -66,9 +84,10 @@ __global__ void ray_pass_counts_kernel(
         }
         if (!inb) continue;
         const int t0 = pmod(v[0] + o[0], X);
-        const int t1 = pmod(v[1] + o[1], Y);
+        const int t1 = pmod(v[1] + o[1], Y) - ys0;   // slab row
+        if (SLAB && (t1 < 0 || t1 >= Ys)) continue;
         const int t2 = pmod(v[2] + o[2], Z);
-        atomicAdd(out + ((int64_t)t0 * Y + t1) * Z + t2, 1);
+        atomicAdd(out + ((int64_t)t0 * Ys + t1) * Z + t2, 1);
     }
 }
 
@@ -77,15 +96,22 @@ __global__ void ray_pass_counts_kernel(
 extern "C" int gvom_ray_pass_counts(
     const void* start_rel, const void* start_i, const void* step, const void* delta,
     const void* budget, const void* dom, const void* origin,
-    int n, int ray_steps, int X, int Y, int Z, void* out, void* stream)
+    int n, int ray_steps, int X, int Y, int Z, int ys0, int Ys, void* out, void* stream)
 {
     if (n > 0) {
         const int threads = 256;
         const int blocks = (n + threads - 1) / threads;
-        ray_pass_counts_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const float*)start_rel, (const int*)start_i, (const float*)step,
-            (const float*)delta, (const float*)budget, (const int*)dom,
-            (const int*)origin, n, ray_steps, X, Y, Z, (int*)out);
+        if (ys0 == 0 && Ys == Y) {
+            ray_pass_counts_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                (const float*)start_rel, (const int*)start_i, (const float*)step,
+                (const float*)delta, (const float*)budget, (const int*)dom,
+                (const int*)origin, n, ray_steps, X, Y, Z, ys0, Ys, (int*)out);
+        } else {
+            ray_pass_counts_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                (const float*)start_rel, (const int*)start_i, (const float*)step,
+                (const float*)delta, (const float*)budget, (const int*)dom,
+                (const int*)origin, n, ray_steps, X, Y, Z, ys0, Ys, (int*)out);
+        }
     }
     return (int)cudaGetLastError();
 }

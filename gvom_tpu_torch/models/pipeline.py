@@ -3,6 +3,9 @@ combine of the buffer with the previous world map.
 
 Counterpart of gvom_tpu/models/pipeline.py (the reference's
 process_pointcloud + combine_maps, gvom.py:99-354):
+  * ingest_scan        voxelize one scan into a VoxelGrid of its own
+                       (kernels K1, K2, K5), in a pinned frame or for a
+                       y-slab if asked;
   * ingest_and_insert  voxelize one scan straight into its ring-buffer slot
                        (kernels K1, K2, K3);
   * buffer_insert      write an already voxelized scan into the buffer;
@@ -30,7 +33,7 @@ from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops import raycast
 from gvom_tpu_torch.types import BufferState, MapProducts, VoxelGrid, WorldState
 
-__all__ = ["buffer_insert", "ingest_and_insert", "fuse_plain", "combine", "full_step"]
+__all__ = ["ingest_scan", "buffer_insert", "ingest_and_insert", "fuse_plain", "combine", "full_step"]
 
 
 def _write_slot(stacked: torch.Tensor, slot: torch.Tensor, leaf: torch.Tensor) -> None:
@@ -49,6 +52,35 @@ def _advance(cfg: GvomConfig, buf: BufferState, scan_ok: torch.Tensor) -> None:
 def _target_slot(cfg: GvomConfig, buf: BufferState, scan_ok: torch.Tensor) -> torch.Tensor:
     """The slot a scan is written to: the cursor, or the write-off slot B."""
     return torch.where(scan_ok, buf.cursor, torch.full_like(buf.cursor, cfg.buffer_size)).to(torch.int32)
+
+
+def ingest_scan(
+    cfg: GvomConfig,
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    ego_position: torch.Tensor,
+    transform: Optional[torch.Tensor] = None,
+    origin: Optional[torch.Tensor] = None,
+    y_window=None,
+) -> Tuple[VoxelGrid, torch.Tensor]:
+    """One scan → dense voxel map. Returns (grid, scan_ok).
+
+    scan_ok is False when the scan produced no occupied voxel; the
+    reference drops such scans without buffering them (gvom.py:148-150).
+    `origin` pins the map frame (a batched replay rasterizes every scan into
+    one common frame); the default is the reference's ego-centered origin.
+    `y_window` = (ys0, Ys) restricts every accumulated array to that torus
+    y-slab: the grid channels come back [X, Ys, Z] / [10, X, Ys, Z] and
+    scan_ok refers to the slab. The moments are occupancy-masked: stored
+    zero wherever hit == 0, since every consumer reads them under hit > 0."""
+    ego = ego_position.float()
+    p, keep = binning.prepare_points(cfg, points, valid, ego, transform)
+    if origin is None:
+        origin = gridops.compute_origin(cfg, ego)
+    passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin, y_window=y_window)
+    hit, min_height, mom = kernels.point_moments(cfg, p, keep, origin, y_window=y_window)
+    grid = VoxelGrid(hit=hit, miss=passes, min_height=min_height, mom=mom, origin=origin)
+    return grid, (hit > 0).any()
 
 
 def buffer_insert(cfg: GvomConfig, buf: BufferState, grid: VoxelGrid, scan_ok: torch.Tensor) -> BufferState:

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of the main path: loader, build and wrappers.
+"""The hand-written CUDA kernels of the port: loader, build and wrappers.
 
 Each kernel is one source under gvom_tpu_torch/csrc/, compiled at first use
 for sm_90a with nvcc into its own shared library under gvom_tpu_torch/_build/
@@ -13,10 +13,18 @@ tensors (there is no fallback), and counts its launches in `launches`.
 
 | wrapper            | source       | replaces (gvom_tpu/ops/pallas_kernels.py) | plain twin                         |
 |--------------------|--------------|-------------------------------------------|------------------------------------|
-| ray_pass_counts    | raycast.cu   | _run_hist via ray_pass_counts_matmul      | raycast.ray_pass_counts_plain      |
+| ray_pass_counts    | raycast.cu   | _run_hist and _run_hist_steppair, via     | raycast.ray_pass_counts_plain      |
+|                    |              | ray_pass_counts_matmul                    |                                    |
 | bin_points         | binning.cu   | fused_point_moments                       | binning.bin_points                 |
 | ingest_epilogue    | epilogue.cu  | _xbox_epilogue_into                       | moments.ingest_epilogue_plain      |
 | combine            | combine.cu   | fused_combine (+ the XLA mom merge)       | models.pipeline.fuse_plain         |
+| moments_epilogue   | epilogue.cu  | _xbox_epilogue                            | moments.moments_epilogue_plain     |
+| point_moments      | (K2 then K5) | fused_point_moments' contract             | moments.point_moments              |
+
+ray_pass_counts, bin_points and moments_epilogue take y_window = (ys0, Ys),
+the slab forms: the same kernels restricted to the torus rows
+[ys0, ys0+Ys). A slab launch is counted by an entry of its own (RAY_SLAB,
+BIN_SLAB, XBOX_SLAB), so a run shows which form the path went through.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import binning, moments, raycast
+from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops.maps2d import f32_square
 from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 
@@ -45,6 +54,8 @@ __all__ = [
     "bin_points",
     "ingest_epilogue",
     "combine",
+    "moments_epilogue",
+    "point_moments",
     "NVCC_FLAGS",
 ]
 
@@ -90,7 +101,7 @@ class CudaKernel:
         if self.library.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        tmp = self.library.with_suffix(f".{os.getpid()}.{id(self)}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -122,31 +133,41 @@ class CudaKernel:
         self.launches += 1
 
 
+_PK = "gvom_tpu/ops/pallas_kernels.py"
+_RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 7 + [_I] * 7 + [_P, _P])
+_BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_I] * 9 + [_P] * 4)
+_EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P, _P])
+
 RAY = CudaKernel(
-    "ray_pass_counts", "raycast.cu", "gvom_ray_pass_counts",
-    [_P] * 7 + [_I] * 5 + [_P, _P],
-    "gvom_tpu/ops/pallas_kernels.py:335 (_run_hist, via ray_pass_counts_matmul :510)")
-BIN = CudaKernel(
-    "bin_points", "binning.cu", "gvom_bin_points",
-    [_P] * 3 + [_I] * 7 + [_P] * 4,
-    "gvom_tpu/ops/pallas_kernels.py:1510 (fused_point_moments)")
-EPI = CudaKernel(
-    "ingest_epilogue", "epilogue.cu", "gvom_ingest_epilogue",
-    [_P] * 4 + [_I] * 6 + [_P, _P],
-    "gvom_tpu/ops/pallas_kernels.py:1459 (_xbox_epilogue_into)")
+    "ray_pass_counts", *_RAY_ARGS,
+    f"{_PK}:335 (_run_hist, via ray_pass_counts_matmul :510) and {_PK}:478 (_run_hist_steppair)")
+BIN = CudaKernel("bin_points", *_BIN_ARGS, f"{_PK}:1510 (fused_point_moments)")
+EPI = CudaKernel("ingest_epilogue", *_EPI_ARGS, f"{_PK}:1459 (_xbox_epilogue_into)")
 CMB = CudaKernel(
     "combine", "combine.cu", "gvom_combine",
     [_P] * 11 + [_I] * 4 + [_F] * 8 + [_I] * 2 + [_P] * 11,
-    "gvom_tpu/ops/pallas_kernels.py:1883 (fused_combine) + gvom_tpu/models/pipeline.py:420 (mom merge)")
+    f"{_PK}:1883 (fused_combine) + gvom_tpu/models/pipeline.py:420 (mom merge)")
+XBOX = CudaKernel("moments_epilogue", *_EPI_ARGS, f"{_PK}:1310 (_xbox_epilogue)")
+RAY_SLAB = CudaKernel("ray_pass_counts_slab", *_RAY_ARGS,
+                      f"{_PK}:725 (ray_pass_counts_matmul(y_window=), the slab form of _run_hist)")
+BIN_SLAB = CudaKernel("bin_points_slab", *_BIN_ARGS,
+                      f"{_PK}:1559 (fused_point_moments(y_window=), the slab prefilter)")
+XBOX_SLAB = CudaKernel("moments_epilogue_slab", *_EPI_ARGS,
+                       f"{_PK}:1540 (fused_point_moments(y_window=) → _xbox_epilogue with U = Ys)")
 
-KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB]
+KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB]
 
 
 def build_all() -> Dict[str, str]:
     """Build every kernel library that is missing, one nvcc per source, all
-    started together. Returns each kernel's compiler report."""
-    procs = [(k, k.start_build()) for k in KERNELS]
-    return {k.name: k.finish_build(p) for k, p in procs}
+    started together. Returns each kernel's compiler report (kernels that
+    share a source share its report)."""
+    procs = {}
+    for k in KERNELS:
+        if k.source not in procs:
+            procs[k.source] = (k, k.start_build())
+    reports = {src: k.finish_build(p) for src, (k, p) in procs.items()}
+    return {k.name: reports[k.source] for k in KERNELS}
 
 
 def reset_launches() -> None:
@@ -193,11 +214,14 @@ def _f32(v: float) -> float:
 # K1
 
 
-def ray_pass_counts(cfg: GvomConfig, m, origin: torch.Tensor) -> torch.Tensor:
-    """[X,Y,Z] int32 pass counts in the torus layout from ray_geometry's
-    march inputs (ops/raycast.RayMarch)."""
+def ray_pass_counts(cfg: GvomConfig, m, origin: torch.Tensor, y_window=None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[X,Ys,Z] int32 pass counts in the torus layout from ray_geometry's
+    march inputs (ops/raycast.RayMarch). y_window = (ys0, Ys) gives only the
+    torus rows [ys0, ys0+Ys) (the slab form); `out` is a grid to add the
+    counts into, returned."""
     if _is_cpu(m.step):
-        return raycast.ray_pass_counts_plain(cfg, m, origin)
+        return raycast.ray_pass_counts_plain(cfg, m, origin, y_window, out)
     dev = m.step.device
     n = m.step.shape[0]
     _check("start_rel", m.start_rel, torch.float32, (3,), dev)
@@ -208,9 +232,14 @@ def ray_pass_counts(cfg: GvomConfig, m, origin: torch.Tensor) -> torch.Tensor:
     _check("dom", m.dom, torch.int32, (n,), dev)
     _check("origin", origin, torch.int32, (3,), dev)
     X, Y, Z = cfg.grid_shape
-    out = torch.zeros((X, Y, Z), dtype=torch.int32, device=dev)
-    RAY.launch(_ptr(m.start_rel), _ptr(m.start_i), _ptr(m.step), _ptr(m.delta), _ptr(m.budget),
-               _ptr(m.dom), _ptr(origin), n, cfg.ray_steps, X, Y, Z, _ptr(out), _stream())
+    ys0, Ys = binning.check_y_window(cfg, y_window)
+    if out is None:
+        out = torch.zeros((X, Ys, Z), dtype=torch.int32, device=dev)
+    else:
+        _check("out", out, torch.int32, (X, Ys, Z), dev)
+    (RAY_SLAB if binning.is_slab(cfg, y_window) else RAY).launch(
+        _ptr(m.start_rel), _ptr(m.start_i), _ptr(m.step), _ptr(m.delta), _ptr(m.budget),
+        _ptr(m.dom), _ptr(origin), n, cfg.ray_steps, X, Y, Z, ys0, Ys, _ptr(out), _stream())
     return out
 
 
@@ -218,12 +247,13 @@ def ray_pass_counts(cfg: GvomConfig, m, origin: torch.Tensor) -> torch.Tensor:
 # K2
 
 
-def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor):
-    """One scan's binning from map-local coordinates pn [N,3]: returns
-    binning.PointBins (hit, min_height torus [X,Y,Z]; own-voxel sums padded
-    [10, Xp, Yp, Zp])."""
+def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor, y_window=None):
+    """One point set's binning from map-local coordinates pn [N,3]: returns
+    binning.PointBins (hit, min_height torus [X,Ys,Z]; own-voxel sums padded
+    [10, Xp, Yp, Zp], or the slab scratch [10, Xp, Ys+4ry, Zp] with
+    y_window = (ys0, Ys), see binning.slab_rows)."""
     if _is_cpu(pn):
-        return binning.bin_points(cfg, pn, keep, origin)
+        return binning.bin_points(cfg, pn, keep, origin, y_window)
     dev = pn.device
     n = pn.shape[0]
     _check("pn", pn, torch.float32, (n, 3), dev)
@@ -231,11 +261,13 @@ def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: to
     _check("origin", origin, torch.int32, (3,), dev)
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
-    hit = torch.zeros((X, Y, Z), dtype=torch.int32, device=dev)
-    minh = torch.ones((X, Y, Z), dtype=torch.float32, device=dev)
-    sums = torch.zeros((10,) + binning.padded_shape(cfg), dtype=torch.float32, device=dev)
-    BIN.launch(_ptr(pn), _ptr(keep), _ptr(origin), n, X, Y, Z, rx, ry, rz,
-               _ptr(hit), _ptr(minh), _ptr(sums), _stream())
+    ys0, Ys = binning.check_y_window(cfg, y_window)
+    hit = torch.zeros((X, Ys, Z), dtype=torch.int32, device=dev)
+    minh = torch.ones((X, Ys, Z), dtype=torch.float32, device=dev)
+    sums = torch.zeros((10,) + binning.padded_shape(cfg, y_window), dtype=torch.float32, device=dev)
+    (BIN_SLAB if binning.is_slab(cfg, y_window) else BIN).launch(
+        _ptr(pn), _ptr(keep), _ptr(origin), n, X, Y, Z, rx, ry, rz, ys0, Ys,
+        _ptr(hit), _ptr(minh), _ptr(sums), _stream())
     return binning.PointBins(hit=hit, min_height=minh, sums=sums)
 
 
@@ -258,8 +290,47 @@ def ingest_epilogue(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, orig
     _check("origin", origin, torch.int32, (3,), dev)
     _check("out", out, torch.float32, (out.shape[0], 10, X, Y, Z), dev)
     _check("slot", slot.reshape(1), torch.int32, (1,), dev)
-    EPI.launch(_ptr(sums), _ptr(hit), _ptr(origin), _ptr(slot), X, Y, Z, rx, ry, rz, _ptr(out), _stream())
+    EPI.launch(_ptr(sums), _ptr(hit), _ptr(origin), _ptr(slot), X, Y, Z, rx, ry, rz, 0, Y, 1,
+               _ptr(out), _stream())
     return out
+
+
+# ----------------------------------------------------------------------
+# K5
+
+
+def moments_epilogue(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
+                     y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
+    """Box-aggregate and crop a point set's own-voxel sums into a fresh
+    [10, X, Ys, Z] torus tensor. With occupancy_mask the moments are zero
+    where `hit` is 0; without it the box is taken at every voxel. With
+    y_window = (ys0, Ys), `sums` is the slab scratch and `hit` the slab."""
+    if _is_cpu(sums):
+        return moments.moments_epilogue_plain(cfg, sums, hit, origin, y_window, occupancy_mask)
+    dev = sums.device
+    X, Y, Z = cfg.grid_shape
+    rx, ry, rz = binning.moment_pad(cfg)
+    ys0, Ys = binning.check_y_window(cfg, y_window)
+    _check("sums", sums, torch.float32, (10,) + binning.padded_shape(cfg, y_window), dev)
+    _check("hit", hit, torch.int32, (X, Ys, Z), dev)
+    _check("origin", origin, torch.int32, (3,), dev)
+    out = torch.empty((10, X, Ys, Z), dtype=torch.float32, device=dev)
+    (XBOX_SLAB if binning.is_slab(cfg, y_window) else XBOX).launch(
+        _ptr(sums), _ptr(hit), _ptr(origin), _P(None), X, Y, Z, rx, ry, rz, ys0, Ys,
+        int(occupancy_mask), _ptr(out), _stream())
+    return out
+
+
+def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor,
+                  y_window=None, occupancy_mask: bool = True):
+    """(hit [X,Ys,Z] int32, min_height [X,Ys,Z] f32, mom [10,X,Ys,Z] f32) of a
+    flat point set [N,3] in the world frame: K2 then K5 (the contract of
+    the JAX package's fused_point_moments), moments.point_moments on the CPU."""
+    if _is_cpu(points):
+        return moments.point_moments(cfg, points, keep, origin, y_window, occupancy_mask)
+    bins = bin_points(cfg, gridops.map_local(cfg, points, origin), keep, origin, y_window)
+    mom = moments_epilogue(cfg, bins.sums, bins.hit, origin, y_window, occupancy_mask)
+    return bins.hit, bins.min_height, mom
 
 
 # ----------------------------------------------------------------------

@@ -9,7 +9,9 @@ terms are translated into the target's frame (the parallel-axis update
 
 `box_aggregate_moments` + `ingest_epilogue_plain` are the plain twin of
 kernel K3 (ops/kernels.py, csrc/epilogue.cu): box, crop, occupancy pre-mask
-and the write into the ring-buffer slot.
+and the write into the ring-buffer slot. `moments_epilogue_plain` is the plain
+twin of kernel K5 (the same source): the box into a fresh tensor, the mask
+optional, the full grid or a y-slab. `point_moments` is K2 then K5.
 """
 
 from __future__ import annotations
@@ -18,9 +20,11 @@ import torch
 
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import grid as gridops
+from gvom_tpu_torch.ops import binning
 from gvom_tpu_torch.ops.binning import moment_pad
 
-__all__ = ["translate_raw", "box_aggregate_moments", "ingest_epilogue_plain"]
+__all__ = ["translate_raw", "box_aggregate_moments", "ingest_epilogue_plain", "moments_epilogue_plain",
+           "point_moments", "slab_point_moments"]
 
 # per axis: (diagonal s2 index, [(cross s2 index, S1 component)]), s2 order (xx,xy,xz,yy,yz,zz)
 _AX_TERMS = {
@@ -57,11 +61,13 @@ def _shifted(arr: torch.Tensor, off: int, axis: int) -> torch.Tensor:
     return out
 
 
-def box_aggregate_moments(cfg: GvomConfig, sums: torch.Tensor) -> torch.Tensor:
+def box_aggregate_moments(cfg: GvomConfig, sums: torch.Tensor, y_rows=None) -> torch.Tensor:
     """Aggregate padded own-voxel raw sums [10, Xp, Yp, Zp] over the
     ±xy_eigen_dist/±z_eigen_dist box (gvom.py:1188-1202): target u receives
     source v = u + off translated into u's frame. Crops the padding; returns
-    [10, X, Y, Z] in the window layout."""
+    [10, X, Y, Z] in the window layout. With y_rows (an index tensor) the
+    sums are a slab scratch (binning.slab_rows) and the y crop takes those
+    scratch rows instead: [10, X, len(y_rows), Z]."""
     n, s1, s2 = sums[0], sums[1:4], sums[4:10]
     radii = moment_pad(cfg)
     for ax, r in enumerate(radii):
@@ -80,7 +86,30 @@ def box_aggregate_moments(cfg: GvomConfig, sums: torch.Tensor) -> torch.Tensor:
     rx, ry, rz = radii
     X, Y, Z = cfg.grid_shape
     mom = torch.cat([n[None], s1, s2], dim=0)
+    if y_rows is not None:
+        return mom[:, rx:rx + X, :, rz:rz + Z].index_select(2, y_rows)
     return mom[:, rx:rx + X, ry:ry + Y, rz:rz + Z]
+
+
+def moments_epilogue_plain(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
+                           y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
+    """Plain twin of K5: box-aggregate the padded sums, crop, move them into
+    the torus layout and, with occupancy_mask, zero them where `hit` is 0.
+    Returns a fresh [10, X, Ys, Z] tensor. With y_window the sums are the
+    slab scratch and the result holds the torus rows [ys0, ys0+Ys)."""
+    if not binning.is_slab(cfg, y_window):
+        mom = gridops.window_to_torus(box_aggregate_moments(cfg, sums), origin)
+    else:
+        ry = moment_pad(cfg)[1]
+        _, len_a, _ = binning.slab_rows(cfg, origin, y_window)
+        j = torch.arange(y_window[1], device=sums.device)
+        mom = box_aggregate_moments(cfg, sums, y_rows=j + ry + torch.where(j >= len_a, 2 * ry, 0))
+        # x and z from window to torus; the y rows are torus rows already
+        for ax, k in ((1, 0), (3, 2)):
+            mom = mom.index_select(ax, gridops._roll_index(mom.shape[ax], origin[k], mom.device))
+    if occupancy_mask:
+        mom = torch.where(hit[None] > 0, mom, torch.zeros((), dtype=mom.dtype, device=mom.device))
+    return mom
 
 
 def ingest_epilogue_plain(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
@@ -90,7 +119,28 @@ def ingest_epilogue_plain(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor
     pre-mask: consumers read moments only under hit > 0), and write the
     result into out[slot] ([S, 10, X, Y, Z]; slot is a device int tensor).
     Returns out."""
-    mom = gridops.window_to_torus(box_aggregate_moments(cfg, sums), origin)
-    mom = torch.where(hit[None] > 0, mom, torch.zeros((), dtype=mom.dtype, device=mom.device))
-    out.index_copy_(0, slot.reshape(1).long(), mom[None])
+    out.index_copy_(0, slot.reshape(1).long(), moments_epilogue_plain(cfg, sums, hit, origin)[None])
     return out
+
+
+def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor,
+                  y_window=None, occupancy_mask: bool = True):
+    """Endpoint metrics of a flat point set [N,3] (world frame): (hit [X,Ys,Z]
+    int32, min_height [X,Ys,Z] f32, mom [10,X,Ys,Z] f32), torus layout: the
+    plain twin of K2 then K5, and the counterpart of the JAX package's
+    fused_point_moments. occupancy_mask=False returns the moments raw (the
+    batched step masks by the whole batch's occupancy later)."""
+    pn = gridops.map_local(cfg, points, origin)
+    bins = binning.bin_points(cfg, pn, keep, origin, y_window)
+    mom = moments_epilogue_plain(cfg, bins.sums, bins.hit, origin, y_window, occupancy_mask)
+    return bins.hit, bins.min_height, mom
+
+
+def slab_point_moments(cfg: GvomConfig, points, keep, origin, ys0: int, Ys: int, occupancy_mask: bool = True):
+    """point_moments for the torus y-slab [ys0, ys0+Ys) only: no array of
+    the full y width is made, so memory scales with the slab. Computes what
+    the JAX package's binning.slab_point_moments computes. That one expands
+    ±ry at scatter time into target rows; this one drops the points whose
+    ±ry neighbourhood misses the slab and keeps window coordinates in a
+    scratch of Ys + 4·ry rows (binning.slab_rows), as kernel K2 does."""
+    return point_moments(cfg, points, keep, origin, (ys0, Ys), occupancy_mask)

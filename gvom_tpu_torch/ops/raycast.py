@@ -18,13 +18,13 @@ JAX package (gvom_tpu/ops/raycast.py), so the counts agree bit for bit:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import grid as gridops
-from gvom_tpu_torch.ops.binning import sum_sq3
+from gvom_tpu_torch.ops.binning import check_y_window, sum_sq3
 
 __all__ = ["RayMarch", "ray_geometry", "march_inputs", "ray_pass_counts_plain", "ray_pass_counts"]
 
@@ -78,18 +78,27 @@ def march_inputs(cfg: GvomConfig, points, keep, ego_position, origin) -> RayMarc
                     budget.contiguous(), dom.contiguous())
 
 
-def ray_pass_counts_plain(cfg: GvomConfig, m: RayMarch, origin: torch.Tensor) -> torch.Tensor:
+def ray_pass_counts_plain(cfg: GvomConfig, m: RayMarch, origin: torch.Tensor, y_window=None,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[X,Y,Z] int32 pass counts in the torus layout — the plain twin of K1,
-    one vectorized step at a time like ray_pass_counts_xla."""
+    one vectorized step at a time like ray_pass_counts_xla.
+
+    y_window = (ys0, Ys): only the torus rows [ys0, ys0+Ys), as [X,Ys,Z]; a
+    slab row is ty = vt_y − ys0 ∈ [0, Ys), no wrap. `out` is a grid of that
+    shape to add the counts into (the batched step adds every scan's passes
+    into one miss grid); it is returned."""
     dev = m.step.device
     X, Y, Z = cfg.grid_shape
+    ys0, Ys = check_y_window(cfg, y_window)
     size = gridops.size_vector(cfg, dev)
     axes = torch.arange(3, device=dev)
     is_dom = axes[None, :] == m.dom[:, None].long()
     s_dom = m.step.gather(1, m.dom[:, None].long())[:, 0]
     sgn = torch.where(s_dom < 0, -1, 1).to(torch.int32)
     x0_dom = m.start_i[m.dom.long()]
-    acc = torch.zeros(X * Y * Z, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.zeros((X, Ys, Z), dtype=torch.int32, device=dev)
+    acc = out.view(-1)
     for k in range(1, cfg.ray_steps + 1):
         kf = float(k)
         pos = m.start_rel[None, :] + kf * m.step
@@ -98,15 +107,19 @@ def ray_pass_counts_plain(cfg: GvomConfig, m: RayMarch, origin: torch.Tensor) ->
         inb = torch.all((vox >= 0) & (vox < size[None, :]), dim=1)
         act = ((kf - 1.0) * m.delta < m.budget) & inb
         vt = torch.remainder(vox + origin[None, :], size[None, :]).long()
-        flat = (vt[:, 0] * Y + vt[:, 1]) * Z + vt[:, 2]
+        ty = vt[:, 1] - ys0
+        act = act & (ty >= 0) & (ty < Ys)
+        flat = (vt[:, 0] * Ys + ty) * Z + vt[:, 2]
         acc.index_put_((torch.where(act, flat, 0),), act.to(torch.int32), accumulate=True)
-    return acc.view(X, Y, Z)
+    return out
 
 
-def ray_pass_counts(cfg: GvomConfig, points, keep, ego_position, origin) -> torch.Tensor:
-    """[X,Y,Z] int32 pass counts of one scan, torus layout: kernel K1 for CUDA
-    tensors, the plain version for CPU tensors."""
+def ray_pass_counts(cfg: GvomConfig, points, keep, ego_position, origin, y_window=None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[X,Ys,Z] int32 pass counts of one scan, torus layout: kernel K1 for CUDA
+    tensors, the plain version for CPU tensors. y_window and out as in
+    ray_pass_counts_plain."""
     from gvom_tpu_torch.ops import kernels
 
     m = march_inputs(cfg, points, keep, ego_position.float(), origin)
-    return kernels.ray_pass_counts(cfg, m, origin)
+    return kernels.ray_pass_counts(cfg, m, origin, y_window=y_window, out=out)

@@ -17,6 +17,11 @@ torus layout (types.py):
         4     yy           zz
     The port stores [.., 10, X, Y, Z] in MOMENT_CHANNELS order.
 
+The JAX package's checkpoints (its utils/checkpoint.py, npz form) hold the
+"logical" arrays: hit, miss, min_height, evidence as [X, Y, Z] and the
+moments still packed [X, 5, Y, Vp]; to_jax_logical / from_jax_logical map the
+port's world to and from that form.
+
 Everything here takes and returns numpy arrays only: a caller that holds JAX
 state converts it with np.asarray first. The JAX state is read by its field
 names (hit_pk, miss_pk, minh_pk, mom, origin; evidence_pk, valid; grids,
@@ -32,7 +37,8 @@ import torch
 
 from gvom_tpu_torch.types import MOMENT_CHANNELS, BufferState, VoxelGrid, WorldState, resolve_device
 
-__all__ = ["logical_from_jax_numpy", "from_jax_numpy", "to_numpy"]
+__all__ = ["logical_from_jax_numpy", "from_jax_numpy", "to_numpy", "packed_lanes", "pack_moments",
+           "to_jax_logical", "from_jax_logical"]
 
 # (packed slot, upper lane half?) of each logical channel
 _PACKED_AT = {
@@ -56,6 +62,24 @@ def _unpack_moments(mom: np.ndarray, z: int) -> np.ndarray:
         lanes = slice(z, 2 * z) if hi else slice(0, z)
         chans.append(mom[..., :, s, :, lanes])
     return np.stack(chans, axis=-4)
+
+
+def packed_lanes(z: int) -> int:
+    """Lane width of the JAX package's packed moments: two z halves, aligned
+    to 128 lanes."""
+    return max(128, ((2 * z + 127) // 128) * 128)
+
+
+def pack_moments(mom: np.ndarray) -> np.ndarray:
+    """[.., 10, X, Y, Z] → [.., X, 5, Y, Vp], the inverse of _unpack_moments
+    (the pad lanes are zero)."""
+    mom = np.asarray(mom)
+    *lead, _, x, y, z = mom.shape
+    out = np.zeros((*lead, x, 5, y, packed_lanes(z)), mom.dtype)
+    for c, name in enumerate(MOMENT_CHANNELS):
+        s, hi = _PACKED_AT[name]
+        out[..., :, s, :, (z if hi else 0):(2 * z if hi else z)] = mom[..., c, :, :, :]
+    return out
 
 
 def logical_from_jax_numpy(state) -> Dict[str, np.ndarray]:
@@ -116,3 +140,21 @@ def to_numpy(state: Union[VoxelGrid, WorldState, BufferState]) -> Dict[str, np.n
         out.update(evidence=_np(state.evidence), valid=_np(state.valid))
         return out
     return {k: _np(getattr(state, k)) for k in ("hit", "miss", "min_height", "mom", "origin")}
+
+
+def to_jax_logical(world: WorldState) -> Dict[str, np.ndarray]:
+    """The arrays of the JAX package's npz checkpoint for the port's world:
+    to_numpy's, with the moments packed [X, 5, Y, Vp]."""
+    d = to_numpy(world)
+    d["mom"] = pack_moments(d["mom"])
+    return d
+
+
+def from_jax_logical(arrs: Dict[str, np.ndarray], device="cuda") -> WorldState:
+    """The port's world from the arrays of an npz checkpoint (moments packed)."""
+    dev = resolve_device(device)
+    z = arrs["hit"].shape[-1]
+    grid = VoxelGrid(hit=_t(arrs["hit"], dev), miss=_t(arrs["miss"], dev), min_height=_t(arrs["min_height"], dev),
+                     mom=_t(_unpack_moments(arrs["mom"], z), dev), origin=_t(arrs["origin"], dev))
+    return WorldState(grid=grid, evidence=_t(arrs["evidence"], dev),
+                      valid=_t(np.asarray(arrs["valid"], bool).reshape(()), dev))

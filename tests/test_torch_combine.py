@@ -20,22 +20,8 @@ from gvom_tpu.types import empty_world_state as jempty_world
 from gvom_tpu_torch.models import pipeline as tpipeline
 from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
 
-from torch_helpers import (EGOS, assert_state_equal, convert, jax_combine, jax_ingest, jax_numpy, scan, t,
-                           tcfg)
-
-# a few ulp of an angle below ~1.5 rad
-SLOPE_ATOL = 1e-6
-# log of a small mean squared residual: an ulp in the residual is a larger
-# absolute step in its log
-ROUGH_ATOL = 1e-4
-
-BITWISE = ("origin", "height", "inferred_height", "guessed_height_delta", "positive_obstacle",
-           "negative_obstacle", "visibility")
-CLOSE = (("slope_x", SLOPE_ATOL), ("slope_y", SLOPE_ATOL), ("roughness", ROUGH_ATOL))
-
-
-def products_numpy(p):
-    return {k: np.asarray(getattr(p, k)) for k in BITWISE + tuple(k for k, _ in CLOSE)}
+from torch_helpers import (EGOS, PRODUCTS_BITWISE as BITWISE, assert_products_equal, assert_state_equal, convert,
+                           jax_combine, jax_ingest, jax_numpy, products_numpy, scan, t, tcfg)
 
 
 @pytest.fixture(scope="module")
@@ -73,10 +59,7 @@ def test_world_channels(drive, step):
 @pytest.mark.parametrize("step", range(len(EGOS)))
 def test_map_products(drive, step):
     ref, port = drive[step]["products"]
-    for k in BITWISE:
-        np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
-    for k, atol in CLOSE:
-        np.testing.assert_allclose(port[k], ref[k], rtol=0, atol=atol, err_msg=k)
+    assert_products_equal(port, ref)
     assert (port["positive_obstacle"] > 0).any() and (port["visibility"] > 0).any()
 
 

@@ -12,9 +12,11 @@ from pathlib import Path
 import pytest
 import torch
 
-from gvom_tpu_torch import Gvom, GvomConfig
+from gvom_tpu_torch import Gvom, GvomConfig, batched_replay, make_batched_step, sequential_replay
+from gvom_tpu_torch.io.logio import ScanLog
 from gvom_tpu_torch.ops import kernels
 from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
+from gvom_tpu_torch.utils.checkpoint import load_world
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -54,7 +56,10 @@ def test_no_jax_import_statement(path):
 def test_default_device_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=2)
-    for make in (lambda: Gvom(config=cfg), lambda: empty_buffer_state(cfg), lambda: empty_world_state(cfg)):
+    log = ScanLog([])
+    for make in (lambda: Gvom(config=cfg), lambda: empty_buffer_state(cfg), lambda: empty_world_state(cfg),
+                 lambda: make_batched_step(cfg), lambda: batched_replay(cfg, log, 4),
+                 lambda: sequential_replay(cfg, log), lambda: load_world("no_such_file.npz")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert empty_buffer_state(cfg, "cpu").grids.hit.shape == (3, 16, 16, 8)
@@ -68,6 +73,8 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CPU or a CUDA"):
         kernels.bin_points(cfg, pn, torch.ones(4, dtype=torch.bool, device="meta"),
                            torch.zeros(3, dtype=torch.int32, device="meta"))
-    assert [k.name for k in kernels.KERNELS] == ["ray_pass_counts", "bin_points", "ingest_epilogue", "combine"]
+    assert [k.name for k in kernels.KERNELS] == [
+        "ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "moments_epilogue",
+        "ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab"]
     for k in kernels.KERNELS:
         assert k.source.exists() and k.replaces.startswith("gvom_tpu/ops/pallas_kernels.py:")

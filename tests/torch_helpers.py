@@ -30,6 +30,17 @@ torch.set_num_threads(1)
 MOM_RTOL = 1e-5
 MOM_ATOL = 2e-3
 
+# MapProducts: bitwise but for slope_x, slope_y and roughness, which go
+# through atan2 and log; their float32 results differ by an ulp or so between
+# XLA's CPU code and PyTorch's. A few ulp of an angle below ~1.5 rad, and the
+# log of a small mean squared residual (an ulp in the residual is a larger
+# absolute step in its log).
+SLOPE_ATOL = 1e-6
+ROUGH_ATOL = 1e-4
+PRODUCTS_BITWISE = ("origin", "height", "inferred_height", "guessed_height_delta", "positive_obstacle",
+                    "negative_obstacle", "visibility")
+PRODUCTS_CLOSE = (("slope_x", SLOPE_ATOL), ("slope_y", SLOPE_ATOL), ("roughness", ROUGH_ATOL))
+
 EGOS = [
     np.array([0.3, -0.2, 1.5]),
     np.array([1.1, 0.4, 1.55]),
@@ -87,3 +98,15 @@ def assert_state_equal(port: dict, ref: dict, what: str):
         else:
             np.testing.assert_array_equal(port[k], v, err_msg=f"{what}: {k}")
 
+
+
+def products_numpy(p) -> dict:
+    """The fields of a MapProducts of either package as numpy arrays."""
+    return {k: np.asarray(getattr(p, k)) for k in PRODUCTS_BITWISE + tuple(k for k, _ in PRODUCTS_CLOSE)}
+
+
+def assert_products_equal(port: dict, ref: dict, what: str = "products"):
+    for k in PRODUCTS_BITWISE:
+        np.testing.assert_array_equal(port[k], ref[k], err_msg=f"{what}: {k}")
+    for k, atol in PRODUCTS_CLOSE:
+        np.testing.assert_allclose(port[k], ref[k], rtol=0, atol=atol, err_msg=f"{what}: {k}")
