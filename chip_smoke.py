@@ -10,9 +10,11 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
 
   1. holds each kernel against its plain PyTorch version on the card, on the
      same inputs, over a drive with a moving ego (re-origin, decay veto):
-     K1 pass counts, K2 hit and min_height and the moment count n, and every
-     K4 output but the moments bitwise; the other moment channels within
-     MOM_RTOL / MOM_ATOL (f32 sums in another order). K5 (the epilogue into
+     K1 pass counts (from points: the kernel builds the ray geometry), K2 hit
+     and min_height and the moment count n, and every K4 output bitwise (its
+     moments too); the other moment channels within MOM_RTOL / MOM_ATOL (f32
+     sums in another order). K4 also at B = 2 (Z = 96) and B = 7 (Z = 31) on
+     a small grid, each B a library of its own. K5 (the epilogue into
      a fresh tensor) with the occupancy mask on and off. The slab forms of
      K1, K2 and K5 for the four quarter slabs of a scan whose window seam
      falls inside a slab, each against its plain version AND against the
@@ -22,7 +24,8 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
      and read just after, and checks the 5-tuple it returns;
-  3. checks the facade's outputs and ring buffer on a small grid, over a
+  3. checks the facade's outputs and ring buffer on a small grid (B = 3,
+     whose K4 library the facade builds when it is made), over a
      drive with one degenerate scan, against the same facade on the CPU,
      which runs the plain versions (the CPU tests pin those to the JAX
      package);
@@ -30,13 +33,18 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      call that computes the same function, with CUDA events, and computes
      each kernel's bound from this run's inputs: the bytes it must move
      over the memory rate, or its operations over their rate, whichever is
-     larger. K1's and K2's operations are atomics, whose rate the script
-     measures with a probe kernel (csrc/atomic_rate.cu);
+     larger. K2's operations are atomics, whose rate the script measures
+     with a probe kernel (csrc/atomic_rate.cu); K1's are its f32 geometry and
+     steps, and its one-atomic-per-pass floor is reported beside the bound
+     as atomic_floor_ms. K4 is timed as its launch alone (wrapper_ms beside
+     it), its bytes counted from what this data makes it read;
   5. drives the batched step (make_batched_step): two steps of 4 scans held
      against the same step with every kernel swapped for its plain version,
      then two steps of 32 scans of 131,072 points (the second merges with a
      live world at a moved origin), timed, with the launch counts set to 0
-     just before and read just after;
+     just before and read just after (K1: one launch a step); then K1 on a
+     whole 32-scan batch, timed and held bitwise against the sum of its
+     one-scan launches over the same scans;
   6. runs batched_replay over a synthesized log of 8 scans on a small grid,
      batch 4, against the same replay on the CPU, with a checkpoint written,
      loaded, and the resumed run's world equal to the straight run's.
@@ -220,7 +228,7 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         pn = gridops.map_local(cfg, p, origin)
         m = raycast.march_inputs(cfg, p, keep, ego, origin)
 
-        passes = kernels.ray_pass_counts(cfg, m, origin)
+        passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
         exact("K1 passes", passes, raycast.ray_pass_counts_plain(cfg, m, origin))
 
         kb, pb = kernels.bin_points(cfg, pn, keep, origin), binning.bin_points(cfg, pn, keep, origin)
@@ -252,16 +260,7 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         buf, scan_ok = pipeline.ingest_and_insert(cfg, buf, pts, valid, ego)
         check(bool(scan_ok), f"scan {i} has no occupied voxel")
         target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
-        ko = kernels.combine(cfg, buf, world, target, ego)
-        po = pipeline.fuse_plain(cfg, buf, world, target, ego)
-        names = ("hit", "miss", "min_height", "evidence", "mom", "height", "inferred_height",
-                 "band_hit_sum", "band_total_sum", "band_ok")
-        for name, a, b in zip(names, ko, po):
-            if name == "mom":
-                err["combine"] = max(err["combine"], close("K4 mom", a, b))
-            else:
-                exact(f"K4 {name}", a, b)
-        del ko, po
+        combine_vs_plain(cfg, buf, world, ego, "K4")
         world, products, ok = pipeline.combine(cfg, buf, world, ego)
         check(bool(ok), f"combine after scan {i} reports an empty buffer")
         revived = int(((world.grid.hit > 0) & (buf.grids.hit[buf.last_slot.long()] == 0)).sum())
@@ -269,9 +268,49 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan): "
             "K1-K5 agree with their plain versions")
-        last = dict(pts=pts, valid=valid, ego=ego, m=m, origin=origin, pn=pn, keep=keep, bins=kb,
-                    target=target)
+        last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, pn=pn, keep=keep, bins=kb, target=target)
     return err, buf, world, last
+
+
+COMBINE_OUTPUTS = ("hit", "miss", "min_height", "evidence", "mom", "height", "inferred_height",
+                   "band_hit_sum", "band_total_sum", "band_ok")
+
+
+def combine_vs_plain(cfg, buf, world, ego, what):
+    """K4 against fuse_plain on the same inputs, at the newest slot's origin:
+    every output bitwise, the moments too (both add slots 0..B-1, then the
+    old world, in f32 with one rounding each)."""
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.ops import kernels
+
+    target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
+    ko = kernels.combine(cfg, buf, world, target, ego)
+    po = pipeline.fuse_plain(cfg, buf, world, target, ego)
+    for name, a, b in zip(COMBINE_OUTPUTS, ko, po):
+        exact(f"{what} {name}", a, b)
+
+
+def phase1_combine_other_b(dev, log):
+    """K4 at two other ring-buffer depths on a small grid, each a library of
+    its own: B = 2 at Z = 96 and B = 7 at Z = 31 (both the four-chunk path
+    with 4-byte accesses, where the upstream Z = 64 takes the 8-byte one),
+    over a drive of 4 scans, held against fuse_plain after each ingest."""
+    from gvom_tpu_torch import GvomConfig
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
+
+    scans = make_scans(GvomConfig(max_points=4096), 4, dict(channels=32, azimuth_steps=128))
+    for B, Z in ((2, 96), (7, 31)):
+        cfg = GvomConfig(xy_size=64, z_size=Z, max_points=4096, buffer_size=B)
+        buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
+        for i, scan in enumerate(scans):
+            pts, valid, ego = scan_tensors(scan, dev)
+            buf, _ = pipeline.ingest_and_insert(cfg, buf, pts, valid, ego)
+            combine_vs_plain(cfg, buf, world, ego, f"K4 B={B} Z={Z}")
+            world, _, ok = pipeline.combine(cfg, buf, world, ego)
+            check(bool(ok), f"K4 B={B}: combine after scan {i} reports an empty buffer")
+        log(f"phase 1 K4 at B = {B}, 64×64×{Z}: every output bitwise against fuse_plain over 4 scans, world "
+            f"occupied {int((world.grid.hit > 0).sum())}")
 
 
 def scan_tensors(scan, dev):
@@ -305,14 +344,14 @@ def phase1_slabs(cfg, scan, dev, log, err):
     Ys = Y // 4
     seam = int(origin[1]) % Y          # the torus row of window row 0
     check(seam % Ys != 0, f"the window seam (torus row {seam}) lies on a slab boundary, not inside a slab")
-    full_pass = kernels.ray_pass_counts(cfg, m, origin)
+    full_pass = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
     full_bins = kernels.bin_points(cfg, pn, keep, origin)
     full_mom = {mask: kernels.moments_epilogue(cfg, full_bins.sums, full_bins.hit, origin, occupancy_mask=mask)
                 for mask in (True, False)}
     for k in range(4):
         yw = (k * Ys, Ys)
         rows = slice(k * Ys, (k + 1) * Ys)
-        kp = kernels.ray_pass_counts(cfg, m, origin, y_window=yw)
+        kp = raycast.ray_pass_counts(cfg, p, keep, ego, origin, y_window=yw)
         exact(f"K1 slab {k} vs plain", kp, raycast.ray_pass_counts_plain(cfg, m, origin, yw))
         exact(f"K1 slab {k} vs the full grid's rows", kp, full_pass[:, rows].contiguous())
         kb, pb = kernels.bin_points(cfg, pn, keep, origin, yw), binning.bin_points(cfg, pn, keep, origin, yw)
@@ -329,8 +368,8 @@ def phase1_slabs(cfg, scan, dev, log, err):
                                full_mom[mask][:, :, rows].contiguous())
             err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], e1, e2)
         if k * Ys <= seam < (k + 1) * Ys:
-            last = dict(m=m, origin=origin, pn=pn, keep=keep, bins=kb, y_window=yw, full_n=full_bins.sums[0],
-                        full_hit=full_bins.hit)
+            last = dict(p=p, ego=ego, origin=origin, pn=pn, keep=keep, bins=kb, y_window=yw,
+                        full_n=full_bins.sums[0], full_hit=full_bins.hit)
     del full_mom, full_pass
 
     kernels.reset_launches()
@@ -357,10 +396,11 @@ def phase1_slabs(cfg, scan, dev, log, err):
 def phase1_near_tier(cfg, scan, dev, log):
     """K1 on a near-tier scene: the scan's returns pulled in until every ray
     ends before step NEAR_TIER_STEPS, the tier that the JAX package's
-    step-pair kernel covers. csrc/raycast.cu is that kernel's counterpart."""
+    step-pair kernel covers. csrc/raycast.cu is that kernel's counterpart,
+    and it is held here from the points, its geometry inside."""
     import torch
 
-    from gvom_tpu_torch.ops import binning, kernels, raycast
+    from gvom_tpu_torch.ops import binning, raycast
     from gvom_tpu_torch.ops import grid as gridops
 
     pts, valid, ego = scan_tensors(scan, dev)
@@ -370,10 +410,11 @@ def phase1_near_tier(cfg, scan, dev, log):
     p, keep = binning.prepare_points(cfg, near, valid, ego)
     origin = gridops.compute_origin(cfg, ego)
     m = raycast.march_inputs(cfg, p, keep, ego, origin)
-    k = kernels.ray_pass_counts(cfg, m, origin)
+    k = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
     exact("K1 near tier vs plain", k, raycast.ray_pass_counts_plain(cfg, m, origin))
     short = dataclasses.replace(cfg, ray_steps_override=NEAR_TIER_STEPS)
-    exact(f"K1 near tier: a ray goes beyond step {NEAR_TIER_STEPS}", kernels.ray_pass_counts(short, m, origin), k)
+    exact(f"K1 near tier: a ray goes beyond step {NEAR_TIER_STEPS}",
+          raycast.ray_pass_counts(short, p, keep, ego, origin), k)
     check(int(k.sum()) > int(keep.sum()), "near tier: no passes")
     log(f"phase 1 near tier: {int(keep.sum())} rays of under {NEAR_TIER_STEPS} steps, {int(k.sum())} passes: K1 "
         "agrees with its plain version")
@@ -441,6 +482,7 @@ def phase3_small_reference(log):
     import numpy as np
 
     from gvom_tpu_torch import Gvom, GvomConfig
+    from gvom_tpu_torch.ops import kernels
     from gvom_tpu_torch.utils import convert
 
     cfg = GvomConfig(xy_size=64, z_size=32, max_points=4096, buffer_size=3)
@@ -448,6 +490,8 @@ def phase3_small_reference(log):
     near = np.random.default_rng(0).uniform(-0.5, 0.5, (512, 3)).astype(np.float32)
     scans[2] = (near, np.ones(len(near), bool), scans[2][2])
     gpu, cpu = Gvom(config=cfg), Gvom(config=cfg, device="cpu")
+    check(kernels.CMB.library((f"-DGVOM_COMBINE_B={cfg.buffer_size}",)).exists(),
+          f"Gvom(buffer_size={cfg.buffer_size}) did not build its combine library when it was made")
     for i, (pad, mask, ego) in enumerate(scans):
         ok_gpu = bool(gpu.process_pointcloud(pad[mask], ego))
         ok_cpu = bool(cpu.process_pointcloud(pad[mask], ego))
@@ -493,7 +537,7 @@ def kernel_row(k, fn, plain, reps, plain_reps, lib, bytes_moved, ops_s, log):
     and of the library call, and the bound from bytes_moved and ops_s, the
     least time of the kernel's operations (float32 arithmetic at the
     published rate, or atomics at the probed rate)."""
-    ms = cuda_ms(fn, reps)
+    ms = cuda_ms(fn, reps, warm=5)
     pms = cuda_ms(plain, plain_reps)
     lms = cuda_ms(lib, reps) if lib is not None else None
     bytes_s = bytes_moved / HBM_BYTES_PER_S
@@ -524,6 +568,14 @@ def index_add_inputs(cfg, pn, keep, origin, y_window=None):
     return flat, vals
 
 
+def k1_bound(n_points, n_scans, n_rays, n_pass, n_out):
+    """(bytes, seconds of operations) of K1 on this data, the same whatever
+    implements it: it reads the points (12 bytes), keep (1 byte) and each
+    scan's ego, and writes the grid of n_out voxels once; about 40 f32
+    operations a ray for the geometry and 8 a live step, at the f32 rate."""
+    return n_points * 13 + n_scans * 12 + n_out * 4, (40 * n_rays + 8 * n_pass) / F32_OPS_PER_S
+
+
 def epilogue_bound(cfg, n_w, targets_w, n_out, mask):
     """What the moments epilogue (K3, K5) must move and compute on this data.
     n_w: the own-voxel count n on the padded window [Xp, Yp, Zp]; targets_w:
@@ -551,6 +603,41 @@ def epilogue_bound(cfg, n_w, targets_w, n_out, mask):
             n_reach, n_reach_nz)
 
 
+def combine_bound(cfg, buf, world, target, new_hit):
+    """(bytes, voxel counts) that K4 must move on this data, as fuse_plain
+    reads its inputs: each slot's hit, miss and ten moment channels where it
+    is aligned and valid, its min_height where it is also occupied; the old
+    world's hit and evidence where it is aligned, its miss and min_height
+    where its occupied voxel stays occupied (new_hit > 0: the new world's
+    occupancy), its moments where it is aligned and the new world occupied;
+    all fourteen of its channels when no slot is valid (it passes through);
+    the meta vector and the ego; and the 14 channels and five [X, Y] maps
+    written."""
+    from gvom_tpu_torch.ops import grid as gridops
+
+    X, Y, Z = cfg.grid_shape
+    V, B, f32 = X * Y * Z, cfg.buffer_size, 4
+    g, w = buf.grids, world.grid
+    counts = dict(slot_aligned=[], slot_occupied=[])
+    if not bool(buf.slot_valid.any()):
+        words = 14 * V
+    else:
+        words = 0
+        for i in range(B):
+            al = gridops.overlap_mask(cfg, target, g.origin[i]) & buf.slot_valid[i]
+            n_al, n_occ = int(al.sum()), int((al & (g.hit[i] > 0)).sum())
+            counts["slot_aligned"].append(n_al)
+            counts["slot_occupied"].append(n_occ)
+            words += 12 * n_al + n_occ
+        oal = gridops.overlap_mask(cfg, target, w.origin) & world.valid
+        occ = new_hit > 0
+        counts.update(old_aligned=int(oal.sum()), old_kept=int((oal & (w.hit > 0) & occ).sum()),
+                      old_aligned_occupied=int((oal & occ).sum()))
+        words += 2 * counts["old_aligned"] + 2 * counts["old_kept"] + 10 * counts["old_aligned_occupied"]
+    words += (B + 2) * 4 + 3 + 14 * V + 5 * X * Y
+    return words * f32, counts
+
+
 def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     """ms, plain_ms, library_ms and bound_ms of each kernel at the upstream
     shapes, on the last phase-1 scan and the phase-1 buffer and world, and of
@@ -566,11 +653,11 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     X, Y, Z = cfg.grid_shape
     V = X * Y * Z
     B = cfg.buffer_size
-    m, origin, pn, keep, bins, target, ego = (last[k] for k in ("m", "origin", "pn", "keep", "bins", "target",
+    p, origin, pn, keep, bins, target, ego = (last[k] for k in ("p", "origin", "pn", "keep", "bins", "target",
                                                                  "ego"))
     N = pn.shape[0]
     P = bins.sums[0].numel()
-    passes = kernels.ray_pass_counts(cfg, m, origin)
+    passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
     n_pass = int(passes.sum())
     n_kept = int(keep.sum())
     n_occ = int((bins.hit > 0).sum())
@@ -593,12 +680,14 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     def row(*a):
         rows.append(kernel_row(*a, log))
 
-    # K1: reads the per-ray march inputs, writes the grid; one int32 atomic
-    # (and about 8 float operations) per live ray step
-    row(kernels.RAY, lambda: kernels.ray_pass_counts(cfg, m, origin),
-        lambda: raycast.ray_pass_counts_plain(cfg, m, origin), 20, 3, None,
-        N * (3 + 1 + 1 + 1) * f32 + V * f32,
-        max(8 * n_pass / F32_OPS_PER_S, n_pass / rates["int32"]))
+    # K1: reads the points, keep and the ego, builds each ray's geometry and
+    # writes the grid (k1_bound); beside it the floor of one int32 atomic
+    # per pass at the probe's rate, the bound of a design that merges no adds
+    p1, k1, e1 = p[None], keep[None], ego.reshape(1, 3)
+    row(kernels.RAY, lambda: kernels.ray_pass_counts(cfg, p1, k1, e1, origin),
+        lambda: raycast.pass_counts_plain(cfg, p1, k1, e1, origin), 100, 3, None,
+        *k1_bound(N, 1, n_kept, n_pass, V))
+    rows[-1]["atomic_floor_ms"] = 1e3 * n_pass / rates["int32"]
     # K2: reads points and keep, writes hit, min_height and the padded sums;
     # two int32 atomics per in-grid point (hit, min_height), ten float32
     # atomics per point inside the padded window
@@ -616,23 +705,36 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     row(kernels.EPI, lambda: kernels.ingest_epilogue(cfg, bins.sums, bins.hit, origin, out, slot),
         lambda: moments.ingest_epilogue_plain(cfg, bins.sums, bins.hit, origin, out, slot), 20, 5,
         lambda: torch.nn.functional.conv3d(conv_in, wconv), k3_bytes, 52 * terms / F32_OPS_PER_S)
-    # K4: reads B slots and the old world (3 channels + moments, and the
-    # evidence), writes 4 channels, the moments and five [X, Y] maps
-    row(kernels.CMB, lambda: kernels.combine(cfg, buf, world, target, ego),
-        lambda: pipeline.fuse_plain(cfg, buf, world, target, ego), 20, 3, None,
-        (B + 1) * (3 + 10) * V * f32 + V * f32 + (4 + 10) * V * f32 + 5 * X * Y * f32, 40 * V / F32_OPS_PER_S)
+    # K4: the kernel alone (its meta vector and outputs made once, outside
+    # the timing), and the wrapper beside it; what the data makes it read
+    # (combine_bound), 4 + 10 channels and five [X, Y] maps written
+    launch, k4_out = kernels.combine_launch(cfg, buf, world, target, ego)
+    launch()
+    k4_bytes, k4_counts = combine_bound(cfg, buf, world, target, k4_out[0])
+    row(kernels.CMB, launch, lambda: pipeline.fuse_plain(cfg, buf, world, target, ego), 20, 3, None,
+        k4_bytes, 40 * V / F32_OPS_PER_S)
+    rows[-1]["wrapper_ms"] = cuda_ms(lambda: kernels.combine(cfg, buf, world, target, ego), 20, warm=5)
+    # the timed launches computed what the wrapper computes
+    for name, a, b in zip(COMBINE_OUTPUTS, k4_out[:-1] + (k4_out[-1].bool(),),
+                          kernels.combine(cfg, buf, world, target, ego)):
+        exact(f"K4 timed launch vs the wrapper: {name}", a, b)
+    log(f"timing combine wrapper (meta vector, outputs, launch): {rows[-1]['wrapper_ms']:.4f} ms; K4 reads "
+        f"{k4_counts}")
+    del k4_out
 
     # ---- the slab forms, on the slab that holds the window seam ----
-    sm, so, spn, skeep, sbins, yw = (slab[k] for k in ("m", "origin", "pn", "keep", "bins", "y_window"))
+    sp, sego, so, spn, skeep, sbins, yw = (slab[k] for k in ("p", "ego", "origin", "pn", "keep", "bins", "y_window"))
     ys0, Ys = yw
     Vs = X * Ys * Z
     Ps = sbins.sums[0].numel()
-    # K1 slab: the same rays, the slab's grid; one atomic per live step that
-    # lands in the slab (the march itself walks every step of every ray)
-    n_pass_s = int(kernels.ray_pass_counts(cfg, sm, so, y_window=yw).sum())
-    row(kernels.RAY_SLAB, lambda: kernels.ray_pass_counts(cfg, sm, so, y_window=yw),
-        lambda: raycast.ray_pass_counts_plain(cfg, sm, so, yw), 20, 3, None,
-        N * (3 + 1 + 1 + 1) * f32 + Vs * f32, max(8 * n_pass_s / F32_OPS_PER_S, n_pass_s / rates["int32"]))
+    # K1 slab: the same rays, the slab's grid; its passes are the steps that
+    # land in the slab (the march itself walks every step of every ray)
+    sp1, sk1, se1 = sp[None], skeep[None], sego.reshape(1, 3)
+    n_pass_s = int(kernels.ray_pass_counts(cfg, sp1, sk1, se1, so, y_window=yw).sum())
+    row(kernels.RAY_SLAB, lambda: kernels.ray_pass_counts(cfg, sp1, sk1, se1, so, y_window=yw),
+        lambda: raycast.pass_counts_plain(cfg, sp1, sk1, se1, so, yw), 100, 3, None,
+        *k1_bound(N, 1, int(skeep.sum()), n_pass_s, Vs))
+    rows[-1]["atomic_floor_ms"] = 1e3 * n_pass_s / rates["int32"]
     # K2 slab: the same points, the slab's hit, min_height and scratch
     sflat, svals = index_add_inputs(cfg, spn, skeep, so, yw)
     s_lib = torch.zeros((10, Ps), dtype=torch.float32, device=dev)
@@ -693,8 +795,7 @@ def plain_kernels():
     from gvom_tpu_torch.ops import kernels, moments, raycast
 
     saved = kernels.ray_pass_counts, kernels.point_moments
-    kernels.ray_pass_counts = (lambda cfg, m, origin, y_window=None, out=None:
-                               raycast.ray_pass_counts_plain(cfg, m, origin, y_window, out))
+    kernels.ray_pass_counts = raycast.pass_counts_plain
     kernels.point_moments = moments.point_moments
     try:
         yield
@@ -780,7 +881,7 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
             first_origin = world.grid.origin
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    want = dict(ray_pass_counts=2 * BATCH, bin_points=2, moments_epilogue=2)
+    want = dict(ray_pass_counts=2, bin_points=2, moments_epilogue=2)
     for name, n in want.items():
         check(launches[name] == n, f"batched path: {name} launched {launches[name]} times, expected {n}")
     for name in PRODUCT_FIELDS[1:]:
@@ -805,7 +906,8 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
     del fresh, world
 
     # ---- K5 and K2 on a whole batch's merged points ----
-    origin, pw, keep, _ = prepare_batch(cb, *batches[1])
+    origin, pw, keep = prepare_batch(cb, *batches[1])
+    k1 = phase5_raycast_batch(cb, pw, keep, batches[1][2], origin, rates, log)
     pn = gridops.map_local(cb, pw, origin)
     bins = kernels.bin_points(cb, pn, keep, origin)
     pb = binning.bin_points(cb, pn, keep, origin)
@@ -848,11 +950,46 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
     res.update(merged=dict(points=N, points_kept=int(keep.sum()), points_in_grid=n_grid, points_in_window=n_win,
                            nonempty_voxels=k5_nz, box_terms=k5_terms, max_voxel_count=int(bins.sums[0].max()),
                            bin_points_ms=k2_ms, bin_points_plain_ms=k2_plain_ms, bin_points_bytes_ms=k2_bytes_ms,
-                           bin_points_atomics_ms=k2_ops_ms, moments_epilogue_mask_on_ms=k5_on_ms))
+                           bin_points_atomics_ms=k2_ops_ms, moments_epilogue_mask_on_ms=k5_on_ms),
+               ray_pass_counts_batch=k1)
     if profile:
         w0 = empty_world_state(cfg, dev)    # the step leaves its input world untouched
         res["profile"] = profile_calls(dict(batched_step=lambda: step(w0, *batches[0])), log)
     return launches, row, res
+
+
+def phase5_raycast_batch(cfg, pw, keep, egos, origin, rates, log):
+    """K1 on a whole batch of S scans in one launch: timed, with its bound,
+    and held bitwise against the sum of its S one-scan launches over the
+    same scans (those are held against the plain twin in phase 1 and in the
+    4-scan step; the plain twin would take about a second a scan here)."""
+    import torch
+
+    from gvom_tpu_torch.ops import kernels
+
+    S = egos.shape[0]
+    pts, kp = pw.view(S, -1, 3), keep.view(S, -1)
+    N = pts.shape[1]
+    V = cfg.voxel_count
+    whole = kernels.ray_pass_counts(cfg, pts, kp, egos, origin)
+    summed = torch.zeros_like(whole)
+    for s in range(S):
+        kernels.ray_pass_counts(cfg, pts[s:s + 1], kp[s:s + 1], egos[s:s + 1], origin, out=summed)
+    exact(f"K1 on {S} scans in one launch vs the sum of {S} one-scan launches", whole, summed)
+    n_pass, n_rays = int(whole.sum()), int(kp.sum())
+    ms = cuda_ms(lambda: kernels.ray_pass_counts(cfg, pts, kp, egos, origin), 10)
+    ms_per_scan = cuda_ms(lambda: [kernels.ray_pass_counts(cfg, pts[s:s + 1], kp[s:s + 1], egos[s:s + 1], origin,
+                                                           out=summed) for s in range(S)], 3)
+    nbytes, ops_s = k1_bound(S * N, S, n_rays, n_pass, V)
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops_s
+    r = dict(scans=S, rays=n_rays, passes=n_pass, ms=ms, one_launch_per_scan_ms=ms_per_scan,
+             bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             bytes_ms=bytes_ms, ops_ms=ops_ms, atomic_floor_ms=1e3 * n_pass / rates["int32"])
+    log(f"timing ray_pass_counts on {S} scans ({n_rays} rays, {n_pass} passes, ray_steps {cfg.ray_steps}): one "
+        f"launch {ms:.4f} ms, {S} one-scan launches {ms_per_scan:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms), one atomic a pass at the "
+        f"probe's rate {r['atomic_floor_ms']:.4f} ms; bitwise equal to the sum of the one-scan launches")
+    return r
 
 
 def phase6_replay(log):
@@ -1025,6 +1162,7 @@ def main(argv=None) -> int:
         f"(grid {cfg.grid_shape}, buffer {cfg.buffer_size})")
 
     err, buf, world, last = phase1_kernels_vs_plain(cfg, scans[:4], dev, log)
+    phase1_combine_other_b(dev, log)
     slab_launches, slab = phase1_slabs(cfg, scans[0], dev, log, err)
     phase1_near_tier(cfg, scans[1], dev, log)
     launches, report["facade"], _ = phase2_facade(cfg, scans, log)
@@ -1052,7 +1190,7 @@ def main(argv=None) -> int:
     check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS], "the kernels line misses a kernel")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    line = {"kernels": [{k: r[k] for k in keys} for r in rows]}
+    line = {"kernels": [{k: r[k] for k in keys + ("atomic_floor_ms", "wrapper_ms") if k in r} for r in rows]}
     smi = []
     if shutil.which("nvidia-smi"):
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -27,6 +27,7 @@ import torch
 
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.models import pipeline
+from gvom_tpu_torch.ops import kernels
 from gvom_tpu_torch.types import BufferState, WorldState, empty_buffer_state, empty_world_state, resolve_device
 from gvom_tpu_torch.utils.metrics import StepMetrics
 
@@ -78,6 +79,8 @@ class Gvom:
             config = GvomConfig().replace(**{k: v for k, v in kw.items() if v is not None})
         self.config = config.validate()
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            kernels.build_all(self.config)     # nvcc at start-up, never on the map path
         self._lock = threading.Lock()          # state: buffer writes, world swaps
         self._combine_lock = threading.Lock()  # serializes combines with each other
         self._buffer: BufferState = empty_buffer_state(self.config, self.device)

@@ -13,16 +13,20 @@ tensors (there is no fallback), and counts its launches in `launches`.
 
 | wrapper            | source       | replaces (gvom_tpu/ops/pallas_kernels.py) | plain twin                         |
 |--------------------|--------------|-------------------------------------------|------------------------------------|
-| ray_pass_counts    | raycast.cu   | _run_hist and _run_hist_steppair, via     | raycast.ray_pass_counts_plain      |
-|                    |              | ray_pass_counts_matmul                    |                                    |
+| ray_pass_counts    | raycast.cu   | _run_hist and _run_hist_steppair, via     | raycast.pass_counts_plain (per     |
+|                    |              | ray_pass_counts_matmul                    | scan: march_inputs, then           |
+|                    |              |                                           | ray_pass_counts_plain)             |
 | bin_points         | binning.cu   | fused_point_moments                       | binning.bin_points                 |
 | ingest_epilogue    | epilogue.cu  | _xbox_epilogue_into                       | moments.ingest_epilogue_plain      |
 | combine            | combine.cu   | fused_combine (+ the XLA mom merge)       | models.pipeline.fuse_plain         |
 | moments_epilogue   | epilogue.cu  | _xbox_epilogue                            | moments.moments_epilogue_plain     |
 | point_moments      | (K2 then K5) | fused_point_moments' contract             | moments.point_moments              |
 
-ray_pass_counts, bin_points and moments_epilogue take y_window = (ys0, Ys),
-the slab forms: the same kernels restricted to the torus rows
+ray_pass_counts takes what the JAX function takes: world-frame points
+[S, N, 3], keep [S, N], one ego per scan [S, 3] and one origin; it builds the
+ray geometry itself and marches all S scans in one launch (S = 1 is one
+scan). ray_pass_counts, bin_points and moments_epilogue take y_window =
+(ys0, Ys), the slab forms: the same kernels restricted to the torus rows
 [ys0, ys0+Ys). A slab launch is counted by an entry of its own (RAY_SLAB,
 BIN_SLAB, XBOX_SLAB), so a run shows which form the path went through.
 """
@@ -35,7 +39,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -54,6 +58,7 @@ __all__ = [
     "bin_points",
     "ingest_epilogue",
     "combine",
+    "combine_launch",
     "moments_epilogue",
     "point_moments",
     "NVCC_FLAGS",
@@ -79,31 +84,42 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One kernel: its source, its C entry, its build and its launch count."""
+    """One kernel: its source, its C entry, its builds and its launch count.
+    A build is the source compiled with a set of -D flags, in a library of
+    its own; `defines` is the set that build_all builds up front."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes: list, replaces: str):
+    def __init__(self, name: str, source: str, entry: str, argtypes: list, replaces: str,
+                 defines: Sequence[str] = ()):
         self.name = name
         self.source = CSRC / source
         self.entry = entry
         self.argtypes = argtypes
         self.replaces = replaces
+        self.defines = tuple(defines)
         self.launches = 0
-        self._fn = None
+        self._fns = {}
 
-    @property
-    def library(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    def _defines(self, defines: Optional[Sequence[str]]) -> tuple:
+        return self.defines if defines is None else tuple(defines)
+
+    def library(self, defines: Optional[Sequence[str]] = None) -> Path:
+        flags = NVCC_FLAGS + list(self._defines(defines))
+        h = hashlib.sha256(self.source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{h}.so"
 
-    def start_build(self) -> Optional[subprocess.Popen]:
+    def start_build(self, defines: Optional[Sequence[str]] = None) -> Optional[subprocess.Popen]:
         """Start nvcc for this source unless its library exists; returns the
         process (its output is the ptxas report) or None."""
-        if self.library.exists():
+        d = self._defines(defines)
+        lib = self.library(d)
+        if lib.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = self.library.with_suffix(f".{os.getpid()}.{id(self)}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.{id(self)}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *d, "-o", str(tmp), str(self.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc.library = lib
+        return proc
 
     def finish_build(self, proc: Optional[subprocess.Popen]) -> str:
         if proc is None:
@@ -113,28 +129,28 @@ class CudaKernel:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {self.source.name}:\n{out}")
-        os.replace(tmp, self.library)
+        os.replace(tmp, proc.library)
         return out
 
-    def fn(self):
-        if self._fn is None:
-            self.finish_build(self.start_build())
-            lib = ctypes.CDLL(str(self.library))
-            f = getattr(lib, self.entry)
+    def fn(self, defines: Optional[Sequence[str]] = None):
+        d = self._defines(defines)
+        if d not in self._fns:
+            self.finish_build(self.start_build(d))
+            f = getattr(ctypes.CDLL(str(self.library(d))), self.entry)
             f.argtypes = self.argtypes
             f.restype = ctypes.c_int
-            self._fn = f
-        return self._fn
+            self._fns[d] = f
+        return self._fns[d]
 
-    def launch(self, *args) -> None:
-        rc = self.fn()(*args)
+    def launch(self, *args, defines: Optional[Sequence[str]] = None) -> None:
+        rc = self.fn(defines)(*args)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: cudaError {rc}")
         self.launches += 1
 
 
 _PK = "gvom_tpu/ops/pallas_kernels.py"
-_RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 7 + [_I] * 7 + [_P, _P])
+_RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 4 + [_F] * 2 + [_I] * 8 + [_P, _P])
 _BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_I] * 9 + [_P] * 4)
 _EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P, _P])
 
@@ -143,10 +159,14 @@ RAY = CudaKernel(
     f"{_PK}:335 (_run_hist, via ray_pass_counts_matmul :510) and {_PK}:478 (_run_hist_steppair)")
 BIN = CudaKernel("bin_points", *_BIN_ARGS, f"{_PK}:1510 (fused_point_moments)")
 EPI = CudaKernel("ingest_epilogue", *_EPI_ARGS, f"{_PK}:1459 (_xbox_epilogue_into)")
+# K4 unrolls its slot loops: one library per ring-buffer depth B, the
+# upstream B = 4 built by build_all(), another by build_all(cfg) (the Gvom
+# facade calls it when it is made on the card) or at first use
+CMB_MAX_B = 16
 CMB = CudaKernel(
     "combine", "combine.cu", "gvom_combine",
     [_P] * 11 + [_I] * 4 + [_F] * 8 + [_I] * 2 + [_P] * 11,
-    f"{_PK}:1883 (fused_combine) + gvom_tpu/models/pipeline.py:420 (mom merge)")
+    f"{_PK}:1883 (fused_combine) + gvom_tpu/models/pipeline.py:420 (mom merge)", defines=("-DGVOM_COMBINE_B=4",))
 XBOX = CudaKernel("moments_epilogue", *_EPI_ARGS, f"{_PK}:1310 (_xbox_epilogue)")
 RAY_SLAB = CudaKernel("ray_pass_counts_slab", *_RAY_ARGS,
                       f"{_PK}:725 (ray_pass_counts_matmul(y_window=), the slab form of _run_hist)")
@@ -158,16 +178,18 @@ XBOX_SLAB = CudaKernel("moments_epilogue_slab", *_EPI_ARGS,
 KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB]
 
 
-def build_all() -> Dict[str, str]:
-    """Build every kernel library that is missing, one nvcc per source, all
-    started together. Returns each kernel's compiler report (kernels that
-    share a source share its report)."""
-    procs = {}
-    for k in KERNELS:
-        if k.source not in procs:
-            procs[k.source] = (k, k.start_build())
-    reports = {src: k.finish_build(p) for src, (k, p) in procs.items()}
-    return {k.name: reports[k.source] for k in KERNELS}
+def build_all(cfg: Optional[GvomConfig] = None) -> Dict[str, str]:
+    """Build every kernel library that is missing, one nvcc per library, all
+    started together. With cfg, K4's library for cfg.buffer_size is built as
+    well, so that no combine of that configuration waits for nvcc. Returns
+    each kernel's compiler report (kernels that share a source share its
+    report; K4's is that of its up-front depth)."""
+    builds = {(k.source, k.defines): k for k in KERNELS}
+    if cfg is not None:
+        builds.setdefault((CMB.source, _combine_defines(cfg)), CMB)
+    procs = {key: k.start_build(key[1]) for key, k in builds.items()}
+    reports = {key: k.finish_build(procs[key]) for key, k in builds.items()}
+    return {k.name: reports[(k.source, k.defines)] for k in KERNELS}
 
 
 def reset_launches() -> None:
@@ -214,32 +236,34 @@ def _f32(v: float) -> float:
 # K1
 
 
-def ray_pass_counts(cfg: GvomConfig, m, origin: torch.Tensor, y_window=None,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[X,Ys,Z] int32 pass counts in the torus layout from ray_geometry's
-    march inputs (ops/raycast.RayMarch). y_window = (ys0, Ys) gives only the
-    torus rows [ys0, ys0+Ys) (the slab form); `out` is a grid to add the
-    counts into, returned."""
-    if _is_cpu(m.step):
-        return raycast.ray_pass_counts_plain(cfg, m, origin, y_window, out)
-    dev = m.step.device
-    n = m.step.shape[0]
-    _check("start_rel", m.start_rel, torch.float32, (3,), dev)
-    _check("start_i", m.start_i, torch.int32, (3,), dev)
-    _check("step", m.step, torch.float32, (n, 3), dev)
-    for nm in ("delta", "budget"):
-        _check(nm, getattr(m, nm), torch.float32, (n,), dev)
-    _check("dom", m.dom, torch.int32, (n,), dev)
-    _check("origin", origin, torch.int32, (3,), dev)
+def ray_pass_counts(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, egos: torch.Tensor,
+                    origin: torch.Tensor, y_window=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[X,Ys,Z] int32 pass counts in the torus layout of S scans: world-frame
+    points [S,N,3] f32 (binning.prepare_points), keep [S,N] bool, each scan's
+    ego [S,3] f32, one origin [3] int32. The kernel builds each ray's
+    geometry itself. y_window = (ys0, Ys) gives only the torus rows
+    [ys0, ys0+Ys) (the slab form); `out` is a grid to add the counts into,
+    returned. Shapes, dtypes and contiguity are checked before the device."""
+    if points.ndim != 3:
+        raise ValueError(f"points: shape {tuple(points.shape)}, expected [S, N, 3]")
+    S, n = points.shape[:2]
+    dev = points.device
     X, Y, Z = cfg.grid_shape
     ys0, Ys = binning.check_y_window(cfg, y_window)
+    _check("points", points, torch.float32, (S, n, 3), dev)
+    _check("keep", keep, torch.bool, (S, n), dev)
+    _check("egos", egos, torch.float32, (S, 3), dev)
+    _check("origin", origin, torch.int32, (3,), dev)
+    if out is not None:
+        _check("out", out, torch.int32, (X, Ys, Z), dev)
+    if _is_cpu(points):
+        return raycast.pass_counts_plain(cfg, points, keep, egos, origin, y_window, out)
     if out is None:
         out = torch.zeros((X, Ys, Z), dtype=torch.int32, device=dev)
-    else:
-        _check("out", out, torch.int32, (X, Ys, Z), dev)
+    inv = gridops.inv_resolution_vector(cfg, "cpu")
     (RAY_SLAB if binning.is_slab(cfg, y_window) else RAY).launch(
-        _ptr(m.start_rel), _ptr(m.start_i), _ptr(m.step), _ptr(m.delta), _ptr(m.budget),
-        _ptr(m.dom), _ptr(origin), n, cfg.ray_steps, X, Y, Z, ys0, Ys, _ptr(out), _stream())
+        _ptr(points), _ptr(keep), _ptr(egos), _ptr(origin), float(inv[0]), float(inv[2]),
+        S, n, cfg.ray_steps, X, Y, Z, ys0, Ys, _ptr(out), _stream())
     return out
 
 
@@ -337,6 +361,10 @@ def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ori
 # K4
 
 
+def _combine_defines(cfg: GvomConfig) -> tuple:
+    return (f"-DGVOM_COMBINE_B={cfg.buffer_size}",)
+
+
 def combine(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch.Tensor):
     """Fuse the ring buffer and the old world. Returns (hit, miss, min_height,
     evidence, mom) of the new world with the any_valid latch applied, and
@@ -345,9 +373,23 @@ def combine(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch.Tensor
 
     if _is_cpu(buf.grids.hit):
         return pipeline.fuse_plain(cfg, buf, world, origin, ego)
+    launch, outs = combine_launch(cfg, buf, world, origin, ego)
+    launch()
+    return outs[:-1] + (outs[-1].bool(),)
+
+
+def combine_launch(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch.Tensor):
+    """K4's inputs on the card, checked, with its meta vector and fresh
+    outputs: returns (launch, outputs), where launch() runs the kernel once
+    into those outputs (band_ok as int32). combine() calls it once; a timing
+    of the kernel alone calls launch()."""
+    if _is_cpu(buf.grids.hit):
+        raise ValueError("combine_launch: the buffer is on the CPU; the kernel takes CUDA tensors")
     dev = buf.grids.hit.device
     B = cfg.buffer_size
     X, Y, Z = cfg.grid_shape
+    if not 1 <= B <= CMB_MAX_B or Z > 256:
+        raise ValueError(f"combine: buffer_size {B} and z_size {Z}; the kernel takes 1..{CMB_MAX_B} and up to 256")
     g, w = buf.grids, world.grid
     for nm, t, dt in (("hit", g.hit, torch.int32), ("miss", g.miss, torch.int32),
                       ("min_height", g.min_height, torch.float32)):
@@ -373,13 +415,16 @@ def combine(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch.Tensor
     pden = torch.empty_like(pnum)
     bok = torch.empty_like(pnum)
     inv_z = float(torch.reciprocal(torch.tensor(cfg.z_resolution, dtype=torch.float32)))
-    CMB.launch(_ptr(meta), _ptr(ego), _ptr(g.hit), _ptr(g.miss), _ptr(g.min_height), _ptr(g.mom),
-               _ptr(w.hit), _ptr(w.miss), _ptr(w.min_height), _ptr(world.evidence), _ptr(w.mom),
-               B, X, Y, Z,
-               _f32(cfg.z_resolution), _f32(cfg.xy_resolution), inv_z,
-               _f32(cfg.positive_obstacle_threshold), _f32(cfg.robot_height),
-               f32_square(cfg.robot_radius), _f32(cfg.ground_to_lidar_height), UNKNOWN_HEIGHT,
-               cfg.decay_miss_limit, cfg.hit_count_threshold,
-               _ptr(hit), _ptr(miss), _ptr(minh), _ptr(ev), _ptr(mom),
-               _ptr(hm_t), _ptr(ihm_t), _ptr(pnum), _ptr(pden), _ptr(bok), _stream())
-    return hit, miss, minh, ev, mom, hm_t, ihm_t, pnum, pden, bok.bool()
+    ins = (meta, ego, g.hit, g.miss, g.min_height, g.mom, w.hit, w.miss, w.min_height, world.evidence, w.mom)
+    outs = (hit, miss, minh, ev, mom, hm_t, ihm_t, pnum, pden, bok)
+    consts = (B, X, Y, Z,
+              _f32(cfg.z_resolution), _f32(cfg.xy_resolution), inv_z,
+              _f32(cfg.positive_obstacle_threshold), _f32(cfg.robot_height),
+              f32_square(cfg.robot_radius), _f32(cfg.ground_to_lidar_height), UNKNOWN_HEIGHT,
+              cfg.decay_miss_limit, cfg.hit_count_threshold)
+
+    def launch():
+        # the closure holds the tensors (meta is made here), not bare pointers
+        CMB.launch(*map(_ptr, ins), *consts, *map(_ptr, outs), _stream(), defines=_combine_defines(cfg))
+
+    return launch, outs

@@ -6,10 +6,11 @@ to the pass count of each traversed voxel, and stopping once the accumulated
 step length reaches ray_length − 1. Step k's position is start + k·step, an
 affine function of k, so out-of-grid steps are simply not counted.
 
-`ray_geometry` and `march_inputs` run in PyTorch on either device; the march
-itself is kernel K1 on the GPU (ops/kernels.py, csrc/raycast.cu) and
-`ray_pass_counts_plain` on the CPU. Both follow three exactness rules of the
-JAX package (gvom_tpu/ops/raycast.py), so the counts agree bit for bit:
+On the GPU the geometry and the march are kernel K1 (ops/kernels.py,
+csrc/raycast.cu), one launch for S scans. Its plain twin, `pass_counts_plain`,
+runs `ray_geometry` and `march_inputs` and then `ray_pass_counts_plain` for
+each scan. Both follow three exactness rules of the JAX package
+(gvom_tpu/ops/raycast.py), so the counts agree bit for bit:
   * the dominant step is exactly ±1;
   * the dominant row is the integer floor(start_rel) ± k, never floor(start + k);
   * position and liveness round the product before the add:
@@ -26,7 +27,8 @@ from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops.binning import check_y_window, sum_sq3
 
-__all__ = ["RayMarch", "ray_geometry", "march_inputs", "ray_pass_counts_plain", "ray_pass_counts"]
+__all__ = ["RayMarch", "ray_geometry", "march_inputs", "ray_pass_counts_plain", "pass_counts_plain",
+           "ray_pass_counts"]
 
 
 def ray_geometry(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ego_position: torch.Tensor):
@@ -114,12 +116,27 @@ def ray_pass_counts_plain(cfg: GvomConfig, m: RayMarch, origin: torch.Tensor, y_
     return out
 
 
+def pass_counts_plain(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, egos: torch.Tensor,
+                      origin: torch.Tensor, y_window=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain twin of kernel K1's signature: S scans (points [S,N,3],
+    keep [S,N], egos [S,3]) at one origin, each scan's march inputs built
+    and marched in turn, all added into one [X,Ys,Z] grid."""
+    if out is None:
+        X, _, Z = cfg.grid_shape
+        out = torch.zeros((X, check_y_window(cfg, y_window)[1], Z), dtype=torch.int32, device=points.device)
+    for s in range(points.shape[0]):
+        m = march_inputs(cfg, points[s], keep[s], egos[s], origin)
+        ray_pass_counts_plain(cfg, m, origin, y_window, out)
+    return out
+
+
 def ray_pass_counts(cfg: GvomConfig, points, keep, ego_position, origin, y_window=None,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[X,Ys,Z] int32 pass counts of one scan, torus layout: kernel K1 for CUDA
-    tensors, the plain version for CPU tensors. y_window and out as in
-    ray_pass_counts_plain."""
+    """[X,Ys,Z] int32 pass counts of one scan (points [N,3], keep [N], its
+    ego [3]), torus layout: kernel K1 for CUDA tensors, the plain version
+    for CPU tensors. y_window and out as in ray_pass_counts_plain."""
     from gvom_tpu_torch.ops import kernels
 
-    m = march_inputs(cfg, points, keep, ego_position.float(), origin)
-    return kernels.ray_pass_counts(cfg, m, origin, y_window=y_window, out=out)
+    return kernels.ray_pass_counts(cfg, points[None].contiguous(), keep[None].contiguous(),
+                                   ego_position.float().reshape(1, 3).contiguous(), origin,
+                                   y_window=y_window, out=out)

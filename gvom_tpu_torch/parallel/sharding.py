@@ -15,10 +15,11 @@ from the combine timer (gvom.py:163-175), which a batched step subsumes.
 Negative evidence uses the associative form: the batch's total misses at
 voxels the fused map leaves unoccupied.
 
-Per step: kernel K1 once per scan, all adding into one miss grid; kernels K2
-and K5 once on the merged points of the whole batch, the moments raw (no
-occupancy mask); then the merge with the old world and the 2D maps in plain
-PyTorch, as the JAX package computes them outside any Pallas kernel.
+Per step: kernel K1 once for all scans (each scan's rays from its own ego,
+all adding into one miss grid); kernels K2 and K5 once on the merged points
+of the whole batch, the moments raw (no occupancy mask); then the merge with
+the old world and the 2D maps in plain PyTorch, as the JAX package computes
+them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Callable, Tuple
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops import binning, kernels, maps2d, raycast
+from gvom_tpu_torch.ops import binning, kernels, maps2d
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.types import MapProducts, VoxelGrid, WorldState, resolve_device
 
@@ -74,7 +75,7 @@ def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid):
 
 def prepare_batch(cfg: GvomConfig, scans: torch.Tensor, valid: torch.Tensor, egos: torch.Tensor):
     """The batch as one flat point set in the common frame: (origin, points
-    [S·N,3], keep [S·N], each point's ego [S·N,3]). The frame is the origin
+    [S·N,3], keep [S·N]). The frame is the origin
     of the batch's last scan. A scan that bins no in-grid endpoint (the same
     predicate as "produced no occupied voxel", gvom.py:148-150) is dead: its
     points are masked out of keep and it contributes nothing."""
@@ -85,7 +86,7 @@ def prepare_batch(cfg: GvomConfig, scans: torch.Tensor, valid: torch.Tensor, ego
     pw, keep = binning.prepare_points(cfg, scans.reshape(-1, 3), valid.reshape(-1), egos_pt)
     vox = torch.floor(gridops.map_local(cfg, pw, origin)).to(torch.int32)
     oks = (keep & gridops.in_bounds(cfg, vox)).view(S, N).any(dim=1)
-    return origin, pw, keep & oks[:, None].expand(S, N).reshape(-1), egos_pt
+    return origin, pw, keep & oks[:, None].expand(S, N).reshape(-1)
 
 
 def make_batched_step(cfg: GvomConfig, device="cuda") -> Callable:
@@ -99,6 +100,8 @@ def make_batched_step(cfg: GvomConfig, device="cuda") -> Callable:
     to the any-in-grid bound unless the caller pinned one; the raycast ends
     each ray where it dies, so the wider bound admits only live steps."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        kernels.build_all()      # nvcc at start-up, never inside a step
     if cfg.ray_steps_override is None:
         cfg = dataclasses.replace(cfg, ray_steps_override=max(cfg.xy_size, cfg.z_size) + 4)
 
@@ -108,22 +111,14 @@ def make_batched_step(cfg: GvomConfig, device="cuda") -> Callable:
             if t.device.type != dev.type or (dev.index is not None and t.device.index != dev.index):
                 raise ValueError(f"{name} is on {t.device}; this step was made for {dev}")
         S, N = valid.shape
-        egos = egos.float()
+        egos = egos.float().contiguous()
         ego_last = egos[-1]
-        origin, pw, keep, egos_pt = prepare_batch(cfg, scans, valid, egos)
+        origin, pw, keep = prepare_batch(cfg, scans, valid, egos)
 
-        # ---- per-scan raycast: each scan's rays share ITS ego; all scans
-        # add into one miss grid ----
-        _, step_v, delta, budget, dom, _ = raycast.ray_geometry(cfg, pw, keep, egos_pt)
-        inv = gridops.inv_resolution_vector(cfg, dev)
-        start_rel = gridops.fma32(egos, inv.expand_as(egos), -origin.float().expand_as(egos))   # [S,3]
-        start_i = torch.floor(start_rel).to(torch.int32)
-        step_v, delta, budget, dom = (step_v.view(S, N, 3).contiguous(), delta.view(S, N).contiguous(),
-                                      budget.view(S, N).contiguous(), dom.view(S, N).contiguous())
+        # ---- the raycast: one launch, each scan's rays from ITS ego, all
+        # adding into one miss grid ----
         miss = torch.zeros(cfg.grid_shape, dtype=torch.int32, device=dev)
-        for s in range(S):
-            m = raycast.RayMarch(start_rel[s], start_i[s], step_v[s], delta[s], budget[s], dom[s])
-            kernels.ray_pass_counts(cfg, m, origin, out=miss)
+        kernels.ray_pass_counts(cfg, pw.view(S, N, 3), keep.view(S, N), egos, origin, out=miss)
 
         # ---- merged endpoint metrics: ONE pass over the whole batch's
         # points (binning and moments are ego-free and additive over

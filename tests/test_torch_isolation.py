@@ -78,3 +78,57 @@ def test_kernel_wrappers_refuse_other_devices():
         "ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab"]
     for k in kernels.KERNELS:
         assert k.source.exists() and k.replaces.startswith("gvom_tpu/ops/pallas_kernels.py:")
+
+
+def test_raycast_wrapper_checks_its_inputs_before_the_device():
+    """K1's wrapper refuses mismatched scan counts between points, keep and
+    egos, and a non-contiguous input, whatever the device; inputs that pass
+    on a device that is neither the CPU nor CUDA are refused as before."""
+    cfg = GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=2)
+    pts = torch.zeros((2, 8, 3), device="meta")
+    keep = torch.ones((2, 8), dtype=torch.bool, device="meta")
+    egos = torch.zeros((2, 3), device="meta")
+    origin = torch.zeros(3, dtype=torch.int32, device="meta")
+    for bad, what in (((pts, keep[:1], egos), "keep: shape"), ((pts, keep, egos[:1]), "egos: shape"),
+                      ((pts[:1], keep, egos), "keep: shape"),
+                      ((torch.zeros((2, 3, 8), device="meta").transpose(1, 2), keep, egos), "contiguous"),
+                      ((pts, keep.t().contiguous().t(), egos), "contiguous"),
+                      ((pts[0], keep, egos), r"expected \[S, N, 3\]")):
+        with pytest.raises(ValueError, match=what):
+            kernels.ray_pass_counts(cfg, *bad, origin)
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        kernels.ray_pass_counts(cfg, pts, keep, egos, origin)
+
+
+def test_build_all_builds_the_configs_combine_depth(monkeypatch):
+    """K4 is one library per ring-buffer depth: build_all() builds each
+    source once with K4 at B = 4, build_all(cfg) adds cfg.buffer_size's, and
+    a facade made on the CPU builds nothing."""
+    started = []
+    monkeypatch.setattr(kernels.CudaKernel, "start_build",
+                        lambda self, defines=None: started.append((self.source.name, tuple(defines))))
+    monkeypatch.setattr(kernels.CudaKernel, "finish_build", lambda self, proc: "")
+    reports = kernels.build_all()
+    assert sorted(reports) == sorted(k.name for k in kernels.KERNELS)
+    assert sorted(started) == [("binning.cu", ()), ("combine.cu", ("-DGVOM_COMBINE_B=4",)),
+                               ("epilogue.cu", ()), ("raycast.cu", ())]
+    started.clear()
+    kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3))
+    assert ("combine.cu", ("-DGVOM_COMBINE_B=3",)) in started and len(started) == 5
+    started.clear()
+    kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=4))
+    assert len(started) == 4
+    started.clear()
+    Gvom(config=GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3), device="cpu")
+    assert started == []
+
+
+def test_combine_launch_takes_cuda_tensors_only():
+    """combine_launch (K4's launch alone, for timing) has no plain twin: a
+    buffer on the CPU is refused; combine() takes the plain version there."""
+    cfg = GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=2)
+    buf, world = empty_buffer_state(cfg, "cpu"), empty_world_state(cfg, "cpu")
+    origin, ego = torch.zeros(3, dtype=torch.int32), torch.zeros(3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.combine_launch(cfg, buf, world, origin, ego)
+    assert len(kernels.combine(cfg, buf, world, origin, ego)) == 10

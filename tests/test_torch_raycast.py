@@ -133,3 +133,43 @@ def test_ray_geometry_length_and_budget_bitwise(scene, egoi):
     np.testing.assert_array_equal(step[live], j_step[live])
     np.testing.assert_array_equal(delta[live], j_delta[live])
     np.testing.assert_array_equal(dom[live], j_dom[live])
+
+
+@pytest.fixture(scope="module")
+def three_scans(small_cfg):
+    """Three scans at three egos, prepared by both packages, and one origin
+    (the first ego's): the inputs of K1's many-scan signature."""
+    cfg = small_cfg
+    c = tcfg(cfg)
+    ego0 = np.array([0.3, -0.2, 1.5])
+    jax_in, pts, keeps, egos = [], [], [], []
+    for i, d in enumerate(([0.0, 0.0, 0.0], [1.37, -0.91, 0.05], [-2.2, 3.3, -0.4])):
+        e = np.float32(ego0 + np.array(d))
+        pad, mask = synthetic.pad_scan(make_scan(synthetic.composite_terrain(), e, seed=10 + i, cfg=cfg),
+                                       cfg.max_points)
+        pw, keep = jbinning.prepare_points(cfg, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
+        jax_in.append((pw, keep, jnp.asarray(e)))
+        tp, tk = tbinning.prepare_points(c, torch.from_numpy(pad), torch.from_numpy(mask), torch.from_numpy(e.copy()))
+        pts.append(tp)
+        keeps.append(tk)
+        egos.append(torch.from_numpy(e.copy()))
+    origin = np.asarray(jgrid.compute_origin(cfg, jnp.asarray(np.float32(ego0))))
+    return dict(cfg=cfg, c=c, jax=jax_in, origin=origin,
+                port=(torch.stack(pts), torch.stack(keeps), torch.stack(egos), torch.from_numpy(origin.copy())))
+
+
+@pytest.mark.parametrize("y_window", [None, (16, 16)])
+def test_many_scan_wrapper_equals_sum_of_jax_scans(three_scans, y_window):
+    """kernels.ray_pass_counts on CPU tensors of S = 3 scans (points, keep,
+    one ego each, one origin) runs its plain twin, and equals the sum of the
+    JAX package's ray_pass_counts_xla over the scans, bit for bit; so does
+    the slab form. No kernel launch is counted."""
+    cfg, c = three_scans["cfg"], three_scans["c"]
+    jitted = jax.jit(lambda p, k, e, o: jraycast.ray_pass_counts_xla(cfg, p, k, e, o, y_window=y_window))
+    ref = sum(np.asarray(jitted(p, k, e, jnp.asarray(three_scans["origin"]))) for p, k, e in three_scans["jax"])
+    launches = (tkernels.RAY.launches, tkernels.RAY_SLAB.launches)
+    out = tkernels.ray_pass_counts(c, *three_scans["port"], y_window=y_window)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert out.shape == (cfg.xy_size, cfg.xy_size if y_window is None else y_window[1], cfg.z_size)
+    assert ref.sum() > 1000
+    assert (tkernels.RAY.launches, tkernels.RAY_SLAB.launches) == launches
