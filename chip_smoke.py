@@ -13,9 +13,13 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      K1 pass counts (from points: the kernel builds the ray geometry), K2 hit
      and min_height and the moment count n, and every K4 output bitwise (its
      moments too); the other moment channels within MOM_RTOL / MOM_ATOL (f32
-     sums in another order). K4 also at B = 2 (Z = 96) and B = 7 (Z = 31) on
-     a small grid, each B a library of its own. K5 (the epilogue into
-     a fresh tensor) with the occupancy mask on and off. The slab forms of
+     sums in another order), K2's where n > 0, the only voxels where its
+     scratch defines them. Every epilogue form (K3, K5 with the mask on and
+     off, the slab form) gives bitwise the same output on sums whose
+     channels 1-9 are NaN where n == 0: it never reads them. K4 also at
+     B = 2 (Z = 96) and B = 7 (Z = 31) on a small grid, each B a library of
+     its own. K5 (the epilogue into a fresh tensor) with the occupancy mask
+     on and off. The slab forms of
      K1, K2 and K5 for the four quarter slabs of a scan whose window seam
      falls inside a slab, each against its plain version AND against the
      rows of the full-grid kernel's output, and ingest_scan(y_window=) side
@@ -33,18 +37,22 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      call that computes the same function, with CUDA events, and computes
      each kernel's bound from this run's inputs: the bytes it must move
      over the memory rate, or its operations over their rate, whichever is
-     larger. K2's operations are atomics, whose rate the script measures
-     with a probe kernel (csrc/atomic_rate.cu); K1's are its f32 geometry and
-     steps, and its one-atomic-per-pass floor is reported beside the bound
-     as atomic_floor_ms. K4 is timed as its launch alone (wrapper_ms beside
-     it), its bytes counted from what this data makes it read;
+     larger. A kernel's ms is the card's time for what its wrapper launches,
+     alone: the launches (fills included) captured in a CUDA graph and
+     replayed; wrapper_ms beside it is the wrapper called back to back, as
+     the host paces it. K1's and K2's one-atomic-a-pass (a point) floor at
+     the rate of a probe kernel (csrc/atomic_rate.cu) is reported beside the
+     bound as atomic_floor_ms. K4's bytes are counted from what this data
+     makes it read. Two pairs, K2 then K3 on one scan and K2 then K5 on a
+     batch, are timed against a bound that no design moves (pair_bound);
   5. drives the batched step (make_batched_step): two steps of 4 scans held
      against the same step with every kernel swapped for its plain version,
      then two steps of 32 scans of 131,072 points (the second merges with a
      live world at a moved origin), timed, with the launch counts set to 0
      just before and read just after (K1: one launch a step); then K1 on a
      whole 32-scan batch, timed and held bitwise against the sum of its
-     one-scan launches over the same scans;
+     one-scan launches over the same scans, and K2 and K5 on its merged
+     points against their plain versions, timed;
   6. runs batched_replay over a synthesized log of 8 scans on a small grid,
      batch 4, against the same replay on the CPU, with a checkpoint written,
      loaded, and the resumed run's world equal to the straight run's.
@@ -163,8 +171,39 @@ def moments_close(name, a, b, atol=MOM_ATOL):
     return close(f"{name} moments", a, b, atol)
 
 
+def sums_close(name, a, b, atol=MOM_ATOL):
+    """K2's own-voxel sums [10, ...]: n bitwise, the nine other channels
+    within tolerance where n > 0, the only voxels where they are defined
+    (binning.PointBins)."""
+    exact(f"{name} n", a[0], b[0])
+    nz = b[0] > 0
+    return close(f"{name} sums where n > 0", a[:, nz], b[:, nz], atol)
+
+
+def clean_sums(sums):
+    """The sums with channels 1-9 set to 0 where n == 0, as the plain twins
+    read them."""
+    import torch
+
+    return torch.where(sums[:1] > 0, sums, torch.zeros((), dtype=sums.dtype, device=sums.device))
+
+
+def nan_blind(name, fn, sums):
+    """fn (an epilogue) on sums whose channels 1-9 are NaN where n == 0 gives
+    bitwise what it gives on the clean sums: it never reads them."""
+    import torch
+
+    bad = sums.clone()
+    bad[1:] = torch.where(sums[:1] > 0, sums[1:], torch.full((), float("nan"), device=sums.device))
+    ref = fn(clean_sums(sums)).clone()
+    got = fn(bad)
+    check(bool(torch.isfinite(got).all()), f"{name}: not finite on NaN-poisoned sums")
+    exact(f"{name} on NaN-poisoned sums vs clean sums", got, ref)
+
+
 def cuda_ms(fn, reps, warm=1):
-    """Mean device time of fn() over reps calls, after warm calls."""
+    """Mean device time of fn() over reps calls, after warm calls, paced by
+    the host: allocations and launch overhead included."""
     import torch
 
     for _ in range(warm):
@@ -177,6 +216,34 @@ def cuda_ms(fn, reps, warm=1):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+GRAPH_CALLS = 10    # calls of fn captured in one graph by graph_ms
+
+
+def graph_ms(fn, reps):
+    """The card's time for what fn() launches, alone: GRAPH_CALLS calls
+    captured in one CUDA graph (fills and small launches included, no host in
+    between), replayed until about reps calls ran, timed with CUDA events.
+    Returns (ms per call, what the last captured call returned)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(GRAPH_CALLS):
+            last = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    n = max(2, reps // GRAPH_CALLS)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (n * GRAPH_CALLS), last
 
 
 def box_conv_weights(cfg, dev):
@@ -234,8 +301,7 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         kb, pb = kernels.bin_points(cfg, pn, keep, origin), binning.bin_points(cfg, pn, keep, origin)
         exact("K2 hit", kb.hit, pb.hit)
         exact("K2 min_height", kb.min_height, pb.min_height)
-        exact("K2 n", kb.sums[0], pb.sums[0])
-        err["bin_points"] = max(err["bin_points"], close("K2 sums", kb.sums, pb.sums))
+        err["bin_points"] = max(err["bin_points"], sums_close("K2", kb.sums, pb.sums))
 
         slot = torch.ones((1,), dtype=torch.int32, device=dev)
         ko = torch.zeros((2, 10, X, Y, Z), dtype=torch.float32, device=dev)
@@ -255,6 +321,11 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
             else:
                 check(bool((km[:, kb.hit == 0] != 0).any()), "K5 mask off: no moments at voxels without a hit")
             del km, pm
+        if i == 0:
+            nan_blind("K3", lambda s: kernels.ingest_epilogue(cfg, s, kb.hit, origin, ko, slot), kb.sums)
+            for mask in (True, False):
+                nan_blind(f"K5 mask={mask}", lambda s: kernels.moments_epilogue(cfg, s, kb.hit, origin,
+                                                                               occupancy_mask=mask), kb.sums)
         del ko, po, pb
 
         buf, scan_ok = pipeline.ingest_and_insert(cfg, buf, pts, valid, ego)
@@ -267,7 +338,8 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         log(f"phase 1 scan {i}: origin {origin.tolist()}, {int(keep.sum())} points kept, "
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan): "
-            "K1-K5 agree with their plain versions")
+            "K1-K5 agree with their plain versions" + (", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned "
+                                                         "sums" if i == 0 else ""))
         last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, pn=pn, keep=keep, bins=kb, target=target)
     return err, buf, world, last
 
@@ -359,7 +431,8 @@ def phase1_slabs(cfg, scan, dev, log, err):
             exact(f"K2 slab {k} {name} vs plain", getattr(kb, name), getattr(pb, name))
             exact(f"K2 slab {k} {name} vs the full grid's rows", getattr(kb, name),
                   getattr(full_bins, name)[:, rows].contiguous())
-        err["bin_points_slab"] = max(err["bin_points_slab"], moments_close(f"K2 slab {k} sums", kb.sums, pb.sums))
+        err["bin_points_slab"] = max(err["bin_points_slab"], sums_close(f"K2 slab {k}", kb.sums, pb.sums))
+        has_seam = k * Ys <= seam < (k + 1) * Ys
         for mask in (True, False):
             km = kernels.moments_epilogue(cfg, kb.sums, kb.hit, origin, yw, mask)
             pm = moments.moments_epilogue_plain(cfg, kb.sums, kb.hit, origin, yw, mask)
@@ -367,7 +440,10 @@ def phase1_slabs(cfg, scan, dev, log, err):
             e2 = moments_close(f"K5 slab {k} mask={mask} vs the full grid's rows", km,
                                full_mom[mask][:, :, rows].contiguous())
             err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], e1, e2)
-        if k * Ys <= seam < (k + 1) * Ys:
+            if has_seam:
+                nan_blind(f"K5 slab {k} mask={mask}",
+                          lambda s: kernels.moments_epilogue(cfg, s, kb.hit, origin, yw, mask), kb.sums)
+        if has_seam:
             last = dict(p=p, ego=ego, origin=origin, pn=pn, keep=keep, bins=kb, y_window=yw,
                         full_n=full_bins.sums[0], full_hit=full_bins.hit)
     del full_mom, full_pass
@@ -388,7 +464,8 @@ def phase1_slabs(cfg, scan, dev, log, err):
     for k, (g, sok) in enumerate(slabs):
         check(bool(sok) == bool((grid.hit[:, k * Ys:(k + 1) * Ys] > 0).any()), f"ingest_scan slab {k}: scan_ok")
     log(f"phase 1 slabs: origin {origin.tolist()} (seam at torus row {seam}), four slabs of {Ys} rows: K1, K2, K5 "
-        f"agree with their plain versions and with the full grid's rows; ingest_scan(y_window=) side by side "
+        f"agree with their plain versions and with the full grid's rows, the slab epilogue bitwise the same on "
+        f"NaN-poisoned sums; ingest_scan(y_window=) side by side "
         f"equals ingest_scan(); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
     return launches, last
 
@@ -533,23 +610,33 @@ def atomic_rates(probe, dev, log):
 
 
 def kernel_row(k, fn, plain, reps, plain_reps, lib, bytes_moved, ops_s, log):
-    """One row of the kernels line: ms of the kernel, of its plain version
-    and of the library call, and the bound from bytes_moved and ops_s, the
-    least time of the kernel's operations (float32 arithmetic at the
-    published rate, or atomics at the probed rate)."""
-    ms = cuda_ms(fn, reps, warm=5)
+    """One row of the kernels line: ms, the card's time for what the wrapper
+    fn launches, alone (graph_ms); wrapper_ms, fn called back to back as the
+    host paces it; the plain version's and the library call's ms; and the
+    bound from bytes_moved and ops_s, the least time of the kernel's
+    operations (float32 arithmetic at the published rate)."""
+    ms, _ = graph_ms(fn, reps)
+    wms = cuda_ms(fn, reps, warm=5)
     pms = cuda_ms(plain, plain_reps)
     lms = cuda_ms(lib, reps) if lib is not None else None
     bytes_s = bytes_moved / HBM_BYTES_PER_S
     b_ms = 1e3 * max(bytes_s, ops_s)
     r = dict(name=k.name, route="cuda", source=str(k.source.relative_to(ROOT)),
-             replaces=", ".join(re.findall(r"[\w/]+\.py:\d+", k.replaces)), ms=ms, plain_ms=pms, bound_ms=b_ms,
-             bound_by="bytes" if bytes_s >= ops_s else "operations",
+             replaces=", ".join(re.findall(r"[\w/]+\.py:\d+", k.replaces)), ms=ms, wrapper_ms=wms, plain_ms=pms,
+             bound_ms=b_ms, bound_by="bytes" if bytes_s >= ops_s else "operations",
              library_ms=lms, bytes=bytes_moved, bytes_ms=1e3 * bytes_s, ops_ms=1e3 * ops_s)
-    log(f"timing {k.name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+    log(f"timing {k.name}: launch alone {ms:.4f} ms, wrapper {wms:.4f} ms, plain {pms:.4f} ms, library "
         f"{'n/a' if lms is None else f'{lms:.4f} ms'}, bound {b_ms:.4f} ms ({r['bound_by']}; "
         f"bytes {1e3 * bytes_s:.4f} ms, operations {1e3 * ops_s:.4f} ms)")
     return r
+
+
+def binned(cfg, pn, keep, origin):
+    """(sums, hit) of K2 on a point set, for an epilogue."""
+    from gvom_tpu_torch.ops import kernels
+
+    b = kernels.bin_points(cfg, pn, keep, origin)
+    return b.sums, b.hit
 
 
 def index_add_inputs(cfg, pn, keep, origin, y_window=None):
@@ -566,6 +653,44 @@ def index_add_inputs(cfg, pn, keep, origin, y_window=None):
     vals = torch.stack([torch.ones_like(lk[:, 0]), lk[:, 0], lk[:, 1], lk[:, 2]]
                        + [lk[:, a] * lk[:, b] for a, b in binning.PAIRS], dim=0).contiguous()
     return flat, vals
+
+
+def k2_bound(n_points, n_kept, n_out, n_scratch, n_scratch_nz):
+    """(bytes, seconds of operations) of K2 on this data, under the contract
+    of its scratch (binning.PointBins): it reads the points (12 bytes) and
+    keep (1 byte), writes hit and min_height over the n_out voxels of the
+    grid, n over the n_scratch voxels of the scratch and the nine other
+    channels where n > 0 (n_scratch_nz); about 30 f32 operations a kept
+    point."""
+    return n_points * 13 + 2 * n_out * 4 + n_scratch * 4 + 9 * n_scratch_nz * 4, 30 * n_kept / F32_OPS_PER_S
+
+
+def k2_atomic_floor_ms(n_grid, n_win, rates):
+    """One int32 atomic a point for hit and for min_height and ten float32
+    ones a point in the window, at the probe's uncontended rate: the floor of
+    a design that merges no adds (not a bound of the function)."""
+    return 1e3 * (2 * n_grid / rates["int32"] + 10 * n_win / rates["float32"])
+
+
+def pair_bound(n_points, n_kept, n_out, terms):
+    """(bytes, seconds of operations) of K2 then an epilogue, whatever
+    implements them: the points and keep read, hit, min_height and the ten
+    moment channels written; the sums scratch between the two is the
+    implementation's choice. Operations: K2's 30 a kept point and 52 a box
+    term."""
+    return n_points * 13 + 12 * n_out * 4, (30 * n_kept + 52 * terms) / F32_OPS_PER_S
+
+
+def pair_row(name, fn, reps, n_points, n_kept, n_out, terms, log):
+    """K2 then an epilogue, launched alone (graph_ms), against pair_bound."""
+    ms, _ = graph_ms(fn, reps)
+    nbytes, ops_s = pair_bound(n_points, n_kept, n_out, terms)
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops_s
+    r = dict(name=name, ms=ms, bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+             bytes=nbytes, bytes_ms=bytes_ms, ops_ms=ops_ms)
+    log(f"timing the pair {name}: launch alone {ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{nbytes / 1e6:.1f} MB), {100 * r['bound_ms'] / ms:.0f} % of it")
+    return r
 
 
 def k1_bound(n_points, n_scans, n_rays, n_pass, n_out):
@@ -669,12 +794,11 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     pflat, vals = index_add_inputs(cfg, pn, keep, origin)
     sums_lib = torch.zeros((10, P), dtype=torch.float32, device=dev)
     wconv = box_conv_weights(cfg, dev)
-    conv_in = bins.sums[None]
+    conv_in = clean_sums(bins.sums)[None]
     conv = torch.nn.functional.conv3d(conv_in, wconv)[0]
     err_conv = float((conv - moments.box_aggregate_moments(cfg, bins.sums)).abs().max())
     log(f"library yardstick check: conv3d box vs plain box max abs err {err_conv}")
 
-    f32 = 4
     rows = []
 
     def row(*a):
@@ -688,16 +812,22 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
         lambda: raycast.pass_counts_plain(cfg, p1, k1, e1, origin), 100, 3, None,
         *k1_bound(N, 1, n_kept, n_pass, V))
     rows[-1]["atomic_floor_ms"] = 1e3 * n_pass / rates["int32"]
-    # K2: reads points and keep, writes hit, min_height and the padded sums;
-    # two int32 atomics per in-grid point (hit, min_height), ten float32
-    # atomics per point inside the padded window
+    # K2: reads points and keep, writes hit, min_height, n and the nine
+    # other channels where n > 0 (k2_bound); its library call is the
+    # index_add_ of the ten sums into a buffer zeroed outside the timing: it
+    # leaves out hit, min_height and every fill
     n_grid = int(bins.hit.sum())
     n_win = int(bins.sums[0].sum())
+    n_nz = int((bins.sums[0] > 0).sum())
     row(kernels.BIN, lambda: kernels.bin_points(cfg, pn, keep, origin),
         lambda: binning.bin_points(cfg, pn, keep, origin), 20, 5,
-        lambda: sums_lib.index_add_(1, pflat, vals),
-        N * (3 * f32 + 1) + 2 * V * f32 + 10 * P * f32,
-        max(30 * n_kept / F32_OPS_PER_S, 2 * n_grid / rates["int32"] + 10 * n_win / rates["float32"]))
+        lambda: sums_lib.index_add_(1, pflat, vals), *k2_bound(N, n_kept, V, P, n_nz))
+    rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid, n_win, rates)
+    # the timed launches computed what the wrapper computes
+    _, timed = graph_ms(lambda: kernels.bin_points(cfg, pn, keep, origin), 10)
+    exact("K2 timed launch vs the wrapper: hit", timed.hit, bins.hit)
+    exact("K2 timed launch vs the wrapper: n", timed.sums[0], bins.sums[0])
+    del timed
     # K3: reads hit and writes the slot's ten channels everywhere; reads the
     # sums only inside the ±r box of an occupied voxel (epilogue_bound)
     occ_w = gridops.torus_to_window(bins.hit > 0, origin)
@@ -705,6 +835,10 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     row(kernels.EPI, lambda: kernels.ingest_epilogue(cfg, bins.sums, bins.hit, origin, out, slot),
         lambda: moments.ingest_epilogue_plain(cfg, bins.sums, bins.hit, origin, out, slot), 20, 5,
         lambda: torch.nn.functional.conv3d(conv_in, wconv), k3_bytes, 52 * terms / F32_OPS_PER_S)
+    # K2 then K3, one scan into the slot, against a bound that no design moves
+    pair = pair_row("K2 then K3", lambda: kernels.ingest_epilogue(cfg, *binned(cfg, pn, keep, origin), origin, out,
+                                                                  slot),
+                    20, N, n_kept, V, terms, log)
     # K4: the kernel alone (its meta vector and outputs made once, outside
     # the timing), and the wrapper beside it; what the data makes it read
     # (combine_bound), 4 + 10 channels and five [X, Y] maps written
@@ -742,21 +876,21 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     row(kernels.BIN_SLAB, lambda: kernels.bin_points(cfg, spn, skeep, so, yw),
         lambda: binning.bin_points(cfg, spn, skeep, so, yw), 20, 5,
         lambda: s_lib.index_add_(1, sflat, svals),
-        N * (3 * f32 + 1) + 2 * Vs * f32 + 10 * Ps * f32,
-        max(30 * int(skeep.sum()) / F32_OPS_PER_S, 2 * n_grid_s / rates["int32"] + 10 * n_win_s / rates["float32"]))
+        *k2_bound(N, int(skeep.sum()), Vs, Ps, int((sbins.sums[0] > 0).sum())))
+    rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid_s, n_win_s, rates)
     # K5 slab, mask on (as ingest_scan calls it): K3's count on the slab's rows
     in_slab = torch.zeros((Y,), dtype=torch.bool, device=dev)
     in_slab[ys0:ys0 + Ys] = True
     targets = gridops.torus_to_window((slab["full_hit"] > 0) & in_slab[None, :, None], so)
     s_bytes, s_terms, _, _ = epilogue_bound(cfg, slab["full_n"], targets, Vs, True)
-    s_conv_in = sbins.sums[None]
+    s_conv_in = clean_sums(sbins.sums)[None]
     row(kernels.XBOX_SLAB, lambda: kernels.moments_epilogue(cfg, sbins.sums, sbins.hit, so, yw),
         lambda: moments.moments_epilogue_plain(cfg, sbins.sums, sbins.hit, so, yw), 20, 5,
         lambda: torch.nn.functional.conv3d(s_conv_in, wconv), s_bytes, 52 * s_terms / F32_OPS_PER_S)
     return rows, dict(slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
                                 points_in_scratch=n_win_s, box_terms=s_terms),
                       points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
-                      occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
+                      scratch_nonempty=n_nz, pair_k2_k3=pair, occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
                       box_terms=terms, atomic_rates_per_s=rates, conv_vs_plain_max_abs_err=err_conv)
 
 
@@ -911,14 +1045,16 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
     pn = gridops.map_local(cb, pw, origin)
     bins = kernels.bin_points(cb, pn, keep, origin)
     pb = binning.bin_points(cb, pn, keep, origin)
-    exact(f"K2 hit on {BATCH} scans' merged points", bins.hit, pb.hit)
-    exact(f"K2 min_height on {BATCH} scans' merged points", bins.min_height, pb.min_height)
-    e2 = moments_close(f"K2 sums on {BATCH} scans' merged points", bins.sums, pb.sums, MOM_ATOL_BATCH)
+    what = f"K2 on {BATCH} scans' merged points"
+    exact(f"{what}: hit", bins.hit, pb.hit)
+    exact(f"{what}: min_height", bins.min_height, pb.min_height)
+    e2 = sums_close(what, bins.sums, pb.sums, MOM_ATOL_BATCH)
     err["bin_points"] = max(err["bin_points"], e2)
-    log(f"K2 on {BATCH} scans' merged points vs plain: hit, min_height and n bitwise, sums max abs err {e2}, "
-        f"{100 * tol_share(bins.sums, pb.sums, MOM_ATOL_BATCH):.1f} % of the tolerance (largest voxel hit count "
-        f"{int(bins.hit.max())})")
-    del pb
+    nz = pb.sums[0] > 0
+    log(f"{what} vs plain: hit, min_height and n bitwise, sums where n > 0 max abs err {e2}, "
+        f"{100 * tol_share(bins.sums[:, nz], pb.sums[:, nz], MOM_ATOL_BATCH):.1f} % of the tolerance (largest "
+        f"voxel hit count {int(bins.hit.max())})")
+    del pb, nz
     pm = moments.moments_epilogue_plain(cb, bins.sums, bins.hit, origin, occupancy_mask=False)
     km = kernels.moments_epilogue(cb, bins.sums, bins.hit, origin, occupancy_mask=False)
     e = moments_close(f"K5 mask off on {BATCH} scans' merged points", km, pm, MOM_ATOL_BATCH)
@@ -927,8 +1063,10 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
         f"{100 * tol_share(km, pm, MOM_ATOL_BATCH):.1f} % of the tolerance (largest voxel count "
         f"{int(bins.sums[0].max())})")
     del pm, km
+    nan_blind(f"K5 mask off on {BATCH} scans' merged points",
+              lambda s: kernels.moments_epilogue(cb, s, bins.hit, origin, occupancy_mask=False), bins.sums)
     wconv = box_conv_weights(cb, dev)
-    conv_in = bins.sums[None]
+    conv_in = clean_sums(bins.sums)[None]
     everywhere = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
     k5_bytes, k5_terms, _, k5_nz = epilogue_bound(cb, bins.sums[0], everywhere, V, False)
     row = kernel_row(kernels.XBOX,
@@ -937,20 +1075,37 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
                      20, 5, lambda: torch.nn.functional.conv3d(conv_in, wconv), k5_bytes,
                      52 * k5_terms / F32_OPS_PER_S, log)
     # K2 at N = BATCH · max_points (its row in the kernels line is one scan's)
-    N, P, f32 = pn.shape[0], bins.sums[0].numel(), 4
-    n_grid, n_win = int(bins.hit.sum()), int(bins.sums[0].sum())
-    k2_ms = cuda_ms(lambda: kernels.bin_points(cb, pn, keep, origin), 10)
+    N, P = pn.shape[0], bins.sums[0].numel()
+    n_kept, n_grid, n_win = int(keep.sum()), int(bins.hit.sum()), int(bins.sums[0].sum())
+    n_nz = int((bins.sums[0] > 0).sum())
+    k2_ms, _ = graph_ms(lambda: kernels.bin_points(cb, pn, keep, origin), 20)
+    k2_wrapper_ms = cuda_ms(lambda: kernels.bin_points(cb, pn, keep, origin), 10)
     k2_plain_ms = cuda_ms(lambda: binning.bin_points(cb, pn, keep, origin), 3)
-    k2_bytes_ms = 1e3 * (N * (3 * f32 + 1) + 2 * V * f32 + 10 * P * f32) / HBM_BYTES_PER_S
-    k2_ops_ms = 1e3 * (2 * n_grid / rates["int32"] + 10 * n_win / rates["float32"])
-    k5_on_ms = cuda_ms(lambda: kernels.moments_epilogue(cb, bins.sums, bins.hit, origin), 20)
-    log(f"timing bin_points on {N} merged points: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
-        f"{max(k2_bytes_ms, k2_ops_ms):.4f} ms (bytes {k2_bytes_ms:.4f} ms, atomics {k2_ops_ms:.4f} ms); "
-        f"moments_epilogue with the mask on, same sums: {k5_on_ms:.4f} ms")
-    res.update(merged=dict(points=N, points_kept=int(keep.sum()), points_in_grid=n_grid, points_in_window=n_win,
-                           nonempty_voxels=k5_nz, box_terms=k5_terms, max_voxel_count=int(bins.sums[0].max()),
-                           bin_points_ms=k2_ms, bin_points_plain_ms=k2_plain_ms, bin_points_bytes_ms=k2_bytes_ms,
-                           bin_points_atomics_ms=k2_ops_ms, moments_epilogue_mask_on_ms=k5_on_ms),
+    k2_bytes, k2_ops_s = k2_bound(N, n_kept, V, P, n_nz)
+    k2_bound_ms = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops_s)
+    pflat, vals = index_add_inputs(cb, pn, keep, origin)
+    sums_lib = torch.zeros((10, P), dtype=torch.float32, device=dev)
+    k2_lib_ms = cuda_ms(lambda: sums_lib.index_add_(1, pflat, vals), 10)
+    del pflat, vals, sums_lib
+    k5_on_ms, _ = graph_ms(lambda: kernels.moments_epilogue(cb, bins.sums, bins.hit, origin), 20)
+    log(f"timing bin_points on {N} merged points: launch alone {k2_ms:.4f} ms, wrapper {k2_wrapper_ms:.4f} ms; "
+        f"plain {k2_plain_ms:.4f} ms; index_add_ of the ten sums (hit, min_height and the fills left out) "
+        f"{k2_lib_ms:.4f} ms; bound {k2_bound_ms:.4f} ms (bytes {1e3 * k2_bytes / HBM_BYTES_PER_S:.4f} ms); one "
+        f"atomic a point and channel at the probe's rate {k2_atomic_floor_ms(n_grid, n_win, rates):.4f} ms; "
+        f"moments_epilogue with the mask on, same sums: launch alone {k5_on_ms:.4f} ms")
+    # K2 then K5, as the batched step launches them, against a bound that no design moves
+    pair = pair_row("K2 then K5 (mask off)",
+                    lambda: kernels.moments_epilogue(cb, *binned(cb, pn, keep, origin), origin,
+                                                     occupancy_mask=False),
+                    20, N, n_kept, V, k5_terms, log)
+    res.update(merged=dict(points=N, points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win,
+                           scratch_nonempty=n_nz, nonempty_voxels=k5_nz, box_terms=k5_terms,
+                           max_voxel_count=int(bins.sums[0].max()),
+                           bin_points_ms=k2_ms, bin_points_wrapper_ms=k2_wrapper_ms,
+                           bin_points_plain_ms=k2_plain_ms, bin_points_bound_ms=k2_bound_ms,
+                           bin_points_index_add_ms=k2_lib_ms,
+                           bin_points_atomic_floor_ms=k2_atomic_floor_ms(n_grid, n_win, rates),
+                           moments_epilogue_mask_on_ms=k5_on_ms, pair_k2_k5=pair),
                ray_pass_counts_batch=k1)
     if profile:
         w0 = empty_world_state(cfg, dev)    # the step leaves its input world untouched

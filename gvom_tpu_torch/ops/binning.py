@@ -104,6 +104,13 @@ def scratch_pieces(cfg: GvomConfig, vox: torch.Tensor, keep: torch.Tensor, origi
 
 
 class PointBins(NamedTuple):
+    """One point set's bins. `sums` holds the own-voxel raw sums (n, S1,
+    R2) in the padded window layout, or a slab's scratch. Its count n
+    (channel 0) is defined everywhere; channels 1-9 are defined only where
+    n > 0, a slab's two pieces each on its own: kernel K2 leaves them unset
+    elsewhere, and every consumer (the epilogue, moments.box_aggregate_moments)
+    reads them only there. The plain twin writes zeros there."""
+
     hit: torch.Tensor         # [X,Ys,Z] int32, torus layout
     min_height: torch.Tensor  # [X,Ys,Z] f32, torus layout (1.0 where no point)
     sums: torch.Tensor        # [10, X+2rx, Y+2ry | Ys+4ry, Z+2rz] f32 — own-voxel raw sums, padded window layout

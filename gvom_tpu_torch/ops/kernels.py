@@ -275,7 +275,8 @@ def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: to
     """One point set's binning from map-local coordinates pn [N,3]: returns
     binning.PointBins (hit, min_height torus [X,Ys,Z]; own-voxel sums padded
     [10, Xp, Yp, Zp], or the slab scratch [10, Xp, Ys+4ry, Zp] with
-    y_window = (ys0, Ys), see binning.slab_rows)."""
+    y_window = (ys0, Ys), see binning.slab_rows). The sums' channels 1-9 are
+    defined only where n > 0 (PointBins)."""
     if _is_cpu(pn):
         return binning.bin_points(cfg, pn, keep, origin, y_window)
     dev = pn.device
@@ -286,9 +287,10 @@ def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: to
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
     ys0, Ys = binning.check_y_window(cfg, y_window)
-    hit = torch.zeros((X, Ys, Z), dtype=torch.int32, device=dev)
-    minh = torch.ones((X, Ys, Z), dtype=torch.float32, device=dev)
-    sums = torch.zeros((10,) + binning.padded_shape(cfg, y_window), dtype=torch.float32, device=dev)
+    # the kernel sets hit, min_height and n; channels 1-9 where n > 0
+    hit = torch.empty((X, Ys, Z), dtype=torch.int32, device=dev)
+    minh = torch.empty((X, Ys, Z), dtype=torch.float32, device=dev)
+    sums = torch.empty((10,) + binning.padded_shape(cfg, y_window), dtype=torch.float32, device=dev)
     (BIN_SLAB if binning.is_slab(cfg, y_window) else BIN).launch(
         _ptr(pn), _ptr(keep), _ptr(origin), n, X, Y, Z, rx, ry, rz, ys0, Ys,
         _ptr(hit), _ptr(minh), _ptr(sums), _stream())

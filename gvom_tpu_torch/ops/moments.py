@@ -67,7 +67,10 @@ def box_aggregate_moments(cfg: GvomConfig, sums: torch.Tensor, y_rows=None) -> t
     source v = u + off translated into u's frame. Crops the padding; returns
     [10, X, Y, Z] in the window layout. With y_rows (an index tensor) the
     sums are a slab scratch (binning.slab_rows) and the y crop takes those
-    scratch rows instead: [10, X, len(y_rows), Z]."""
+    scratch rows instead: [10, X, len(y_rows), Z]. Channels 1-9 of the sums
+    are read only where n > 0 (binning.PointBins): they are taken as zero
+    elsewhere, whatever they hold."""
+    sums = torch.where(sums[:1] > 0, sums, torch.zeros((), dtype=sums.dtype, device=sums.device))
     n, s1, s2 = sums[0], sums[1:4], sums[4:10]
     radii = moment_pad(cfg)
     for ax, r in enumerate(radii):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of the port's public per-scan entry points, on one NVIDIA GPU.
+"""Device time of the port's public per-scan entry points and of its
+kernels' launches, on one NVIDIA GPU.
 
-    python3 scripts/time_entry_points.py [--root DIR] [--reps N]
+    python3 scripts/time_entry_points.py [--root DIR] [--reps N] [--batch-cache FILE.npz]
 
 Imports gvom_tpu_torch from DIR (default: this checkout), so that two
 commits unpacked side by side can be timed in one call, each by its own
@@ -15,6 +16,17 @@ times, with CUDA events, the mean of N warm calls of:
   pipeline.ingest_scan         prepare, raycast, binning, moments
   pipeline.ingest_scan(y_window=)      the same for that slab
 
+and, as the card runs them alone (the launches of GRAPH_CALLS calls captured
+once in a CUDA graph and replayed: fills and small launches included, the
+host's pace left out), each kernel wrapper of ops/kernels.py at the shapes
+of its path: K1 on the scan and on the slab; K2 on the scan, on the slab and
+on a batch's merged points; K3 into a ring-buffer slot; K5 with the mask off
+on the batch's sums; the slab epilogue (mask on); and the pairs K2 then K3
+(the scan) and K2 then K5 (the batch). Each epilogue takes its own commit's
+K2 sums. The batch is chip_smoke.py's second batched step: 8 scans made in
+worker processes, repeated to 32 with moving egos; --batch-cache keeps its
+points in a file, written when it is missing.
+
 These signatures are the same since the slab forms came in, whatever each
 commit builds inside them. Prints one JSON line, then the card's name and
 power limit.
@@ -22,10 +34,82 @@ power limit.
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 from pathlib import Path
+
+LIDAR = dict(channels=128, azimuth_steps=2048)
+BATCH, DISTINCT = 32, 8
+GRAPH_CALLS = 10
+
+
+def _scan(job):
+    """(points [max_points,3] f32, valid) of chip_smoke.py's scan i."""
+    root, i, ego, max_points = job
+    sys.path.insert(0, root)
+    from gvom_tpu_torch.io import synthetic
+
+    return synthetic.pad_scan(synthetic.simulate_lidar_scan(synthetic.composite_terrain(), ego, seed=i, **LIDAR),
+                              max_points)
+
+
+def batch_points(root, cfg, cache):
+    """(points [8,N,3], valid [8,N], egos [8,3]) numpy: chip_smoke.py's eight
+    distinct scans, loaded from or written to `cache`."""
+    import numpy as np
+
+    if cache and os.path.exists(cache):
+        z = np.load(cache)
+        return z["points"], z["valid"], z["egos"]
+    egos = [(0.3 + 1.3 * i, -0.2 + 0.7 * i, 1.5 + 0.02 * i) for i in range(DISTINCT)]
+    with ProcessPoolExecutor(max_workers=min(DISTINCT, os.cpu_count() or 1), mp_context=get_context("spawn")) as ex:
+        scans = list(ex.map(_scan, [(root, i, e, cfg.max_points) for i, e in enumerate(egos)]))
+    out = (np.stack([p for p, _ in scans]), np.stack([v for _, v in scans]), np.asarray(egos, np.float32))
+    if cache:
+        np.savez(cache, points=out[0], valid=out[1], egos=out[2])
+    return out
+
+
+def make_batch(pts, valid, egos, step_index=1):
+    """chip_smoke.make_batch: the distinct scans repeated to BATCH, egos
+    advancing (0.02, 0.01, 0) m a scan from a start moved (0.3, 0.15, 0) m a
+    step, each scan's points moved with its ego."""
+    import torch
+
+    dev = pts.device
+    reps = torch.arange(BATCH, device=dev) % pts.shape[0]
+    ego0 = egos[0] + step_index * torch.tensor([0.3, 0.15, 0.0], device=dev)
+    begos = ego0[None, :] + torch.arange(BATCH, dtype=torch.float32, device=dev)[:, None] * torch.tensor(
+        [0.02, 0.01, 0.0], device=dev)
+    shift = begos - egos[reps]
+    return (pts[reps] + shift[:, None, :]).contiguous(), valid[reps].contiguous(), begos.contiguous()
+
+
+def graph_ms(fn, reps):
+    """The card's time for what fn() launches, alone: GRAPH_CALLS calls
+    captured in one CUDA graph, replayed until about reps calls ran."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    n = max(2, reps // GRAPH_CALLS)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (n * GRAPH_CALLS)
 
 
 def cuda_ms(fn, reps, warm=3):
@@ -48,6 +132,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent),
                     help="checkout whose gvom_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--batch-cache", help="npz file of the batch's eight distinct scans (read, or written if missing)")
     args = ap.parse_args(argv)
 
     import torch
@@ -59,8 +144,9 @@ def main(argv=None) -> int:
     from gvom_tpu_torch import GvomConfig
     from gvom_tpu_torch.io import synthetic
     from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.ops import binning, raycast
+    from gvom_tpu_torch.ops import binning, kernels, raycast
     from gvom_tpu_torch.ops import grid as gridops
+    from gvom_tpu_torch.parallel.sharding import prepare_batch
 
     dev = torch.device("cuda")
     cfg = GvomConfig()
@@ -84,6 +170,45 @@ def main(argv=None) -> int:
     }
     for name, fn in calls.items():
         out[name + "_ms"] = cuda_ms(fn, args.reps)
+
+    # ---- each kernel's launches alone ----
+    kernels.build_all()
+    X, Y, Z = cfg.grid_shape
+    pn = gridops.map_local(cfg, p, origin)
+    bp, bv, be = (torch.from_numpy(a).to(dev) for a in batch_points(str(Path(args.root).resolve()), cfg,
+                                                                    args.batch_cache))
+    borigin, bpw, bkeep = prepare_batch(cfg, *make_batch(bp, bv, be))
+    bpn = gridops.map_local(cfg, bpw, borigin)
+    scan_bins = kernels.bin_points(cfg, pn, keep, origin)
+    slab_bins = kernels.bin_points(cfg, pn, keep, origin, yw)
+    batch_bins = kernels.bin_points(cfg, bpn, bkeep, borigin)
+    ring = torch.empty((2, 10, X, Y, Z), dtype=torch.float32, device=dev)
+    slot = torch.ones((1,), dtype=torch.int32, device=dev)
+    p1, k1, e1 = p[None], keep[None], ego.reshape(1, 3)
+
+    def k2_k3():
+        b = kernels.bin_points(cfg, pn, keep, origin)
+        kernels.ingest_epilogue(cfg, b.sums, b.hit, origin, ring, slot)
+
+    def k2_k5():
+        b = kernels.bin_points(cfg, bpn, bkeep, borigin)
+        return kernels.moments_epilogue(cfg, b.sums, b.hit, borigin, occupancy_mask=False)
+
+    launches = {
+        "K1_scan": lambda: kernels.ray_pass_counts(cfg, p1, k1, e1, origin),
+        "K1_slab": lambda: kernels.ray_pass_counts(cfg, p1, k1, e1, origin, y_window=yw),
+        "K2_scan": lambda: kernels.bin_points(cfg, pn, keep, origin),
+        "K2_slab": lambda: kernels.bin_points(cfg, pn, keep, origin, yw),
+        "K2_batch": lambda: kernels.bin_points(cfg, bpn, bkeep, borigin),
+        "K3_scan": lambda: kernels.ingest_epilogue(cfg, scan_bins.sums, scan_bins.hit, origin, ring, slot),
+        "K5_batch_mask_off": lambda: kernels.moments_epilogue(cfg, batch_bins.sums, batch_bins.hit, borigin,
+                                                              occupancy_mask=False),
+        "K5_slab_mask_on": lambda: kernels.moments_epilogue(cfg, slab_bins.sums, slab_bins.hit, origin, yw),
+        "K2_then_K3_scan": k2_k3,
+        "K2_then_K5_batch": k2_k5,
+    }
+    out["batch_points"] = int(bpn.shape[0])
+    out["launch_alone_ms"] = {name: graph_ms(fn, args.reps) for name, fn in launches.items()}
     smi = ""
     if shutil.which("nvidia-smi"):
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gvom_tpu.config import GvomConfig
 from gvom_tpu.io import synthetic
@@ -126,3 +127,31 @@ def test_ingest_scan_with_transform_matches_jax(small_cfg):
     for k in ("hit", "miss", "min_height", "origin"):
         np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
     np.testing.assert_allclose(port["mom"], ref["mom"], rtol=MOM_RTOL, atol=MOM_ATOL)
+
+
+@pytest.mark.parametrize("form", ["ingest", "mask_on", "mask_off", "slab_mask_on", "slab_mask_off"])
+def test_epilogue_twins_read_the_sums_only_where_n_is_positive(form):
+    """Kernel K2 defines channels 1-9 of its sums scratch only where n > 0
+    (binning.PointBins): the plain epilogue twins (K3's, K5's with the mask on
+    and off, the slab's) give the same, finite output when those channels
+    hold NaN everywhere else."""
+    c = tcfg(GvomConfig(xy_size=32, z_size=16, max_points=2048))
+    rng = np.random.default_rng(7)
+    pn = t((rng.uniform(-1.5, 33.5, (3000, 3)) * np.array([1.0, 1.0, 0.5])).astype(np.float32))
+    keep = t(rng.uniform(size=3000) > 0.2)
+    origin = t(np.array([5, 27, -3], np.int32))        # the window seam at torus row 27, inside the slab
+    y_window = (16, 16) if form.startswith("slab") else None
+    bins = tbinning.bin_points(c, pn, keep, origin, y_window)
+    poisoned = bins.sums.clone()
+    poisoned[1:, bins.sums[0] == 0] = float("nan")
+    if form == "ingest":
+        def run(sums):
+            out = torch.zeros((2, 10) + c.grid_shape)
+            return tmoments.ingest_epilogue_plain(c, sums, bins.hit, origin, out, t(np.array([1], np.int32)))
+    else:
+        def run(sums):
+            return tmoments.moments_epilogue_plain(c, sums, bins.hit, origin, y_window, form.endswith("mask_on"))
+    ref, got = run(bins.sums), run(poisoned)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert bool((ref[..., 1:4, :, :, :] != 0).any() if form == "ingest" else (ref[1:4] != 0).any())
