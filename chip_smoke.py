@@ -55,7 +55,22 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      points against their plain versions, timed;
   6. runs batched_replay over a synthesized log of 8 scans on a small grid,
      batch 4, against the same replay on the CPU, with a checkpoint written,
-     loaded, and the resumed run's world equal to the straight run's.
+     loaded, and the resumed run's world equal to the straight run's;
+  7. drives the live mapper's host path at the upstream deployment: the
+     PointCloud2 decode (native and NumPy paths, timed, bitwise the same);
+     VoxelMapperNode for about 3 s under two sensor threads at 10 Hz each,
+     which decode serialized PointCloud2 payloads through the native path,
+     while a timer thread on rospy.Timer's schedule runs the ROS node's
+     timer callback at 10 Hz: publish the maps, then the debug clouds
+     (launch counts set to 0 just before and read just after; any exception
+     in a thread fails the run); reset, then the same 8 scans twice (the
+     second reset from a thread on another CUDA stream), the layers bitwise
+     the same and the products a fresh Gvom's; the
+     three exporters at the full grid, timed, against the same exporters on
+     the world copied to the CPU; a bz2-chunked bag of the 8 scans through
+     `cli convert-bag` and sequential_replay, bitwise the facade's (an lz4
+     chunk on a small bag); `cli replay` (sequential and batched) and `cli
+     selftest` as subprocesses, each exiting 0.
 
 Prints the timings, one JSON line {"kernels": [...]}, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
@@ -83,12 +98,7 @@ from multiprocessing import get_context
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# f32 moment sums taken in another order (atomics, the 27-voxel box) than the
-# plain version's: relative error grows with the number of terms, up to a few
-# thousand near the ego
-MOM_RTOL = 1e-4
-MOM_ATOL = 1e-3
+sys.path.insert(0, str(ROOT))
 # a batched step sums every scan of its batch into one voxel: up to 32 times
 # the terms, and the absolute error of an unordered f32 sum grows with them.
 # Seen on an H100 (700 W): max abs error 9.8e-4 for one scan, 3.9e-3 for a
@@ -131,61 +141,6 @@ def make_scans(cfg, n, lidar):
     jobs = [(i, e, cfg.max_points, lidar) for i, e in enumerate(egos)]
     with ProcessPoolExecutor(max_workers=min(n, os.cpu_count() or 1), mp_context=get_context("spawn")) as ex:
         return list(ex.map(_scan, jobs))
-
-
-class Failed(Exception):
-    pass
-
-
-def check(cond, what):
-    if not cond:
-        raise Failed(what)
-
-
-def exact(name, a, b):
-    check(a.shape == b.shape and a.dtype == b.dtype, f"{name}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
-    n = int((a != b).sum())
-    check(n == 0, f"{name}: {n} elements differ from the plain version")
-    return 0.0
-
-
-def close(name, a, b, atol=MOM_ATOL):
-    import torch
-
-    check(a.shape == b.shape, f"{name}: shape {a.shape} vs {b.shape}")
-    ok = torch.isclose(a, b, rtol=MOM_RTOL, atol=atol)
-    n = int((~ok).sum())
-    err = float((a - b).abs().max()) if a.numel() else 0.0
-    check(n == 0, f"{name}: {n} elements outside rtol={MOM_RTOL} atol={atol} (max abs err {err})")
-    return err
-
-
-def tol_share(a, b, atol):
-    """The largest |a − b| as a share of its tolerance atol + MOM_RTOL·|b|."""
-    return float(((a - b).abs() / (atol + MOM_RTOL * b.abs())).max())
-
-
-def moments_close(name, a, b, atol=MOM_ATOL):
-    """[10, ...] moments: the count n bitwise, the nine sums within tolerance."""
-    exact(f"{name} n", a[0], b[0])
-    return close(f"{name} moments", a, b, atol)
-
-
-def sums_close(name, a, b, atol=MOM_ATOL):
-    """K2's own-voxel sums [10, ...]: n bitwise, the nine other channels
-    within tolerance where n > 0, the only voxels where they are defined
-    (binning.PointBins)."""
-    exact(f"{name} n", a[0], b[0])
-    nz = b[0] > 0
-    return close(f"{name} sums where n > 0", a[:, nz], b[:, nz], atol)
-
-
-def clean_sums(sums):
-    """The sums with channels 1-9 set to 0 where n == 0, as the plain twins
-    read them."""
-    import torch
-
-    return torch.where(sums[:1] > 0, sums, torch.zeros((), dtype=sums.dtype, device=sums.device))
 
 
 def nan_blind(name, fn, sums):
@@ -1192,6 +1147,370 @@ def phase6_replay(log):
         f"from the first checkpoint it ends in the straight run's world ({int((world.grid.hit > 0).sum())} occupied)")
 
 
+# ----------------------------------------------------------------------
+# 7. the live mapper's host path
+
+
+OS1_POINT_STEP = 48     # an Ouster OS1 PointCloud2 point: x, y, z at 0, 4, 8, intensity at 16, ...
+SENSOR_HZ = 10.0        # each sensor thread's scan rate (the timer combines at cfg.combine_freq)
+NODE_SECONDS = 3.0      # how long the node runs under load
+EIGEN_ATOL = 2e-3       # the exporter's eigen columns: f32 acos/cos on the card and on the CPU
+
+
+def os1_payload(points):
+    """(PointCloud2 payload, CloudSpec) of points [N,3] in the Ouster
+    ROS package's 48-byte point layout (the fields after z are zero)."""
+    import numpy as np
+
+    from gvom_tpu_torch.io.pointcloud2 import CloudSpec, PointField
+
+    buf = np.zeros((len(points), OS1_POINT_STEP // 4), np.float32)
+    buf[:, :3] = points
+    fields = [PointField(c, 4 * i, 7) for i, c in enumerate("xyz")] + [PointField("intensity", 16, 7)]
+    return buf.tobytes(), CloudSpec(fields=fields, point_step=OS1_POINT_STEP, width=len(points))
+
+
+def decode_rates(payloads, log):
+    """Points and bytes a second of the native and the NumPy PointCloud2
+    decode over the payloads (host clock, best of three passes); both give
+    bitwise the same points."""
+    import numpy as np
+
+    from gvom_tpu_torch.io.pointcloud2 import pointcloud2_to_xyz
+
+    out, res = {}, {}
+    for path in ("native", "numpy"):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out[path] = [pointcloud2_to_xyz(d, s, use_native=path == "native") for d, s in payloads]
+            best = min(best, time.perf_counter() - t0)
+        n = sum(len(x) for x in out[path])
+        res[path] = dict(s=best, points_per_s=n / best, bytes_per_s=sum(len(d) for d, _ in payloads) / best)
+    for a, b in zip(out["native"], out["numpy"]):
+        check(np.array_equal(a, b), "PointCloud2 decode: the native and the NumPy paths differ")
+    log(f"phase 7 decode: {len(payloads)} PointCloud2 payloads of {OS1_POINT_STEP}-byte points, native "
+        f"{res['native']['points_per_s'] / 1e6:.1f} M points/s ({res['native']['bytes_per_s'] / 1e9:.2f} GB/s), "
+        f"NumPy {res['numpy']['points_per_s'] / 1e6:.1f} M points/s ({res['numpy']['bytes_per_s'] / 1e9:.2f} GB/s); "
+        "the same points")
+    return res
+
+
+def ros_timer(period, callback, stop):
+    """Call callback on rospy.Timer's schedule (rospy.Rate.sleep) until stop
+    is set: a tick every period from the start, at once when the last one
+    ran late, and from now when more than two periods behind."""
+    last = time.perf_counter()
+    while True:
+        now = time.perf_counter()
+        if stop.wait(max(0.0, last + period - now)):
+            return
+        last += period
+        if now - last > 2 * period:
+            last = now
+        callback()
+
+
+def phase7_node_under_load(cfg, scans, payloads, log):
+    """VoxelMapperNode on the card for NODE_SECONDS: two sensor threads, each
+    decoding a PointCloud2 payload through the native path and ingesting it
+    SENSOR_HZ times a second, while a timer thread on rospy.Timer's schedule
+    at cfg.combine_freq runs the body of the ROS node's timer callback
+    (GvomRosNode.cb_timer): publish the maps, then the debug clouds. The
+    launch counts are set to 0 just before and read just after. Any
+    exception in a thread fails the run."""
+    import threading
+
+    import torch
+
+    from gvom_tpu_torch import VoxelMapperNode
+    from gvom_tpu_torch.io.pointcloud2 import decode_path, pointcloud2_to_xyz
+    from gvom_tpu_torch.ops import kernels
+
+    published, ticks = {}, []
+
+    def publisher(name, data, meta):   # called from the timer thread only
+        published[name] = published.get(name, 0) + 1
+
+    node = VoxelMapperNode(config=cfg, publisher=publisher)
+    paths = sorted({decode_path(spec) for _, spec in payloads})
+    check(paths == ["native"], f"the sensor threads' decode path is {paths}, not the native one")
+    n_per = int(NODE_SECONDS * SENSOR_HZ)
+    errors, decode_s = [], []
+
+    def sensor(tid):
+        try:
+            t0 = time.perf_counter()
+            for k in range(n_per):
+                i = (2 * k + tid) % len(payloads)
+                t1 = time.perf_counter()
+                xyz = pointcloud2_to_xyz(*payloads[i], use_native=True)
+                decode_s.append(time.perf_counter() - t1)
+                node.on_odometry(scans[i][2])
+                node.on_pointcloud(xyz)
+                time.sleep(max(0.0, t0 + (k + 1) / SENSOR_HZ - time.perf_counter()))
+        except Exception as e:  # fails the run below
+            errors.append(e)
+
+    def cb_timer():
+        t1 = time.perf_counter()
+        if node.publish_maps() is not None:
+            node.publish_debug()
+            ticks.append(time.perf_counter() - t1)
+
+    def timer(stop):
+        try:
+            ros_timer(1.0 / cfg.combine_freq, cb_timer, stop)
+        except Exception as e:  # fails the run below
+            errors.append(e)
+
+    stop = threading.Event()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ticker = threading.Thread(target=timer, args=(stop,), name="timer")
+    ticker.start()
+    threads = [threading.Thread(target=sensor, args=(t,), name=f"sensor-{t}") for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=NODE_SECONDS + 60)
+    stop.set()
+    ticker.join(timeout=60)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(not any(t.is_alive() for t in threads + [ticker]), "a sensor or the timer thread did not end")
+    check(not errors, f"a sensor or the timer thread failed: {errors[0]!r}" if errors else "")
+    snap = node.metrics.snapshot()
+    counters, stats = snap["counters"], snap["timings"]
+    scans_in, combines = counters.get("scans", 0), counters.get("combines", 0)
+    check(scans_in == 2 * n_per, f"node: {scans_in} scans ingested of {2 * n_per}")
+    check(combines > 0, "node: no map was published")
+    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue"):
+        check(launches[name] == scans_in, f"node: kernel {name} launched {launches[name]} times for {scans_in} scans")
+    check(launches["combine"] == combines, f"node: K4 launched {launches['combine']} times for {combines} combines")
+    for name in ("hard_obstacle_map", "roughness_map", "debug/voxel", "debug/height_map", "debug/inferred_height_map"):
+        check(published.get(name) == combines, f"node: {name} published {published.get(name)} times, "
+              f"{combines} maps")
+    res = dict(seconds=elapsed, scans=scans_in, maps=combines, maps_per_s=combines / elapsed,
+               combine_freq=cfg.combine_freq, sensor_hz=SENSOR_HZ, sensors=2,
+               decode_ms_median=1e3 * statistics.median(decode_s),
+               tick_ms_median=1e3 * statistics.median(ticks), tick_ms_max=1e3 * max(ticks),
+               **{f"{k}_ms_{q}": 1e3 * stats[f"{k}_s"][q] for k in ("ingest", "combine") for q in ("median", "p95")})
+    log(f"phase 7 node: {scans_in} scans from two sensor threads at {SENSOR_HZ:g} Hz each (native decode, median "
+        f"{res['decode_ms_median']:.3f} ms), {combines} maps published with the debug clouds in {elapsed:.2f} s "
+        f"by the ROS node's timer callback on rospy.Timer's schedule ({res['maps_per_s']:.2f} Hz against "
+        f"combine_freq {cfg.combine_freq:g} Hz; a tick, maps and debug clouds, median {res['tick_ms_median']:.3f} "
+        f"ms, max {res['tick_ms_max']:.3f} ms); on_pointcloud median "
+        f"{res['ingest_ms_median']:.3f} ms p95 {res['ingest_ms_p95']:.3f} ms (enqueue, no sync), combine median "
+        f"{res['combine_ms_median']:.3f} ms p95 {res['combine_ms_p95']:.3f} ms (host clock, its sync included); "
+        f"launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    return node, launches, res
+
+
+def to_device(x, dev):
+    """A state dataclass of the port with every tensor moved to dev."""
+    return dataclasses.replace(x, **{f.name: (to_device(v, dev) if dataclasses.is_dataclass(v) else v.to(dev))
+                                     for f in dataclasses.fields(x) for v in [getattr(x, f.name)]})
+
+
+def phase7_determinism_and_exporters(node, scans, log):
+    """reset, then the same scans single-threaded through the node, twice:
+    the layers bitwise equal between the runs, and every MapProducts field
+    bitwise equal to a fresh Gvom's fed the same scans. Then the three
+    exporters at the full grid, timed, against the same exporters on the
+    world and products copied to the CPU: the voxel map's columns 0-4 and
+    the height maps bitwise, the eigen columns within EIGEN_ATOL. The
+    second reset is called from a thread on another CUDA stream, and the
+    scans follow it at once."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gvom_tpu_torch import Gvom
+
+    cfg = node.config
+
+    def reset_on_a_side_stream():
+        """reset from a thread whose current stream is not the facade's."""
+        errors = []
+
+        def body():
+            try:
+                with torch.cuda.stream(torch.cuda.Stream()):
+                    node.engine.reset()
+            except Exception as e:  # fails the run below
+                errors.append(e)
+
+        t = threading.Thread(target=body)
+        t.start()
+        t.join(timeout=60)
+        check(not t.is_alive() and not errors, f"reset on a side stream: {errors or 'did not end'}")
+
+    def run(reset):
+        reset()
+        check(node.engine.products is None and node.engine.combine_maps() is None, "reset left a map behind")
+        layers, prods = [], []
+        for pad, mask, ego in scans:
+            node.on_odometry(ego)
+            node.on_pointcloud(pad[mask])
+            out = node.publish_maps()
+            check(out is not None, "node after reset: no map published")
+            layers.append(out.layers)
+            prods.append(node.engine.products)
+        return layers, prods
+
+    first, _ = run(node.engine.reset)
+    second, prods = run(reset_on_a_side_stream)
+    for i, (a, b) in enumerate(zip(first, second)):
+        for name in a:
+            check(np.array_equal(a[name], b[name]), f"after reset, scan {i}: layer {name} differs from the first run")
+    fresh, fresh_out = Gvom(config=cfg), []
+    for i, (pad, mask, ego) in enumerate(scans):
+        fresh.process_pointcloud(pad[mask], ego)
+        fresh_out.append(fresh.combine_maps())
+        for name in PRODUCT_FIELDS:
+            exact(f"node after reset vs a fresh Gvom, scan {i}: {name}", getattr(prods[i], name),
+                  getattr(fresh.products, name))
+
+    eng = node.engine
+    cpu = Gvom(config=cfg, device="cpu")
+    cpu._world, cpu._products = to_device(eng.world_state, "cpu"), to_device(eng.products, "cpu")
+    times, err = {}, 0.0
+    for name in ("make_debug_voxel_map", "make_debug_height_map", "make_debug_inferred_height_map"):
+        fn, reps = getattr(eng, name), []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()                         # ends in copies to the host
+            reps.append(time.perf_counter() - t0)
+        times[name] = dict(ms_median_warm=1e3 * statistics.median(reps[1:]), rows=len(out))
+        ref = getattr(cpu, name)()
+        check(out.shape == ref.shape and out.dtype == ref.dtype, f"{name}: {out.shape} vs the CPU's {ref.shape}")
+        bitwise = 5 if name == "make_debug_voxel_map" else out.shape[1]
+        check(np.array_equal(out[:, :bitwise], ref[:, :bitwise]), f"{name}: columns 0-{bitwise - 1} differ from the CPU")
+        if bitwise < out.shape[1]:
+            err = float(np.abs(out[:, bitwise:] - ref[:, bitwise:]).max())
+            check(err <= EIGEN_ATOL, f"{name}: eigen columns differ from the CPU by {err}")
+    check(times["make_debug_voxel_map"]["rows"] == int((eng.world_state.grid.hit > 0).sum()), "voxel map rows")
+    log(f"phase 7 reset: two runs of {len(scans)} scans after reset (the second from a thread on a side stream) "
+        f"publish bitwise the same layers, and the "
+        f"products equal a fresh Gvom's; exporters at the full grid match the CPU's (eigen max abs err {err:.3g}), "
+        + ", ".join(f"{k[len('make_debug_'):]} {v['rows']} rows {v['ms_median_warm']:.3f} ms" for k, v in times.items()))
+    return fresh.products, fresh_out, dict(exporters=times, eigen_max_abs_err=err)
+
+
+def start_cli(*args):
+    return subprocess.Popen([sys.executable, "-m", "gvom_tpu_torch.cli", *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_result(name, proc, timeout):
+    """The last line of a CLI process's output as JSON; it must exit 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise Failed(f"cli {name}: still running after {timeout} s")
+    check(proc.returncode == 0, f"cli {name}: exit code {proc.returncode}: {err[-3000:]}")
+    return json.loads(out.splitlines()[-1])
+
+
+def phase7_bag_round_trip(cfg, scans, fresh_products, fresh_out, log):
+    """A bz2-chunked bag of the scans and their odometry, converted by `cli
+    convert-bag` in a temporary directory and replayed by sequential_replay
+    on the card: the scan log holds the scans bitwise, and the replay's
+    outputs and products equal the facade's fed the original scans. An lz4
+    chunk is round-tripped on a small bag (the LZ4 codec is pure Python)."""
+    import numpy as np
+
+    from gvom_tpu_torch import sequential_replay
+    from gvom_tpu_torch.io import rosbag
+    from gvom_tpu_torch.io.logio import load_log
+
+    def messages(pts_of):
+        msgs = []
+        for i, (pad, mask, ego) in enumerate(scans):
+            t = 100.0 + 0.1 * i
+            msgs.append(("/odom", "nav_msgs/Odometry", t - 0.05, rosbag.serialize_odometry(ego, t - 0.05)))
+            msgs.append(("/os_cloud_node/points", "sensor_msgs/PointCloud2", t,
+                         rosbag.serialize_pointcloud2(pts_of(pad[mask]), t)))
+        return msgs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bag, out = os.path.join(tmp, "drive.bag"), os.path.join(tmp, "drive.npz")
+        t0 = time.perf_counter()
+        rosbag.write_minimal_bag(bag, messages(lambda p: p), chunked="bz2")
+        bag_mb = os.path.getsize(bag) / 1e6
+        conv = cli_result("convert-bag", start_cli("convert-bag", bag, out), 600)
+        slog = load_log(out)
+        convert_s = time.perf_counter() - t0
+        small = os.path.join(tmp, "small.bag")
+        rosbag.write_minimal_bag(small, messages(lambda p: p[:1000]), chunked="lz4")
+        small_log = rosbag.bag_to_scanlog(small)
+    check(conv["scans"] == len(slog) == len(small_log) == len(scans), f"bag round trip: {conv['scans']} scans")
+    for i, ((pts, ego, tf), (sp, se, _), (pad, mask, e)) in enumerate(zip(slog, small_log, scans)):
+        check(np.array_equal(pts, pad[mask]) and np.array_equal(ego, e) and tf is None, f"bz2 bag: scan {i}")
+        check(np.array_equal(sp, pad[mask][:1000]) and np.array_equal(se, e), f"lz4 bag: scan {i}")
+    engine, outputs, _ = sequential_replay(cfg, slog)
+    for i, (a, b) in enumerate(zip(outputs, fresh_out)):
+        for name, x, y in zip(("origin", "positive", "negative", "roughness", "visibility"), a, b):
+            check(np.array_equal(x, y), f"replay of the converted bag, combine {i}: {name} differs from the facade's")
+    for name in PRODUCT_FIELDS:
+        exact(f"replay of the converted bag: product {name}", getattr(engine.products, name),
+              getattr(fresh_products, name))
+    log(f"phase 7 bag: {len(scans)} scans in a bz2-chunked bag of {bag_mb:.1f} MB, written and converted by "
+        f"cli convert-bag in {convert_s:.2f} s; sequential_replay of the log gives bitwise the facade's outputs "
+        f"and products; an lz4-chunked bag of {len(scans)} small scans reads back bitwise")
+    return dict(bag_mb=bag_mb, write_and_convert_s=convert_s)
+
+
+def phase7_cli(procs, log):
+    """`cli replay` (sequential and batched, their defaults) and `cli
+    selftest`, started together earlier: each exits 0; the replays report
+    their kernel launches, the selftest its verdict."""
+    res = {name: cli_result(name, p, 900) for name, p in procs.items()}
+    seq, bat, st = res["replay sequential"], res["replay batched"], res["selftest"]
+    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
+        check(seq["launches"].get(name) == seq["scans"], f"cli replay --sequential: {name} launches {seq['launches']}")
+    for name in ("ray_pass_counts", "bin_points", "moments_epilogue"):
+        check(bat["launches"].get(name) == bat["batches"], f"cli replay: {name} launches {bat['launches']}")
+    check(st["ok"] is True, f"cli selftest: {st.get('error')}")
+    from gvom_tpu_torch.ops import kernels
+
+    missing = sorted(k.name for k in kernels.KERNELS if not st["launches"].get(k.name))
+    check(not missing, f"cli selftest launched no {missing}")
+    log(f"phase 7 cli: replay --sequential {seq['scans']} scans (launches {seq['launches']}), replay "
+        f"{bat['scans']} scans in {bat['batches']} batches (launches {bat['launches']}), selftest ok over "
+        f"{st['scans']} scans at {st['grid']} ({len(st['checks'])} error maxima, all within tolerance)")
+    return res
+
+
+def phase7_host_path(cfg, scans, log):
+    """The live mapper's host path: the node under load, reset and the
+    exporters, the bag round trip, and the CLI (started as subprocesses
+    once the timed parts are done, and read at the end)."""
+    payloads = [os1_payload(pad[mask]) for pad, mask, _ in scans]
+    res = dict(decode=decode_rates(payloads, log))
+    node, launches, res["node"] = phase7_node_under_load(cfg, scans, payloads, log)
+    products, outs, res["reset_and_exporters"] = phase7_determinism_and_exporters(node, scans, log)
+    del node
+    procs = {"replay sequential": start_cli("replay", "--sequential"), "replay batched": start_cli("replay"),
+             "selftest": start_cli("selftest")}
+    try:
+        res["bag"] = phase7_bag_round_trip(cfg, scans, products, outs, log)
+        res["cli"] = phase7_cli(procs, log)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return launches, res
+
+
 def phase_end_to_end(cfg, scans, dev, log):
     """Device time (CUDA events) of the warmed per-scan ingest and combine,
     called through the pipeline on tensors already on the card."""
@@ -1259,15 +1578,68 @@ def profile_calls(steps, log):
     return out
 
 
+def profile_node(cfg, scans, log):
+    """torch.profiler over one warm tick of the node on the card (ingest a
+    scan, publish the maps, publish the debug clouds, the card synchronized
+    after each): the device time of each region that
+    utils.profiling.annotate marks (gvom/ingest, gvom/combine, gvom/export)
+    and of the whole tick. A kernel belongs to the region whose host range
+    began last before it started: the synchronizations keep each region's
+    kernels after its start and before the next's. (The profiler ties the
+    kernels launched through ctypes to no region of its own.)"""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gvom_tpu_torch import VoxelMapperNode
+
+    node = VoxelMapperNode(config=cfg)
+    pad, mask, ego = scans[0]
+
+    def tick():
+        node.on_odometry(ego)
+        for step in (lambda: node.on_pointcloud(pad[mask]), node.publish_maps, node.publish_debug):
+            step()
+            torch.cuda.synchronize()
+
+    tick()
+    tick()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tick()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.events()
+    marks = sorted((ev.time_range.start, ev.name) for ev in events
+                   if ev.name.startswith("gvom/") and ev.device_type == torch.autograd.DeviceType.CPU)
+    starts = [t for t, _ in marks]
+    regions, dev_us = {}, 0.0
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith("gvom/"):
+            continue   # host events, and the profiler's own spans of the regions on the device
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        name = marks[i][1] if i >= 0 else "before the first region"
+        regions[name] = regions.get(name, 0.0) + ev.time_range.elapsed_us()
+        dev_us += ev.time_range.elapsed_us()
+    out = dict(wall_us=wall_us, device_us=dev_us, regions_device_us=regions)
+    log(f"profile node tick (synchronized after each step): host span {wall_us:.1f} us, device busy {dev_us:.1f} us "
+        f"({100 * dev_us / wall_us:.1f} %); by region (device us): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(regions.items())))
+    return out
+
+
 def phase_profile(cfg, scans, dev, log):
-    """torch.profiler over one warm ingest_and_insert and one warm combine."""
+    """torch.profiler over one warm ingest_and_insert and one warm combine,
+    and one tick of the node by region."""
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
 
     buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
     p, v, e = scan_tensors(scans[0], dev)
-    return profile_calls(dict(ingest=lambda: pipeline.ingest_and_insert(cfg, buf, p, v, e),
-                              combine=lambda: pipeline.combine(cfg, buf, world, e)), log)
+    out = profile_calls(dict(ingest=lambda: pipeline.ingest_and_insert(cfg, buf, p, v, e),
+                             combine=lambda: pipeline.combine(cfg, buf, world, e)), log)
+    out["node"] = profile_node(cfg, scans, log)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1275,7 +1647,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--scans", type=int, default=8, help="scans of the facade drive (default 8)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one ingest, one combine and one batched step with torch.profiler")
+                    help="also trace one ingest, one combine, one batched step and one tick of the node "
+                         "with torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -1283,13 +1656,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     try:
-        from gvom_tpu_torch import GvomConfig
-        from gvom_tpu_torch.ops import kernels
+        import gvom_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the gvom_tpu_torch package is not beside this script: {e}", file=sys.stderr)
         return 3
+    # the comparisons that the port's selftest shares (MOM_RTOL, MOM_ATOL: see there), for every phase below
+    global MOM_ATOL, MOM_RTOL, Failed, check, clean_sums, close, exact, moments_close, sums_close, tol_share
+    from gvom_tpu_torch.utils.compare import (MOM_ATOL, MOM_RTOL, Failed, check, clean_sums, close, exact,
+                                              moments_close, sums_close, tol_share)
+    try:
+        return run(args, torch)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+
+def run(args, torch) -> int:
+    from gvom_tpu_torch import GvomConfig
+    from gvom_tpu_torch.ops import kernels
 
     def log(msg):
         print(msg, flush=True)
@@ -1328,6 +1713,7 @@ def main(argv=None) -> int:
     report["end_to_end"] = phase_end_to_end(cfg, scans, dev, log)
     batched_launches, k5_row, report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err, args.profile)
     phase6_replay(log)
+    node_launches, report["host_path"] = phase7_host_path(cfg, scans, log)
     if args.profile:
         report["profile"] = phase_profile(cfg, scans, dev, log)
 
@@ -1340,12 +1726,16 @@ def main(argv=None) -> int:
         r["launches"] = own[r["name"]]
         r["launches_batched_path"] = batched_launches[r["name"]]
         r["launches_slab_path"] = slab_launches[r["name"]]
+        r["launches_node_path"] = node_launches[r["name"]]
         r["max_abs_err"] = err[r["name"]]
         check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")
+        if r["name"] in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
+            check(r["launches_node_path"] > 0, f"kernel {r['name']} was launched no time on the node's path")
     check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS], "the kernels line misses a kernel")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    line = {"kernels": [{k: r[k] for k in keys + ("atomic_floor_ms", "wrapper_ms") if k in r} for r in rows]}
+    line = {"kernels": [{k: r[k] for k in keys + ("atomic_floor_ms", "wrapper_ms", "launches_node_path") if k in r}
+                        for r in rows]}
     smi = []
     if shutil.which("nvidia-smi"):
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1363,8 +1753,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    try:
-        sys.exit(main())
-    except Failed as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        sys.exit(1)
+    sys.exit(main())

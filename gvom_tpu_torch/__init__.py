@@ -8,22 +8,29 @@ jax and nothing of gvom_tpu.
 Public API:
     GvomConfig  — frozen configuration
     Gvom        — reference-shaped engine facade (process_pointcloud /
-                  combine_maps / get_map_as_occupancy_grid); runs on the GPU
-                  unless device="cpu" is passed
+                  combine_maps / get_map_as_occupancy_grid / the debug
+                  exporters / reset / checkpoints); runs on the GPU unless
+                  device="cpu" is passed
+    VoxelMapperNode, MapLayers
+                — the live host node: sensor callbacks, a combine timer and
+                  the published layers (gvom_tpu_torch.ros wraps it in ROS)
     pipeline    — the functions under the facade (ingest_scan,
                   ingest_and_insert, combine, full_step)
     make_batched_step, batched_step
                 — a batch of (scan, ego) pairs fused into the world per step
     sequential_replay, batched_replay
                 — scan-log replay functions (io.logio holds the log format,
-                  utils.checkpoint the world snapshots)
+                  io.rosbag reads bags, utils.checkpoint the world snapshots)
+
+Command line: python -m gvom_tpu_torch.cli {replay,convert-bag,selftest}.
 """
 
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.engine.gvom import Gvom
+from gvom_tpu_torch.engine.node import MapLayers, VoxelMapperNode
 from gvom_tpu_torch.engine.replay import batched_replay, sequential_replay
 from gvom_tpu_torch.models import pipeline
 from gvom_tpu_torch.parallel.sharding import batched_step, make_batched_step
 
-__all__ = ["GvomConfig", "Gvom", "pipeline", "make_batched_step", "batched_step", "sequential_replay",
-           "batched_replay"]
+__all__ = ["GvomConfig", "Gvom", "VoxelMapperNode", "MapLayers", "pipeline", "make_batched_step", "batched_step",
+           "sequential_replay", "batched_replay"]

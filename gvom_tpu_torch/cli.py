@@ -1,0 +1,221 @@
+"""Command-line tools of the port (the counterpart of gvom_tpu/cli.py).
+
+    python -m gvom_tpu_torch.cli replay --scans 32 --batch 8      # batched replay on the GPU
+    python -m gvom_tpu_torch.cli replay --scans 16 --sequential   # facade replay (the live node's path)
+    python -m gvom_tpu_torch.cli convert-bag drive.bag drive.npz  # rosbag -> .npz scan log, no ROS needed
+    python -m gvom_tpu_torch.cli selftest                         # CUDA kernels vs their plain versions
+
+`replay` runs on the CUDA GPU unless `--device cpu` is passed and prints one
+JSON line with its metrics and each kernel's launches. `selftest` needs the
+GPU: it holds every kernel against its plain PyTorch version at the upstream
+shapes, prints one JSON verdict line and exits non-zero on a mismatch or
+when there is no GPU. The JAX package's `parity` (against the NumPy oracle)
+and `bench` have no counterpart here yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def _launches():
+    from gvom_tpu_torch.ops import kernels
+
+    return {k.name: k.launches for k in kernels.KERNELS if k.launches}
+
+
+def cmd_replay(args):
+    from gvom_tpu_torch.config import GvomConfig
+    from gvom_tpu_torch.engine.replay import batched_replay, sequential_replay
+    from gvom_tpu_torch.io.logio import synthesize_log
+    from gvom_tpu_torch.types import resolve_device
+
+    try:
+        resolve_device(args.device)   # no GPU: refuse before the log is made
+    except RuntimeError as e:
+        print(f"replay: {e}", file=sys.stderr)
+        return 2
+    cfg = GvomConfig(xy_size=args.grid, z_size=args.grid_z, max_points=args.points)
+    log = synthesize_log(args.scans, channels=args.channels, azimuth_steps=args.azimuth)
+    if args.sequential:
+        engine, outputs, metrics = sequential_replay(cfg, log, device=args.device)
+        out = {"mode": "sequential", "scans": len(log)}
+    else:
+        world, products, metrics = batched_replay(cfg, log, batch_size=args.batch, device=args.device)
+        out = {"mode": "batched", "scans": len(log), "batches": len(products)}
+    print(json.dumps({**out, "device": args.device, "launches": _launches(), **metrics.snapshot()}, default=float))
+    return 0
+
+
+def cmd_convert_bag(args):
+    from gvom_tpu_torch.io.logio import save_log
+    from gvom_tpu_torch.io.rosbag import bag_to_scanlog
+
+    tf = None
+    if args.transform is not None:
+        tf = np.loadtxt(args.transform).reshape(-1, 4)
+    log = bag_to_scanlog(
+        args.bag, cloud_topic=args.cloud_topic, odom_topic=args.odom_topic,
+        transform=tf, max_scans=args.max_scans,
+    )
+    save_log(args.out, log)
+    pts = [len(p) for p, _, _ in log]
+    print(json.dumps({
+        "bag": args.bag, "out": args.out, "scans": len(log),
+        "points_min": min(pts) if pts else 0, "points_max": max(pts) if pts else 0,
+    }))
+    return 0
+
+
+def _selftest_checks(cfg, scan, ego_np, Ys, checks):
+    """Every kernel against its plain version on one scan on the card: K1,
+    K2, K5 (mask on and off) on the full grid and on the quarter slab that
+    holds the window seam, K3 into a ring-buffer slot."""
+    import torch
+
+    from gvom_tpu_torch.ops import binning, kernels, moments, raycast
+    from gvom_tpu_torch.ops import grid as gridops
+    from gvom_tpu_torch.utils.compare import exact, moments_close, sums_close
+
+    dev = torch.device("cuda")
+    pts, valid = (torch.from_numpy(a).to(dev) for a in scan)
+    ego = torch.tensor(ego_np, dtype=torch.float32, device=dev)
+    p, keep = binning.prepare_points(cfg, pts, valid, ego)
+    origin = gridops.compute_origin(cfg, ego)
+    pn = gridops.map_local(cfg, p, origin)
+    m = raycast.march_inputs(cfg, p, keep, ego, origin)
+    seam = int(origin[1]) % cfg.xy_size // Ys * Ys
+    X, Y, Z = cfg.grid_shape
+
+    def keep_max(name, err):
+        checks[name] = max(checks.get(name, 0.0), err)
+
+    for yw, tag in ((None, ""), ((seam, Ys), "_slab")):
+        exact(f"K1{tag}", raycast.ray_pass_counts(cfg, p, keep, ego, origin, y_window=yw),
+              raycast.ray_pass_counts_plain(cfg, m, origin, yw))
+        kb, pb = kernels.bin_points(cfg, pn, keep, origin, yw), binning.bin_points(cfg, pn, keep, origin, yw)
+        exact(f"K2{tag} hit", kb.hit, pb.hit)
+        exact(f"K2{tag} min_height", kb.min_height, pb.min_height)
+        keep_max(f"bin_points{tag}_max_abs_err", sums_close(f"K2{tag}", kb.sums, pb.sums))
+        for mask in (True, False):
+            km = kernels.moments_epilogue(cfg, kb.sums, kb.hit, origin, yw, mask)
+            pm = moments.moments_epilogue_plain(cfg, kb.sums, kb.hit, origin, yw, mask)
+            keep_max(f"moments_epilogue{tag}_max_abs_err", moments_close(f"K5{tag} mask={mask}", km, pm))
+        if yw is None:
+            slot = torch.zeros((1,), dtype=torch.int32, device=dev)
+            ko = torch.zeros((1, 10, X, Y, Z), dtype=torch.float32, device=dev)
+            po = torch.zeros_like(ko)
+            kernels.ingest_epilogue(cfg, kb.sums, kb.hit, origin, ko, slot)
+            moments.ingest_epilogue_plain(cfg, kb.sums, kb.hit, origin, po, slot)
+            keep_max("ingest_epilogue_max_abs_err", moments_close("K3", ko[0], po[0]))
+
+
+def cmd_selftest(args):
+    """The compiled CUDA kernels against their plain PyTorch versions on the
+    card, at the upstream shapes (the counterpart of the JAX package's
+    compiled-Pallas-vs-XLA selftest): pass counts, hit, min_height, n and
+    every combine output bitwise, the other moment channels within
+    compare.MOM_RTOL / MOM_ATOL. One JSON verdict line; exit 1 on a
+    mismatch, 2 without a GPU."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("selftest: no CUDA device is available; the kernels run only on the GPU, so nothing was checked",
+              file=sys.stderr)
+        return 2
+    from gvom_tpu_torch.config import GvomConfig
+    from gvom_tpu_torch.io import synthetic
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
+    from gvom_tpu_torch.utils.compare import Failed, check, exact
+
+    cfg = GvomConfig(xy_size=args.grid, z_size=args.grid_z, max_points=args.points, buffer_size=4)
+    kernels.build_all(cfg)
+    kernels.reset_launches()
+    dev = torch.device("cuda")
+    terrain = synthetic.composite_terrain()
+    checks, error = {}, None
+    buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
+    try:
+        for seed in range(max(args.scans, cfg.buffer_size + 1)):
+            ego = np.array([0.5 + 0.45 * seed, 0.25 * seed, 1.6])
+            pts = synthetic.simulate_lidar_scan(terrain, ego, channels=64, azimuth_steps=max(64, args.points // 64),
+                                                max_range=60.0, seed=seed)
+            pad, mask = synthetic.pad_scan(synthetic.nudge_off_grid(pts, cfg.xy_resolution, cfg.z_resolution),
+                                           cfg.max_points)
+            if seed < args.scans:
+                _selftest_checks(cfg, (pad, mask), ego, max(1, cfg.xy_size // 4), checks)
+            e = torch.tensor(ego, dtype=torch.float32, device=dev)
+            buf, _ = pipeline.ingest_and_insert(cfg, buf, torch.from_numpy(pad).to(dev),
+                                                torch.from_numpy(mask).to(dev), e)
+            if seed >= cfg.buffer_size - 1:
+                # K4 against fuse_plain: every output bitwise, the moments too
+                target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
+                for i, (a, b) in enumerate(zip(kernels.combine(cfg, buf, world, target, e),
+                                               pipeline.fuse_plain(cfg, buf, world, target, e))):
+                    exact(f"K4 output {i} after scan {seed}", a, b)
+                world, _, ok = pipeline.combine(cfg, buf, world, e)
+                check(bool(ok), f"combine after scan {seed} reports an empty buffer")
+    except Failed as exc:
+        error = str(exc)
+    verdict = {
+        "selftest": "cuda_vs_plain",
+        "device": torch.cuda.get_device_name(0),
+        "grid": [args.grid, args.grid, args.grid_z],
+        "points": args.points,
+        "scans": args.scans,
+        "ok": error is None,
+        "error": error,
+        "launches": _launches(),
+        "checks": checks,
+    }
+    print(json.dumps(verdict))
+    return 0 if error is None else 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="gvom_tpu_torch",
+        description="gvom_tpu_torch tools. The JAX package's parity and bench commands are not ported yet.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    rp = sub.add_parser("replay", help="replay a synthetic drive")
+    rp.add_argument("--scans", type=int, default=16)
+    rp.add_argument("--batch", type=int, default=8)
+    rp.add_argument("--sequential", action="store_true")
+    rp.add_argument("--grid", type=int, default=128)
+    rp.add_argument("--grid-z", type=int, default=64)
+    rp.add_argument("--points", type=int, default=65536)
+    rp.add_argument("--channels", type=int, default=64)
+    rp.add_argument("--azimuth", type=int, default=1024)
+    rp.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain versions)")
+    rp.set_defaults(fn=cmd_replay)
+
+    cb = sub.add_parser("convert-bag", help="rosbag → .npz ScanLog (no ROS needed)")
+    cb.add_argument("bag")
+    cb.add_argument("out")
+    cb.add_argument("--cloud-topic", default=None)
+    cb.add_argument("--odom-topic", default=None)
+    cb.add_argument("--max-scans", type=int, default=None)
+    cb.add_argument("--transform", default=None,
+                    help="optional 3x4/4x4 sensor→odom matrix file (np.loadtxt)")
+    cb.set_defaults(fn=cmd_convert_bag)
+
+    st = sub.add_parser("selftest", help="CUDA kernels against their plain versions on the GPU")
+    st.add_argument("--grid", type=int, default=256)
+    st.add_argument("--grid-z", type=int, default=64)
+    st.add_argument("--points", type=int, default=131072)
+    st.add_argument("--scans", type=int, default=2)
+    st.set_defaults(fn=cmd_selftest)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

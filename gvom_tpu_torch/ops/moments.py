@@ -12,9 +12,15 @@ kernel K3 (ops/kernels.py, csrc/epilogue.cu): box, crop, occupancy pre-mask
 and the write into the ring-buffer slot. `moments_epilogue_plain` is the plain
 twin of kernel K5 (the same source): the box into a fresh tensor, the mask
 optional, the full grid or a y-slab. `point_moments` is K2 then K5.
+
+`mean_local`, `covariance` and `eigenvalues` read the stored moments back
+as the voxel's normalized mean, covariance and its sorted eigenvalues (the
+debug voxel exporter's eigen features).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,7 +30,7 @@ from gvom_tpu_torch.ops import binning
 from gvom_tpu_torch.ops.binning import moment_pad
 
 __all__ = ["translate_raw", "box_aggregate_moments", "ingest_epilogue_plain", "moments_epilogue_plain",
-           "point_moments", "slab_point_moments"]
+           "point_moments", "slab_point_moments", "mean_local", "covariance", "eigenvalues"]
 
 # per axis: (diagonal s2 index, [(cross s2 index, S1 component)]), s2 order (xx,xy,xz,yy,yz,zz)
 _AX_TERMS = {
@@ -147,3 +153,49 @@ def slab_point_moments(cfg: GvomConfig, points, keep, origin, ys0: int, Ys: int,
     ±ry neighbourhood misses the slab and keeps window coordinates in a
     scratch of Ys + 4·ry rows (binning.slab_rows), as kernel K2 does."""
     return point_moments(cfg, points, keep, origin, (ys0, Ys), occupancy_mask)
+
+
+def _safe_count(n: torch.Tensor) -> torch.Tensor:
+    return torch.where(n > 0, n, torch.ones((), dtype=n.dtype, device=n.device))
+
+
+def mean_local(n: torch.Tensor, s1: torch.Tensor) -> torch.Tensor:
+    """Voxel-local normalized mean S1/n (reference metrics[0:3],
+    gvom.py:1222-1230), zeros where empty. n [...], s1 [3, ...]."""
+    return torch.where(n[None] > 0, s1 / _safe_count(n)[None], 0.0)
+
+
+def covariance(n: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """Normalized covariance C = R2/n − μμᵀ with μ = S1/n, zeros where empty
+    (gvom.py:1287-1299). Returns [6, ...] in (xx,xy,xz,yy,yz,zz) order."""
+    safe = _safe_count(n)[None]
+    mu = s1 / safe
+    cov = s2 / safe - torch.stack([mu[i] * mu[j] for i, j in binning.PAIRS], dim=0)
+    return torch.where(n[None] > 0, cov, 0.0)
+
+
+def eigenvalues(cov: torch.Tensor) -> torch.Tensor:
+    """Sorted (λ0 ≥ λ1 ≥ λ2) eigenvalues of the symmetric 3×3 covariance of
+    each voxel, closed-form trigonometric method (gvom.py:1345-1378), with
+    the diagonal branch (p1 == 0) and the clamps of acos's argument as the
+    JAX package writes them. cov [6, ...]; returns [3, ...]."""
+    xx, xy, xz, yy, yz, zz = cov.unbind(0)
+    p1 = xy * xy + xz * xz + yz * yz
+    q = (xx + yy + zz) / 3.0
+    e0d = torch.maximum(xx, torch.maximum(yy, zz))
+    e2d = torch.minimum(xx, torch.minimum(yy, zz))
+    p2 = (xx - q) ** 2 + (yy - q) ** 2 + (zz - q) ** 2 + 2.0 * p1
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=0.0))
+    ps = torch.where(p > 0, p, torch.ones((), dtype=p.dtype, device=p.device))
+    b0, b1, b2 = (xx - q) / ps, xy / ps, xz / ps
+    b3, b4, b5 = (yy - q) / ps, yz / ps, (zz - q) / ps
+    r = (b0 * (b3 * b5 - b4 * b4) - b1 * (b1 * b5 - b4 * b2) + b2 * (b1 * b4 - b3 * b2)) / 2.0
+    phi = torch.where(r <= -1.0, math.pi / 3.0,
+                      torch.where(r >= 1.0, 0.0, torch.acos(torch.clamp(r, -1.0, 1.0)) / 3.0))
+    e0 = q + 2.0 * p * torch.cos(phi)
+    e2 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    diag = p1 == 0
+    l0 = torch.where(diag, e0d, e0)
+    l2 = torch.where(diag, e2d, e2)
+    l1 = 3.0 * q - l0 - l2
+    return torch.stack([l0, l1, l2], dim=0)

@@ -8,6 +8,8 @@ This replaces them with thread-safe counters/timers and a snapshot API.
 from __future__ import annotations
 
 import json
+import math
+import statistics
 import threading
 import time
 from collections import defaultdict, deque
@@ -38,8 +40,11 @@ class StepMetrics:
             for k, v in self._timings.items():
                 if v:
                     vals = list(v)
+                    srt = sorted(vals)
                     stats[k] = {
                         "mean": sum(vals) / len(vals),
+                        "median": statistics.median(srt),
+                        "p95": srt[max(0, math.ceil(0.95 * len(srt)) - 1)],   # nearest rank
                         "last": vals[-1],
                         "min": min(vals),
                         "max": max(vals),

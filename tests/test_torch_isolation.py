@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of gvom_tpu_torch loads
 neither jax nor anything of gvom_tpu (checked in a subprocess, since this
-test process has imported jax already), chip_smoke.py imports neither, and
-the port's entry points refuse to fall back to the CPU on their own."""
+test process has imported jax already; ros.node imports without rospy),
+chip_smoke.py imports neither, and the port's entry points refuse to fall
+back to the CPU on their own."""
 
 import ast
 import os
@@ -12,11 +13,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from gvom_tpu_torch import Gvom, GvomConfig, batched_replay, make_batched_step, sequential_replay
+from gvom_tpu_torch import Gvom, GvomConfig, VoxelMapperNode, batched_replay, cli, make_batched_step, sequential_replay
 from gvom_tpu_torch.io.logio import ScanLog
 from gvom_tpu_torch.ops import kernels
 from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
 from gvom_tpu_torch.utils.checkpoint import load_world
+from gvom_tpu_torch.utils.failures import load_resumable
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -25,10 +27,16 @@ import importlib, pkgutil, sys
 import gvom_tpu_torch
 for m in pkgutil.walk_packages(gvom_tpu_torch.__path__, "gvom_tpu_torch."):
     importlib.import_module(m.name)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "gvom_tpu"))
-print(len([n for n in sys.modules if n.startswith("gvom_tpu_torch")]))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "gvom_tpu", "rospy", "tf2_ros"))
+print(" ".join(sorted(n for n in sys.modules if n.startswith("gvom_tpu_torch"))))
 sys.exit("loaded: " + ", ".join(bad) if bad else 0)
 """
+
+
+def _modules():
+    pkg = ROOT / "gvom_tpu_torch"
+    return sorted(".".join(("gvom_tpu_torch",) + p.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__")
+                  for p in pkg.rglob("*.py"))
 
 
 def test_port_imports_no_jax_and_nothing_of_gvom_tpu():
@@ -36,7 +44,9 @@ def test_port_imports_no_jax_and_nothing_of_gvom_tpu():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr + r.stdout
-    assert int(r.stdout.split()[-1]) >= 15   # every module was imported
+    imported = set(r.stdout.split())
+    assert {"gvom_tpu_torch.ros.node", "gvom_tpu_torch.cli", "gvom_tpu_torch.engine.node"} <= imported
+    assert set(_modules()) <= imported       # every module was imported
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
@@ -53,16 +63,22 @@ def test_no_jax_import_statement(path):
             assert n.split(".")[0] not in ("jax", "jaxlib", "gvom_tpu"), f"{path} imports {n}"
 
 
-def test_default_device_raises_without_gpu(monkeypatch):
+def test_default_device_raises_without_gpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=2)
     log = ScanLog([])
     for make in (lambda: Gvom(config=cfg), lambda: empty_buffer_state(cfg), lambda: empty_world_state(cfg),
                  lambda: make_batched_step(cfg), lambda: batched_replay(cfg, log, 4),
-                 lambda: sequential_replay(cfg, log), lambda: load_world("no_such_file.npz")):
+                 lambda: sequential_replay(cfg, log), lambda: load_world("no_such_file.npz"),
+                 lambda: VoxelMapperNode(), lambda: VoxelMapperNode(config=cfg),
+                 lambda: load_resumable(str(tmp_path))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert empty_buffer_state(cfg, "cpu").grids.hit.shape == (3, 16, 16, 8)
+    assert cli.main(["replay", "--scans", "1"]) == 2
+    assert "device='cpu'" in capsys.readouterr().err
+    assert cli.main(["selftest"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_kernel_wrappers_refuse_other_devices():

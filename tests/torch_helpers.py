@@ -110,3 +110,21 @@ def assert_products_equal(port: dict, ref: dict, what: str = "products"):
         np.testing.assert_array_equal(port[k], ref[k], err_msg=f"{what}: {k}")
     for k, atol in PRODUCTS_CLOSE:
         np.testing.assert_allclose(port[k], ref[k], rtol=0, atol=atol, err_msg=f"{what}: {k}")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_facade_compiled(cfg):
+    import gvom_tpu
+
+    return gvom_tpu.Gvom(config=cfg)
+
+
+def jax_facade(cfg):
+    """A fresh gvom_tpu.Gvom for cfg that shares the jitted ingest and combine
+    of the first one made for cfg in this process: a facade compiles its own
+    otherwise, which takes seconds each time."""
+    import gvom_tpu
+
+    g, done = gvom_tpu.Gvom(config=cfg), _jax_facade_compiled(cfg)
+    g._ingest_tf, g._ingest_no_tf, g._combine = done._ingest_tf, done._ingest_no_tf, done._combine
+    return g
