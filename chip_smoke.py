@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--out FILE.json] [--scans N]
 
 Builds the port's CUDA kernels from gvom_tpu_torch/csrc (one nvcc per source,
-all started together), then, at the upstream deployment (a 256×256×64 grid
+all started together; K4 also for ring buffers of 2 and 8), then, at the
+upstream deployment (a 256×256×64 grid
 at 0.4 m, a ring buffer of 4 scans, 131,072 points per scan from a
 synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
 
@@ -24,7 +25,10 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      falls inside a slab, each against its plain version AND against the
      rows of the full-grid kernel's output, and ingest_scan(y_window=) side
      by side against ingest_scan(). K1 on a near-tier scene (every ray
-     shorter than 30 steps, the tier of the JAX package's step-pair kernel);
+     shorter than 30 steps, the tier of the JAX package's step-pair kernel).
+     The plane-fit kernel (csrc/planefit.cu) bitwise against its plain
+     version (grid.log32 / grid.atan2_32 on the card) on each combine's
+     height map and on a seeded sweep of 2^20 cells of the fit's domain;
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
      and read just after, and checks the 5-tuple it returns;
@@ -32,7 +36,7 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      whose K4 library the facade builds when it is made), over a
      drive with one degenerate scan, against the same facade on the CPU,
      which runs the plain versions (the CPU tests pin those to the JAX
-     package);
+     package): every output bitwise, roughness and the slopes included;
   4. times each kernel, its plain version and, where one exists, a PyTorch
      call that computes the same function, with CUDA events, and computes
      each kernel's bound from this run's inputs: the bytes it must move
@@ -69,8 +73,13 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      three exporters at the full grid, timed, against the same exporters on
      the world copied to the CPU; a bz2-chunked bag of the 8 scans through
      `cli convert-bag` and sequential_replay, bitwise the facade's (an lz4
-     chunk on a small bag); `cli replay` (sequential and batched) and `cli
-     selftest` as subprocesses, each exiting 0.
+     chunk on a small bag); `cli replay` (sequential and batched), `cli
+     selftest` and `cli parity --scans 3` on the card and on the CPU as
+     subprocesses, each exiting 0, the two parity reports equal;
+  8. runs `python -m gvom_tpu_torch.bench` in its four modes (perscan,
+     combine, async, batched; 8 steps, best of 2), one at a time, and prints
+     their JSON lines; runs entry()'s step on the card, its four maps
+     bitwise those of entry(device="cpu").
 
 Prints the timings, one JSON line {"kernels": [...]}, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
@@ -108,8 +117,9 @@ MOM_ATOL_BATCH = 1e-2
 BATCH = 32                   # scans per batched step, the JAX package's bench default
 BATCH_CHECK = 4              # scans per step of the batched step held against the plain versions
 NEAR_TIER_STEPS = 30         # the step-pair kernel of the JAX package covers steps 1..30
-# log and atan2 of CUDA and of the CPU may differ by an ulp or so
-ROUGH_ATOL = 1e-4
+PLANE_FIT_SWEEP = 1 << 20    # values of the plane-fit kernel's seeded sweep over the fit's domain
+PLANE_FIT_OPS = 80           # f32 operations of the plane-fit tail at a cell whose fit is ok (a log, two atan2)
+BENCH_MODES = ("perscan", "combine", "async", "batched")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -227,6 +237,40 @@ def box_conv_weights(cfg, dev):
     return w.to(dev)
 
 
+def plane_fit_vs_plain(what, fit):
+    """The plane-fit kernel against its plain version (grid.log32 and
+    grid.atan2_32 in PyTorch ops on the card) on the fit's inputs: every
+    output bitwise. Returns the kernel's outputs."""
+    from gvom_tpu_torch.ops import kernels, maps2d
+
+    got = kernels.plane_fit(*fit)
+    for name, a, b in zip(("roughness", "slope_x", "slope_y"), got, maps2d.plane_fit_plain(*fit)):
+        exact(f"{what}: {name}", a, b)
+    return got
+
+
+def plane_fit_sweep(dev, log):
+    """The plane-fit kernel on PLANE_FIT_SWEEP seeded cells of the fit's
+    domain: residuals log-uniform over 16 decades with zeros, negatives and
+    subnormals among them, a tenth of the fits not ok, a0 over 12 decades,
+    a1 in (−1, 1), a0n = a0/m, a1n = a1/m, 1/m with m = sqrt(a0² + a1² + 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2026)
+    n = PLANE_FIT_SWEEP
+    err = (10.0 ** rng.uniform(-14, 2, n)).astype(np.float32)
+    special = rng.integers(0, n, n // 64)
+    err[special] = rng.choice(np.array([0.0, -0.0, -1e-3, 1e-40, 1.1754944e-38], np.float32), len(special))
+    a0 = (rng.standard_normal(n) * 10.0 ** rng.uniform(-6, 6, n)).astype(np.float32)
+    a1 = rng.uniform(-1, 1, n).astype(np.float32)
+    m = np.sqrt(a0.astype(np.float64) ** 2 + a1.astype(np.float64) ** 2 + 1.0).astype(np.float32)
+    fit = [torch.from_numpy(a).to(dev) for a in (err, rng.random(n) > 0.1, a0 / m, a1 / m, np.float32(1.0) / m)]
+    rough, _, _ = plane_fit_vs_plain("plane fit sweep", fit)
+    log(f"phase 1 plane fit: {n} seeded cells of the fit's domain bitwise against grid.log32 / grid.atan2_32 "
+        f"on the card ({int((rough == float('-inf')).sum())} subnormal residuals, whose log is -inf)")
+
+
 def phase1_kernels_vs_plain(cfg, scans, dev, log):
     """Each kernel against its plain version on the same inputs, over a drive
     with a moving ego. Returns the max abs error per kernel and the last
@@ -234,7 +278,7 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
     import torch
 
     from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.ops import binning, kernels, moments, raycast
+    from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
     from gvom_tpu_torch.ops import grid as gridops
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
 
@@ -289,13 +333,17 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         combine_vs_plain(cfg, buf, world, ego, "K4")
         world, products, ok = pipeline.combine(cfg, buf, world, ego)
         check(bool(ok), f"combine after scan {i} reports an empty buffer")
+        fit = maps2d.plane_fit_inputs(cfg, products.height)
+        plane_fit_vs_plain(f"plane fit after scan {i}", fit)
         revived = int(((world.grid.hit > 0) & (buf.grids.hit[buf.last_slot.long()] == 0)).sum())
         log(f"phase 1 scan {i}: origin {origin.tolist()}, {int(keep.sum())} points kept, "
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan): "
-            "K1-K5 agree with their plain versions" + (", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned "
-                                                         "sums" if i == 0 else ""))
-        last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, pn=pn, keep=keep, bins=kb, target=target)
+            "K1-K5 and the plane fit agree with their plain versions" + (
+                ", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned sums" if i == 0 else ""))
+        last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, pn=pn, keep=keep, bins=kb, target=target,
+                    fit=fit)
+    plane_fit_sweep(dev, log)
     return err, buf, world, last
 
 
@@ -485,7 +533,7 @@ def phase2_facade(cfg, scans, log):
             check(bool(np.isfinite(a).all()), f"{name} is not finite")
         check(int(vis.sum()) > 0 and int((pos > 0).sum()) > 0, f"facade combine {i}: empty maps")
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
+    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit"):
         check(launches[name] == len(scans), f"kernel {name} was launched {launches[name]} times on the facade's path, "
               f"not once per scan")
     occ = g.get_map_as_occupancy_grid()
@@ -529,10 +577,11 @@ def phase3_small_reference(log):
         ok_cpu = bool(cpu.process_pointcloud(pad[mask], ego))
         check(ok_gpu == ok_cpu == (i != 2), f"small grid scan {i}: scan_ok {ok_gpu} on the GPU, {ok_cpu} on the CPU")
         a, b = gpu.combine_maps(), cpu.combine_maps()
-        for name, x, y in zip(("origin", "positive", "negative", "visibility"), a[:3] + a[4:], b[:3] + b[4:]):
-            check(np.array_equal(x, y), f"small grid scan {i}: {name} differs from the CPU")
-        err = float(np.abs(a[3] - b[3]).max())
-        check(err <= ROUGH_ATOL, f"small grid scan {i}: roughness differs by {err}")
+        for name, x, y in zip(("origin", "positive", "negative", "roughness", "visibility"), a, b):
+            check(np.array_equal(x, y) and x.dtype == y.dtype, f"small grid scan {i}: {name} differs from the CPU")
+        for name in ("slope_x", "slope_y"):
+            check(np.array_equal(getattr(gpu.products, name).cpu().numpy(), getattr(cpu.products, name).numpy()),
+                  f"small grid scan {i}: {name} differs from the CPU")
     check(np.array_equal(gpu.get_map_as_occupancy_grid(), cpu.get_map_as_occupancy_grid()), "small occupancy")
     bg, bc = convert.to_numpy(gpu._buffer), convert.to_numpy(cpu._buffer)
     for k in bg:
@@ -542,7 +591,7 @@ def phase3_small_reference(log):
         else:
             check(bool(np.array_equal(bg[k], bc[k])), f"small grid buffer: {k} differs from the CPU")
     log("phase 3: the GPU facade matches the CPU facade on a 64×64×32 grid over 5 scans, one of them "
-        "degenerate (write-off slot), ring buffer included")
+        "degenerate (write-off slot), ring buffer included; roughness and the slopes bitwise")
 
 
 def atomic_rates(probe, dev, log):
@@ -725,7 +774,7 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     import torch
 
     from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.ops import binning, kernels, moments, raycast
+    from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
     from gvom_tpu_torch.ops import grid as gridops
 
     torch.backends.cudnn.allow_tf32 = False
@@ -842,11 +891,22 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     row(kernels.XBOX_SLAB, lambda: kernels.moments_epilogue(cfg, sbins.sums, sbins.hit, so, yw),
         lambda: moments.moments_epilogue_plain(cfg, sbins.sums, sbins.hit, so, yw), 20, 5,
         lambda: torch.nn.functional.conv3d(s_conv_in, wconv), s_bytes, 52 * s_terms / F32_OPS_PER_S)
+
+    # ---- the plane fit's tail, on the last phase-1 combine's height map ----
+    # ok read at every cell, the residual and the three coefficients where the
+    # fit is ok, three outputs written; a log and two atan2 where it is ok. No
+    # one PyTorch call computes this function (torch.log and torch.atan2
+    # round otherwise)
+    fit = last["fit"]
+    n_cells, n_ok = fit[0].numel(), int(fit[1].sum())
+    row(kernels.PLANEFIT, lambda: kernels.plane_fit(*fit), lambda: maps2d.plane_fit_plain(*fit), 100, 5, None,
+        n_cells * (1 + 3 * 4) + n_ok * 4 * 4, n_ok * PLANE_FIT_OPS / F32_OPS_PER_S)
     return rows, dict(slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
                                 points_in_scratch=n_win_s, box_terms=s_terms),
                       points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
                       scratch_nonempty=n_nz, pair_k2_k3=pair, occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
-                      box_terms=terms, atomic_rates_per_s=rates, conv_vs_plain_max_abs_err=err_conv)
+                      box_terms=terms, atomic_rates_per_s=rates, conv_vs_plain_max_abs_err=err_conv,
+                      plane_fit_cells=n_cells, plane_fit_ok=n_ok)
 
 
 def batched_cfg(cfg, batch):
@@ -879,17 +939,18 @@ def make_batch(scans_dev, batch, step_index):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside, the batched step's two kernel wrappers run their plain
+    """Inside, the batched step's three kernel wrappers run their plain
     versions on whatever device the tensors are on."""
-    from gvom_tpu_torch.ops import kernels, moments, raycast
+    from gvom_tpu_torch.ops import kernels, maps2d, moments, raycast
 
-    saved = kernels.ray_pass_counts, kernels.point_moments
+    saved = kernels.ray_pass_counts, kernels.point_moments, kernels.plane_fit
     kernels.ray_pass_counts = raycast.pass_counts_plain
     kernels.point_moments = moments.point_moments
+    kernels.plane_fit = maps2d.plane_fit_plain
     try:
         yield
     finally:
-        kernels.ray_pass_counts, kernels.point_moments = saved
+        kernels.ray_pass_counts, kernels.point_moments, kernels.plane_fit = saved
 
 
 PRODUCT_FIELDS = ("origin", "height", "inferred_height", "slope_x", "slope_y", "roughness",
@@ -1408,7 +1469,8 @@ def start_cli(*args):
 
 
 def cli_result(name, proc, timeout):
-    """The last line of a CLI process's output as JSON; it must exit 0."""
+    """The last line of a CLI process's output as JSON (its whole output, for
+    parity's indented report); it must exit 0."""
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -1416,7 +1478,7 @@ def cli_result(name, proc, timeout):
         proc.communicate()
         raise Failed(f"cli {name}: still running after {timeout} s")
     check(proc.returncode == 0, f"cli {name}: exit code {proc.returncode}: {err[-3000:]}")
-    return json.loads(out.splitlines()[-1])
+    return json.loads(out if name.startswith("parity") else out.splitlines()[-1])
 
 
 def phase7_bag_round_trip(cfg, scans, fresh_products, fresh_out, log):
@@ -1469,10 +1531,15 @@ def phase7_bag_round_trip(cfg, scans, fresh_products, fresh_out, log):
 
 
 def phase7_cli(procs, log):
-    """`cli replay` (sequential and batched, their defaults) and `cli
-    selftest`, started together earlier: each exits 0; the replays report
-    their kernel launches, the selftest its verdict."""
+    """`cli replay` (sequential and batched, their defaults), `cli selftest`
+    and `cli parity --scans 3` on the card and on the CPU, started together
+    earlier: each exits 0; the replays report their kernel launches, the
+    selftest its verdict, and the two parity reports are equal field by
+    field."""
     res = {name: cli_result(name, p, 900) for name, p in procs.items()}
+    pg, pc = res["parity cuda"], res["parity cpu"]
+    check(len(pg["per_combine"]) == 3 and pg == pc,
+          f"cli parity: the report on the card differs from the CPU's: {pg} vs {pc}")
     seq, bat, st = res["replay sequential"], res["replay batched"], res["selftest"]
     for name in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
         check(seq["launches"].get(name) == seq["scans"], f"cli replay --sequential: {name} launches {seq['launches']}")
@@ -1485,7 +1552,9 @@ def phase7_cli(procs, log):
     check(not missing, f"cli selftest launched no {missing}")
     log(f"phase 7 cli: replay --sequential {seq['scans']} scans (launches {seq['launches']}), replay "
         f"{bat['scans']} scans in {bat['batches']} batches (launches {bat['launches']}), selftest ok over "
-        f"{st['scans']} scans at {st['grid']} ({len(st['checks'])} error maxima, all within tolerance)")
+        f"{st['scans']} scans at {st['grid']} ({len(st['checks'])} error maxima, all within tolerance); parity "
+        f"--scans 3 gives the same report on the card as on the CPU (rough_max_diff_defined "
+        f"{[r['rough_max_diff_defined'] for r in pg['per_combine']]})")
     return res
 
 
@@ -1499,7 +1568,8 @@ def phase7_host_path(cfg, scans, log):
     products, outs, res["reset_and_exporters"] = phase7_determinism_and_exporters(node, scans, log)
     del node
     procs = {"replay sequential": start_cli("replay", "--sequential"), "replay batched": start_cli("replay"),
-             "selftest": start_cli("selftest")}
+             "selftest": start_cli("selftest"), "parity cuda": start_cli("parity", "--device", "cuda", "--scans", "3"),
+             "parity cpu": start_cli("parity", "--device", "cpu", "--scans", "3")}
     try:
         res["bag"] = phase7_bag_round_trip(cfg, scans, products, outs, log)
         res["cli"] = phase7_cli(procs, log)
@@ -1509,6 +1579,45 @@ def phase7_host_path(cfg, scans, log):
                 p.kill()
                 p.communicate()
     return launches, res
+
+
+def phase8_bench_and_entry(log):
+    """`python -m gvom_tpu_torch.bench` in each of its four modes at its
+    defaults (the upstream deployment), 8 steps, best of 2, one subprocess
+    at a time, so that nothing else runs on the card beside it; each prints
+    bench.py's JSON lines (perscan two, the contract line last), which are
+    printed here. Then entry()'s fn on the card against entry(device="cpu"):
+    the four maps bitwise."""
+    import torch
+
+    from gvom_tpu_torch.entry import entry
+
+    lines = {}
+    for mode in BENCH_MODES:
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run([sys.executable, "-m", "gvom_tpu_torch.bench", "--mode", mode, "--steps", "8",
+                                "--repeats", "2"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        except subprocess.TimeoutExpired:
+            raise Failed(f"bench --mode {mode}: still running after 300 s")
+        check(r.returncode == 0, f"bench --mode {mode}: exit code {r.returncode}: {r.stderr[-3000:]}")
+        out = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+        check(len(out) == (2 if mode == "perscan" else 1), f"bench --mode {mode}: {len(out)} JSON lines")
+        for x in out:
+            check(x["value"] > 0 and x["device"] == torch.cuda.get_device_name(0)
+                  and x.get("raycast", x.get("impl", "cuda")) == "cuda", f"bench --mode {mode}: {x}")
+            print(json.dumps(x), flush=True)
+        check(mode != "perscan" or out[-1].get("combine_every") == 8, "bench: the contract line is not the last")
+        lines[mode] = dict(lines=out, command_s=time.perf_counter() - t0)
+    fn, args = entry()
+    got = fn(*args)
+    cfn, cargs = entry(device="cpu")
+    for name, a, b in zip(("positive", "negative", "roughness", "visibility"), got, cfn(*cargs)):
+        exact(f"entry() on the card vs the CPU: {name}", a.cpu(), b)
+    check(int(got[3].sum()) > 0, "entry(): an empty visibility map")
+    took = ", ".join(f"{m} {v['command_s']:.1f} s" for m, v in lines.items())
+    log(f"phase 8: bench in {len(lines)} modes ({took}); entry()'s four maps on the card bitwise those on the CPU")
+    return lines
 
 
 def phase_end_to_end(cfg, scans, dev, log):
@@ -1685,8 +1794,13 @@ def run(args, torch) -> int:
                                [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
                                "not a TPU kernel: a probe of the card's atomic rate")
     probe_build = probe.start_build()
+    # K4 for the ring buffers of entry() (2) and of the bench's async mode (8),
+    # so that no timed or checked call waits for nvcc
+    depths = [kernels.CMB.start_build((f"-DGVOM_COMBINE_B={b}",)) for b in (2, 8)]
     reports = kernels.build_all()
     reports[probe.name] = probe.finish_build(probe_build)
+    for proc in depths:
+        kernels.CMB.finish_build(proc)
     report["build_s"] = time.perf_counter() - t0
     for source, text in sorted({k.source.name: reports[k.name] for k in kernels.KERNELS + [probe]}.items()):
         for line in text.splitlines():
@@ -1714,6 +1828,7 @@ def run(args, torch) -> int:
     batched_launches, k5_row, report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err, args.profile)
     phase6_replay(log)
     node_launches, report["host_path"] = phase7_host_path(cfg, scans, log)
+    report["bench"] = phase8_bench_and_entry(log)
     if args.profile:
         report["profile"] = phase_profile(cfg, scans, dev, log)
 
@@ -1729,7 +1844,7 @@ def run(args, torch) -> int:
         r["launches_node_path"] = node_launches[r["name"]]
         r["max_abs_err"] = err[r["name"]]
         check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")
-        if r["name"] in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
+        if r["name"] in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit"):
             check(r["launches_node_path"] > 0, f"kernel {r['name']} was launched no time on the node's path")
     check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS], "the kernels line misses a kernel")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

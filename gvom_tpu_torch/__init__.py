@@ -22,7 +22,9 @@ Public API:
                 — scan-log replay functions (io.logio holds the log format,
                   io.rosbag reads bags, utils.checkpoint the world snapshots)
 
-Command line: python -m gvom_tpu_torch.cli {replay,convert-bag,selftest}.
+Command line: python -m gvom_tpu_torch.cli {replay,convert-bag,parity,selftest};
+the bench: python -m gvom_tpu_torch.bench; the single-step entry point:
+gvom_tpu_torch.entry.entry(); the NumPy oracle: gvom_tpu_torch.oracle.
 """
 
 from gvom_tpu_torch.config import GvomConfig

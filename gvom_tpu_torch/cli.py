@@ -3,14 +3,16 @@
     python -m gvom_tpu_torch.cli replay --scans 32 --batch 8      # batched replay on the GPU
     python -m gvom_tpu_torch.cli replay --scans 16 --sequential   # facade replay (the live node's path)
     python -m gvom_tpu_torch.cli convert-bag drive.bag drive.npz  # rosbag -> .npz scan log, no ROS needed
+    python -m gvom_tpu_torch.cli parity --scans 5                 # engine vs NumPy-oracle report
     python -m gvom_tpu_torch.cli selftest                         # CUDA kernels vs their plain versions
 
-`replay` runs on the CUDA GPU unless `--device cpu` is passed and prints one
-JSON line with its metrics and each kernel's launches. `selftest` needs the
-GPU: it holds every kernel against its plain PyTorch version at the upstream
-shapes, prints one JSON verdict line and exits non-zero on a mismatch or
-when there is no GPU. The JAX package's `parity` (against the NumPy oracle)
-and `bench` have no counterpart here yet.
+`replay` and `parity` run on the CUDA GPU unless `--device cpu` is passed;
+`replay` prints one JSON line with its metrics and each kernel's launches,
+`parity` the JAX package's per-combine report of agreement with the NumPy
+oracle (gvom_tpu_torch.oracle). `selftest` needs the GPU: it holds every
+kernel against its plain PyTorch version at the upstream shapes, prints one
+JSON verdict line and exits non-zero on a mismatch or when there is no GPU.
+The benchmark is a module of its own, `python -m gvom_tpu_torch.bench`.
 """
 
 from __future__ import annotations
@@ -71,6 +73,61 @@ def cmd_convert_bag(args):
     return 0
 
 
+def cmd_parity(args):
+    """Replay a synthetic drive through the port's ingest_and_insert and
+    combine and through the NumPy oracle, and print the JAX package's report
+    of their agreement after each combine (gvom_tpu/cli.py cmd_parity)."""
+    import torch
+
+    from gvom_tpu_torch.config import GvomConfig
+    from gvom_tpu_torch.io.logio import synthesize_log
+    from gvom_tpu_torch.io.synthetic import nudge_off_grid, pad_scan
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.oracle import NumpyOracle
+    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state, resolve_device
+    from gvom_tpu_torch.utils.parity import singular_fit_mask
+
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"parity: {e}", file=sys.stderr)
+        return 2
+    cfg = GvomConfig(xy_size=args.grid, z_size=args.grid_z, max_points=args.points, buffer_size=3)
+    log = synthesize_log(args.scans, channels=args.channels, azimuth_steps=args.azimuth, max_range=25.0)
+    oracle = NumpyOracle(cfg)
+    buf = empty_buffer_state(cfg, dev)
+    world = empty_world_state(cfg, dev)
+    report = []
+    for pts, ego, _ in log:
+        pts = nudge_off_grid(pts, cfg.xy_resolution, cfg.z_resolution)
+        oracle.process_pointcloud(pts, ego)
+        o_out = oracle.combine_maps()
+        pad, mask = pad_scan(pts, cfg.max_points)
+        e = torch.tensor(np.float32(ego), device=dev)
+        buf, _ = pipeline.ingest_and_insert(cfg, buf, torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev), e)
+        world, products, _ = pipeline.combine(cfg, buf, world, e)
+        _, o_pos, o_neg, o_rough, o_vis = o_out
+        pos = products.positive_obstacle.cpu().numpy()
+        # (near-)singular 3x3 plane fits are left out: their det != 0 guard
+        # keys off f32-vs-f64 rounding noise; the raw_* fields include them
+        ok = ~singular_fit_mask(oracle.height_map, cfg.xy_resolution)
+        rough = products.roughness.cpu().numpy()
+        rdef = ok & (o_rough > -1) & (rough > -1)
+        report.append({
+            "vis_equal": bool(np.array_equal(products.visibility.cpu().numpy(), o_vis)),
+            "neg_equal": bool(np.array_equal(products.negative_obstacle.cpu().numpy(), o_neg)),
+            "pos_mismatch_frac": float((pos != o_pos)[ok].mean()),
+            "pos_max_diff": int(np.abs(pos - o_pos)[ok].max()),
+            "rough_max_diff_defined": float(np.abs(rough - o_rough)[rdef].max() if rdef.any() else 0.0),
+            "height_max_diff": float(np.abs(products.height.cpu().numpy() - oracle.height_map).max()),
+            "singular_fit_frac": float((~ok).mean()),
+            "raw_pos_mismatch_frac": float((pos != o_pos).mean()),
+            "raw_pos_max_diff": int(np.abs(pos - o_pos).max()),
+        })
+    print(json.dumps({"config": {"grid": args.grid, "scans": args.scans}, "per_combine": report}, indent=2))
+    return 0
+
+
 def _selftest_checks(cfg, scan, ego_np, Ys, checks):
     """Every kernel against its plain version on one scan on the card: K1,
     K2, K5 (mask on and off) on the full grid and on the quarter slab that
@@ -117,8 +174,8 @@ def _selftest_checks(cfg, scan, ego_np, Ys, checks):
 def cmd_selftest(args):
     """The compiled CUDA kernels against their plain PyTorch versions on the
     card, at the upstream shapes (the counterpart of the JAX package's
-    compiled-Pallas-vs-XLA selftest): pass counts, hit, min_height, n and
-    every combine output bitwise, the other moment channels within
+    compiled-Pallas-vs-XLA selftest): pass counts, hit, min_height, n,
+    every combine output and the plane fit's tail bitwise, the other moment channels within
     compare.MOM_RTOL / MOM_ATOL. One JSON verdict line; exit 1 on a
     mismatch, 2 without a GPU."""
     import torch
@@ -130,7 +187,7 @@ def cmd_selftest(args):
     from gvom_tpu_torch.config import GvomConfig
     from gvom_tpu_torch.io import synthetic
     from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.ops import kernels, maps2d
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
     from gvom_tpu_torch.utils.compare import Failed, check, exact
 
@@ -159,8 +216,13 @@ def cmd_selftest(args):
                 for i, (a, b) in enumerate(zip(kernels.combine(cfg, buf, world, target, e),
                                                pipeline.fuse_plain(cfg, buf, world, target, e))):
                     exact(f"K4 output {i} after scan {seed}", a, b)
-                world, _, ok = pipeline.combine(cfg, buf, world, e)
+                world, products, ok = pipeline.combine(cfg, buf, world, e)
                 check(bool(ok), f"combine after scan {seed} reports an empty buffer")
+                # the plane fit's tail on this combine's height map, bitwise
+                fit = maps2d.plane_fit_inputs(cfg, products.height)
+                for name, a, b in zip(("roughness", "slope_x", "slope_y"), kernels.plane_fit(*fit),
+                                      maps2d.plane_fit_plain(*fit)):
+                    exact(f"plane fit {name} after scan {seed}", a, b)
     except Failed as exc:
         error = str(exc)
     verdict = {
@@ -181,7 +243,7 @@ def cmd_selftest(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="gvom_tpu_torch",
-        description="gvom_tpu_torch tools. The JAX package's parity and bench commands are not ported yet.")
+        description="gvom_tpu_torch tools. The benchmark is `python -m gvom_tpu_torch.bench`.")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     rp = sub.add_parser("replay", help="replay a synthetic drive")
@@ -205,6 +267,16 @@ def main(argv=None):
     cb.add_argument("--transform", default=None,
                     help="optional 3x4/4x4 sensor→odom matrix file (np.loadtxt)")
     cb.set_defaults(fn=cmd_convert_bag)
+
+    pp = sub.add_parser("parity", help="engine vs oracle parity report")
+    pp.add_argument("--scans", type=int, default=5)
+    pp.add_argument("--grid", type=int, default=64)
+    pp.add_argument("--grid-z", type=int, default=32)
+    pp.add_argument("--points", type=int, default=8192)
+    pp.add_argument("--channels", type=int, default=32)
+    pp.add_argument("--azimuth", type=int, default=64)
+    pp.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain versions)")
+    pp.set_defaults(fn=cmd_parity)
 
     st = sub.add_parser("selftest", help="CUDA kernels against their plain versions on the GPU")
     st.add_argument("--grid", type=int, default=256)

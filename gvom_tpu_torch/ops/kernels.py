@@ -21,6 +21,8 @@ tensors (there is no fallback), and counts its launches in `launches`.
 | combine            | combine.cu   | fused_combine (+ the XLA mom merge)       | models.pipeline.fuse_plain         |
 | moments_epilogue   | epilogue.cu  | _xbox_epilogue                            | moments.moments_epilogue_plain     |
 | point_moments      | (K2 then K5) | fused_point_moments' contract             | moments.point_moments              |
+| plane_fit          | planefit.cu  | none: the port's own (the JAX package's   | maps2d.plane_fit_plain             |
+|                    |              | log and atan2 in XLA, ops/maps2d.py:175)  |                                    |
 
 ray_pass_counts takes what the JAX function takes: world-frame points
 [S, N, 3], keep [S, N], one ego per scan [S, 3] and one origin; it builds the
@@ -44,7 +46,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops import binning, moments, raycast
+from gvom_tpu_torch.ops import binning, maps2d, moments, raycast
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops.maps2d import f32_square
 from gvom_tpu_torch.types import UNKNOWN_HEIGHT
@@ -61,6 +63,7 @@ __all__ = [
     "combine_launch",
     "moments_epilogue",
     "point_moments",
+    "plane_fit",
     "NVCC_FLAGS",
 ]
 
@@ -175,7 +178,10 @@ BIN_SLAB = CudaKernel("bin_points_slab", *_BIN_ARGS,
 XBOX_SLAB = CudaKernel("moments_epilogue_slab", *_EPI_ARGS,
                        f"{_PK}:1540 (fused_point_moments(y_window=) → _xbox_epilogue with U = Ys)")
 
-KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB]
+PLANEFIT = CudaKernel("plane_fit", "planefit.cu", "gvom_plane_fit", [_P] * 5 + [_I] + [_P] * 4,
+                      "none: the port's own (gvom_tpu/ops/maps2d.py:175-178, jnp.log and jnp.arctan2 in XLA)")
+
+KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB, PLANEFIT]
 
 
 def build_all(cfg: Optional[GvomConfig] = None) -> Dict[str, str]:
@@ -430,3 +436,23 @@ def combine_launch(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch
         CMB.launch(*map(_ptr, ins), *consts, *map(_ptr, outs), _stream(), defines=_combine_defines(cfg))
 
     return launch, outs
+
+
+# ----------------------------------------------------------------------
+# the plane fit's tail
+
+
+def plane_fit(err: torch.Tensor, ok: torch.Tensor, a0n: torch.Tensor, a1n: torch.Tensor,
+              inv_m: torch.Tensor):
+    """(roughness, slope_x, slope_y) of the 3×3 plane fit from its residual
+    err, its `ok` mask and its normalized coefficients a0n, a1n and 1/m, all
+    of one shape: maps2d.plane_fit_plain's function, bitwise, in one launch."""
+    if _is_cpu(err):
+        return maps2d.plane_fit_plain(err, ok, a0n, a1n, inv_m)
+    dev, shape = err.device, tuple(err.shape)
+    for nm, t in (("err", err), ("a0n", a0n), ("a1n", a1n), ("inv_m", inv_m)):
+        _check(nm, t, torch.float32, shape, dev)
+    _check("ok", ok, torch.bool, shape, dev)
+    outs = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3))
+    PLANEFIT.launch(*map(_ptr, (err, ok, a0n, a1n, inv_m)), err.numel(), *map(_ptr, outs), _stream())
+    return outs

@@ -8,7 +8,8 @@ the stencils and the user-facing maps, as in gvom_tpu/ops/maps2d.py.
     column, bottom-up in window-relative z (gvom.py:536-554). These are the
     plain twins of kernel K4's column products.
   * slope + roughness: the 3×3 least-squares plane fit from 9 shifted adds,
-    with coordinates relative to the center cell (gvom.py:663-734).
+    with coordinates relative to the center cell (gvom.py:663-734); its
+    tail (log, atan2) is the port's plane-fit kernel on the card.
   * guess height: the reference's outward search (gvom.py:556-661) as
     nearest-known-index scans (a flip and a cummin) plus
     `guess_search_radius` constant-time steps, with the reference's quirks:
@@ -25,13 +26,15 @@ from typing import Tuple
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops.grid import fma32, sqrt32
+from gvom_tpu_torch.ops.grid import atan2_32, fma32, log32, sqrt32
 from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 
 __all__ = [
     "height_map",
     "inferred_height_map",
     "slope_and_roughness",
+    "plane_fit_inputs",
+    "plane_fit_plain",
     "guess_height_delta",
     "positive_obstacle_map",
     "positive_obstacle_from_band",
@@ -116,13 +119,26 @@ def _fma_sum(terms):
 
 def slope_and_roughness(cfg: GvomConfig, hm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """3×3 neighborhood least-squares plane fit: x/y slope angles and
-    roughness = log mean squared residual (gvom.py:663-734).
+    roughness = log mean squared residual (gvom.py:663-734). The fit is
+    plane_fit_inputs; its tail (log, atan2) is the plane-fit kernel on the
+    card and plane_fit_plain on the CPU."""
+    from gvom_tpu_torch.ops import kernels   # kernels imports this module
+
+    rough, slope_x, slope_y = kernels.plane_fit(*plane_fit_inputs(cfg, hm))
+    return slope_x, slope_y, rough
+
+
+def plane_fit_inputs(cfg: GvomConfig, hm: torch.Tensor):
+    """The 3×3 plane fit of the height map hm [X, Y] up to its tail: (mean
+    squared residual err, the fit's `ok` mask, the normalized coefficients
+    a0n and a1n, 1/m), each [X, Y].
 
     The arithmetic is gvom_tpu/ops/maps2d.py's, rounded as its compiled form
     rounds it: each sum of products and each `s − c·m·m'` is a chain of
     fused multiply-adds, and a/m with a = n/det is n/(det·m). So the fit's
     `ok` test and the normalized coefficients are bitwise those of the JAX
-    package; atan2 and log then differ by at most an ulp or so."""
+    package, and so are the tail's log and atan2 (grid.log32 and
+    grid.atan2_32, the plane-fit kernel on the card)."""
     dev = hm.device
     res = torch.tensor(cfg.xy_resolution, dtype=torch.float32, device=dev)
     known = hm > UNKNOWN_HEIGHT
@@ -169,14 +185,20 @@ def slope_and_roughness(cfg: GvomConfig, hm: torch.Tensor) -> Tuple[torch.Tensor
     e = fma32(a0n * a0n, xx, e)
     e = fma32((a0n * 2.0) * a1n, xy, e)
     e = fma32(a1n * a1n, yy, e)
-    err = e / c
-    err = torch.where(err > 0, torch.log(torch.where(err > 0, err, torch.ones_like(err))), err)
+    return e / c, ok, a0n, a1n, 1.0 / m
+
+
+def plane_fit_plain(err: torch.Tensor, ok: torch.Tensor, a0n: torch.Tensor, a1n: torch.Tensor,
+                    inv_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plane fit's tail, the plain twin of the plane-fit kernel: (roughness
+    = log err where err > 0, else err; slope_x = atan2(a0n, 1/m); slope_y =
+    atan2(a1n, 1/m)), −1 and 0 where the fit is not `ok`
+    (gvom_tpu/ops/maps2d.py:175-178)."""
+    pos = err > 0
+    rough = torch.where(ok, torch.where(pos, log32(torch.where(pos, err, torch.ones_like(err))), err),
+                        -torch.ones_like(err))
     z0 = torch.zeros_like(err)
-    rough = torch.where(ok, err, -torch.ones_like(err))
-    inv_m = 1.0 / m
-    slope_x = torch.where(ok, torch.atan2(a0n, inv_m), z0)
-    slope_y = torch.where(ok, torch.atan2(a1n, inv_m), z0)
-    return slope_x, slope_y, rough
+    return rough, torch.where(ok, atan2_32(a0n, inv_m), z0), torch.where(ok, atan2_32(a1n, inv_m), z0)
 
 
 def _nearest_known_with_value(known: torch.Tensor, idx: torch.Tensor, hm: torch.Tensor, dim: int):

@@ -15,6 +15,10 @@ times, with CUDA events, the mean of N warm calls of:
                                        holds the window seam
   pipeline.ingest_scan         prepare, raycast, binning, moments
   pipeline.ingest_scan(y_window=)      the same for that slab
+  pipeline.combine             the combine of a ring buffer that holds the
+                               scan (B = 4), with the device work it
+                               launches counted by torch.profiler over one
+                               warm call (kernels, copies and fills)
 
 and, as the card runs them alone (the launches of GRAPH_CALLS calls captured
 once in a CUDA graph and replayed: fills and small launches included, the
@@ -147,6 +151,8 @@ def main(argv=None) -> int:
     from gvom_tpu_torch.ops import binning, kernels, raycast
     from gvom_tpu_torch.ops import grid as gridops
     from gvom_tpu_torch.parallel.sharding import prepare_batch
+    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
+    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     cfg = GvomConfig()
@@ -171,8 +177,17 @@ def main(argv=None) -> int:
     for name, fn in calls.items():
         out[name + "_ms"] = cuda_ms(fn, args.reps)
 
-    # ---- each kernel's launches alone ----
+    # ---- the combine: its device time and the device work it launches ----
     kernels.build_all()
+    buf, _ = pipeline.ingest_and_insert(cfg, empty_buffer_state(cfg, dev), pts, valid, ego)
+    world = empty_world_state(cfg, dev)
+    out["combine_ms"] = cuda_ms(lambda: pipeline.combine(cfg, buf, world, ego), 10)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipeline.combine(cfg, buf, world, ego)
+        torch.cuda.synchronize()
+    out["combine_launches"] = sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
+
+    # ---- each kernel's launches alone ----
     X, Y, Z = cfg.grid_shape
     pn = gridops.map_local(cfg, p, origin)
     bp, bv, be = (torch.from_numpy(a).to(dev) for a in batch_points(str(Path(args.root).resolve()), cfg,

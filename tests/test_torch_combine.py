@@ -4,11 +4,11 @@ combine(impl="xla"), on the CPU, over the moving-ego drive of
 tests/test_parity_combine.py: re-origin shifts, slot-order fusion and the
 previous-map decay veto.
 
-Bitwise: every world channel but the moments, and every MapProducts field
-but slope_x, slope_y and roughness. Those three go through atan2 and log,
-whose float32 results differ by an ulp or so between XLA's CPU code and
-PyTorch's; they are held within SLOPE_ATOL and ROUGH_ATOL. The moments are
-held as in torch_helpers."""
+Bitwise: every world channel but the moments, and every MapProducts field.
+slope_x, slope_y and roughness go through atan2 and log: the port's are
+XLA's compiled log and glibc's atan2f (gvom_tpu_torch.ops.grid.log32 and
+atan2_32), rounding for rounding. The moments are held as in
+torch_helpers."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from gvom_tpu_torch import Gvom, GvomConfig, VoxelMapperNode, batched_replay, cli, make_batched_step, sequential_replay
+from gvom_tpu_torch.entry import entry
 from gvom_tpu_torch.io.logio import ScanLog
 from gvom_tpu_torch.ops import kernels
 from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
@@ -45,7 +46,9 @@ def test_port_imports_no_jax_and_nothing_of_gvom_tpu():
                        timeout=120)
     assert r.returncode == 0, r.stderr + r.stdout
     imported = set(r.stdout.split())
-    assert {"gvom_tpu_torch.ros.node", "gvom_tpu_torch.cli", "gvom_tpu_torch.engine.node"} <= imported
+    assert {"gvom_tpu_torch.ros.node", "gvom_tpu_torch.cli", "gvom_tpu_torch.engine.node", "gvom_tpu_torch.bench",
+            "gvom_tpu_torch.entry", "gvom_tpu_torch.oracle", "gvom_tpu_torch.oracle.numpy_ref",
+            "gvom_tpu_torch.utils.parity"} <= imported
     assert set(_modules()) <= imported       # every module was imported
 
 
@@ -79,6 +82,10 @@ def test_default_device_raises_without_gpu(monkeypatch, tmp_path, capsys):
     assert "device='cpu'" in capsys.readouterr().err
     assert cli.main(["selftest"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+    assert cli.main(["parity", "--scans", "1"]) == 2
+    assert "device='cpu'" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -89,11 +96,16 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CPU or a CUDA"):
         kernels.bin_points(cfg, pn, torch.ones(4, dtype=torch.bool, device="meta"),
                            torch.zeros(3, dtype=torch.int32, device="meta"))
+    f = torch.zeros((2, 2), device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        kernels.plane_fit(f, torch.ones((2, 2), dtype=torch.bool, device="meta"), f, f, f)
     assert [k.name for k in kernels.KERNELS] == [
         "ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "moments_epilogue",
-        "ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab"]
+        "ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab", "plane_fit"]
     for k in kernels.KERNELS:
-        assert k.source.exists() and k.replaces.startswith("gvom_tpu/ops/pallas_kernels.py:")
+        # every kernel but the plane fit's tail, which the port adds, replaces a TPU kernel
+        assert k.source.exists() and k.replaces.startswith(
+            "none: the port's own" if k is kernels.PLANEFIT else "gvom_tpu/ops/pallas_kernels.py:")
 
 
 def test_raycast_wrapper_checks_its_inputs_before_the_device():
@@ -127,13 +139,13 @@ def test_build_all_builds_the_configs_combine_depth(monkeypatch):
     reports = kernels.build_all()
     assert sorted(reports) == sorted(k.name for k in kernels.KERNELS)
     assert sorted(started) == [("binning.cu", ()), ("combine.cu", ("-DGVOM_COMBINE_B=4",)),
-                               ("epilogue.cu", ()), ("raycast.cu", ())]
+                               ("epilogue.cu", ()), ("planefit.cu", ()), ("raycast.cu", ())]
     started.clear()
     kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3))
-    assert ("combine.cu", ("-DGVOM_COMBINE_B=3",)) in started and len(started) == 5
+    assert ("combine.cu", ("-DGVOM_COMBINE_B=3",)) in started and len(started) == 6
     started.clear()
     kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=4))
-    assert len(started) == 4
+    assert len(started) == 5
     started.clear()
     Gvom(config=GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3), device="cpu")
     assert started == []
