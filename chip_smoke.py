@@ -79,7 +79,20 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
   8. runs `python -m gvom_tpu_torch.bench` in its four modes (perscan,
      combine, async, batched; 8 steps, best of 2), one at a time, and prints
      their JSON lines; runs entry()'s step on the card, its four maps
-     bitwise those of entry(device="cpu").
+     bitwise those of entry(device="cpu");
+  9. runs the (data, space) mesh (parallel/mesh.py) on the one card, which
+     holds one NCCL rank: a (1, 1) mesh over NCCL takes two batched steps of
+     32 scans, bitwise the same steps with mesh=None (the moments within
+     MOM_ATOL_BATCH: the kernels' float atomics add in any order, so two
+     runs of one step differ there, which the phase counts); four
+     ranks in four processes share the card over gloo on the meshes (1, 4)
+     slab, (2, 2) slab and (2, 2) scatter, each gathered world and its
+     products bitwise the one-rank step's (the moments within
+     MOM_ATOL_BATCH), the slab kernels launched on every rank of a space
+     mesh; dryrun_multichip(4, backend="gloo"); and `bench --mode scaling
+     --devices 1`. It prints each rank's step time, peak device memory,
+     slab launches and the bytes gloo moved through the host. Four ranks
+     on one card measure no scaling.
 
 Prints the timings, one JSON line {"kernels": [...]}, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
@@ -120,6 +133,8 @@ NEAR_TIER_STEPS = 30         # the step-pair kernel of the JAX package covers st
 PLANE_FIT_SWEEP = 1 << 20    # values of the plane-fit kernel's seeded sweep over the fit's domain
 PLANE_FIT_OPS = 80           # f32 operations of the plane-fit tail at a cell whose fit is ok (a log, two atan2)
 BENCH_MODES = ("perscan", "combine", "async", "batched")
+MESH_RANKS = 4               # phase 9's gloo ranks on the one card
+MESH_SHAPES = (("(1, 4) slab", 4, "slab"), ("(2, 2) slab", 2, "slab"), ("(2, 2) scatter", 2, "scatter"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
@@ -1620,6 +1635,214 @@ def phase8_bench_and_entry(log):
     return lines
 
 
+# ----------------------------------------------------------------------
+# 9. the (data, space) mesh on the one card
+
+
+def mesh_inputs(cfg, scans, dev):
+    """The phase-9 batches: two steps of BATCH scans as make_batch stages
+    them, and their ray budget."""
+    import numpy as np
+    import torch
+
+    scans_dev = (torch.stack([torch.from_numpy(p) for p, _, _ in scans[:4]]).to(dev),
+                 torch.stack([torch.from_numpy(v) for _, v, _ in scans[:4]]).to(dev),
+                 torch.from_numpy(np.stack([e for _, _, e in scans[:4]]).astype(np.float32)).to(dev))
+    batches = [make_batch(scans_dev, BATCH, i) for i in range(2)]
+    return batches, batched_cfg(cfg, batches[0])
+
+
+def mesh_steps(step, world, batches, mesh, ingest, barrier=lambda: None):
+    """Two timed steps on this rank (host clock, synchronized): the slab
+    worlds and products after each, the step ms, the step's own peak device
+    bytes, the launches and the bytes gloo moved through the host."""
+    import torch
+
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.parallel.sharding import shard_batch
+
+    step(world, *shard_batch(*batches[0], mesh, ingest))       # warm: the allocator and the groups
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mesh.host_bytes = 0
+    outs, ms = [], []
+    for b in batches:
+        barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        world, products = step(world, *shard_batch(*b, mesh, ingest))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append((world, products))
+    stats = dict(step_ms=ms, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 peak_step_bytes=torch.cuda.max_memory_allocated() - base,
+                 launches={k.name: k.launches for k in kernels.KERNELS if k.launches}, host_bytes=mesh.host_bytes)
+    return outs, stats
+
+
+def same_as_one_rank(what, world, products, ref_world, ref_products):
+    """A gathered mesh world and its products against the one-rank step's:
+    every product and hit, miss, min_height and evidence bitwise, the
+    moments n bitwise and the nine sums within MOM_ATOL_BATCH (the data
+    ranks' sums add in another order). Returns the moments' max abs err."""
+    e = same_world(what, world, ref_world, MOM_ATOL_BATCH)
+    for name in PRODUCT_FIELDS:
+        exact(f"{what}: product {name}", getattr(products, name), getattr(ref_products, name))
+    return e
+
+
+def mesh_rank(argv):
+    """One rank of phase 9 (b): gloo on the one card, the meshes of
+    MESH_SHAPES, each held on rank 0 against the one-rank step's results
+    that the parent saved; prints one JSON line per mesh."""
+    import torch
+
+    from gvom_tpu_torch import GvomConfig, make_batched_step
+    from gvom_tpu_torch.parallel.mesh import init_distributed, make_mesh, rank_args, shutdown
+    from gvom_tpu_torch.parallel.sharding import gather_world, shard_world
+    from gvom_tpu_torch.types import empty_world_state
+
+    rank, n, coordinator, rest = rank_args(argv)
+    inputs = Path(rest[rest.index("--mesh-rank") + 1])
+    init_distributed(coordinator, n, rank, backend="gloo", device=DEVICE)
+    meshes = [(name, make_mesh(space=space, device=DEVICE), ingest) for name, space, ingest in MESH_SHAPES]
+    dev = meshes[0][1].device
+    saved = torch.load(inputs / "inputs.pt", map_location="cpu", weights_only=False)
+    cfg, cb = GvomConfig.from_dict(saved["cfg"]), GvomConfig.from_dict(saved["cb"])
+    batches = [tuple(t.to(dev) for t in b) for b in saved["batches"]]
+    refs = None
+    for name, mesh, ingest in meshes:
+        step = make_batched_step(cb, dev, mesh=mesh, ingest=ingest)
+        outs, stats = mesh_steps(step, shard_world(empty_world_state(cfg, dev), mesh), batches, mesh, ingest,
+                                 mesh.barrier)
+        full = [(gather_world(w, mesh), p) for w, p in outs]
+        if rank == 0:
+            if refs is None:
+                refs = torch.load(inputs / "refs.pt", map_location=dev, weights_only=False)
+            stats["max_abs_err"] = max(same_as_one_rank(f"mesh {name} step {i}", w, p, *refs[i])
+                                       for i, (w, p) in enumerate(full))
+        del outs, full
+        print(json.dumps(dict(mesh=name, shape=mesh.shape, rank=rank, **stats)), flush=True)
+    shutdown()
+    return 0
+
+
+def phase9_mesh(cfg, scans, dev, log):
+    """The (data, space) mesh on the one card (parallel/mesh.py). The card
+    holds one NCCL rank: (a) a one-rank NCCL mesh takes two batched steps
+    of BATCH scans, bitwise the same steps with mesh=None but for the
+    moments' rounding (the kernels' atomics add in any order);
+    (b) four ranks in four processes share the card over gloo on the meshes
+    of MESH_SHAPES, each gathered world and its products against the
+    one-rank step; (c) dryrun_multichip(4, backend="gloo"); (d) `bench
+    --mode scaling --devices 1`. A correctness run of the collectives: four
+    ranks on one card measure no scaling."""
+    import torch
+    import torch.distributed as dist
+
+    from gvom_tpu_torch import make_batched_step
+    from gvom_tpu_torch.entry import dryrun_multichip
+    from gvom_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, run_ranks
+    from gvom_tpu_torch.parallel.sharding import gather_world, shard_world
+    from gvom_tpu_torch.types import empty_world_state
+
+    t_phase = time.perf_counter()
+    batches, cb = mesh_inputs(cfg, scans, dev)
+    one = make_batched_step(cb, dev)
+    world = empty_world_state(cfg, dev)
+    single = mesh_steps(one, world, batches, Mesh.single(dev), "slab")
+    refs = [(w, p) for w, p in single[0]]
+    res = dict(one_rank=single[1])
+    # K2's and K5's float atomics add in any order: the same step run twice
+    # on the card differs in the nine moment sums (not in n), within MOM_ATOL_BATCH
+    again = mesh_steps(one, world, batches, Mesh.single(dev), "slab")[0]
+    res["one_rank_rerun_moment_diffs"] = [int((a.grid.mom != b.grid.mom).sum()) for (a, _), (b, _) in zip(again, refs)]
+    for i, ((w, p), (rw, rp)) in enumerate(zip(again, refs)):
+        same_as_one_rank(f"the one-rank step run again, step {i}", w, p, rw, rp)
+    del again
+
+    # ---- (a) NCCL, one rank ----
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = init_distributed(f"file://{tmp}/store", 1, 0, device=DEVICE)
+        try:
+            mesh = make_mesh(device=DEVICE)
+            outs, res["nccl_1x1"] = mesh_steps(make_batched_step(cb, dev, mesh=mesh),
+                                               shard_world(empty_world_state(cfg, dev), mesh), batches, mesh, "slab")
+            res["nccl_1x1"]["max_abs_err"] = max(
+                same_as_one_rank(f"NCCL (1, 1) mesh step {i}", gather_world(w, mesh), p, rw, rp)
+                for i, ((w, p), (rw, rp)) in enumerate(zip(outs, refs)))
+            res["nccl_1x1"]["moment_diffs"] = [int((w.grid.mom != rw.grid.mom).sum())
+                                               for (w, _), (rw, _) in zip(outs, refs)]
+            del outs
+        finally:
+            dist.destroy_process_group()
+    check(backend == "nccl", f"one rank on one card took backend {backend}, not NCCL")
+    log(f"phase 9 (a): a (1, 1) mesh over NCCL, two steps of {BATCH} scans: products, hit, miss, min_height, "
+        f"evidence and n bitwise the one-rank step, the nine moment sums within MOM_ATOL_BATCH (max abs err "
+        f"{res['nccl_1x1']['max_abs_err']}; {res['nccl_1x1']['moment_diffs']} elements differ, and "
+        f"{res['one_rank_rerun_moment_diffs']} between two runs of the one-rank step: the atomics' order); step "
+        f"{res['nccl_1x1']['step_ms'][1]:.2f} ms against {res['one_rank']['step_ms'][1]:.2f} ms with mesh=None "
+        f"(host clock)")
+
+    # ---- (b) four ranks on the card over gloo ----
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(cfg=cfg.to_dict(), cb=cb.to_dict(), batches=[tuple(t.cpu() for t in b) for b in batches]),
+                   Path(tmp) / "inputs.pt")
+        torch.save([(w, p) for w, p in refs], Path(tmp) / "refs.pt")
+        del refs, single
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            outs = run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", tmp], MESH_RANKS,
+                             timeout=300, cwd=str(ROOT))
+        except RuntimeError as e:
+            raise Failed(f"phase 9 (b): {e}")
+        ranks_s = time.perf_counter() - t0
+    lines = [json.loads(x) for o in outs for x in o.splitlines() if x.startswith('{"mesh"')]
+    meshes = {}
+    for name, space, ingest in MESH_SHAPES:
+        per = sorted((x for x in lines if x["mesh"] == name), key=lambda x: x["rank"])
+        check(len(per) == MESH_RANKS, f"mesh {name}: {len(per)} ranks reported")
+        if ingest == "slab" and space > 1:
+            for x in per:
+                for k in ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab"):
+                    check(x["launches"].get(k, 0) == 2, f"mesh {name} rank {x['rank']}: {k} launched "
+                                                         f"{x['launches'].get(k, 0)} times in two steps")
+        meshes[name] = per
+        log(f"phase 9 (b) mesh {name} ({MESH_RANKS} ranks on one card, gloo): bitwise the one-rank step, "
+            f"moments max abs err {per[0]['max_abs_err']}; step ms per rank (host clock) "
+            f"{[round(x['step_ms'][1], 2) for x in per]}; max_memory_allocated per rank "
+            f"{[x['max_memory_allocated'] for x in per]}, of it the steps' own "
+            f"{[x['peak_step_bytes'] for x in per]} (one rank: {res['one_rank']['max_memory_allocated']}, "
+            f"{res['one_rank']['peak_step_bytes']}); slab launches "
+            f"per rank {[[x['launches'].get(k, 0) for k in ('ray_pass_counts_slab', 'bin_points_slab', 'moments_epilogue_slab')] for x in per]}; "
+            f"bytes through the host per rank {[x['host_bytes'] for x in per]}")
+    res.update(gloo_4_ranks=meshes, gloo_4_ranks_s=ranks_s)
+
+    # ---- (c) dryrun_multichip, (d) bench --mode scaling ----
+    t0 = time.perf_counter()
+    res["dryrun"] = dryrun_multichip(MESH_RANKS, backend="gloo", timeout=300)
+    res["dryrun_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m", "gvom_tpu_torch.bench", "--mode", "scaling", "--devices", "1",
+                            "--steps", "4", "--repeats", "2"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        raise Failed("bench --mode scaling: still running after 300 s")
+    check(r.returncode == 0, f"bench --mode scaling: exit code {r.returncode}: {r.stderr[-3000:]}")
+    line = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    check(len(line) == 1 and line[0]["devices"] == [1] and line[0]["backend"] == "nccl"
+          and line[0]["scans_per_s"]["1"] > 0, f"bench --mode scaling: {r.stdout[-2000:]}")
+    print(json.dumps(line[0]), flush=True)
+    res.update(bench_scaling=line[0], bench_scaling_s=time.perf_counter() - t0, phase_s=time.perf_counter() - t_phase)
+    log(f"phase 9 (c) {res['dryrun']} ({res['dryrun_s']:.1f} s); (d) bench --mode scaling --devices 1: "
+        f"{line[0]['scans_per_s']['1']} scans/s ({res['bench_scaling_s']:.1f} s); phase 9 took {res['phase_s']:.1f} s")
+    return res
+
+
+
 def phase_end_to_end(cfg, scans, dev, log):
     """Device time (CUDA events) of the warmed per-scan ingest and combine,
     called through the pipeline on tensors already on the card."""
@@ -1758,7 +1981,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one ingest, one combine, one batched step and one tick of the node "
                          "with torch.profiler")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh-rank", help=argparse.SUPPRESS)   # a phase-9 rank: the directory of its inputs
+    args, extra = ap.parse_known_args(argv)
+    if extra and not args.mesh_rank:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
 
     import torch
 
@@ -1775,6 +2001,8 @@ def main(argv=None) -> int:
     from gvom_tpu_torch.utils.compare import (MOM_ATOL, MOM_RTOL, Failed, check, clean_sums, close, exact,
                                               moments_close, sums_close, tol_share)
     try:
+        if args.mesh_rank:
+            return mesh_rank(sys.argv[1:] if argv is None else argv)
         return run(args, torch)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1829,6 +2057,7 @@ def run(args, torch) -> int:
     phase6_replay(log)
     node_launches, report["host_path"] = phase7_host_path(cfg, scans, log)
     report["bench"] = phase8_bench_and_entry(log)
+    report["mesh"] = phase9_mesh(cfg, scans, dev, log)
     if args.profile:
         report["profile"] = phase_profile(cfg, scans, dev, log)
 
@@ -1842,6 +2071,8 @@ def run(args, torch) -> int:
         r["launches_batched_path"] = batched_launches[r["name"]]
         r["launches_slab_path"] = slab_launches[r["name"]]
         r["launches_node_path"] = node_launches[r["name"]]
+        if r["name"].endswith("_slab"):
+            r["launches_mesh_path"] = [x["launches"].get(r["name"], 0) for x in report["mesh"]["gloo_4_ranks"]["(1, 4) slab"]]
         r["max_abs_err"] = err[r["name"]]
         check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")
         if r["name"] in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit"):
@@ -1849,7 +2080,8 @@ def run(args, torch) -> int:
     check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS], "the kernels line misses a kernel")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    line = {"kernels": [{k: r[k] for k in keys + ("atomic_floor_ms", "wrapper_ms", "launches_node_path") if k in r}
+    line = {"kernels": [{k: r[k] for k in keys + ("atomic_floor_ms", "wrapper_ms", "launches_node_path",
+                                                 "launches_mesh_path") if k in r}
                         for r in rows]}
     smi = []
     if shutil.which("nvidia-smi"):

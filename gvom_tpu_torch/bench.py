@@ -1,7 +1,7 @@
 """Benchmark of the port: sustained end-to-end mapping throughput on one GPU.
 
-    python -m gvom_tpu_torch.bench [--mode perscan|combine|async|batched] [--steps 64] [--repeats 3]
-                                   [--device cuda|cpu]
+    python -m gvom_tpu_torch.bench [--mode perscan|combine|async|batched|scaling] [--steps 64] [--repeats 3]
+                                   [--device cuda|cpu] [--devices 1,2,4] [--processes N --backend gloo]
 
 The counterpart of the JAX package's bench.py, with its modes, flags, metric
 names and JSON fields. Each step of the default mode is the full reference
@@ -24,7 +24,14 @@ upstream G-VOM's 9-12 Hz on its GPU (a Quadro RTX 4000).
     8 at 20 Hz each while the main thread combines back to back.
   * batched: 32 (scan, ego) pairs a step through make_batched_step, one
     combine a step, the egos advancing every step.
-  * scaling: refused; the multi-GPU mesh is not ported yet.
+  * scaling: the weak-scaling efficiency of the batched step over a
+    (data, space) mesh of ranks (parallel/mesh.py): --batch scans per rank
+    a step while the rank count grows over --devices (default 1, 2, 4, ...
+    up to the cards), one rank per card over NCCL, each count a set of
+    processes; value = throughput(n) / (n × throughput(1)). Counts beyond
+    the cards are refused. --processes N --backend gloo instead times the
+    same global batch on one rank and on N ranks over gloo (on the CPU, or
+    sharing one card): value = time(1) / time(N).
 
 Four distinct scans are staged first (host-side input preparation, not
 timed). A first, untimed call of each timed function builds the CUDA
@@ -40,6 +47,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import sys
 import threading
 import time
@@ -68,8 +76,19 @@ def _positive_int(v):
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m gvom_tpu_torch.bench", description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=_positive_int, default=64, help="steps per timed run")
-    ap.add_argument("--mode", default="perscan", choices=["perscan", "batched", "combine", "async", "scaling"])
-    ap.add_argument("--batch", type=_positive_int, default=32, help="scans per step in batched mode")
+    ap.add_argument("--mode", default="perscan",
+                    choices=["perscan", "batched", "combine", "async", "scaling", "scaling-worker"])
+    ap.add_argument("--batch", type=_positive_int, default=32,
+                    help="scans per step in batched mode; per rank in scaling mode")
+    ap.add_argument("--devices", default=None,
+                    help="scaling mode: comma-separated rank counts, one card each (default: 1,2,...,all cards)")
+    ap.add_argument("--processes", type=_positive_int, default=1,
+                    help="scaling mode: the same global batch on 1 rank vs N ranks, over --backend gloo")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="scaling mode: the ranks' process-group backend (default: NCCL, one card a rank)")
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--pipelined", action="store_true",
                     help="perscan: combine the buffer as it stood before this scan's insert (products lag a scan)")
     ap.add_argument("--combine-every", type=_positive_int, default=None,
@@ -345,19 +364,158 @@ def run_batched(b: _Bench) -> dict:
     }
 
 
+def run_scaling_worker(args) -> dict:
+    """One rank of a scaling run: --batch scans a step on this rank, the
+    world in slabs over the default mesh, --steps steps as the batched mode
+    runs them, best of --repeats; rank 0's line has the times."""
+    from gvom_tpu_torch.parallel.mesh import init_distributed, make_mesh, shutdown
+    from gvom_tpu_torch.parallel.sharding import make_batched_step, shard_batch, shard_world
+
+    init_distributed(args.coordinator, args.world, args.rank, backend=args.backend, device=args.device)
+    mesh = make_mesh(device=args.device)
+    b = _Bench(args, mesh.device)
+    B = args.batch * mesh.size
+    cfg = batched_ray_budget(b.cfg, B)
+    bstep = make_batched_step(cfg, mesh.device, mesh=mesh)
+    everyone = torch.arange(B, device=b.dev)
+    mine = shard_batch(everyone, everyone, everyone, mesh)[0]          # this rank's scans of the batch
+    reps = mine % N_DISTINCT
+    bscans, bmasks, begos_base = b.scans[reps], b.masks[reps], b.egos[reps]
+    drift = mine.float()[:, None] * torch.tensor([0.02, 0.01, 0.0], dtype=torch.float32, device=b.dev)
+    advance = torch.tensor([0.3, 0.15, 0.0], dtype=torch.float32, device=b.dev)
+
+    def run():
+        world, ego0 = shard_world(empty_world_state(cfg, b.dev), mesh), b.egos[0]
+        mesh.barrier()
+        b.sync()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            begos = ego0[None, :] + drift
+            world, _ = bstep(world, bscans + (begos - begos_base)[:, None, :], bmasks, begos)
+            ego0 = ego0 + advance
+        b.sync()
+        return time.perf_counter() - t0
+
+    run()          # the first call builds the kernels and warms the allocator
+    best = min(run() for _ in range(args.repeats))
+    shutdown()
+    return {"worker_best_s": best, "batch_total": B, "steps": args.steps, "rank": mesh.rank, "mesh": mesh.shape,
+            "host_bytes": mesh.host_bytes, "device": b.device_name}
+
+
+def _launch_scaling(args, ranks: int, batch: int, backend: str) -> dict:
+    """Rank 0's line of a scaling run on `ranks` ranks of `batch` scans each."""
+    from pathlib import Path
+
+    from gvom_tpu_torch.parallel.mesh import run_ranks
+
+    argv = [sys.executable, "-m", "gvom_tpu_torch.bench", "--mode", "scaling-worker", "--backend", backend,
+            "--device", args.device, "--batch", str(batch), "--steps", str(args.steps),
+            "--repeats", str(args.repeats), "--xy-size", str(args.xy_size), "--z-size", str(args.z_size),
+            "--points", str(args.points)]
+    outs = run_ranks(argv, ranks, timeout=3600, cwd=str(Path(__file__).resolve().parent.parent))
+    for line in outs[0].splitlines():
+        if line.startswith("{"):
+            return json.loads(line)
+    raise RuntimeError(f"bench: the scaling worker printed no JSON line:\n{outs[0][-3000:]}")
+
+
+def scaling_plan(args):
+    """(rank counts, backend) of a scaling run, or a ValueError or
+    RuntimeError that refuses it: counts beyond the cards, NCCL without a
+    card a rank (resolve_backend), --processes without --backend gloo."""
+    from gvom_tpu_torch.parallel.mesh import resolve_backend
+
+    if args.processes > 1:
+        if args.backend != "gloo":
+            raise ValueError("--processes N runs its ranks over gloo: pass --backend gloo")
+        return [1, args.processes], resolve_backend(args.processes, args.device, "gloo")
+    visible = torch.cuda.device_count() if args.device == "cuda" else (os.cpu_count() or 1)
+    if args.devices:
+        counts = [int(c) for c in args.devices.split(",")]
+        bad = [c for c in counts if c > visible or c < 1]
+        if bad:
+            raise ValueError(f"--devices {bad} exceed the {visible} visible device(s); use --processes N "
+                             f"--backend gloo to run N ranks on one card")
+    else:
+        counts = [1 << k for k in range(visible.bit_length()) if 1 << k <= visible]
+        if counts[-1] != visible:
+            counts.append(visible)
+    return counts, resolve_backend(max(counts), args.device, args.backend)
+
+
+def run_scaling(args, counts, backend) -> dict:
+    """The weak-scaling line (the JAX package's bench.py --mode scaling)."""
+    per_count, lines = {}, {}
+    for n in counts:
+        lines[n] = _launch_scaling(args, n, args.batch, backend)
+        per_count[n] = lines[n]["batch_total"] * args.steps / lines[n]["worker_best_s"]
+        if args.verbose:
+            print(f"[bench] {n} ranks: {per_count[n]:.1f} scans/s", file=sys.stderr)
+    n_max = counts[-1]
+    eff = per_count[n_max] / (n_max * per_count[counts[0]] / counts[0])
+    return {
+        "metric": f"weak_scaling_efficiency_{n_max}dev_batch{args.batch}perdev",
+        "value": round(eff, 3),
+        "unit": "efficiency",
+        "vs_baseline": round(eff / 0.8, 2),
+        "scans_per_s": {str(k): round(v, 1) for k, v in per_count.items()},
+        "steps": args.steps,
+        "raycast": "cuda" if args.device == "cuda" else "plain",
+        "devices": counts,
+        "platform": args.device,
+        "backend": backend,
+        "device": lines[n_max]["device"],
+    }
+
+
+def run_scaling_dist(args) -> dict:
+    """The same global batch (--batch × --processes scans) on one rank and
+    on --processes ranks over gloo: the cost of crossing the process
+    boundary at constant work (the JAX package's bench.py --processes)."""
+    n = args.processes
+    r1 = _launch_scaling(args, 1, args.batch * n, "gloo")
+    rn = _launch_scaling(args, n, args.batch, "gloo")
+    t1, tn = r1["worker_best_s"], rn["worker_best_s"]
+    return {
+        "metric": f"dist_scaling_{n}dev_{n}proc_gloo",
+        "value": round(t1 / tn, 3),
+        "unit": "1proc/Nproc runtime ratio (1.0 = free process boundary)",
+        "vs_baseline": round((t1 / tn) / 0.8, 2),
+        "best_s_1proc": round(t1, 4),
+        f"best_s_{n}proc": round(tn, 4),
+        "scans_per_s_1proc": round(r1["batch_total"] * args.steps / t1, 2),
+        f"scans_per_s_{n}proc": round(rn["batch_total"] * args.steps / tn, 2),
+        "batch_total": r1["batch_total"],
+        "steps": args.steps,
+        "grid": [args.xy_size, args.xy_size, args.z_size],
+        "points": args.points,
+        "mesh": rn["mesh"],
+        "host_bytes_per_rank": rn["host_bytes"],
+        "device": rn["device"],
+        "note": "the same global batch both runs; N ranks over gloo share the device(s) of the one rank",
+    }
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.cpu:
         args.device = "cpu"
-    if args.mode == "scaling":
-        print("bench: --mode scaling needs the multi-GPU mesh, which is not ported yet (ROADMAP A3)",
-              file=sys.stderr)
-        return 2
     try:
         dev = resolve_device(args.device)
-    except RuntimeError as e:
+        if args.mode == "scaling":
+            counts, backend = scaling_plan(args)
+    except (RuntimeError, ValueError) as e:
         print(f"bench: {e}", file=sys.stderr)
         return 2
+    if args.mode == "scaling-worker":
+        line = run_scaling_worker(args)
+        if args.rank == 0:
+            print(json.dumps(line))
+        return 0
+    if args.mode == "scaling":
+        print(json.dumps(run_scaling_dist(args) if args.processes > 1 else run_scaling(args, counts, backend)))
+        return 0
     b = _Bench(args, dev)
     if b.cuda:
         kernels.build_all(b.cfg)

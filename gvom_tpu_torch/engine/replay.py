@@ -4,7 +4,8 @@ Two modes (counterparts of gvom_tpu/engine/replay.py):
   * sequential_replay: feeds a log through the facade exactly like the live
     node (parity runs, latency measurement).
   * batched_replay: stacks (scan, pose) pairs and runs the batched step
-    (parallel/sharding.py), one world snapshot per batch.
+    (parallel/sharding.py), one world snapshot per batch, on one device or
+    over a (data, space) mesh of ranks.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.engine.gvom import Gvom
 from gvom_tpu_torch.io.logio import ScanLog
 from gvom_tpu_torch.io.synthetic import pad_scan
-from gvom_tpu_torch.parallel.sharding import make_batched_step
+from gvom_tpu_torch.parallel.sharding import make_batched_step, shard_batch, shard_world
 from gvom_tpu_torch.types import empty_world_state, resolve_device
 from gvom_tpu_torch.utils.checkpoint import load_world, save_world
 from gvom_tpu_torch.utils.metrics import StepMetrics
@@ -78,6 +79,7 @@ def batched_replay(
     resume_from: Optional[str] = None,
     skip_batches: int = 0,
     heartbeat: Optional[object] = None,
+    mesh=None,
 ):
     """Run the log through the batched step, `batch_size` scans per step.
     Returns (final world, list of per-batch MapProducts, metrics).
@@ -90,13 +92,24 @@ def batched_replay(
     global batch `skip_batches + 1` (skipped batches get no placeholder).
     `heartbeat`, if given, is any object with `.beat()`, beaten once per
     fused batch, after its checkpoint (liveness = durable forward progress).
-    A scan's transform is applied on the host, before the scan is padded."""
-    dev = resolve_device(device)
+    A scan's transform is applied on the host, before the scan is padded.
+
+    With a mesh (parallel/mesh.py), every rank of it calls batched_replay
+    with the same log and arguments. Each batch is padded with dead scans
+    to a multiple of the mesh size, as the JAX package's replay pads it, and
+    each rank steps its shard (sharding.shard_batch) on its world slab; the
+    returned world is this rank's slab, the products are whole, and the
+    scan count counts real scans only. Checkpoints hold the whole world."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     if cfg.ray_steps_override is None:
         egos = np.stack([np.asarray(e, np.float64) for _, e, _ in log])
         cfg = dataclasses.replace(cfg, ray_steps_override=batched_ray_steps(cfg, egos, batch_size))
-    step = make_batched_step(cfg, dev)
-    world = load_world(resume_from, dev) if resume_from is not None else empty_world_state(cfg, dev)
+    step = make_batched_step(cfg, dev, mesh=mesh)
+    if resume_from is not None:
+        world = load_world(resume_from, dev, mesh=mesh)
+    else:
+        world = empty_world_state(cfg, dev)
+        world = world if mesh is None else shard_world(world, mesh)
     metrics = StepMetrics()
     products_list = []
     batch: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
@@ -112,17 +125,23 @@ def batched_replay(
             metrics.bump("skipped_batches")
             batch.clear()
             return
+        n_real = len(batch)
+        if mesh is not None:
+            pts0, mask0, ego_last = batch[-1]
+            batch.extend([(np.zeros_like(pts0), np.zeros_like(mask0), ego_last)] * (-n_real % mesh.size))
         t0 = time.perf_counter()
         pts, mask, ego = (torch.from_numpy(np.stack(a)).to(dev) for a in zip(*batch))
+        if mesh is not None:
+            pts, mask, ego = shard_batch(pts, mask, ego, mesh)
         world, products = step(world, pts, mask, ego)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         metrics.record("batch_s", time.perf_counter() - t0)
-        metrics.bump("scans", len(batch))
+        metrics.bump("scans", n_real)
         metrics.bump("batches")
         products_list.append(products)
         if checkpoint_dir and checkpoint_every > 0 and b_idx % checkpoint_every == 0:
-            save_world(os.path.join(checkpoint_dir, f"world_b{b_idx}"), world, cfg)
+            save_world(os.path.join(checkpoint_dir, f"world_b{b_idx}"), world, cfg, mesh=mesh)
             metrics.bump("checkpoints")
         if heartbeat is not None:
             heartbeat.beat()

@@ -235,21 +235,25 @@ def in_bounds(cfg: GvomConfig, vox: torch.Tensor) -> torch.Tensor:
     return torch.all((vox >= 0) & (vox < size), dim=-1)
 
 
-def overlap_axis_masks(cfg: GvomConfig, o_target: torch.Tensor, o_source: torch.Tensor):
+def overlap_axis_masks(cfg: GvomConfig, o_target: torch.Tensor, o_source: torch.Tensor, coords=None):
     """Per-axis bool factors [X], [Y], [Z] of overlap_mask."""
     out = []
     for ax, size in enumerate(cfg.grid_shape):
-        i = torch.arange(size, dtype=torch.int32, device=o_target.device)
+        i = coords[ax] if coords is not None else torch.arange(size, dtype=torch.int32, device=o_target.device)
         rel_t = torch.remainder(i - o_target[ax], size)
         d = o_target[ax] - o_source[ax]
         out.append((rel_t >= -torch.clamp(d, max=0)) & (rel_t < size - torch.clamp(d, min=0)))
     return out
 
 
-def overlap_mask(cfg: GvomConfig, o_target: torch.Tensor, o_source: torch.Tensor) -> torch.Tensor:
+def overlap_mask(cfg: GvomConfig, o_target: torch.Tensor, o_source: torch.Tensor, coords=None) -> torch.Tensor:
     """[X,Y,Z] bool: torus cells where the source's stored world voxel equals
-    the target window's world voxel (the two windows' overlap)."""
-    mx, my, mz = overlap_axis_masks(cfg, o_target, o_source)
+    the target window's world voxel (the two windows' overlap).
+
+    `coords` optionally gives the global torus indices covered along each
+    axis (three int32 tensors; default the full 0..size-1 ranges): a y-slab
+    passes its rows' global indices and gets the slab of the full mask."""
+    mx, my, mz = overlap_axis_masks(cfg, o_target, o_source, coords)
     return mx[:, None, None] & my[None, :, None] & mz[None, None, :]
 
 

@@ -69,20 +69,26 @@ def _first_in_column(cfg: GvomConfig, mask: torch.Tensor, origin: torch.Tensor):
     return zrel < Z, zrel, mask & (score == zrel[..., None])
 
 
-def _rel_cols(cfg: GvomConfig, origin: torch.Tensor, ax: int) -> torch.Tensor:
+def _rel_cols(cfg: GvomConfig, origin: torch.Tensor, ax: int, coords=None) -> torch.Tensor:
     X = cfg.xy_size
-    return torch.remainder(torch.arange(X, dtype=torch.int32, device=origin.device) - origin[ax], X).float()
+    i = coords if coords is not None else torch.arange(X, dtype=torch.int32, device=origin.device)
+    return torch.remainder(i - origin[ax], X).float()
 
 
-def height_map(cfg: GvomConfig, occ, min_height, origin, ego_position) -> torch.Tensor:
+def height_map(cfg: GvomConfig, occ, min_height, origin, ego_position, y_coords=None) -> torch.Tensor:
     """First-occupied-voxel height per column with the ego-disk pre-seed
-    (gvom.py:523-540); torus in, torus out."""
+    (gvom.py:523-540); torus in, torus out.
+
+    `y_coords` optionally gives the global torus y index of each input
+    column (int32; default 0..Y-1): a y-slab passes its rows' indices and
+    gets, bitwise, those columns of the full map."""
     any_occ, zrel, sel = _first_in_column(cfg, occ, origin)
     mh = torch.where(sel, min_height, torch.zeros((), device=occ.device)).sum(dim=-1)
     col_h = (mh + zrel.float() + origin[2].float()) * cfg.z_resolution
     ego = ego_position.float()
+    rel_y = _rel_cols(cfg, origin, 1, y_coords)
     gx = fma32(origin[0].float() + _rel_cols(cfg, origin, 0), cfg.xy_resolution, -ego[0].expand(cfg.xy_size))
-    gy = fma32(origin[1].float() + _rel_cols(cfg, origin, 1), cfg.xy_resolution, -ego[1].expand(cfg.xy_size))
+    gy = fma32(origin[1].float() + rel_y, cfg.xy_resolution, -ego[1].expand(rel_y.shape[0]))
     gx2, gy2 = torch.broadcast_tensors(gx[:, None], gy[None, :])
     disk = fma32(gx2, gx2, gy2 * gy2) <= f32_square(cfg.robot_radius)
     seed = torch.where(disk, ego[2] - torch.tensor(cfg.ground_to_lidar_height, dtype=torch.float32),

@@ -1,11 +1,24 @@
 """The batched step: a batch of (scan, ego) pairs fused into the world map in
-one step, on one device.
+one step, on one device or over a (data, space) mesh of ranks.
 
-Counterpart of gvom_tpu/parallel/sharding.py (`make_batched_step`'s
-device_fn) on a mesh of one device: no mesh, no collectives, no y-slab. The
-JAX package shards the same step over a (data, space) mesh; that needs only
-torch.distributed plumbing around this function (the slab forms of the
-kernels exist, ops/kernels.py) and is not here yet.
+Counterpart of gvom_tpu/parallel/sharding.py. Collective layout per step, by
+ingest strategy (make_batched_step), over torch.distributed (parallel/mesh.py):
+
+  * "slab" (the default): scans shard over `data` only; each rank rasterizes
+    its scans straight into its y-slab through the slab forms of the kernels
+    (K6), and the only grid collective is an all_reduce of slab-sized
+    tensors over `data`;
+  * "scatter": scans shard over both axes; each rank rasterizes the full grid
+    with the full-grid kernels (K1, K2, K5), then reduce_scatter along y over
+    `space` and all_reduce over `data`; min_height is reduced over every
+    rank, then sliced.
+
+The merge with the world slab is shard-local (masks built from the slab's
+global torus y indices, ops/grid.overlap_mask(coords=)); the column maps run
+on the slab and only the [X, X] 2D maps are gathered over `space` for the
+stencils. The world never leaves its slabs in 3D. On one device (mesh=None)
+the step is the same code on a mesh of one rank, whose collectives return
+their input.
 
 Batched semantics against the reference: all scans of a batch rasterize
 into one common frame, the origin of the batch's last scan, and fuse
@@ -15,11 +28,11 @@ from the combine timer (gvom.py:163-175), which a batched step subsumes.
 Negative evidence uses the associative form: the batch's total misses at
 voxels the fused map leaves unoccupied.
 
-Per step: kernel K1 once for all scans (each scan's rays from its own ego,
-all adding into one miss grid); kernels K2 and K5 once on the merged points
-of the whole batch, the moments raw (no occupancy mask); then the merge with
-the old world and the 2D maps in plain PyTorch, as the JAX package computes
-them outside any Pallas kernel.
+Per step and rank: kernel K1 once for the rank's scans (each scan's rays
+from its own ego, all adding into one miss grid); kernels K2 and K5 once on
+the merged points of the rank's scans, the moments raw (no occupancy mask);
+then the merge with the old world and the 2D maps in plain PyTorch, as the
+JAX package computes them outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -32,12 +45,14 @@ import torch
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import binning, kernels, maps2d
 from gvom_tpu_torch.ops import grid as gridops
-from gvom_tpu_torch.types import MapProducts, VoxelGrid, WorldState, resolve_device
+from gvom_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, Mesh
+from gvom_tpu_torch.types import MapProducts, VoxelGrid, WorldState
 
-__all__ = ["batched_step", "make_batched_step", "prepare_batch", "merge_batch_plain"]
+__all__ = ["batched_step", "make_batched_step", "prepare_batch", "merge_batch_plain", "shard_batch", "shard_world",
+           "gather_world"]
 
 
-def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid):
+def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid, coords=None):
     """Merge one batch's contribution (hit, miss, min_height and RAW moments
     at contrib.origin) with the old world: masks only, no data moves.
     Returns (merged VoxelGrid, evidence, occ2).
@@ -46,12 +61,13 @@ def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid):
     slot-latched one: the batch's negative evidence at a voxel the fused map
     leaves unoccupied is exactly its total miss count, because every
     consumer reads evidence only where the fused map is unoccupied, and
-    there no scan of the batch has a hit."""
+    there no scan of the batch has a hit. A y-slab passes its global torus
+    indices as `coords` (ops/grid.overlap_mask)."""
     origin = contrib.origin
     old = world.grid
     zero_i = torch.zeros((), dtype=torch.int32, device=origin.device)
     zero_f = torch.zeros((), dtype=torch.float32, device=origin.device)
-    omask = gridops.overlap_mask(cfg, origin, old.origin)       # the two windows' overlap
+    omask = gridops.overlap_mask(cfg, origin, old.origin, coords)       # the two windows' overlap
     old_ev = torch.where(omask, world.evidence, zero_i)
     occ = contrib.hit > 0
     old_occ = (old.hit > 0) & omask & world.valid
@@ -73,15 +89,17 @@ def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid):
     return merged, evidence, occ2
 
 
-def prepare_batch(cfg: GvomConfig, scans: torch.Tensor, valid: torch.Tensor, egos: torch.Tensor):
+def prepare_batch(cfg: GvomConfig, scans: torch.Tensor, valid: torch.Tensor, egos: torch.Tensor,
+                  origin: torch.Tensor = None):
     """The batch as one flat point set in the common frame: (origin, points
-    [S·N,3], keep [S·N]). The frame is the origin
-    of the batch's last scan. A scan that bins no in-grid endpoint (the same
+    [S·N,3], keep [S·N]). The frame is `origin`, by default that of the
+    batch's last scan. A scan that bins no in-grid endpoint (the same
     predicate as "produced no occupied voxel", gvom.py:148-150) is dead: its
     points are masked out of keep and it contributes nothing."""
     S, N = valid.shape
     egos = egos.float()
-    origin = gridops.compute_origin(cfg, egos[-1])
+    if origin is None:
+        origin = gridops.compute_origin(cfg, egos[-1])
     egos_pt = egos[:, None, :].expand(S, N, 3).reshape(-1, 3)
     pw, keep = binning.prepare_points(cfg, scans.reshape(-1, 3), valid.reshape(-1), egos_pt)
     vox = torch.floor(gridops.map_local(cfg, pw, origin)).to(torch.int32)
@@ -89,17 +107,95 @@ def prepare_batch(cfg: GvomConfig, scans: torch.Tensor, valid: torch.Tensor, ego
     return origin, pw, keep & oks[:, None].expand(S, N).reshape(-1)
 
 
-def make_batched_step(cfg: GvomConfig, device="cuda") -> Callable:
+def _ingest(ingest: str) -> str:
+    if ingest == "auto":
+        return "slab"
+    if ingest not in ("slab", "scatter"):
+        raise ValueError(f"unknown ingest strategy {ingest!r}")
+    return ingest
+
+
+def _slab_rows(Y: int, mesh: Mesh) -> slice:
+    """The torus rows of this rank's y-slab."""
+    nsp = mesh.shape[1]
+    if Y % nsp != 0:
+        raise ValueError(f"xy_size {Y} not divisible by space axis {nsp}")
+    Ys = Y // nsp
+    return slice(mesh.space_index * Ys, (mesh.space_index + 1) * Ys)
+
+
+def shard_batch(scans: torch.Tensor, valid: torch.Tensor, egos: torch.Tensor, mesh: Mesh, ingest: str = "auto"):
+    """This rank's shard (scans, valid, egos) of a global batch: the scans
+    split in order over `data` (slab ingest) or over both axes in rank order
+    (scatter), as the JAX package's in_specs shard them. The batch must
+    split evenly."""
+    parts, idx = (mesh.shape[0], mesh.data_index) if _ingest(ingest) == "slab" else (mesh.size, mesh.rank)
+    S = valid.shape[0]
+    if S % parts != 0:
+        raise ValueError(f"{S} scans do not split over {parts} ranks ({_ingest(ingest)} ingest on mesh {mesh.shape})")
+    k = S // parts
+    return scans[idx * k:(idx + 1) * k], valid[idx * k:(idx + 1) * k], egos[idx * k:(idx + 1) * k]
+
+
+def shard_world(world: WorldState, mesh: Mesh) -> WorldState:
+    """This rank's y-slab of a logical world, on the rank's device: the
+    counterpart of the JAX package's world_pspecs (the grid's y axis over
+    `space`, replicated over `data`; origin and valid replicated)."""
+    g, dev = world.grid, mesh.device
+    rows = _slab_rows(g.hit.shape[1], mesh)
+
+    def cut(t, dim):
+        return t.narrow(dim, rows.start, rows.stop - rows.start).to(dev).contiguous()
+
+    return WorldState(grid=VoxelGrid(hit=cut(g.hit, 1), miss=cut(g.miss, 1), min_height=cut(g.min_height, 1),
+                                     mom=cut(g.mom, 2), origin=g.origin.to(dev).clone()),
+                      evidence=cut(world.evidence, 1), valid=world.valid.to(dev).clone())
+
+
+def gather_world(slab: WorldState, mesh: Mesh) -> WorldState:
+    """The logical world of the slabs of this rank's space group: an
+    all_gather over `space` (every rank of the mesh calls it)."""
+    g = slab.grid
+
+    def gather(t, dim):
+        return mesh.all_gather(t, SPACE_AXIS, dim)
+
+    return WorldState(grid=VoxelGrid(hit=gather(g.hit, 1), miss=gather(g.miss, 1),
+                                     min_height=gather(g.min_height, 1), mom=gather(g.mom, 2), origin=g.origin),
+                      evidence=gather(slab.evidence, 1), valid=slab.valid)
+
+
+def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest: str = "auto") -> Callable:
     """Build the step (world, scans [S,N,3], valid [S,N], egos [S,3]) →
     (world, products) on `device`. The inputs are tensors on that device;
     the step returns a new world and leaves the old one untouched.
+
+    With a mesh (parallel/mesh.py), every rank calls the step together, on
+    the mesh's device (`device` must be of its type): with its world slab
+    [X, Ys, Z] (shard_world; mom [10, X, Ys, Z]) and its shard of the batch
+    (shard_batch), and gets its new slab and the full products. `ingest` is
+    "slab" (the default, "auto") or "scatter" (the module docstring). The
+    grid's y size must divide by the space axis.
 
     All scans of a batch rasterize at the LAST scan's origin, so earlier
     egos can sit anywhere in the grid, and the centered-ego DDA budget
     (config.ray_steps) would cut their long rays short. The budget is raised
     to the any-in-grid bound unless the caller pinned one; the raycast ends
     each ray where it dies, so the wider bound admits only live steps."""
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = Mesh.single(device)
+    elif torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device!r} and a mesh on {mesh.device}")
+    dev = mesh.device
+    slab = _ingest(ingest) == "slab"
+    rows = _slab_rows(cfg.xy_size, mesh)
+    nsp = mesh.shape[1]
+    X, Y, Z = cfg.grid_shape
+    Ys = rows.stop - rows.start
+    y_coords = torch.arange(rows.start, rows.stop, dtype=torch.int32, device=dev)
+    coords = (torch.arange(X, dtype=torch.int32, device=dev), y_coords, torch.arange(Z, dtype=torch.int32, device=dev))
+    ywin = (rows.start, Ys) if slab and nsp > 1 else None
+    scan_axis = DATA_AXIS if slab else None
     if dev.type == "cuda":
         kernels.build_all()      # nvcc at start-up, never inside a step
     if cfg.ray_steps_override is None:
@@ -110,35 +206,49 @@ def make_batched_step(cfg: GvomConfig, device="cuda") -> Callable:
         for name, t in (("scans", scans), ("valid", valid), ("egos", egos), ("world", world.grid.hit)):
             if t.device.type != dev.type or (dev.index is not None and t.device.index != dev.index):
                 raise ValueError(f"{name} is on {t.device}; this step was made for {dev}")
+        if tuple(world.grid.hit.shape) != (X, Ys, Z):
+            raise ValueError(f"world of shape {tuple(world.grid.hit.shape)}; this rank's slab is {(X, Ys, Z)}")
         S, N = valid.shape
         egos = egos.float().contiguous()
-        ego_last = egos[-1]
-        origin, pw, keep = prepare_batch(cfg, scans, valid, egos)
+        # ---- the common frame: the origin of the batch's globally last scan ----
+        ego_last = mesh.all_gather(egos, scan_axis, 0)[-1]
+        origin, pw, keep = prepare_batch(cfg, scans, valid, egos, gridops.compute_origin(cfg, ego_last))
 
         # ---- the raycast: one launch, each scan's rays from ITS ego, all
-        # adding into one miss grid ----
-        miss = torch.zeros(cfg.grid_shape, dtype=torch.int32, device=dev)
-        kernels.ray_pass_counts(cfg, pw.view(S, N, 3), keep.view(S, N), egos, origin, out=miss)
+        # adding into one miss grid (this rank's slab under slab ingest) ----
+        miss = torch.zeros((X, Ys if ywin else Y, Z), dtype=torch.int32, device=dev)
+        kernels.ray_pass_counts(cfg, pw.view(S, N, 3), keep.view(S, N), egos, origin, y_window=ywin, out=miss)
 
-        # ---- merged endpoint metrics: ONE pass over the whole batch's
-        # points (binning and moments are ego-free and additive over
-        # points). The moments come back raw; the batch's occupancy masks
-        # them in the merge ----
-        hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, occupancy_mask=False)
+        # ---- merged endpoint metrics: ONE pass over the rank's points
+        # (binning and moments are ego-free and additive over points). The
+        # moments come back raw; the batch's occupancy masks them in the merge ----
+        hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, y_window=ywin, occupancy_mask=False)
+
+        # ---- the rank's contributions reduced into its slab ----
+        if slab:
+            hit, miss, mom = (mesh.all_reduce(t, "sum", DATA_AXIS) for t in (hit, miss, mom))
+            minh = mesh.all_reduce(minh, "min", DATA_AXIS)
+        else:
+            hit, miss = (mesh.all_reduce(mesh.reduce_scatter(t, SPACE_AXIS, 1), "sum", DATA_AXIS) for t in (hit, miss))
+            mom = mesh.all_reduce(mesh.reduce_scatter(mom, SPACE_AXIS, 2), "sum", DATA_AXIS)
+            minh = mesh.all_reduce(minh, "min")[:, rows].contiguous()
         contrib = VoxelGrid(hit=hit, miss=miss, min_height=minh, mom=mom, origin=origin)
 
-        # ---- merge with the world, then the 2D maps ----
-        merged, evidence, occ2 = merge_batch_plain(cfg, world, contrib)
-        hm_t = maps2d.height_map(cfg, occ2, merged.min_height, origin, ego_last)
-        ihm_t = maps2d.inferred_height_map(cfg, occ2, evidence, origin)
+        # ---- merge with the world slab, then the 2D maps: column maps on
+        # the slab, stencils on the gathered [X, X] maps ----
+        merged, evidence, occ2 = merge_batch_plain(cfg, world, contrib, coords)
+        hm_t = mesh.all_gather(maps2d.height_map(cfg, occ2, merged.min_height, origin, ego_last, y_coords),
+                               SPACE_AXIS, 1)
+        ihm_t = mesh.all_gather(maps2d.inferred_height_map(cfg, occ2, evidence, origin), SPACE_AXIS, 1)
         hm = gridops.torus_to_window(hm_t, origin, grid_ndim=2)
         ihm = gridops.torus_to_window(ihm_t, origin, grid_ndim=2)
         sx, sy, rough = maps2d.slope_and_roughness(cfg, hm)
         ghd = maps2d.guess_height_delta(cfg, hm, ihm)
         sx_t = gridops.window_to_torus(sx, origin, grid_ndim=2)
         sy_t = gridops.window_to_torus(sy, origin, grid_ndim=2)
-        pos_t = maps2d.positive_obstacle_map(cfg, occ2, merged.hit, merged.hit + merged.miss, hm_t, sx_t, sy_t,
-                                             origin)
+        pos_t = mesh.all_gather(
+            maps2d.positive_obstacle_map(cfg, occ2, merged.hit, merged.hit + merged.miss, hm_t[:, rows],
+                                         sx_t[:, rows], sy_t[:, rows], origin), SPACE_AXIS, 1)
         products = MapProducts(
             origin=origin, height=hm, inferred_height=ihm, slope_x=sx, slope_y=sy, roughness=rough,
             guessed_height_delta=ghd,

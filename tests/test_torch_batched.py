@@ -5,9 +5,9 @@ with a live world at a moved origin (overlap masks, the decay veto, the
 batch's own evidence formula).
 
 Bitwise: every world channel but the nine non-n moments, and every
-MapProducts field but slope_x, slope_y and roughness (atan2 and log differ by
-an ulp or so between XLA's CPU code and PyTorch's). Those and the moments
-are held as torch_helpers states."""
+MapProducts field (slope_x, slope_y and roughness too: the port's log and
+atan2 round as XLA's CPU code does). The moments are held as torch_helpers
+states."""
 
 import jax
 import jax.numpy as jnp

@@ -4,8 +4,11 @@ Each mode runs as a subprocess (the four at once) at a tiny size (32×32×16,
 2,048 points, 2 steps, 1 repeat) with --device cpu and prints the JSON lines of the JAX
 package's bench.py for that mode, with its keys: they are read from
 bench.py's source, so that the two cannot drift apart. The perscan mode's
-contract line (K = 8) is the last. --mode scaling (the mesh is not ported)
-and the default device without a GPU are refused with a non-zero exit.
+contract line (K = 8) is the last. --mode scaling runs its ranks over gloo
+on the CPU (--devices 1,2) and prints bench.py's scaling keys, with the
+backend and the device beside them; a rank count beyond the devices, ranks
+over NCCL without cards, and the default device without a GPU are refused
+with a non-zero exit.
 entry(device="cpu")'s four maps are bitwise those of __graft_entry__.entry()'s
 jitted fn on the same arguments."""
 
@@ -54,6 +57,7 @@ def _reference_keys():
         "combine": [keys(funcs["_run_combine"], "result")],
         "async": [keys(funcs["_run_async"], "result")],
         "batched": [keys(funcs["_run_batched"], "result")],
+        "scaling": [keys(funcs["_run_scaling"], "result")],
     }
 
 
@@ -62,8 +66,10 @@ def bench_runs():
     """{mode: (exit code, stdout, stderr)} of the four bench subprocesses,
     started together."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    procs = {m: subprocess.Popen([sys.executable, "-m", "gvom_tpu_torch.bench", "--mode", m, *TINY], cwd=ROOT, env=env,
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for m in MODES}
+    extra = {"scaling": ["--devices", "1,2"]}
+    procs = {m: subprocess.Popen([sys.executable, "-m", "gvom_tpu_torch.bench", "--mode", m, *TINY, *extra.get(m, [])],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for m in MODES + ("scaling",)}
     out = {}
     try:
         for m, p in procs.items():
@@ -94,9 +100,26 @@ def test_bench_mode_prints_bench_py_keys(bench_runs, mode):
         assert contract["metric"] == "e2e_scan+combine_throughput_1chip_2048pts_32x32x16"
 
 
+def test_bench_scaling_prints_bench_py_keys(bench_runs):
+    rc, stdout, stderr = bench_runs["scaling"]
+    assert rc == 0, stderr[-3000:]
+    lines = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+    assert len(lines) == 1
+    line = lines[0]
+    assert sorted(set(line) - {"backend", "device"}) == sorted(_reference_keys()["scaling"][0])
+    assert line["metric"] == "weak_scaling_efficiency_2dev_batch4perdev" and line["value"] > 0
+    assert line["devices"] == [1, 2] and sorted(line["scans_per_s"]) == ["1", "2"]
+    assert line["backend"] == "gloo" and line["platform"] == line["device"] == "cpu" and line["raycast"] == "plain"
+
+
 def test_bench_refuses_scaling_and_a_missing_gpu(monkeypatch, capsys):
-    assert bench.main(["--mode", "scaling", "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert bench.main(["--mode", "scaling", "--device", "cpu", "--devices", f"1,{(os.cpu_count() or 1) + 1}"]) == 2
+    assert "visible device(s)" in capsys.readouterr().err
+    assert bench.main(["--mode", "scaling", "--device", "cpu", "--processes", "2"]) == 2
+    assert "--backend gloo" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert bench.main(["--mode", "scaling", "--devices", "1"]) == 2
+    assert "exceed the 0 visible device(s)" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bench.main(["--steps", "1"]) == 2
     assert "device='cpu'" in capsys.readouterr().err
