@@ -26,12 +26,23 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      rows of the full-grid kernel's output, and ingest_scan(y_window=) side
      by side against ingest_scan(). K1 on a near-tier scene (every ray
      shorter than 30 steps, the tier of the JAX package's step-pair kernel).
-     The plane-fit kernel (csrc/planefit.cu) bitwise against its plain
-     version (grid.log32 / grid.atan2_32 on the card) on each combine's
-     height map and on a seeded sweep of 2^20 cells of the fit's domain;
+     The 2-D stencils bit for bit against their plain versions: the plane
+     fit (csrc/planefit.cu, the whole 3×3 fit from the height map) and the
+     guess height (csrc/guess.cu) on each combine's height and
+     inferred-height maps, and on the seeded maps of
+     io.synthetic.stencil_maps (all known, all unknown, checkerboard, border
+     only, collinear triples with det = 0, a count of exactly 3, heights
+     near ±1e4, sparse, terrain with holes) at 256×256 (R = 15, and R = 60,
+     where the guess kernel reads the map from global memory) and the guess
+     at R = 0, 1, 15 and 300 on a 64×64 grid; the plane fit's tail alone (its
+     own entry, off the map path) on a seeded sweep of 2^20 cells of its
+     domain;
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
-     and read just after, and checks the 5-tuple it returns;
+     and read just after (K1-K4, the plane fit and the guess height once a
+     scan), and checks the 5-tuple it returns; then counts every launch of
+     one warm combine_maps with torch.profiler (the kernels' and PyTorch's)
+     and prints it with the device's busy share;
   3. checks the facade's outputs and ring buffer on a small grid (B = 3,
      whose K4 library the facade builds when it is made), over a
      drive with one degenerate scan, against the same facade on the CPU,
@@ -53,7 +64,8 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      against the same step with every kernel swapped for its plain version,
      then two steps of 32 scans of 131,072 points (the second merges with a
      live world at a moved origin), timed, with the launch counts set to 0
-     just before and read just after (K1: one launch a step); then K1 on a
+     just before and read just after (K1, K2, K5, the plane fit and the
+     guess height: one launch a step each); then K1 on a
      whole 32-scan batch, timed and held bitwise against the sum of its
      one-scan launches over the same scans, and K2 and K5 on its merged
      points against their plain versions, timed;
@@ -94,8 +106,10 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      slab launches and the bytes gloo moved through the host. Four ranks
      on one card measure no scaling.
 
-Prints the timings, one JSON line {"kernels": [...]}, the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}. Exits
+Prints the timings, one JSON line {"kernels": [...]} (every kernel of the
+paths; the plane fit's tail, which no path launches, is timed in the --out
+report), the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}. Exits
 non-zero without that line when there is no CUDA device or a phase fails.
 --out also writes every number to a JSON file.
 """
@@ -130,9 +144,14 @@ MOM_ATOL_BATCH = 1e-2
 BATCH = 32                   # scans per batched step, the JAX package's bench default
 BATCH_CHECK = 4              # scans per step of the batched step held against the plain versions
 NEAR_TIER_STEPS = 30         # the step-pair kernel of the JAX package covers steps 1..30
-PLANE_FIT_SWEEP = 1 << 20    # values of the plane-fit kernel's seeded sweep over the fit's domain
-PLANE_FIT_OPS = 80           # f32 operations of the plane-fit tail at a cell whose fit is ok (a log, two atan2)
+PLANE_FIT_SWEEP = 1 << 20    # values of the plane-fit tail's seeded sweep over the fit's domain
+PLANE_FIT_TAIL_OPS = 80      # f32 operations of the plane-fit tail at a cell whose fit is ok (a log, two atan2)
+PLANE_FIT_OPS = 150          # f32 operations of the whole plane fit at a cell (the sums, the moments, the tail)
+STENCIL_SMALL = 64           # the small grid of phase 1's stencil radii
+STENCIL_RADII = (0, 1, 15, 300)
 BENCH_MODES = ("perscan", "combine", "async", "batched")
+# the kernels that the facade launches once a scan (ingest) or once a combine
+FACADE_KERNELS = ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit", "guess_height")
 MESH_RANKS = 4               # phase 9's gloo ranks on the one card
 MESH_SHAPES = (("(1, 4) slab", 4, "slab"), ("(2, 2) slab", 2, "slab"), ("(2, 2) scatter", 2, "scatter"))
 
@@ -252,25 +271,80 @@ def box_conv_weights(cfg, dev):
     return w.to(dev)
 
 
-def plane_fit_vs_plain(what, fit):
-    """The plane-fit kernel against its plain version (grid.log32 and
-    grid.atan2_32 in PyTorch ops on the card) on the fit's inputs: every
-    output bitwise. Returns the kernel's outputs."""
+def plane_fit_vs_plain(what, cfg, hm):
+    """The plane-fit kernel against its plain version (plane_fit_inputs and
+    its tail in PyTorch ops on the card) on a height map: every output bit
+    for bit. Returns the kernel's outputs."""
     from gvom_tpu_torch.ops import kernels, maps2d
 
-    got = kernels.plane_fit(*fit)
-    for name, a, b in zip(("roughness", "slope_x", "slope_y"), got, maps2d.plane_fit_plain(*fit)):
-        exact(f"{what}: {name}", a, b)
+    got = kernels.plane_fit(cfg, hm)
+    for name, a, b in zip(("roughness", "slope_x", "slope_y"), got, maps2d.plane_fit_plain(cfg, hm)):
+        bitwise(f"{what}: plane fit {name}", a, b)
     return got
 
 
+def guess_vs_plain(what, cfg, hm, ihm):
+    """The guess-height kernel against its plain version on a height and
+    inferred-height map, bit for bit. Returns the kernel's output."""
+    from gvom_tpu_torch.ops import kernels, maps2d
+
+    got = kernels.guess_height(cfg, hm, ihm)
+    bitwise(f"{what}: guess height (R = {cfg.guess_search_radius})", got, maps2d.guess_height_plain(cfg, hm, ihm))
+    return got
+
+
+def guess_staged(X, R):
+    """Whether the guess-height launcher stages hm in shared memory for a
+    map of X cells a side at radius R (else the blocks read it from global
+    memory): csrc/guess.cu's own rule."""
+    from gvom_tpu_torch.ops import kernels
+
+    fn = ctypes.CDLL(str(kernels.GUESS.library())).gvom_guess_height_staged
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return bool(fn(X, R))
+
+
+def phase1_stencils(cfg, dev, log):
+    """Both stencil kernels bitwise against their plain versions on the
+    seeded maps of io.synthetic.stencil_maps: at the upstream 256×256 map
+    (R = 15, and R = 60, whose halo does not fit in shared memory), and
+    at R in STENCIL_RADII on a small grid (R = 0 searches nothing, R = 300
+    is wider than the map)."""
+    import torch
+
+    from gvom_tpu_torch import GvomConfig
+    from gvom_tpu_torch.io.synthetic import STENCIL_PATTERNS, stencil_maps
+
+    small = GvomConfig(xy_size=STENCIL_SMALL, z_size=32, max_points=4096)
+    # (config, seed of the maps, whether the plane fit is held too: it does not depend on R)
+    runs = [(cfg, 0, True), (dataclasses.replace(cfg, guess_search_radius=60), 1, False)]
+    runs += [(dataclasses.replace(small, guess_search_radius=R), 2, i == 0) for i, R in enumerate(STENCIL_RADII)]
+    routes, positive = {}, 0
+    for c, seed, fit in runs:
+        X, R = c.xy_size, c.guess_search_radius
+        routes[f"{X}x{X} R={R}"] = "shared" if guess_staged(X, R) else "global"
+        for pattern in STENCIL_PATTERNS:
+            hm, ihm = (torch.from_numpy(a).to(dev) for a in stencil_maps(pattern, X, seed))
+            if fit:
+                plane_fit_vs_plain(f"{pattern} {X}x{X}", c, hm)
+            positive += int((guess_vs_plain(f"{pattern} {X}x{X}", c, hm, ihm) > 0).sum())
+    check(set(routes.values()) == {"shared", "global"}, f"the guess kernel's two routes were not both run: {routes}")
+    log(f"phase 1 stencils: the plane-fit and guess-height kernels bitwise their plain versions on "
+        f"{len(STENCIL_PATTERNS)} seeded map patterns ({', '.join(STENCIL_PATTERNS)}); guess at {routes} "
+        f"({positive} positive cells in all)")
+    return routes
+
+
 def plane_fit_sweep(dev, log):
-    """The plane-fit kernel on PLANE_FIT_SWEEP seeded cells of the fit's
-    domain: residuals log-uniform over 16 decades with zeros, negatives and
-    subnormals among them, a tenth of the fits not ok, a0 over 12 decades,
-    a1 in (−1, 1), a0n = a0/m, a1n = a1/m, 1/m with m = sqrt(a0² + a1² + 1)."""
+    """The plane fit's tail kernel on PLANE_FIT_SWEEP seeded cells of the
+    fit's domain: residuals log-uniform over 16 decades with zeros,
+    negatives and subnormals among them, a tenth of the fits not ok, a0 over
+    12 decades, a1 in (−1, 1), a0n = a0/m, a1n = a1/m, 1/m with
+    m = sqrt(a0² + a1² + 1)."""
     import numpy as np
     import torch
+
+    from gvom_tpu_torch.ops import kernels, maps2d
 
     rng = np.random.default_rng(2026)
     n = PLANE_FIT_SWEEP
@@ -281,9 +355,12 @@ def plane_fit_sweep(dev, log):
     a1 = rng.uniform(-1, 1, n).astype(np.float32)
     m = np.sqrt(a0.astype(np.float64) ** 2 + a1.astype(np.float64) ** 2 + 1.0).astype(np.float32)
     fit = [torch.from_numpy(a).to(dev) for a in (err, rng.random(n) > 0.1, a0 / m, a1 / m, np.float32(1.0) / m)]
-    rough, _, _ = plane_fit_vs_plain("plane fit sweep", fit)
-    log(f"phase 1 plane fit: {n} seeded cells of the fit's domain bitwise against grid.log32 / grid.atan2_32 "
-        f"on the card ({int((rough == float('-inf')).sum())} subnormal residuals, whose log is -inf)")
+    got = kernels.plane_fit_tail(*fit)
+    for name, a, b in zip(("roughness", "slope_x", "slope_y"), got, maps2d.plane_fit_tail_plain(*fit)):
+        bitwise(f"plane fit tail sweep: {name}", a, b)
+    log(f"phase 1 plane fit tail: {n} seeded cells of the fit's domain bitwise against grid.log32 / "
+        f"grid.atan2_32 on the card ({int((got[0] == float('-inf')).sum())} subnormal residuals, whose log is -inf)")
+    return fit
 
 
 def phase1_kernels_vs_plain(cfg, scans, dev, log):
@@ -293,7 +370,7 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
     import torch
 
     from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
+    from gvom_tpu_torch.ops import binning, kernels, moments, raycast
     from gvom_tpu_torch.ops import grid as gridops
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
 
@@ -348,17 +425,19 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         combine_vs_plain(cfg, buf, world, ego, "K4")
         world, products, ok = pipeline.combine(cfg, buf, world, ego)
         check(bool(ok), f"combine after scan {i} reports an empty buffer")
-        fit = maps2d.plane_fit_inputs(cfg, products.height)
-        plane_fit_vs_plain(f"plane fit after scan {i}", fit)
+        hm, ihm = products.height, products.inferred_height
+        plane_fit_vs_plain(f"combine {i}", cfg, hm)
+        guess_vs_plain(f"combine {i}", cfg, hm, ihm)
         revived = int(((world.grid.hit > 0) & (buf.grids.hit[buf.last_slot.long()] == 0)).sum())
         log(f"phase 1 scan {i}: origin {origin.tolist()}, {int(keep.sum())} points kept, "
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan): "
-            "K1-K5 and the plane fit agree with their plain versions" + (
+            "K1-K5, the plane fit and the guess height agree with their plain versions" + (
                 ", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned sums" if i == 0 else ""))
         last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, pn=pn, keep=keep, bins=kb, target=target,
-                    fit=fit)
-    plane_fit_sweep(dev, log)
+                    hm=hm, ihm=ihm)
+    last["tail_fit"] = plane_fit_sweep(dev, log)
+    last["guess_routes"] = phase1_stencils(cfg, dev, log)
     return err, buf, world, last
 
 
@@ -548,9 +627,15 @@ def phase2_facade(cfg, scans, log):
             check(bool(np.isfinite(a).all()), f"{name} is not finite")
         check(int(vis.sum()) > 0 and int((pos > 0).sum()) > 0, f"facade combine {i}: empty maps")
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit"):
+    for name in FACADE_KERNELS:
         check(launches[name] == len(scans), f"kernel {name} was launched {launches[name]} times on the facade's path, "
               f"not once per scan")
+    # every launch of one warm combine_maps on the card, the kernels' and PyTorch's
+    kernels.reset_launches()
+    combine_profile = profile_calls(dict(combine_maps=g.combine_maps), log)["combine_maps"]
+    profiled = {k.name: k.launches for k in kernels.KERNELS}
+    for name in ("combine", "plane_fit", "guess_height"):
+        check(profiled[name] == 3, f"kernel {name}: {profiled[name]} launches in the profile's three combine_maps")
     occ = g.get_map_as_occupancy_grid()
     check(occ.shape == cfg.grid_shape and occ.any(), "occupancy grid")
     warm = slice(1, None)
@@ -561,11 +646,12 @@ def phase2_facade(cfg, scans, log):
         ingest_wall_ms_median_warm=1e3 * statistics.median(ingest_s[warm]),
         combine_wall_ms_median_warm=1e3 * statistics.median(combine_s[warm]),
         visible_cells=int(vis.sum()), positive_cells=int((pos > 0).sum()),
-        negative_cells=int((neg > 0).sum()),
+        negative_cells=int((neg > 0).sum()), combine_maps_profile=combine_profile,
     )
     log(f"phase 2 facade: {len(scans)} scans, launches {launches}; per scan (warm median, host clock "
         f"with sync): process_pointcloud {res['ingest_wall_ms_median_warm']:.3f} ms, combine_maps "
-        f"{res['combine_wall_ms_median_warm']:.3f} ms")
+        f"{res['combine_wall_ms_median_warm']:.3f} ms; one combine_maps launches {combine_profile['launches']} "
+        f"kernels in all, the device busy {combine_profile['device_us']:.1f} us of {combine_profile['wall_us']:.1f} us")
     return launches, res, g
 
 
@@ -791,6 +877,7 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
     from gvom_tpu_torch.ops import grid as gridops
+    from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -907,21 +994,34 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
         lambda: moments.moments_epilogue_plain(cfg, sbins.sums, sbins.hit, so, yw), 20, 5,
         lambda: torch.nn.functional.conv3d(s_conv_in, wconv), s_bytes, 52 * s_terms / F32_OPS_PER_S)
 
-    # ---- the plane fit's tail, on the last phase-1 combine's height map ----
-    # ok read at every cell, the residual and the three coefficients where the
-    # fit is ok, three outputs written; a log and two atan2 where it is ok. No
-    # one PyTorch call computes this function (torch.log and torch.atan2
-    # round otherwise)
-    fit = last["fit"]
-    n_cells, n_ok = fit[0].numel(), int(fit[1].sum())
-    row(kernels.PLANEFIT, lambda: kernels.plane_fit(*fit), lambda: maps2d.plane_fit_plain(*fit), 100, 5, None,
-        n_cells * (1 + 3 * 4) + n_ok * 4 * 4, n_ok * PLANE_FIT_OPS / F32_OPS_PER_S)
+    # ---- the 2-D stencils, on the last phase-1 combine's maps ----
+    # The plane fit reads the height map once and writes three maps; about
+    # PLANE_FIT_OPS f32 operations a cell. The guess height reads the height
+    # and inferred-height maps once and writes one map; its search only
+    # compares (one subtraction a cell). No one PyTorch call computes either
+    # function (torch.log and torch.atan2 round otherwise)
+    hm, ihm = last["hm"], last["ihm"]
+    n_cells = hm.numel()
+    row(kernels.PLANEFIT, lambda: kernels.plane_fit(cfg, hm), lambda: maps2d.plane_fit_plain(cfg, hm), 100, 5,
+        None, n_cells * 4 * 4, n_cells * PLANE_FIT_OPS / F32_OPS_PER_S)
+    row(kernels.GUESS, lambda: kernels.guess_height(cfg, hm, ihm), lambda: maps2d.guess_height_plain(cfg, hm, ihm),
+        100, 5, None, n_cells * 3 * 4, n_cells / F32_OPS_PER_S)
+    # the tail alone (off the map path), on the sweep's cells: ok read at every
+    # cell, the residual and the three coefficients where the fit is ok, three
+    # outputs written; a log and two atan2 where it is ok
+    fit = last["tail_fit"]
+    n_sweep, n_ok = fit[0].numel(), int(fit[1].sum())
+    tail = kernel_row(kernels.PLANEFIT_TAIL, lambda: kernels.plane_fit_tail(*fit),
+                      lambda: maps2d.plane_fit_tail_plain(*fit), 100, 5, None,
+                      n_sweep * (1 + 3 * 4) + n_ok * 4 * 4, n_ok * PLANE_FIT_TAIL_OPS / F32_OPS_PER_S, log)
     return rows, dict(slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
                                 points_in_scratch=n_win_s, box_terms=s_terms),
                       points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
                       scratch_nonempty=n_nz, pair_k2_k3=pair, occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
                       box_terms=terms, atomic_rates_per_s=rates, conv_vs_plain_max_abs_err=err_conv,
-                      plane_fit_cells=n_cells, plane_fit_ok=n_ok)
+                      map_cells=n_cells, known_cells=int((hm > UNKNOWN_HEIGHT).sum()),
+                      guess_cells=int(((hm <= UNKNOWN_HEIGHT) & (ihm != UNKNOWN_HEIGHT)).sum()),
+                      guess_routes=last["guess_routes"], plane_fit_tail=dict(tail, cells=n_sweep, ok=n_ok))
 
 
 def batched_cfg(cfg, batch):
@@ -954,18 +1054,20 @@ def make_batch(scans_dev, batch, step_index):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside, the batched step's three kernel wrappers run their plain
+    """Inside, the batched step's four kernel wrappers run their plain
     versions on whatever device the tensors are on."""
     from gvom_tpu_torch.ops import kernels, maps2d, moments, raycast
 
-    saved = kernels.ray_pass_counts, kernels.point_moments, kernels.plane_fit
-    kernels.ray_pass_counts = raycast.pass_counts_plain
-    kernels.point_moments = moments.point_moments
-    kernels.plane_fit = maps2d.plane_fit_plain
+    plain = dict(ray_pass_counts=raycast.pass_counts_plain, point_moments=moments.point_moments,
+                 plane_fit=maps2d.plane_fit_plain, guess_height=maps2d.guess_height_plain)
+    saved = {name: getattr(kernels, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(kernels, name, fn)
     try:
         yield
     finally:
-        kernels.ray_pass_counts, kernels.point_moments, kernels.plane_fit = saved
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
 
 
 PRODUCT_FIELDS = ("origin", "height", "inferred_height", "slope_x", "slope_y", "roughness",
@@ -1046,7 +1148,7 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
             first_origin = world.grid.origin
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    want = dict(ray_pass_counts=2, bin_points=2, moments_epilogue=2)
+    want = dict(ray_pass_counts=2, bin_points=2, moments_epilogue=2, plane_fit=2, guess_height=2)
     for name, n in want.items():
         check(launches[name] == n, f"batched path: {name} launched {launches[name]} times, expected {n}")
     for name in PRODUCT_FIELDS[1:]:
@@ -1997,8 +2099,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the gvom_tpu_torch package is not beside this script: {e}", file=sys.stderr)
         return 3
     # the comparisons that the port's selftest shares (MOM_RTOL, MOM_ATOL: see there), for every phase below
-    global MOM_ATOL, MOM_RTOL, Failed, check, clean_sums, close, exact, moments_close, sums_close, tol_share
-    from gvom_tpu_torch.utils.compare import (MOM_ATOL, MOM_RTOL, Failed, check, clean_sums, close, exact,
+    global MOM_ATOL, MOM_RTOL, Failed, bitwise, check, clean_sums, close, exact, moments_close, sums_close, tol_share
+    from gvom_tpu_torch.utils.compare import (MOM_ATOL, MOM_RTOL, Failed, bitwise, check, clean_sums, close, exact,
                                               moments_close, sums_close, tol_share)
     try:
         if args.mesh_rank:
@@ -2062,7 +2164,9 @@ def run(args, torch) -> int:
         report["profile"] = phase_profile(cfg, scans, dev, log)
 
     # each kernel's launches on the path that is its own: the facade's for
-    # K1-K4, the batched step's for K5, ingest_scan(y_window=)'s for the slabs
+    # K1-K4 and the 2-D stencils, the batched step's for K5,
+    # ingest_scan(y_window=)'s for the slabs. The plane fit's tail alone is
+    # off every path: its sweep and timing are in the report, not the line
     rows.insert(4, k5_row)
     for r in rows:
         own = (slab_launches if r["name"].endswith("_slab") else
@@ -2075,9 +2179,10 @@ def run(args, torch) -> int:
             r["launches_mesh_path"] = [x["launches"].get(r["name"], 0) for x in report["mesh"]["gloo_4_ranks"]["(1, 4) slab"]]
         r["max_abs_err"] = err[r["name"]]
         check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")
-        if r["name"] in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit"):
+        if r["name"] in FACADE_KERNELS:
             check(r["launches_node_path"] > 0, f"kernel {r['name']} was launched no time on the node's path")
-    check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS], "the kernels line misses a kernel")
+    check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS if k is not kernels.PLANEFIT_TAIL],
+          "the kernels line misses a kernel")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     line = {"kernels": [{k: r[k] for k in keys + ("atomic_floor_ms", "wrapper_ms", "launches_node_path",

@@ -175,7 +175,8 @@ def cmd_selftest(args):
     """The compiled CUDA kernels against their plain PyTorch versions on the
     card, at the upstream shapes (the counterpart of the JAX package's
     compiled-Pallas-vs-XLA selftest): pass counts, hit, min_height, n,
-    every combine output and the plane fit's tail bitwise, the other moment channels within
+    every combine output and the 2-D stencils (the plane fit, its tail
+    alone, the guess height) bitwise, the other moment channels within
     compare.MOM_RTOL / MOM_ATOL. One JSON verdict line; exit 1 on a
     mismatch, 2 without a GPU."""
     import torch
@@ -189,7 +190,7 @@ def cmd_selftest(args):
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.ops import kernels, maps2d
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
-    from gvom_tpu_torch.utils.compare import Failed, check, exact
+    from gvom_tpu_torch.utils.compare import Failed, bitwise, check, exact
 
     cfg = GvomConfig(xy_size=args.grid, z_size=args.grid_z, max_points=args.points, buffer_size=4)
     kernels.build_all(cfg)
@@ -218,11 +219,18 @@ def cmd_selftest(args):
                     exact(f"K4 output {i} after scan {seed}", a, b)
                 world, products, ok = pipeline.combine(cfg, buf, world, e)
                 check(bool(ok), f"combine after scan {seed} reports an empty buffer")
-                # the plane fit's tail on this combine's height map, bitwise
-                fit = maps2d.plane_fit_inputs(cfg, products.height)
-                for name, a, b in zip(("roughness", "slope_x", "slope_y"), kernels.plane_fit(*fit),
-                                      maps2d.plane_fit_plain(*fit)):
-                    exact(f"plane fit {name} after scan {seed}", a, b)
+                # the 2-D stencils on this combine's maps, bit for bit
+                hm, ihm = products.height, products.inferred_height
+                for name, a, b in zip(("roughness", "slope_x", "slope_y"), kernels.plane_fit(cfg, hm),
+                                      maps2d.plane_fit_plain(cfg, hm)):
+                    bitwise(f"plane fit {name} after scan {seed}", a, b)
+                bitwise(f"guess height after scan {seed}", kernels.guess_height(cfg, hm, ihm),
+                        maps2d.guess_height_plain(cfg, hm, ihm))
+                # and the fit's tail alone (its own entry) on this fit's inputs
+                fit = maps2d.plane_fit_inputs(cfg, hm)
+                for name, a, b in zip(("roughness", "slope_x", "slope_y"), kernels.plane_fit_tail(*fit),
+                                      maps2d.plane_fit_tail_plain(*fit)):
+                    bitwise(f"plane fit tail {name} after scan {seed}", a, b)
     except Failed as exc:
         error = str(exc)
     verdict = {

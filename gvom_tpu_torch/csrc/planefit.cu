@@ -1,28 +1,39 @@
-// The plane fit's tail: roughness, slope_x and slope_y of the 2-D maps from
-// the fit's residual and normalized coefficients, one thread a map cell.
+// The 3×3 plane fit of the 2-D maps, whole: roughness, slope_x and slope_y
+// from the window-layout height map, one launch, one thread a map cell.
 //
-// No TPU kernel: the JAX package computes this tail in XLA
-// (gvom_tpu/ops/maps2d.py:175-178, jnp.log and jnp.arctan2), and the port
-// adds the kernel so that the tail on the card is one launch and is bitwise
-// the JAX package's CPU result. Its plain twin is
-// gvom_tpu_torch/ops/maps2d.py::plane_fit_plain, on
-// gvom_tpu_torch/ops/grid.py::log32 and ::atan2_32:
-//   * log32 is XLA:CPU's float32 log: the Cephes logf polynomial that XLA
-//     inlines, with the fused multiply-adds that LLVM makes of it;
-//   * atan2_32 is glibc's atan2f (fdlibm e_atan2f.c on s_atanf.c), which
-//     jnp.arctan2 calls, SSE code without FMAs;
-//   * both under XLA's denormals-are-zero and flush-to-zero.
-// Every rounding is written out: __fmaf_rn where the reference fuses,
-// __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn elsewhere (and the build
-// passes -fmad=false), so nvcc contracts nothing. CUDA's logf and atan2f are
-// not used: they round otherwise.
+// No TPU kernel: the JAX package computes the fit in XLA
+// (gvom_tpu/ops/maps2d.py:129-179, slope_and_roughness). The kernel is
+// bitwise its plain twin, gvom_tpu_torch/ops/maps2d.py::plane_fit_plain
+// (plane_fit_inputs, then plane_fit_tail_plain), which is bitwise the JAX
+// package's compiled CPU result:
+//   * the fit (plane_fit_inputs): nine shifted neighbours with zeros outside
+//     the map, cnt and sz as plain adds in (di, dj) order, every other sum a
+//     chain of fused multiply-adds as XLA contracts it (_fma_sum), the
+//     centered moments, det, a = n/det and a/m as n/(det·m), op for op;
+//   * the tail: log32 is XLA:CPU's float32 log (the Cephes logf polynomial
+//     that XLA inlines, with the fused multiply-adds that LLVM makes of it);
+//     atan2_32 is glibc's atan2f (fdlibm e_atan2f.c on s_atanf.c), which
+//     jnp.arctan2 calls, SSE code without FMAs; both under XLA's
+//     denormals-are-zero and flush-to-zero.
+// Every rounding is written out: __fmaf_rn where the twin calls grid.fma32
+// (Hopper's fma is the correctly rounded one that fma32 emulates in float64),
+// __fsqrt_rn for grid.sqrt32, __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn
+// elsewhere (and the build passes -fmad=false), so nvcc contracts nothing.
+// CUDA's logf and atan2f are not used: they round otherwise.
 //
-// What bounds it on the H100: bytes. Five 4-byte inputs (ok is one byte) and
-// three 4-byte outputs a cell, 2.0 MB at 256×256; its arithmetic (a
-// division and ~30 flops for each of the two atan2, ~25 for the log) is far
-// below the float32 rate. One launch takes the place of the ~8 elementwise
-// launches of the same tail in PyTorch and of the hundreds that the plain
-// version's float64 fma emulation would make.
+// What bounds it on the H100: bytes. The height map is read once and three
+// maps written: 16 bytes a cell, 1 MB at 256×256. Its ~150 float32
+// operations a cell (the fit, a log, two atan2) are far below the float32
+// rate. Design: a block stages its 16×16 tile and a one-cell halo of the map
+// in shared memory (outside the map: unknown, so k = z = 0 as the twin's
+// zero fill), then each thread runs the whole chain in registers. One launch
+// takes the place of the ~1,800 PyTorch launches of the twin on the card
+// (float64 fma emulation, shifts and selects).
+//
+// A second entry, gvom_plane_fit_tail, is the tail alone on given fit
+// outputs (the twin plane_fit_tail_plain): it is off the map path and lets a
+// seeded sweep cover the tail's whole domain (subnormal, zero and negative
+// residuals, coefficients over many decades).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -144,35 +155,141 @@ __device__ float atan2_32(float y, float x)
     return ny ? __fsub_rn(__fsub_rn(z, PI_LO), PI) : __fsub_rn(PI, __fsub_rn(z, PI_LO));
 }
 
-__global__ void plane_fit_kernel(const float* __restrict__ err, const uint8_t* __restrict__ ok,
-                                 const float* __restrict__ a0n, const float* __restrict__ a1n,
-                                 const float* __restrict__ inv_m, int n,
-                                 float* __restrict__ rough, float* __restrict__ slope_x,
-                                 float* __restrict__ slope_y)
+constexpr int TILE = 16;   // a block's cells per side, one thread each
+
+// (rough, slope_x, slope_y) of one cell from its fit, as plane_fit_tail_plain
+__device__ __forceinline__ void fit_tail(bool ok, float e, float a0n, float a1n, float im, float* rough,
+                                         float* slope_x, float* slope_y)
+{
+    if (ok) {
+        *rough = e > 0.0f ? log32(e) : e;
+        *slope_x = atan2_32(a0n, im);
+        *slope_y = atan2_32(a1n, im);
+    } else {
+        *rough = -1.0f;
+        *slope_x = 0.0f;
+        *slope_y = 0.0f;
+    }
+}
+
+__global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
+    const float* __restrict__ hm, int X, int Y, float res, float unknown,
+    float* __restrict__ rough, float* __restrict__ slope_x, float* __restrict__ slope_y)
+{
+    __shared__ float tile[TILE + 2][TILE + 2];
+    const int x0 = blockIdx.y * TILE, y0 = blockIdx.x * TILE;
+    for (int t = threadIdx.y * TILE + threadIdx.x; t < (TILE + 2) * (TILE + 2); t += TILE * TILE) {
+        const int r = t / (TILE + 2), c = t % (TILE + 2);
+        const int x = x0 + r - 1, y = y0 + c - 1;
+        tile[r][c] = (x >= 0 && x < X && y >= 0 && y < Y) ? hm[(size_t)x * Y + y] : unknown;
+    }
+    __syncthreads();
+    const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
+    if (x >= X || y >= Y) return;
+
+    // the nine offsets in the twin's order: di = -1..1, then dj = -1..1
+    float cnt = 0.0f, sz = 0.0f, sx = 0.0f, sy = 0.0f, sxx = 0.0f, sxy = 0.0f, syy = 0.0f;
+    float sxz = 0.0f, syz = 0.0f, szz = 0.0f;
+    float k1 = 0.0f, z1 = 0.0f, dx1 = 0.0f, dy1 = 0.0f;   // the first term, for _fma_sum's pairing
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+        const int di = t / 3 - 1, dj = t % 3 - 1;
+        const float h = tile[threadIdx.y + 1 + di][threadIdx.x + 1 + dj];
+        const bool known = h > unknown;
+        const float k = known ? 1.0f : 0.0f;
+        const float z = known ? h : 0.0f;
+        const float dx = __fmul_rn((float)di, res), dy = __fmul_rn((float)dj, res);
+        const float dxx = __fmul_rn(dx, dx), dxy = __fmul_rn(dx, dy), dyy = __fmul_rn(dy, dy);
+        if (t == 0) {
+            cnt = k;
+            sz = z;
+            k1 = k;
+            z1 = z;
+            dx1 = dx;
+            dy1 = dy;
+        } else {
+            cnt = __fadd_rn(cnt, k);
+            sz = __fadd_rn(sz, z);
+        }
+        if (t == 1) {
+            // _fma_sum: fma(a0, b0, a1·b1) for the first two terms
+            const float dxx1 = __fmul_rn(dx1, dx1), dxy1 = __fmul_rn(dx1, dy1), dyy1 = __fmul_rn(dy1, dy1);
+            sx = __fmaf_rn(k1, dx1, __fmul_rn(k, dx));
+            sy = __fmaf_rn(k1, dy1, __fmul_rn(k, dy));
+            sxx = __fmaf_rn(k1, dxx1, __fmul_rn(k, dxx));
+            sxy = __fmaf_rn(k1, dxy1, __fmul_rn(k, dxy));
+            syy = __fmaf_rn(k1, dyy1, __fmul_rn(k, dyy));
+            sxz = __fmaf_rn(z1, dx1, __fmul_rn(z, dx));
+            syz = __fmaf_rn(z1, dy1, __fmul_rn(z, dy));
+            szz = __fmaf_rn(z1, z1, __fmul_rn(z, z));
+        } else if (t > 1) {
+            sx = __fmaf_rn(k, dx, sx);
+            sy = __fmaf_rn(k, dy, sy);
+            sxx = __fmaf_rn(k, dxx, sxx);
+            sxy = __fmaf_rn(k, dxy, sxy);
+            syy = __fmaf_rn(k, dyy, syy);
+            sxz = __fmaf_rn(z, dx, sxz);
+            syz = __fmaf_rn(z, dy, syz);
+            szz = __fmaf_rn(z, z, szz);
+        }
+    }
+
+    // maps2d.plane_fit_inputs, op for op
+    const bool enough = cnt >= 3.0f;
+    const float c = enough ? cnt : 1.0f;
+    const float mx = __fdiv_rn(sx, c), my = __fdiv_rn(sy, c), mz = __fdiv_rn(sz, c);
+    const float cmx = __fmul_rn(c, mx), cmy = __fmul_rn(c, my), cmz = __fmul_rn(c, mz);
+    const float xx = __fmaf_rn(-cmx, mx, sxx);
+    const float xy = __fmaf_rn(-cmx, my, sxy);
+    const float xz = __fmaf_rn(-cmx, mz, sxz);
+    const float yy = __fmaf_rn(-cmy, my, syy);
+    const float yz = __fmaf_rn(-cmy, mz, syz);
+    const float zz = __fmaf_rn(-cmz, mz, szz);
+    const float det = __fmaf_rn(xx, yy, -__fmul_rn(xy, xy));
+    const bool ok = enough && det != 0.0f;
+    const float dets = det != 0.0f ? det : 1.0f;
+    const float n0 = __fmaf_rn(yy, xz, -__fmul_rn(xy, yz));
+    const float n1 = __fmaf_rn(xx, yz, -__fmul_rn(xy, xz));
+    const float a0 = __fdiv_rn(n0, dets), a1 = __fdiv_rn(n1, dets);
+    const float m = __fsqrt_rn(__fadd_rn(__fmaf_rn(a0, a0, __fmul_rn(a1, a1)), 1.0f));
+    const float dm = __fmul_rn(dets, m);
+    const float a0n = __fdiv_rn(n0, dm), a1n = __fdiv_rn(n1, dm);
+    float e = __fsub_rn(zz, __fmul_rn(2.0f, __fmaf_rn(a0n, xz, __fmul_rn(a1n, yz))));
+    e = __fmaf_rn(__fmul_rn(a0n, a0n), xx, e);
+    e = __fmaf_rn(__fmul_rn(__fmul_rn(a0n, 2.0f), a1n), xy, e);
+    e = __fmaf_rn(__fmul_rn(a1n, a1n), yy, e);
+    const size_t i = (size_t)x * Y + y;
+    fit_tail(ok, __fdiv_rn(e, c), a0n, a1n, __fdiv_rn(1.0f, m), rough + i, slope_x + i, slope_y + i);
+}
+
+__global__ void plane_fit_tail_kernel(const float* __restrict__ err, const uint8_t* __restrict__ ok,
+                                      const float* __restrict__ a0n, const float* __restrict__ a1n,
+                                      const float* __restrict__ inv_m, int n,
+                                      float* __restrict__ rough, float* __restrict__ slope_x,
+                                      float* __restrict__ slope_y)
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    if (ok[i]) {
-        const float e = err[i];
-        const float im = inv_m[i];
-        rough[i] = e > 0.0f ? log32(e) : e;
-        slope_x[i] = atan2_32(a0n[i], im);
-        slope_y[i] = atan2_32(a1n[i], im);
-    } else {
-        rough[i] = -1.0f;
-        slope_x[i] = 0.0f;
-        slope_y[i] = 0.0f;
-    }
+    fit_tail(ok[i] != 0, err[i], a0n[i], a1n[i], inv_m[i], rough + i, slope_x + i, slope_y + i);
 }
 
 }  // namespace
 
-extern "C" int gvom_plane_fit(const void* err, const void* ok, const void* a0n, const void* a1n,
-                              const void* inv_m, int n, void* rough, void* slope_x, void* slope_y,
-                              void* stream)
+extern "C" int gvom_plane_fit(const void* hm, int X, int Y, float res, float unknown, void* rough,
+                              void* slope_x, void* slope_y, void* stream)
+{
+    const dim3 block(TILE, TILE), grid((Y + TILE - 1) / TILE, (X + TILE - 1) / TILE);
+    plane_fit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)hm, X, Y, res, unknown, (float*)rough, (float*)slope_x, (float*)slope_y);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int gvom_plane_fit_tail(const void* err, const void* ok, const void* a0n, const void* a1n,
+                                   const void* inv_m, int n, void* rough, void* slope_x, void* slope_y,
+                                   void* stream)
 {
     const int threads = 256;
-    plane_fit_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+    plane_fit_tail_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         (const float*)err, (const uint8_t*)ok, (const float*)a0n, (const float*)a1n, (const float*)inv_m, n,
         (float*)rough, (float*)slope_x, (float*)slope_y);
     return (int)cudaGetLastError();

@@ -31,6 +31,8 @@ __all__ = [
     "simulate_lidar_scan",
     "pad_scan",
     "nudge_off_grid",
+    "STENCIL_PATTERNS",
+    "stencil_maps",
 ]
 
 
@@ -177,3 +179,58 @@ def nudge_off_grid(points: np.ndarray, xy_resolution: float, z_resolution: float
         close = np.abs(rem) < eps
         out[close, axis] += np.where(rem[close] >= 0, eps, -eps) * res * 2
     return out
+
+
+UNKNOWN_HEIGHT = -1000.0   # types.UNKNOWN_HEIGHT, the 2-D maps' "no height"
+
+STENCIL_PATTERNS = ("all_known", "all_unknown", "checkerboard", "border_only", "collinear_triples",
+                    "count_three", "near_1e4", "sparse", "terrain_holes")
+
+
+def stencil_maps(pattern: str, X: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(height map, inferred-height map), each [X, X] float32 in the window
+    layout, for holding the 2-D maps' stencils (the plane fit and the
+    guess-height search) against each other on the cases that their edges
+    live in. Unknown cells hold UNKNOWN_HEIGHT. The patterns:
+
+    all_known / all_unknown; checkerboard (known where x + y is even);
+    border_only (known on the map's outer ring); collinear_triples (three
+    known cells in a row, a column or a diagonal, isolated, so that a 3×3
+    window sees a count of 3 and det = 0); count_three (three known cells in
+    an L, a count of exactly 3 with det != 0); near_1e4 (heights 1e4 plus
+    centimetres on half the map, for cancellation, and −1e4 on the other
+    half, which lies below UNKNOWN_HEIGHT and so is unknown); sparse (2 % known, for
+    long guess searches); terrain_holes (a smooth surface with 30 % holes).
+    The inferred heights are known on 80 % of the cells; the search's output
+    is positive where one lies above the heights found."""
+    rng = np.random.default_rng([seed, STENCIL_PATTERNS.index(pattern)])
+    x, y = np.meshgrid(np.arange(X), np.arange(X), indexing="ij")
+    heights = rng.normal(0.0, 2.0, (X, X))
+    known = np.zeros((X, X), bool)
+    if pattern == "all_known":
+        known[:] = True
+    elif pattern == "checkerboard":
+        known = (x + y) % 2 == 0
+    elif pattern == "border_only":
+        known = (x == 0) | (y == 0) | (x == X - 1) | (y == X - 1)
+    elif pattern in ("collinear_triples", "count_three"):
+        shapes = ([((0, 0), (0, 1), (0, 2)), ((0, 0), (1, 0), (2, 0)), ((0, 0), (1, 1), (2, 2))]
+                  if pattern == "collinear_triples" else [((0, 0), (0, 1), (1, 0)), ((0, 0), (1, 1), (0, 2))])
+        for i, cx in enumerate(range(1, X - 3, 6)):
+            for j, cy in enumerate(range(1, X - 3, 6)):
+                for dx, dy in shapes[(i + j) % len(shapes)]:
+                    known[cx + dx, cy + dy] = True
+    elif pattern == "near_1e4":
+        known[:] = True
+        heights = np.where(x < X // 2, 1e4, -1e4) + rng.normal(0.0, 0.05, (X, X))
+    elif pattern == "sparse":
+        known = rng.random((X, X)) < 0.02
+    elif pattern == "terrain_holes":
+        heights = 0.3 * np.sin(0.2 * x) + 0.05 * y + rng.normal(0.0, 0.02, (X, X))
+        known = rng.random((X, X)) >= 0.3
+    elif pattern != "all_unknown":
+        raise ValueError(f"unknown stencil pattern {pattern!r}")
+    hm = np.where(known, heights, UNKNOWN_HEIGHT).astype(np.float32)
+    inferred = rng.random((X, X)) < 0.8
+    ihm = np.where(inferred, rng.normal(0.5, 2.0, (X, X)), UNKNOWN_HEIGHT).astype(np.float32)
+    return hm, ihm

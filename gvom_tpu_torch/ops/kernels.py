@@ -22,7 +22,11 @@ tensors (there is no fallback), and counts its launches in `launches`.
 | moments_epilogue   | epilogue.cu  | _xbox_epilogue                            | moments.moments_epilogue_plain     |
 | point_moments      | (K2 then K5) | fused_point_moments' contract             | moments.point_moments              |
 | plane_fit          | planefit.cu  | none: the port's own (the JAX package's   | maps2d.plane_fit_plain             |
-|                    |              | log and atan2 in XLA, ops/maps2d.py:175)  |                                    |
+|                    |              | 3×3 plane fit in XLA, ops/maps2d.py:129)  | (plane_fit_inputs, then the tail)  |
+| plane_fit_tail     | planefit.cu  | none: the fit's tail alone (log, atan2),  | maps2d.plane_fit_tail_plain        |
+|                    |              | off the map path (a sweep of its domain)  |                                    |
+| guess_height       | guess.cu     | none: the port's own (the JAX package's   | maps2d.guess_height_plain          |
+|                    |              | guess-height search in XLA, :201)         |                                    |
 
 ray_pass_counts takes what the JAX function takes: world-frame points
 [S, N, 3], keep [S, N], one ego per scan [S, 3] and one origin; it builds the
@@ -64,6 +68,8 @@ __all__ = [
     "moments_epilogue",
     "point_moments",
     "plane_fit",
+    "plane_fit_tail",
+    "guess_height",
     "NVCC_FLAGS",
 ]
 
@@ -178,10 +184,17 @@ BIN_SLAB = CudaKernel("bin_points_slab", *_BIN_ARGS,
 XBOX_SLAB = CudaKernel("moments_epilogue_slab", *_EPI_ARGS,
                        f"{_PK}:1540 (fused_point_moments(y_window=) → _xbox_epilogue with U = Ys)")
 
-PLANEFIT = CudaKernel("plane_fit", "planefit.cu", "gvom_plane_fit", [_P] * 5 + [_I] + [_P] * 4,
-                      "none: the port's own (gvom_tpu/ops/maps2d.py:175-178, jnp.log and jnp.arctan2 in XLA)")
+# the 2-D maps' stencils: no TPU kernel, the JAX package computes them in XLA
+_M2 = "gvom_tpu/ops/maps2d.py"
+PLANEFIT = CudaKernel("plane_fit", "planefit.cu", "gvom_plane_fit", [_P, _I, _I, _F, _F] + [_P] * 4,
+                      f"none: the port's own ({_M2}:129-179, the 3×3 plane fit in XLA)")
+PLANEFIT_TAIL = CudaKernel("plane_fit_tail", "planefit.cu", "gvom_plane_fit_tail", [_P] * 5 + [_I] + [_P] * 4,
+                           f"none: the port's own ({_M2}:175-178, jnp.log and jnp.arctan2 in XLA)")
+GUESS = CudaKernel("guess_height", "guess.cu", "gvom_guess_height", [_P, _P, _I, _I, _F, _P, _P],
+                   f"none: the port's own ({_M2}:201-282, the guess-height search in XLA)")
 
-KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB, PLANEFIT]
+KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB, PLANEFIT, PLANEFIT_TAIL,
+                             GUESS]
 
 
 def build_all(cfg: Optional[GvomConfig] = None) -> Dict[str, str]:
@@ -439,20 +452,50 @@ def combine_launch(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch
 
 
 # ----------------------------------------------------------------------
-# the plane fit's tail
+# the 2-D maps' stencils
 
 
-def plane_fit(err: torch.Tensor, ok: torch.Tensor, a0n: torch.Tensor, a1n: torch.Tensor,
-              inv_m: torch.Tensor):
-    """(roughness, slope_x, slope_y) of the 3×3 plane fit from its residual
-    err, its `ok` mask and its normalized coefficients a0n, a1n and 1/m, all
-    of one shape: maps2d.plane_fit_plain's function, bitwise, in one launch."""
+def plane_fit(cfg: GvomConfig, hm: torch.Tensor):
+    """(roughness, slope_x, slope_y) [X, X] of the 3×3 plane fit of the
+    window-layout height map hm [X, X] f32: maps2d.plane_fit_plain's
+    function, bitwise, in one launch."""
+    X = cfg.xy_size
+    _check("hm", hm, torch.float32, (X, X), hm.device)
+    if _is_cpu(hm):
+        return maps2d.plane_fit_plain(cfg, hm)
+    outs = tuple(torch.empty((X, X), dtype=torch.float32, device=hm.device) for _ in range(3))
+    PLANEFIT.launch(_ptr(hm), X, X, _f32(cfg.xy_resolution), UNKNOWN_HEIGHT, *map(_ptr, outs), _stream())
+    return outs
+
+
+def plane_fit_tail(err: torch.Tensor, ok: torch.Tensor, a0n: torch.Tensor, a1n: torch.Tensor,
+                   inv_m: torch.Tensor):
+    """(roughness, slope_x, slope_y) of the plane fit from its residual err,
+    its `ok` mask and its normalized coefficients a0n, a1n and 1/m, all of
+    one shape: maps2d.plane_fit_tail_plain's function, bitwise, in one
+    launch. Off the map path: plane_fit computes the whole fit."""
     if _is_cpu(err):
-        return maps2d.plane_fit_plain(err, ok, a0n, a1n, inv_m)
+        return maps2d.plane_fit_tail_plain(err, ok, a0n, a1n, inv_m)
     dev, shape = err.device, tuple(err.shape)
     for nm, t in (("err", err), ("a0n", a0n), ("a1n", a1n), ("inv_m", inv_m)):
         _check(nm, t, torch.float32, shape, dev)
     _check("ok", ok, torch.bool, shape, dev)
     outs = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3))
-    PLANEFIT.launch(*map(_ptr, (err, ok, a0n, a1n, inv_m)), err.numel(), *map(_ptr, outs), _stream())
+    PLANEFIT_TAIL.launch(*map(_ptr, (err, ok, a0n, a1n, inv_m)), err.numel(), *map(_ptr, outs), _stream())
     return outs
+
+
+def guess_height(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor) -> torch.Tensor:
+    """guessed_height_delta [X, X] f32 of the window-layout height and
+    inferred-height maps: maps2d.guess_height_plain's function, bitwise, in
+    one launch, for any guess_search_radius >= 0."""
+    X, R = cfg.xy_size, cfg.guess_search_radius
+    if R < 0:
+        raise ValueError(f"guess_search_radius {R}: must be >= 0")
+    _check("hm", hm, torch.float32, (X, X), hm.device)
+    _check("ihm", ihm, torch.float32, (X, X), hm.device)
+    if _is_cpu(hm):
+        return maps2d.guess_height_plain(cfg, hm, ihm)
+    out = torch.empty((X, X), dtype=torch.float32, device=hm.device)
+    GUESS.launch(_ptr(hm), _ptr(ihm), X, R, UNKNOWN_HEIGHT, _ptr(out), _stream())
+    return out

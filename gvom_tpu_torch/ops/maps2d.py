@@ -8,13 +8,14 @@ the stencils and the user-facing maps, as in gvom_tpu/ops/maps2d.py.
     column, bottom-up in window-relative z (gvom.py:536-554). These are the
     plain twins of kernel K4's column products.
   * slope + roughness: the 3×3 least-squares plane fit from 9 shifted adds,
-    with coordinates relative to the center cell (gvom.py:663-734); its
-    tail (log, atan2) is the port's plane-fit kernel on the card.
+    with coordinates relative to the center cell (gvom.py:663-734); on the
+    card the whole fit is the port's plane-fit kernel (csrc/planefit.cu).
   * guess height: the reference's outward search (gvom.py:556-661) as
     nearest-known-index scans (a flip and a cummin) plus
     `guess_search_radius` constant-time steps, with the reference's quirks:
     x_p_done is never tested in the loop condition (G:581) and y_n merges
-    under the x_n guard (G:655).
+    under the x_n guard (G:655); on the card the guess-height kernel
+    (csrc/guess.cu) runs the reference's per-cell search.
   * positive obstacle: the masked per-column band reduction (gvom.py:487-521,
     including the +1 band-start offset).
 """
@@ -35,7 +36,9 @@ __all__ = [
     "slope_and_roughness",
     "plane_fit_inputs",
     "plane_fit_plain",
+    "plane_fit_tail_plain",
     "guess_height_delta",
+    "guess_height_plain",
     "positive_obstacle_map",
     "positive_obstacle_from_band",
     "positive_band_sums",
@@ -125,13 +128,18 @@ def _fma_sum(terms):
 
 def slope_and_roughness(cfg: GvomConfig, hm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """3×3 neighborhood least-squares plane fit: x/y slope angles and
-    roughness = log mean squared residual (gvom.py:663-734). The fit is
-    plane_fit_inputs; its tail (log, atan2) is the plane-fit kernel on the
-    card and plane_fit_plain on the CPU."""
+    roughness = log mean squared residual (gvom.py:663-734). The plane-fit
+    kernel on the card, plane_fit_plain on the CPU."""
     from gvom_tpu_torch.ops import kernels   # kernels imports this module
 
-    rough, slope_x, slope_y = kernels.plane_fit(*plane_fit_inputs(cfg, hm))
+    rough, slope_x, slope_y = kernels.plane_fit(cfg, hm)
     return slope_x, slope_y, rough
+
+
+def plane_fit_plain(cfg: GvomConfig, hm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(roughness, slope_x, slope_y) of the 3×3 plane fit of hm [X, Y]: the
+    plain twin of the plane-fit kernel, plane_fit_inputs then its tail."""
+    return plane_fit_tail_plain(*plane_fit_inputs(cfg, hm))
 
 
 def plane_fit_inputs(cfg: GvomConfig, hm: torch.Tensor):
@@ -144,7 +152,7 @@ def plane_fit_inputs(cfg: GvomConfig, hm: torch.Tensor):
     fused multiply-adds, and a/m with a = n/det is n/(det·m). So the fit's
     `ok` test and the normalized coefficients are bitwise those of the JAX
     package, and so are the tail's log and atan2 (grid.log32 and
-    grid.atan2_32, the plane-fit kernel on the card)."""
+    grid.atan2_32)."""
     dev = hm.device
     res = torch.tensor(cfg.xy_resolution, dtype=torch.float32, device=dev)
     known = hm > UNKNOWN_HEIGHT
@@ -194,9 +202,9 @@ def plane_fit_inputs(cfg: GvomConfig, hm: torch.Tensor):
     return e / c, ok, a0n, a1n, 1.0 / m
 
 
-def plane_fit_plain(err: torch.Tensor, ok: torch.Tensor, a0n: torch.Tensor, a1n: torch.Tensor,
-                    inv_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plane fit's tail, the plain twin of the plane-fit kernel: (roughness
+def plane_fit_tail_plain(err: torch.Tensor, ok: torch.Tensor, a0n: torch.Tensor, a1n: torch.Tensor,
+                         inv_m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plane fit's tail, the plain twin of the tail kernel: (roughness
     = log err where err > 0, else err; slope_x = atan2(a0n, 1/m); slope_y =
     atan2(a1n, 1/m)), −1 and 0 where the fit is not `ok`
     (gvom_tpu/ops/maps2d.py:175-178)."""
@@ -220,7 +228,16 @@ def _nearest_known_with_value(known: torch.Tensor, idx: torch.Tensor, hm: torch.
 def guess_height_delta(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor) -> torch.Tensor:
     """Height uncertainty for inferred-only cells (gvom.py:556-661): search
     outward up to guess_search_radius steps in ±x/±y wedges for the nearest
-    measured heights and output max−min over {found heights, inferred}."""
+    measured heights and output max−min over {found heights, inferred}. The
+    guess-height kernel on the card, guess_height_plain on the CPU."""
+    from gvom_tpu_torch.ops import kernels   # kernels imports this module
+
+    return kernels.guess_height(cfg, hm, ihm)
+
+
+def guess_height_plain(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor) -> torch.Tensor:
+    """guess_height_delta's function in PyTorch ops, the plain twin of the
+    guess-height kernel."""
     X = cfg.xy_size
     R = cfg.guess_search_radius
     dev = hm.device

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MOM_RTOL", "MOM_ATOL", "Failed", "check", "exact", "close", "tol_share", "moments_close",
+__all__ = ["MOM_RTOL", "MOM_ATOL", "Failed", "check", "exact", "bitwise", "close", "tol_share", "moments_close",
            "sums_close", "clean_sums"]
 
 # f32 moment sums taken in another order (atomics, the 27-voxel box) than the
@@ -31,6 +31,14 @@ def exact(name, a, b):
     n = int((a != b).sum())
     check(n == 0, f"{name}: {n} elements differ from the plain version")
     return 0.0
+
+
+def bitwise(name, a, b):
+    """exact, bit for bit: float32 −0.0 and 0.0 differ, NaNs compare by
+    their bits."""
+    if a.dtype == b.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return exact(name, a, b)
 
 
 def close(name, a, b, atol=MOM_ATOL):

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""The guess-height kernel's two routes on one NVIDIA GPU.
+
+    python3 scripts/time_guess_routes.py [--scans N]
+
+gvom_tpu_torch/csrc/guess.cu answers a wedge query in one of two ways,
+chosen by the launcher from the map's width X and the search radius R: with
+the block's tile, its R-cell halo and each staged row's and column's
+next-known offsets in shared memory (two shared loads a query; the route of
+the upstream R = 15), or by walking the wedge cell by cell in global memory
+(the route when that region would not fit in 48 KB). This script builds the
+source as committed and with its shared-memory limit set to 0, so that every
+launch walks in global memory, holds the two builds bit for bit against
+each other, and times both in turns (committed, walk, walk, committed) with
+the launches alone captured in a CUDA graph: on the height and
+inferred-height maps of the upstream deployment's combine (the Gvom facade
+after N synthetic OS1-128 scans at 256×256×64) and on the nine seeded
+patterns of io.synthetic.stencil_maps at 256×256, R = 15. It prints one
+JSON line and the card's name and power limit.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scans", type=int, default=4)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_guess_routes: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from gvom_tpu_torch import Gvom, GvomConfig
+    from gvom_tpu_torch.io.synthetic import STENCIL_PATTERNS, stencil_maps
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.types import UNKNOWN_HEIGHT
+
+    src = kernels.GUESS.source.read_text()
+    limit = "constexpr int SHARED_MAX = 48 * 1024;"
+    if limit not in src:
+        raise SystemExit(f"time_guess_routes: {limit!r} is not in {kernels.GUESS.source}")
+    walk_src = ROOT / "gvom_tpu_torch" / "_build" / "guess_walk_global.cu"
+    walk_src.parent.mkdir(parents=True, exist_ok=True)
+    walk_src.write_text(src.replace(limit, "constexpr int SHARED_MAX = 0;"))
+    walk = kernels.CudaKernel("guess_walk_global", "guess.cu", kernels.GUESS.entry, kernels.GUESS.argtypes,
+                              "the committed kernel with every launch on the global-memory walk")
+    walk.source = walk_src
+
+    cfg = GvomConfig()
+    g = Gvom(config=cfg)
+    for pad, mask, ego in chip_smoke.make_scans(cfg, args.scans, chip_smoke.LIDAR):
+        g.process_pointcloud(pad[mask], ego)
+        g.combine_maps()
+    maps = {"combine": (g.products.height.contiguous(), g.products.inferred_height.contiguous())}
+    for pattern in STENCIL_PATTERNS:
+        maps[pattern] = tuple(torch.from_numpy(a).cuda() for a in stencil_maps(pattern, cfg.xy_size, 0))
+
+    def run_walk(hm, ihm):
+        out = torch.empty_like(hm)
+        walk.launch(kernels._ptr(hm), kernels._ptr(ihm), cfg.xy_size, cfg.guess_search_radius, UNKNOWN_HEIGHT,
+                    kernels._ptr(out), kernels._stream())
+        return out
+
+    res = {}
+    for name, (hm, ihm) in maps.items():
+        committed = lambda: kernels.guess_height(cfg, hm, ihm)
+        walked = lambda: run_walk(hm, ihm)
+        a, b = committed(), walked()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise SystemExit(f"time_guess_routes: the two routes differ on {name}")
+        t = {"committed": [], "walk": []}
+        for which, fn in (("committed", committed), ("walk", walked), ("walk", walked), ("committed", committed)):
+            t[which].append(chip_smoke.graph_ms(fn, 200)[0])
+        res[name] = dict(t, cells_that_search=int(((hm <= UNKNOWN_HEIGHT) & (ihm != UNKNOWN_HEIGHT)).sum()))
+        print(f"{name}: committed {t['committed']} ms, global walk {t['walk']} ms "
+              f"({res[name]['cells_that_search']} cells search)", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"guess_routes_ms": res, "R": cfg.guess_search_radius, "X": cfg.xy_size}))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
