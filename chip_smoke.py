@@ -11,8 +11,12 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
 
   1. holds each kernel against its plain PyTorch version on the card, on the
      same inputs, over a drive with a moving ego (re-origin, decay veto):
-     K1 pass counts (from points: the kernel builds the ray geometry), K2 hit
-     and min_height and the moment count n, and every K4 output bitwise (its
+     the point preparation (csrc/prepare.cu: p, keep, origin and scan_ok
+     bit for bit; also on one scan with a general quaternion transform, with
+     ego_relative_min_distance and with a pinned origin, on the 32-scan batch
+     with a dead scan, and on points on voxel faces, at min_distance, at
+     ±1e9, ±inf and NaN, valid and not), K1 pass counts (from points: the
+     kernel builds the ray geometry), K2 hit and min_height and the moment count n, and every K4 output bitwise (its
      moments too); the other moment channels within MOM_RTOL / MOM_ATOL (f32
      sums in another order), K2's where n > 0, the only voxels where its
      scratch defines them. Every epilogue form (K3, K5 with the mask on and
@@ -39,15 +43,21 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      domain;
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
-     and read just after (K1-K4, the plane fit and the guess height once a
-     scan), and checks the 5-tuple it returns; then counts every launch of
-     one warm combine_maps with torch.profiler (the kernels' and PyTorch's)
-     and prints it with the device's busy share;
+     and read just after (the preparation, K1-K4, the plane fit and the
+     guess height once a scan), no float64 fma32 on a tensor of a scan's
+     points (grid.fma32 watched), and checks the 5-tuple it returns; then
+     counts every launch of one warm combine_maps and of one warm
+     process_pointcloud with torch.profiler (the kernels' and PyTorch's) and
+     prints them with the device's busy share and float64 time;
   3. checks the facade's outputs and ring buffer on a small grid (B = 3,
      whose K4 library the facade builds when it is made), over a
      drive with one degenerate scan, against the same facade on the CPU,
      which runs the plain versions (the CPU tests pin those to the JAX
      package): every output bitwise, roughness and the slopes included;
+     then the same drive with each scan given in its sensor frame and a
+     general quaternion transform (the ROS node's path), and that path on
+     three upstream scans against the same facade on its plain versions on
+     the card;
   4. times each kernel, its plain version and, where one exists, a PyTorch
      call that computes the same function, with CUDA events, and computes
      each kernel's bound from this run's inputs: the bytes it must move
@@ -64,8 +74,10 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      against the same step with every kernel swapped for its plain version,
      then two steps of 32 scans of 131,072 points (the second merges with a
      live world at a moved origin), timed, with the launch counts set to 0
-     just before and read just after (K1, K2, K5, the plane fit and the
-     guess height: one launch a step each); then K1 on a
+     just before and read just after (the preparation, K1, K2, K5, the
+     plane fit and the guess height: one launch a step each), no float64
+     fma32 on the points, and one warm step's launches and float64 time
+     counted with torch.profiler; then K1 on a
      whole 32-scan batch, timed and held bitwise against the sum of its
      one-scan launches over the same scans, and K2 and K5 on its merged
      points against their plain versions, timed;
@@ -147,11 +159,15 @@ NEAR_TIER_STEPS = 30         # the step-pair kernel of the JAX package covers st
 PLANE_FIT_SWEEP = 1 << 20    # values of the plane-fit tail's seeded sweep over the fit's domain
 PLANE_FIT_TAIL_OPS = 80      # f32 operations of the plane-fit tail at a cell whose fit is ok (a log, two atan2)
 PLANE_FIT_OPS = 150          # f32 operations of the whole plane fit at a cell (the sums, the moments, the tail)
+PREP_OPS = 16                # f32 operations of the preparation a point: d², its test, voxel, bounds
+PREP_TRANSFORM_OPS = 12      # and of the transform a point: three rows of a product, two fmas and an add
+DEAD_SCAN = 5                # the scan of phase 1's 32-scan batch that is moved out of the grid
 STENCIL_SMALL = 64           # the small grid of phase 1's stencil radii
 STENCIL_RADII = (0, 1, 15, 300)
 BENCH_MODES = ("perscan", "combine", "async", "batched")
 # the kernels that the facade launches once a scan (ingest) or once a combine
-FACADE_KERNELS = ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit", "guess_height")
+FACADE_KERNELS = ("prepare_points", "ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit",
+                  "guess_height")
 MESH_RANKS = 4               # phase 9's gloo ranks on the one card
 MESH_SHAPES = (("(1, 4) slab", 4, "slab"), ("(2, 2) slab", 2, "slab"), ("(2, 2) scatter", 2, "scatter"))
 
@@ -363,6 +379,112 @@ def plane_fit_sweep(dev, log):
     return fit
 
 
+def bitwise_nan(name, a, b):
+    """float32 bit for bit where b is a number, NaN where b is NaN (a NaN's
+    payload is the arithmetic's: float64 in the plain version)."""
+    import torch
+
+    nan = torch.isnan(b)
+    exact(f"{name} NaN", torch.isnan(a), nan)
+    bitwise(name, torch.where(nan, torch.zeros_like(a), a), torch.where(nan, torch.zeros_like(b), b))
+
+
+def prepare_vs_plain(what, cfg, *args, **kw):
+    """The prepare kernel against its plain version on the card: p, keep,
+    origin and scan_ok bit for bit. Returns the kernel's outputs."""
+    from gvom_tpu_torch.ops import binning, kernels
+
+    got = kernels.prepare_points(cfg, *args, **kw)
+    ref = binning.prepare_plain(cfg, *args, **kw)
+    bitwise_nan(f"{what}: prepare p", got[0], ref[0])
+    for name, a, b in zip(("keep", "origin", "scan_ok"), got[1:], ref[1:]):
+        bitwise(f"{what}: prepare {name}", a, b)
+    return got
+
+
+def quaternion_transform(seed, translation):
+    """A general sensor→world transform [4,4] f32 (numpy) from a seeded
+    quaternion, as the ROS node builds it (ros/node.py::_quat_to_mat)."""
+    import numpy as np
+
+    from gvom_tpu_torch.ros.node import _quat_to_mat
+
+    q = np.random.default_rng(seed).standard_normal(4)
+    return _quat_to_mat(*translation, *q).astype(np.float32)
+
+
+def to_sensor_frame(points, tf):
+    """World points [N,3] expressed in the frame that tf maps to the world."""
+    import numpy as np
+
+    r, tr = tf[:3, :3].astype(np.float64), tf[:3, 3].astype(np.float64)
+    return ((points.astype(np.float64) - tr) @ r).astype(np.float32)
+
+
+def phase1_prepare(cfg, scans, dev, log):
+    """The prepare kernel bitwise against its plain version at the upstream
+    shapes: one 131,072-point scan with no transform, with a general
+    quaternion transform (the scan in its sensor frame), with
+    ego_relative_min_distance, and with a pinned origin; the 32-scan batch
+    of phase 5 with scan DEAD_SCAN moved out of the grid (dead, its points
+    dropped); the edge points with valid on, off and alternating, with and
+    without the transform; non-finite frame egos. Returns the inputs of the
+    timings."""
+    import torch
+
+    from gvom_tpu_torch.io import synthetic
+
+    pad = scans[0][0]
+    pts, valid, ego = scan_tensors(scans[0], dev)
+    one = dict(points=pts[None], valid=valid[None], egos=ego[None])
+    got = prepare_vs_plain("scan 0", cfg, one["points"], one["valid"], one["egos"], frame_ego=ego)
+    check(bool(got[3][0]) and got[0].data_ptr() == pts.data_ptr(), "scan 0: not ok, or p is not the input")
+    tf_np = quaternion_transform(0, (1.7, -0.9, 0.35))
+    sensor = torch.from_numpy(to_sensor_frame(pad, tf_np)).to(dev)
+    tf = torch.from_numpy(tf_np).to(dev)
+    got_tf = prepare_vs_plain("scan 0, quaternion transform", cfg, sensor[None], valid[None], ego[None],
+                              frame_ego=ego, transform=tf)
+    moved = int(((got_tf[0][0] != pts).any(dim=1) & valid).sum())
+    check(bool(got_tf[3][0]) and moved > 0, "quaternion transform: not ok, or no point rounds")
+    # a min_distance that the ego's near returns fall inside
+    rel = dataclasses.replace(cfg, ego_relative_min_distance=True, min_distance=4.0)
+    got_rel = prepare_vs_plain("scan 0, ego_relative_min_distance", rel, *one.values(), frame_ego=ego)
+    check(int(got_rel[1].sum()) < int(valid.sum()), "ego_relative_min_distance 4 m: no point dropped")
+    pinned = got[2] + torch.tensor([3, -5, 1], dtype=torch.int32, device=dev)
+    prepare_vs_plain("scan 0, pinned origin", cfg, *one.values(), origin=pinned)
+
+    # the batch, as phase 5 makes it, one scan moved out of the grid
+    bpts, bvalid, begos = make_batch(scans_on_device(scans, dev), BATCH, 1)
+    bpts[DEAD_SCAN, :, 1] += 1000.0 + 3 * cfg.xy_size * cfg.xy_resolution     # beyond its returns' range too
+    bprep = prepare_vs_plain(f"{BATCH}-scan batch", cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True)
+    dead = [s for s in range(BATCH) if not bool(bprep[3][s])]
+    check(dead == [DEAD_SCAN] and not bool(bprep[1][DEAD_SCAN].any()),
+          f"batch: dead scans {dead}, expected [{DEAD_SCAN}] with no point kept")
+
+    # the edge points, and frame egos that are not finite
+    res = (cfg.xy_resolution, cfg.xy_resolution, cfg.z_resolution)
+    ep = torch.from_numpy(synthetic.edge_points(res, cfg.grid_shape, got[2].cpu().numpy(),
+                                                cfg.min_distance)).to(dev)
+    n_edge = ep.shape[0]
+    patterns = dict(valid=torch.ones(n_edge, dtype=torch.bool), invalid=torch.zeros(n_edge, dtype=torch.bool),
+                    alternate=torch.arange(n_edge) % 2 == 0)
+    for vname, v in patterns.items():
+        for tname, t in (("no transform", None), ("quaternion", tf)):
+            e = prepare_vs_plain(f"edge points, {vname}, {tname}", cfg, ep[None], v.to(dev)[None], ego[None],
+                                 frame_ego=ego, transform=t)
+            check(vname != "invalid" or not bool(e[3][0]), "edge points: invalid points made the scan ok")
+    bad = torch.tensor([[float("nan"), float("inf"), -1e12], [float("-inf"), 3e38, float("nan")]], device=dev)
+    for k, fe in enumerate(bad):
+        prepare_vs_plain(f"frame ego {k} not finite", cfg, ep[None], patterns["valid"].to(dev)[None], ego[None],
+                         frame_ego=fe)
+    log(f"phase 1 prepare: bitwise its plain version on one scan ({int(got[1].sum())} kept; a quaternion "
+        f"transform, {moved} points not at their world coordinates after the round trip; ego_relative_min_distance "
+        f"{int(got_rel[1].sum())} kept at 4 m; a pinned origin), on the {BATCH}-scan batch (scan {DEAD_SCAN} dead, "
+        f"{int(bprep[1].sum())} points kept), on {n_edge} edge points valid, invalid and alternating with and "
+        f"without the transform, and from two non-finite frame egos")
+    return dict(one=one, ego=ego, sensor=sensor, tf=tf, batch=(bpts, bvalid, begos), n_dead=len(dead))
+
+
 def phase1_kernels_vs_plain(cfg, scans, dev, log):
     """Each kernel against its plain version on the same inputs, over a drive
     with a moving ego. Returns the max abs error per kernel and the last
@@ -371,7 +493,6 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
 
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.ops import binning, kernels, moments, raycast
-    from gvom_tpu_torch.ops import grid as gridops
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
 
     err = {k.name: 0.0 for k in kernels.KERNELS}
@@ -381,15 +502,14 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
     for i, (pad, mask, ego_np) in enumerate(scans):
         pts, valid = torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev)
         ego = torch.tensor(ego_np, dtype=torch.float32, device=dev)
-        p, keep = binning.prepare_points(cfg, pts, valid, ego)
-        origin = gridops.compute_origin(cfg, ego)
-        pn = gridops.map_local(cfg, p, origin)
+        p, keep, origin, _ = prepare_vs_plain(f"scan {i}", cfg, pts[None], valid[None], ego[None], frame_ego=ego)
+        p, keep = p[0], keep[0]
         m = raycast.march_inputs(cfg, p, keep, ego, origin)
 
         passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
         exact("K1 passes", passes, raycast.ray_pass_counts_plain(cfg, m, origin))
 
-        kb, pb = kernels.bin_points(cfg, pn, keep, origin), binning.bin_points(cfg, pn, keep, origin)
+        kb, pb = kernels.bin_points(cfg, p, keep, origin), binning.bin_points(cfg, p, keep, origin)
         exact("K2 hit", kb.hit, pb.hit)
         exact("K2 min_height", kb.min_height, pb.min_height)
         err["bin_points"] = max(err["bin_points"], sums_close("K2", kb.sums, pb.sums))
@@ -432,9 +552,9 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         log(f"phase 1 scan {i}: origin {origin.tolist()}, {int(keep.sum())} points kept, "
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan): "
-            "K1-K5, the plane fit and the guess height agree with their plain versions" + (
+            "the preparation, K1-K5, the plane fit and the guess height agree with their plain versions" + (
                 ", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned sums" if i == 0 else ""))
-        last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, pn=pn, keep=keep, bins=kb, target=target,
+        last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, keep=keep, bins=kb, target=target,
                     hm=hm, ihm=ihm)
     last["tail_fit"] = plane_fit_sweep(dev, log)
     last["guess_routes"] = phase1_stencils(cfg, dev, log)
@@ -502,19 +622,17 @@ def phase1_slabs(cfg, scan, dev, log, err):
 
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.ops import binning, kernels, moments, raycast
-    from gvom_tpu_torch.ops import grid as gridops
 
     pts, valid, ego = scan_tensors(scan, dev)
-    p, keep = binning.prepare_points(cfg, pts, valid, ego)
-    origin = gridops.compute_origin(cfg, ego)
-    pn = gridops.map_local(cfg, p, origin)
+    p, keep, origin, _ = kernels.prepare_points(cfg, pts[None], valid[None], ego[None], frame_ego=ego)
+    p, keep = p[0], keep[0]
     m = raycast.march_inputs(cfg, p, keep, ego, origin)
     Y = cfg.xy_size
     Ys = Y // 4
     seam = int(origin[1]) % Y          # the torus row of window row 0
     check(seam % Ys != 0, f"the window seam (torus row {seam}) lies on a slab boundary, not inside a slab")
     full_pass = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
-    full_bins = kernels.bin_points(cfg, pn, keep, origin)
+    full_bins = kernels.bin_points(cfg, p, keep, origin)
     full_mom = {mask: kernels.moments_epilogue(cfg, full_bins.sums, full_bins.hit, origin, occupancy_mask=mask)
                 for mask in (True, False)}
     for k in range(4):
@@ -523,7 +641,7 @@ def phase1_slabs(cfg, scan, dev, log, err):
         kp = raycast.ray_pass_counts(cfg, p, keep, ego, origin, y_window=yw)
         exact(f"K1 slab {k} vs plain", kp, raycast.ray_pass_counts_plain(cfg, m, origin, yw))
         exact(f"K1 slab {k} vs the full grid's rows", kp, full_pass[:, rows].contiguous())
-        kb, pb = kernels.bin_points(cfg, pn, keep, origin, yw), binning.bin_points(cfg, pn, keep, origin, yw)
+        kb, pb = kernels.bin_points(cfg, p, keep, origin, yw), binning.bin_points(cfg, p, keep, origin, yw)
         for name in ("hit", "min_height"):
             exact(f"K2 slab {k} {name} vs plain", getattr(kb, name), getattr(pb, name))
             exact(f"K2 slab {k} {name} vs the full grid's rows", getattr(kb, name),
@@ -541,17 +659,20 @@ def phase1_slabs(cfg, scan, dev, log, err):
                 nan_blind(f"K5 slab {k} mask={mask}",
                           lambda s: kernels.moments_epilogue(cfg, s, kb.hit, origin, yw, mask), kb.sums)
         if has_seam:
-            last = dict(p=p, ego=ego, origin=origin, pn=pn, keep=keep, bins=kb, y_window=yw,
+            last = dict(p=p, ego=ego, origin=origin, keep=keep, bins=kb, y_window=yw,
                         full_n=full_bins.sums[0], full_hit=full_bins.hit)
     del full_mom, full_pass
 
     kernels.reset_launches()
-    grid, ok = pipeline.ingest_scan(cfg, pts, valid, ego)
-    slabs = [pipeline.ingest_scan(cfg, pts, valid, ego, y_window=(k * Ys, Ys)) for k in range(4)]
+    with watch_fma32(pts.shape[0]) as per_point:
+        grid, ok = pipeline.ingest_scan(cfg, pts, valid, ego)
+        slabs = [pipeline.ingest_scan(cfg, pts, valid, ego, y_window=(k * Ys, Ys)) for k in range(4)]
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    check(not per_point, f"ingest_scan: float64 fma32 on a scan's points: {per_point[:3]}")
     for name in ("ray_pass_counts", "bin_points", "moments_epilogue"):
         check(launches[name] == 1 and launches[name + "_slab"] == 4,
               f"ingest_scan: {name} launched {launches[name]} times, its slab form {launches[name + '_slab']}")
+    check(launches["prepare_points"] == 5, f"ingest_scan: prepare launched {launches['prepare_points']} times, not 5")
     check(bool(ok), "ingest_scan: scan_ok is False")
     for name in ("hit", "miss", "min_height"):
         exact(f"ingest_scan slabs side by side: {name}", torch.cat([getattr(g, name) for g, _ in slabs], dim=1),
@@ -574,15 +695,15 @@ def phase1_near_tier(cfg, scan, dev, log):
     and it is held here from the points, its geometry inside."""
     import torch
 
-    from gvom_tpu_torch.ops import binning, raycast
-    from gvom_tpu_torch.ops import grid as gridops
+    from gvom_tpu_torch.ops import raycast
 
     pts, valid, ego = scan_tensors(scan, dev)
     d = pts - ego
     lim = (NEAR_TIER_STEPS - 1.5) * min(cfg.xy_resolution, cfg.z_resolution)
     near = ego + d * torch.clamp(lim / d.norm(dim=1).clamp(min=1e-6), max=1.0)[:, None]
-    p, keep = binning.prepare_points(cfg, near, valid, ego)
-    origin = gridops.compute_origin(cfg, ego)
+    p, keep, origin, _ = prepare_vs_plain("near tier", cfg, near[None].contiguous(), valid[None], ego[None],
+                                          frame_ego=ego)
+    p, keep = p[0], keep[0]
     m = raycast.march_inputs(cfg, p, keep, ego, origin)
     k = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
     exact("K1 near tier vs plain", k, raycast.ray_pass_counts_plain(cfg, m, origin))
@@ -610,11 +731,13 @@ def phase2_facade(cfg, scans, log):
     for i, (pad, mask, ego) in enumerate(scans):
         pts = pad[mask]
         t0 = time.perf_counter()
-        scan_ok = g.process_pointcloud(pts, ego)
+        with watch_fma32(len(pts)) as per_point:
+            scan_ok = g.process_pointcloud(pts, ego)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = g.combine_maps()
         t2 = time.perf_counter()
+        check(not per_point, f"facade scan {i}: float64 fma32 on the scan's points: {per_point[:3]}")
         ingest_s.append(t1 - t0)
         combine_s.append(t2 - t1)
         check(bool(scan_ok), f"facade scan {i}: scan_ok is False")
@@ -636,6 +759,10 @@ def phase2_facade(cfg, scans, log):
     profiled = {k.name: k.launches for k in kernels.KERNELS}
     for name in ("combine", "plane_fit", "guess_height"):
         check(profiled[name] == 3, f"kernel {name}: {profiled[name]} launches in the profile's three combine_maps")
+    # and of one warm process_pointcloud (the scan given again)
+    pad, mask, ego = scans[-1]
+    ingest_profile = profile_calls(dict(process_pointcloud=lambda: g.process_pointcloud(pad[mask], ego)),
+                                   log)["process_pointcloud"]
     occ = g.get_map_as_occupancy_grid()
     check(occ.shape == cfg.grid_shape and occ.any(), "occupancy grid")
     warm = slice(1, None)
@@ -647,24 +774,82 @@ def phase2_facade(cfg, scans, log):
         combine_wall_ms_median_warm=1e3 * statistics.median(combine_s[warm]),
         visible_cells=int(vis.sum()), positive_cells=int((pos > 0).sum()),
         negative_cells=int((neg > 0).sum()), combine_maps_profile=combine_profile,
+        process_pointcloud_profile=ingest_profile,
     )
     log(f"phase 2 facade: {len(scans)} scans, launches {launches}; per scan (warm median, host clock "
         f"with sync): process_pointcloud {res['ingest_wall_ms_median_warm']:.3f} ms, combine_maps "
         f"{res['combine_wall_ms_median_warm']:.3f} ms; one combine_maps launches {combine_profile['launches']} "
-        f"kernels in all, the device busy {combine_profile['device_us']:.1f} us of {combine_profile['wall_us']:.1f} us")
+        f"kernels in all, the device busy {combine_profile['device_us']:.1f} us of "
+        f"{combine_profile['wall_us']:.1f} us; "
+        f"one process_pointcloud launches {ingest_profile['launches']}, the device busy "
+        f"{ingest_profile['device_us']:.1f} us of {ingest_profile['wall_us']:.1f} us, float64 "
+        f"{ingest_profile['f64_us']:.1f} us in {ingest_profile['f64_launches']} launches")
     return launches, res, g
 
 
-def phase3_small_reference(log):
+@contextlib.contextmanager
+def all_plain():
+    """Inside, every kernel wrapper takes its plain version, on the card too
+    (the wrappers ask kernels._is_cpu which one to take)."""
+    from gvom_tpu_torch.ops import kernels
+
+    is_cpu = kernels._is_cpu
+    kernels._is_cpu = lambda t: True
+    try:
+        yield
+    finally:
+        kernels._is_cpu = is_cpu
+
+
+def facade_pair(what, cfg, a, b, scans, transforms, degenerate=(), b_plain=False):
+    """Drive two facades with the same scans (a scan in its sensor frame
+    with its transform where transforms[i] is not None) and hold everything
+    they give bitwise, the ring buffer too (its moments within MOM_RTOL /
+    MOM_ATOL): scan_ok (False exactly for the scans in `degenerate`), the
+    combine's 5-tuple, the slopes, the occupancy. b_plain runs facade b with
+    every wrapper on its plain version."""
+    import numpy as np
+
+    from gvom_tpu_torch.utils import convert
+
+    side_b = all_plain if b_plain else contextlib.nullcontext
+    for i, ((pad, mask, ego), tf) in enumerate(zip(scans, transforms)):
+        pts = pad[mask] if tf is None else to_sensor_frame(pad[mask], tf)
+        ok_a = bool(a.process_pointcloud(pts, ego, tf))
+        with side_b():
+            ok_b = bool(b.process_pointcloud(pts, ego, tf))
+        check(ok_a == ok_b == (i not in degenerate), f"{what} scan {i}: scan_ok {ok_a} and {ok_b}")
+        out_a = a.combine_maps()
+        with side_b():
+            out_b = b.combine_maps()
+        for name, x, y in zip(("origin", "positive", "negative", "roughness", "visibility"), out_a, out_b):
+            check(np.array_equal(x, y) and x.dtype == y.dtype, f"{what} scan {i}: {name} differs")
+        for name in ("slope_x", "slope_y"):
+            check(np.array_equal(getattr(a.products, name).cpu().numpy(), getattr(b.products, name).cpu().numpy()),
+                  f"{what} scan {i}: {name} differs")
+    check(np.array_equal(a.get_map_as_occupancy_grid(), b.get_map_as_occupancy_grid()), f"{what}: occupancy")
+    ba, bb = convert.to_numpy(a._buffer), convert.to_numpy(b._buffer)
+    for k in ba:
+        if k == "mom":
+            check(bool(np.array_equal(ba[k][:, 0], bb[k][:, 0])), f"{what} buffer: moment n differs")
+            check(bool(np.allclose(ba[k], bb[k], rtol=MOM_RTOL, atol=MOM_ATOL)), f"{what} buffer: moments")
+        else:
+            check(bool(np.array_equal(ba[k], bb[k])), f"{what} buffer: {k} differs")
+
+
+def phase3_small_reference(cfg_full, scans_full, log):
     """The facade on a small grid on the GPU against the same facade on the
     CPU, where every wrapper runs its plain version. The third scan's points
     all lie inside min_distance of the world origin, so it is degenerate
-    and goes to the write-off slot, which the GPU picks on the device."""
+    and goes to the write-off slot, which the GPU picks on the device. Then
+    the robot's path, each scan in its sensor frame with a general
+    quaternion transform: the same drive on the small grid against the CPU,
+    and three upstream scans against the same facade on the card with
+    every wrapper on its plain version (the CPU would take minutes there)."""
     import numpy as np
 
     from gvom_tpu_torch import Gvom, GvomConfig
     from gvom_tpu_torch.ops import kernels
-    from gvom_tpu_torch.utils import convert
 
     cfg = GvomConfig(xy_size=64, z_size=32, max_points=4096, buffer_size=3)
     scans = make_scans(cfg, 5, dict(channels=32, azimuth_steps=128))
@@ -673,26 +858,19 @@ def phase3_small_reference(log):
     gpu, cpu = Gvom(config=cfg), Gvom(config=cfg, device="cpu")
     check(kernels.CMB.library((f"-DGVOM_COMBINE_B={cfg.buffer_size}",)).exists(),
           f"Gvom(buffer_size={cfg.buffer_size}) did not build its combine library when it was made")
-    for i, (pad, mask, ego) in enumerate(scans):
-        ok_gpu = bool(gpu.process_pointcloud(pad[mask], ego))
-        ok_cpu = bool(cpu.process_pointcloud(pad[mask], ego))
-        check(ok_gpu == ok_cpu == (i != 2), f"small grid scan {i}: scan_ok {ok_gpu} on the GPU, {ok_cpu} on the CPU")
-        a, b = gpu.combine_maps(), cpu.combine_maps()
-        for name, x, y in zip(("origin", "positive", "negative", "roughness", "visibility"), a, b):
-            check(np.array_equal(x, y) and x.dtype == y.dtype, f"small grid scan {i}: {name} differs from the CPU")
-        for name in ("slope_x", "slope_y"):
-            check(np.array_equal(getattr(gpu.products, name).cpu().numpy(), getattr(cpu.products, name).numpy()),
-                  f"small grid scan {i}: {name} differs from the CPU")
-    check(np.array_equal(gpu.get_map_as_occupancy_grid(), cpu.get_map_as_occupancy_grid()), "small occupancy")
-    bg, bc = convert.to_numpy(gpu._buffer), convert.to_numpy(cpu._buffer)
-    for k in bg:
-        if k == "mom":
-            check(bool(np.array_equal(bg[k][:, 0], bc[k][:, 0])), "small grid buffer: moment n differs")
-            check(bool(np.allclose(bg[k], bc[k], rtol=MOM_RTOL, atol=MOM_ATOL)), "small grid buffer: moments")
-        else:
-            check(bool(np.array_equal(bg[k], bc[k])), f"small grid buffer: {k} differs from the CPU")
+    facade_pair("small grid", cfg, gpu, cpu, scans, [None] * len(scans), degenerate=(2,))
+    tfs = [quaternion_transform(10 + i, ego) for i, (_, _, ego) in enumerate(scans)]
+    facade_pair("small grid, transform", cfg, Gvom(config=cfg), Gvom(config=cfg, device="cpu"), scans, tfs,
+                degenerate=(2,))
+    full = scans_full[:3]
+    kernels.reset_launches()
+    facade_pair("upstream, transform", cfg_full, Gvom(config=cfg_full), Gvom(config=cfg_full), full,
+                [quaternion_transform(20 + i, ego) for i, (_, _, ego) in enumerate(full)], b_plain=True)
+    check(kernels.PREP.launches == len(full), f"upstream, transform: prepare launched {kernels.PREP.launches} times")
     log("phase 3: the GPU facade matches the CPU facade on a 64×64×32 grid over 5 scans, one of them "
-        "degenerate (write-off slot), ring buffer included; roughness and the slopes bitwise")
+        "degenerate (write-off slot), ring buffer included; roughness and the slopes bitwise; again with each "
+        "scan in its sensor frame and a general quaternion transform; and with the transform on "
+        f"{len(full)} upstream scans against the same facade on the card on its plain versions")
 
 
 def atomic_rates(probe, dev, log):
@@ -868,10 +1046,22 @@ def combine_bound(cfg, buf, world, target, new_hit):
     return words * f32, counts
 
 
-def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
+def prep_bound(n_points, n_scans, transform, dead_points=0):
+    """(bytes, seconds of operations) of the preparation, whatever
+    implements it: it reads the points (12 bytes), valid (1 byte) and the
+    egos, writes keep (1 byte), the origin and scan_ok, and with a transform
+    reads it once and writes the world points (12 bytes); the dead-scan mask
+    writes the dead scans' keep again (dead_points bytes). PREP_OPS f32
+    operations a point, PREP_TRANSFORM_OPS more with a transform."""
+    nbytes = n_points * 14 + n_scans * 13 + 2 * 12 + dead_points + (64 + 12 * n_points if transform else 0)
+    return nbytes, n_points * (PREP_OPS + (PREP_TRANSFORM_OPS if transform else 0)) / F32_OPS_PER_S
+
+
+def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
     """ms, plain_ms, library_ms and bound_ms of each kernel at the upstream
-    shapes, on the last phase-1 scan and the phase-1 buffer and world, and of
-    the slab forms on phase 1's slab."""
+    shapes, on the last phase-1 scan and the phase-1 buffer and world, of
+    the slab forms on phase 1's slab, and of the preparation on phase 1's
+    scan (with and without its transform) and batch."""
     import torch
 
     from gvom_tpu_torch.models import pipeline
@@ -884,9 +1074,9 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     X, Y, Z = cfg.grid_shape
     V = X * Y * Z
     B = cfg.buffer_size
-    p, origin, pn, keep, bins, target, ego = (last[k] for k in ("p", "origin", "pn", "keep", "bins", "target",
-                                                                 "ego"))
-    N = pn.shape[0]
+    p, origin, keep, bins, target, ego = (last[k] for k in ("p", "origin", "keep", "bins", "target", "ego"))
+    pn = gridops.map_local(cfg, p, origin)     # K2's map-local coordinates, for its library call
+    N = p.shape[0]
     P = bins.sums[0].numel()
     passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
     n_pass = int(passes.sum())
@@ -925,12 +1115,12 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     n_grid = int(bins.hit.sum())
     n_win = int(bins.sums[0].sum())
     n_nz = int((bins.sums[0] > 0).sum())
-    row(kernels.BIN, lambda: kernels.bin_points(cfg, pn, keep, origin),
-        lambda: binning.bin_points(cfg, pn, keep, origin), 20, 5,
+    row(kernels.BIN, lambda: kernels.bin_points(cfg, p, keep, origin),
+        lambda: binning.bin_points(cfg, p, keep, origin), 20, 5,
         lambda: sums_lib.index_add_(1, pflat, vals), *k2_bound(N, n_kept, V, P, n_nz))
     rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid, n_win, rates)
     # the timed launches computed what the wrapper computes
-    _, timed = graph_ms(lambda: kernels.bin_points(cfg, pn, keep, origin), 10)
+    _, timed = graph_ms(lambda: kernels.bin_points(cfg, p, keep, origin), 10)
     exact("K2 timed launch vs the wrapper: hit", timed.hit, bins.hit)
     exact("K2 timed launch vs the wrapper: n", timed.sums[0], bins.sums[0])
     del timed
@@ -942,7 +1132,7 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
         lambda: moments.ingest_epilogue_plain(cfg, bins.sums, bins.hit, origin, out, slot), 20, 5,
         lambda: torch.nn.functional.conv3d(conv_in, wconv), k3_bytes, 52 * terms / F32_OPS_PER_S)
     # K2 then K3, one scan into the slot, against a bound that no design moves
-    pair = pair_row("K2 then K3", lambda: kernels.ingest_epilogue(cfg, *binned(cfg, pn, keep, origin), origin, out,
+    pair = pair_row("K2 then K3", lambda: kernels.ingest_epilogue(cfg, *binned(cfg, p, keep, origin), origin, out,
                                                                   slot),
                     20, N, n_kept, V, terms, log)
     # K4: the kernel alone (its meta vector and outputs made once, outside
@@ -963,7 +1153,8 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     del k4_out
 
     # ---- the slab forms, on the slab that holds the window seam ----
-    sp, sego, so, spn, skeep, sbins, yw = (slab[k] for k in ("p", "ego", "origin", "pn", "keep", "bins", "y_window"))
+    sp, sego, so, skeep, sbins, yw = (slab[k] for k in ("p", "ego", "origin", "keep", "bins", "y_window"))
+    spn = gridops.map_local(cfg, sp, so)
     ys0, Ys = yw
     Vs = X * Ys * Z
     Ps = sbins.sums[0].numel()
@@ -979,8 +1170,8 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     sflat, svals = index_add_inputs(cfg, spn, skeep, so, yw)
     s_lib = torch.zeros((10, Ps), dtype=torch.float32, device=dev)
     n_grid_s, n_win_s = int(sbins.hit.sum()), int(sbins.sums[0].sum())
-    row(kernels.BIN_SLAB, lambda: kernels.bin_points(cfg, spn, skeep, so, yw),
-        lambda: binning.bin_points(cfg, spn, skeep, so, yw), 20, 5,
+    row(kernels.BIN_SLAB, lambda: kernels.bin_points(cfg, sp, skeep, so, yw),
+        lambda: binning.bin_points(cfg, sp, skeep, so, yw), 20, 5,
         lambda: s_lib.index_add_(1, sflat, svals),
         *k2_bound(N, int(skeep.sum()), Vs, Ps, int((sbins.sums[0] > 0).sum())))
     rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid_s, n_win_s, rates)
@@ -1014,7 +1205,36 @@ def phase4_timings(cfg, buf, world, last, slab, rates, dev, log):
     tail = kernel_row(kernels.PLANEFIT_TAIL, lambda: kernels.plane_fit_tail(*fit),
                       lambda: maps2d.plane_fit_tail_plain(*fit), 100, 5, None,
                       n_sweep * (1 + 3 * 4) + n_ok * 4 * 4, n_ok * PLANE_FIT_TAIL_OPS / F32_OPS_PER_S, log)
-    return rows, dict(slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
+    # ---- the preparation: one scan as the facade launches it (the row), the
+    # same scan with a quaternion transform, and a batch with the dead-scan mask ----
+    one, pego = prep["one"], prep["ego"]
+    row(kernels.PREP, lambda: kernels.prepare_points(cfg, *one.values(), frame_ego=pego),
+        lambda: binning.prepare_plain(cfg, *one.values(), frame_ego=pego), 100, 5, None,
+        *prep_bound(N, 1, False))
+    sensor, tf = prep["sensor"][None], prep["tf"]
+    tf_args = (sensor, one["valid"], one["egos"])
+    prep_forms = dict(transform=dict(bound=prep_bound(N, 1, True),
+                                     fn=lambda: kernels.prepare_points(cfg, *tf_args, frame_ego=pego, transform=tf),
+                                     plain=lambda: binning.prepare_plain(cfg, *tf_args, frame_ego=pego,
+                                                                         transform=tf)))
+    bpts, bvalid, begos = prep["batch"]
+    S, NB = bvalid.shape
+    prep_forms["batch"] = dict(
+        bound=prep_bound(S * NB, S, False, prep["n_dead"] * NB),
+        fn=lambda: kernels.prepare_points(cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True),
+        plain=lambda: binning.prepare_plain(cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True))
+    prep_report = {}
+    for form, f in prep_forms.items():
+        ms, _ = graph_ms(f["fn"], 100)
+        wms, pms = cuda_ms(f["fn"], 100, warm=5), cuda_ms(f["plain"], 3)
+        nbytes, ops_s = f["bound"]
+        b_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops_s)
+        prep_report[form] = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, bound_ms=b_ms, bytes=nbytes,
+                                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations")
+        log(f"timing prepare_points ({form}): launch alone {ms:.4f} ms, wrapper {wms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({prep_report[form]['bound_by']}, {nbytes / 1e6:.2f} MB), "
+            f"{100 * b_ms / ms:.0f} % of it")
+    return rows, dict(prepare=prep_report, slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
                                 points_in_scratch=n_win_s, box_terms=s_terms),
                       points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
                       scratch_nonempty=n_nz, pair_k2_k3=pair, occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
@@ -1032,6 +1252,16 @@ def batched_cfg(cfg, batch):
 
     egos = batch[2].cpu().numpy()
     return dataclasses.replace(cfg, ray_steps_override=batched_ray_steps(cfg, egos, len(egos)))
+
+
+def scans_on_device(scans, dev):
+    """(points [n,N,3], valid [n,N], egos [n,3] f32) of the drive's scans on dev."""
+    import numpy as np
+    import torch
+
+    return (torch.stack([torch.from_numpy(p) for p, _, _ in scans]).to(dev),
+            torch.stack([torch.from_numpy(v) for _, v, _ in scans]).to(dev),
+            torch.from_numpy(np.stack([e for _, _, e in scans]).astype(np.float32)).to(dev))
 
 
 def make_batch(scans_dev, batch, step_index):
@@ -1053,13 +1283,36 @@ def make_batch(scans_dev, batch, step_index):
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Inside, the batched step's four kernel wrappers run their plain
-    versions on whatever device the tensors are on."""
-    from gvom_tpu_torch.ops import kernels, maps2d, moments, raycast
+def watch_fma32(n_points):
+    """Inside, every float64 grid.fma32 on a CUDA tensor whose leading
+    dimension is a multiple of n_points (a scan's points, or a batch's) is
+    listed in the yielded list: the card paths compute their per-point
+    roundings in the kernels, and fma32 is the plain versions' emulation."""
+    from gvom_tpu_torch.ops import grid as gridops
 
-    plain = dict(ray_pass_counts=raycast.pass_counts_plain, point_moments=moments.point_moments,
-                 plane_fit=maps2d.plane_fit_plain, guess_height=maps2d.guess_height_plain)
+    calls, fma32 = [], gridops.fma32
+
+    def watched(a, b, c):
+        if a.is_cuda and a.ndim and a.shape[0] >= n_points and a.shape[0] % n_points == 0:
+            calls.append(tuple(a.shape))
+        return fma32(a, b, c)
+
+    gridops.fma32 = watched
+    try:
+        yield calls
+    finally:
+        gridops.fma32 = fma32
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside, the batched step's five kernel wrappers run their plain
+    versions on whatever device the tensors are on."""
+    from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
+
+    plain = dict(prepare_points=binning.prepare_plain, ray_pass_counts=raycast.pass_counts_plain,
+                 point_moments=moments.point_moments, plane_fit=maps2d.plane_fit_plain,
+                 guess_height=maps2d.guess_height_plain)
     saved = {name: getattr(kernels, name) for name in plain}
     for name, fn in plain.items():
         setattr(kernels, name, fn)
@@ -1084,14 +1337,13 @@ def same_world(what, a, b, atol, err=None):
     return moments_close(f"{what}:", a.grid.mom, b.grid.mom, atol)
 
 
-def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
+def phase5_batched(cfg, scans, rates, dev, log, err):
     """The batched step at the upstream config. Two steps of BATCH_CHECK
     scans against the same step with the kernels swapped for their plain
     versions; then two steps of BATCH scans, timed, with the launch counts
-    set to 0 just before and read just after; then K2 and K5 against their
-    plain versions, and their times and bounds, on the merged points of a
-    whole batch."""
-    import numpy as np
+    set to 0 just before and read just after, and one warm step traced
+    with torch.profiler; then K2 and K5 against their plain versions, and
+    their times and bounds, on the merged points of a whole batch."""
     import torch
 
     from gvom_tpu_torch import make_batched_step
@@ -1100,9 +1352,7 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
     from gvom_tpu_torch.ops import grid as gridops
     from gvom_tpu_torch.types import empty_world_state
 
-    scans_dev = (torch.stack([torch.from_numpy(p) for p, _, _ in scans]).to(dev),
-                 torch.stack([torch.from_numpy(v) for _, v, _ in scans]).to(dev),
-                 torch.from_numpy(np.stack([e for _, _, e in scans]).astype(np.float32)).to(dev))
+    scans_dev = scans_on_device(scans, dev)
     X, Y, Z = cfg.grid_shape
     V = X * Y * Z
 
@@ -1129,8 +1379,10 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
 
     # ---- the full batch ----
     step = make_batched_step(cb)
-    step(empty_world_state(cfg, dev), *batches[0])      # warm: allocator and kernels
+    with watch_fma32(scans_dev[0].shape[1]) as per_point:
+        step(empty_world_state(cfg, dev), *batches[0])      # warm: allocator and kernels
     torch.cuda.synchronize()
+    check(not per_point, f"batched path: float64 fma32 on the points: {per_point[:3]}")
     world = empty_world_state(cfg, dev)
     step_ms, step_wall_ms = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -1148,7 +1400,7 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
             first_origin = world.grid.origin
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    want = dict(ray_pass_counts=2, bin_points=2, moments_epilogue=2, plane_fit=2, guess_height=2)
+    want = dict(prepare_points=2, ray_pass_counts=2, bin_points=2, moments_epilogue=2, plane_fit=2, guess_height=2)
     for name, n in want.items():
         check(launches[name] == n, f"batched path: {name} launched {launches[name]} times, expected {n}")
     for name in PRODUCT_FIELDS[1:]:
@@ -1172,12 +1424,16 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
         f"world occupied {res['world_occupied']} ({kept} kept from the first step)")
     del fresh, world
 
+    # ---- one warm step's launches and float64 time, by torch.profiler ----
+    w0 = empty_world_state(cfg, dev)    # the step leaves its input world untouched
+    res["profile"] = profile_calls(dict(batched_step=lambda: step(w0, *batches[0])), log)
+    del w0
+
     # ---- K5 and K2 on a whole batch's merged points ----
     origin, pw, keep = prepare_batch(cb, *batches[1])
     k1 = phase5_raycast_batch(cb, pw, keep, batches[1][2], origin, rates, log)
-    pn = gridops.map_local(cb, pw, origin)
-    bins = kernels.bin_points(cb, pn, keep, origin)
-    pb = binning.bin_points(cb, pn, keep, origin)
+    bins = kernels.bin_points(cb, pw, keep, origin)
+    pb = binning.bin_points(cb, pw, keep, origin)
     what = f"K2 on {BATCH} scans' merged points"
     exact(f"{what}: hit", bins.hit, pb.hit)
     exact(f"{what}: min_height", bins.min_height, pb.min_height)
@@ -1208,15 +1464,15 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
                      20, 5, lambda: torch.nn.functional.conv3d(conv_in, wconv), k5_bytes,
                      52 * k5_terms / F32_OPS_PER_S, log)
     # K2 at N = BATCH · max_points (its row in the kernels line is one scan's)
-    N, P = pn.shape[0], bins.sums[0].numel()
+    N, P = pw.shape[0], bins.sums[0].numel()
     n_kept, n_grid, n_win = int(keep.sum()), int(bins.hit.sum()), int(bins.sums[0].sum())
     n_nz = int((bins.sums[0] > 0).sum())
-    k2_ms, _ = graph_ms(lambda: kernels.bin_points(cb, pn, keep, origin), 20)
-    k2_wrapper_ms = cuda_ms(lambda: kernels.bin_points(cb, pn, keep, origin), 10)
-    k2_plain_ms = cuda_ms(lambda: binning.bin_points(cb, pn, keep, origin), 3)
+    k2_ms, _ = graph_ms(lambda: kernels.bin_points(cb, pw, keep, origin), 20)
+    k2_wrapper_ms = cuda_ms(lambda: kernels.bin_points(cb, pw, keep, origin), 10)
+    k2_plain_ms = cuda_ms(lambda: binning.bin_points(cb, pw, keep, origin), 3)
     k2_bytes, k2_ops_s = k2_bound(N, n_kept, V, P, n_nz)
     k2_bound_ms = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops_s)
-    pflat, vals = index_add_inputs(cb, pn, keep, origin)
+    pflat, vals = index_add_inputs(cb, gridops.map_local(cb, pw, origin), keep, origin)
     sums_lib = torch.zeros((10, P), dtype=torch.float32, device=dev)
     k2_lib_ms = cuda_ms(lambda: sums_lib.index_add_(1, pflat, vals), 10)
     del pflat, vals, sums_lib
@@ -1228,7 +1484,7 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
         f"moments_epilogue with the mask on, same sums: launch alone {k5_on_ms:.4f} ms")
     # K2 then K5, as the batched step launches them, against a bound that no design moves
     pair = pair_row("K2 then K5 (mask off)",
-                    lambda: kernels.moments_epilogue(cb, *binned(cb, pn, keep, origin), origin,
+                    lambda: kernels.moments_epilogue(cb, *binned(cb, pw, keep, origin), origin,
                                                      occupancy_mask=False),
                     20, N, n_kept, V, k5_terms, log)
     res.update(merged=dict(points=N, points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win,
@@ -1240,9 +1496,6 @@ def phase5_batched(cfg, scans, rates, dev, log, err, profile=False):
                            bin_points_atomic_floor_ms=k2_atomic_floor_ms(n_grid, n_win, rates),
                            moments_epilogue_mask_on_ms=k5_on_ms, pair_k2_k5=pair),
                ray_pass_counts_batch=k1)
-    if profile:
-        w0 = empty_world_state(cfg, dev)    # the step leaves its input world untouched
-        res["profile"] = profile_calls(dict(batched_step=lambda: step(w0, *batches[0])), log)
     return launches, row, res
 
 
@@ -1465,7 +1718,7 @@ def phase7_node_under_load(cfg, scans, payloads, log):
     scans_in, combines = counters.get("scans", 0), counters.get("combines", 0)
     check(scans_in == 2 * n_per, f"node: {scans_in} scans ingested of {2 * n_per}")
     check(combines > 0, "node: no map was published")
-    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue"):
+    for name in ("prepare_points", "ray_pass_counts", "bin_points", "ingest_epilogue"):
         check(launches[name] == scans_in, f"node: kernel {name} launched {launches[name]} times for {scans_in} scans")
     check(launches["combine"] == combines, f"node: K4 launched {launches['combine']} times for {combines} combines")
     for name in ("hard_obstacle_map", "roughness_map", "debug/voxel", "debug/height_map", "debug/inferred_height_map"):
@@ -1658,9 +1911,9 @@ def phase7_cli(procs, log):
     check(len(pg["per_combine"]) == 3 and pg == pc,
           f"cli parity: the report on the card differs from the CPU's: {pg} vs {pc}")
     seq, bat, st = res["replay sequential"], res["replay batched"], res["selftest"]
-    for name in ("ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
+    for name in ("prepare_points", "ray_pass_counts", "bin_points", "ingest_epilogue", "combine"):
         check(seq["launches"].get(name) == seq["scans"], f"cli replay --sequential: {name} launches {seq['launches']}")
-    for name in ("ray_pass_counts", "bin_points", "moments_epilogue"):
+    for name in ("prepare_points", "ray_pass_counts", "bin_points", "moments_epilogue"):
         check(bat["launches"].get(name) == bat["batches"], f"cli replay: {name} launches {bat['launches']}")
     check(st["ok"] is True, f"cli selftest: {st.get('error')}")
     from gvom_tpu_torch.ops import kernels
@@ -1997,6 +2250,9 @@ def profile_calls(steps, log):
             wall_us = 1e6 * (time.perf_counter() - t0)
         kern = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
         dev_us = sum(ev.time_range.elapsed_us() for ev in kern)
+        # float64 work: the kernels whose name (PyTorch's templates) names double
+        f64 = [ev for ev in kern if "double" in ev.name]
+        f64_us = sum(ev.time_range.elapsed_us() for ev in f64)
         by_name = {}
         for ev in kern:
             by_name.setdefault(ev.name, [0, 0.0])
@@ -2004,9 +2260,11 @@ def profile_calls(steps, log):
             by_name[ev.name][1] += ev.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
         out[name] = dict(wall_us=wall_us, device_us=dev_us, launches=len(kern), busy_share=dev_us / wall_us,
+                         f64_us=f64_us, f64_launches=len(f64),
                          top=[dict(kernel=k[:120], count=c, device_us=t) for k, (c, t) in top])
         log(f"profile {name}: host span {wall_us:.1f} us, device busy {dev_us:.1f} us "
-            f"({100 * dev_us / wall_us:.1f} %), {len(kern)} kernel launches; top by device time:")
+            f"({100 * dev_us / wall_us:.1f} %), {len(kern)} kernel launches, float64 {f64_us:.1f} us in "
+            f"{len(f64)}; top by device time:")
         for k, (c, t) in top[:8]:
             log(f"    {t:10.1f} us  x{c:<5d} {k[:100]}")
     return out
@@ -2081,8 +2339,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--scans", type=int, default=8, help="scans of the facade drive (default 8)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one ingest, one combine, one batched step and one tick of the node "
-                         "with torch.profiler")
+                    help="also trace one ingest and one combine on the pipeline and one tick of the node with "
+                         "torch.profiler (a batched step and a process_pointcloud are traced in every run)")
     ap.add_argument("--mesh-rank", help=argparse.SUPPRESS)   # a phase-9 rank: the directory of its inputs
     args, extra = ap.parse_known_args(argv)
     if extra and not args.mesh_rank:
@@ -2145,17 +2403,18 @@ def run(args, torch) -> int:
     log(f"made {len(scans)} scans of {int(scans[0][1].sum())} points in {time.perf_counter() - t0:.1f} s "
         f"(grid {cfg.grid_shape}, buffer {cfg.buffer_size})")
 
+    prep = phase1_prepare(cfg, scans, dev, log)
     err, buf, world, last = phase1_kernels_vs_plain(cfg, scans[:4], dev, log)
     phase1_combine_other_b(dev, log)
     slab_launches, slab = phase1_slabs(cfg, scans[0], dev, log, err)
     phase1_near_tier(cfg, scans[1], dev, log)
     launches, report["facade"], _ = phase2_facade(cfg, scans, log)
-    phase3_small_reference(log)
+    phase3_small_reference(cfg, scans, log)
     rates = atomic_rates(probe, dev, log)
-    rows, report["inputs"] = phase4_timings(cfg, buf, world, last, slab, rates, dev, log)
-    del buf, world, last, slab
+    rows, report["inputs"] = phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log)
+    del buf, world, last, slab, prep
     report["end_to_end"] = phase_end_to_end(cfg, scans, dev, log)
-    batched_launches, k5_row, report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err, args.profile)
+    batched_launches, k5_row, report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err)
     phase6_replay(log)
     node_launches, report["host_path"] = phase7_host_path(cfg, scans, log)
     report["bench"] = phase8_bench_and_entry(log)

@@ -129,21 +129,23 @@ def cmd_parity(args):
 
 
 def _selftest_checks(cfg, scan, ego_np, Ys, checks):
-    """Every kernel against its plain version on one scan on the card: K1,
-    K2, K5 (mask on and off) on the full grid and on the quarter slab that
-    holds the window seam, K3 into a ring-buffer slot."""
+    """Every kernel against its plain version on one scan on the card: the
+    point preparation, K1, K2, K5 (mask on and off) on the full grid and on
+    the quarter slab that holds the window seam, K3 into a ring-buffer
+    slot."""
     import torch
 
     from gvom_tpu_torch.ops import binning, kernels, moments, raycast
-    from gvom_tpu_torch.ops import grid as gridops
-    from gvom_tpu_torch.utils.compare import exact, moments_close, sums_close
+    from gvom_tpu_torch.utils.compare import bitwise, exact, moments_close, sums_close
 
     dev = torch.device("cuda")
     pts, valid = (torch.from_numpy(a).to(dev) for a in scan)
     ego = torch.tensor(ego_np, dtype=torch.float32, device=dev)
-    p, keep = binning.prepare_points(cfg, pts, valid, ego)
-    origin = gridops.compute_origin(cfg, ego)
-    pn = gridops.map_local(cfg, p, origin)
+    prep = kernels.prepare_points(cfg, pts[None], valid[None], ego[None], frame_ego=ego)
+    for name, a, b in zip(("p", "keep", "origin", "scan_ok"), prep,
+                          binning.prepare_plain(cfg, pts[None], valid[None], ego[None], frame_ego=ego)):
+        bitwise(f"prepare {name}", a, b)
+    p, keep, origin = prep[0][0], prep[1][0], prep[2]
     m = raycast.march_inputs(cfg, p, keep, ego, origin)
     seam = int(origin[1]) % cfg.xy_size // Ys * Ys
     X, Y, Z = cfg.grid_shape
@@ -154,7 +156,7 @@ def _selftest_checks(cfg, scan, ego_np, Ys, checks):
     for yw, tag in ((None, ""), ((seam, Ys), "_slab")):
         exact(f"K1{tag}", raycast.ray_pass_counts(cfg, p, keep, ego, origin, y_window=yw),
               raycast.ray_pass_counts_plain(cfg, m, origin, yw))
-        kb, pb = kernels.bin_points(cfg, pn, keep, origin, yw), binning.bin_points(cfg, pn, keep, origin, yw)
+        kb, pb = kernels.bin_points(cfg, p, keep, origin, yw), binning.bin_points(cfg, p, keep, origin, yw)
         exact(f"K2{tag} hit", kb.hit, pb.hit)
         exact(f"K2{tag} min_height", kb.min_height, pb.min_height)
         keep_max(f"bin_points{tag}_max_abs_err", sums_close(f"K2{tag}", kb.sums, pb.sums))
@@ -174,8 +176,8 @@ def _selftest_checks(cfg, scan, ego_np, Ys, checks):
 def cmd_selftest(args):
     """The compiled CUDA kernels against their plain PyTorch versions on the
     card, at the upstream shapes (the counterpart of the JAX package's
-    compiled-Pallas-vs-XLA selftest): pass counts, hit, min_height, n,
-    every combine output and the 2-D stencils (the plane fit, its tail
+    compiled-Pallas-vs-XLA selftest): the point preparation, pass counts,
+    hit, min_height, n, every combine output and the 2-D stencils (the plane fit, its tail
     alone, the guess height) bitwise, the other moment channels within
     compare.MOM_RTOL / MOM_ATOL. One JSON verdict line; exit 1 on a
     mismatch, 2 without a GPU."""

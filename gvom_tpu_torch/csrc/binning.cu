@@ -11,6 +11,10 @@
 //     a non-negative float, whose bits order like the float, so the min is
 //     exact. The grid starts at the bits of 1.0f. fz = pn_z − floor(pn_z) comes
 //     from the unpadded map-local coordinate, as in the JAX package;
+//   * the map-local coordinate pn = fma(p, 1/res, −origin) of each world
+//     point is computed here, rounded once as the JAX kernel's
+//     (pallas_kernels.py:1540) and as K1 computes its ray starts, so no
+//     caller writes an [N, 3] array of them;
 //   * the ten own-voxel raw sums (n, S1, R2) with f32 atomicAdd into the
 //     padded [10, X+2rx, Y+2ry, Z+2rz] window-layout scratch; the box over
 //     them is kernel K3's and K5's work (epilogue.cu).
@@ -92,17 +96,18 @@ struct Point {
 
 template <bool SLAB>
 __device__ __forceinline__ Point locate(
-    const float* __restrict__ pn, const uint8_t* __restrict__ keep, const int* __restrict__ origin,
-    int i, int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys)
+    const float* __restrict__ points, const uint8_t* __restrict__ keep, const int* __restrict__ origin,
+    float inv_xy, float inv_z, int i, int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys)
 {
     Point q;
     q.l[0] = q.l[1] = q.l[2] = 0.0f;
     q.t = q.s[0] = q.s[1] = -1;
     if (i >= n || !keep[i]) return q;
+    const float inv[3] = {inv_xy, inv_xy, inv_z};
     int v[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-        const float p = pn[3 * i + a];
+        const float p = __fmaf_rn(points[3 * i + a], inv[a], -(float)origin[a]);
         const float f = floorf(p);
         v[a] = (int)f;
         q.l[a] = __fsub_rn(p, f);
@@ -173,8 +178,8 @@ __device__ __forceinline__ int insert(int* keys, int key) {
 
 template <bool SLAB>
 __global__ void __launch_bounds__(THREADS) bin_count_kernel(
-    const float* __restrict__ pn, const uint8_t* __restrict__ keep, const int* __restrict__ origin,
-    int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int P,
+    const float* __restrict__ points, const uint8_t* __restrict__ keep, const int* __restrict__ origin,
+    float inv_xy, float inv_z, int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int P,
     int* __restrict__ hit, int* __restrict__ minh_bits, float* __restrict__ sums)
 {
     constexpr int HS = SLAB ? 3 * H / 2 : H;
@@ -184,8 +189,8 @@ __global__ void __launch_bounds__(THREADS) bin_count_kernel(
         skeys[i] = -1; scnt[i] = 0;
     }
     __syncthreads();
-    const Point q = locate<SLAB>(pn, keep, origin, blockIdx.x * THREADS + threadIdx.x, n, X, Y, Z,
-                                 rx, ry, rz, ys0, Ys);
+    const Point q = locate<SLAB>(points, keep, origin, inv_xy, inv_z, blockIdx.x * THREADS + threadIdx.x, n,
+                                 X, Y, Z, rx, ry, rz, ys0, Ys);
     // the warp's equal voxels first, then the block's table
     {
         const unsigned grp = __match_any_sync(FULL, q.t);
@@ -218,8 +223,8 @@ __global__ void __launch_bounds__(THREADS) bin_count_kernel(
 
 template <bool SLAB>
 __global__ void __launch_bounds__(THREADS) bin_sums_kernel(
-    const float* __restrict__ pn, const uint8_t* __restrict__ keep, const int* __restrict__ origin,
-    int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int P,
+    const float* __restrict__ points, const uint8_t* __restrict__ keep, const int* __restrict__ origin,
+    float inv_xy, float inv_z, int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int P,
     float* __restrict__ sums)
 {
     constexpr int HS = SLAB ? 3 * H / 2 : H;
@@ -232,8 +237,8 @@ __global__ void __launch_bounds__(THREADS) bin_sums_kernel(
         for (int c = 0; c < 9; ++c) svals[c][i] = 0.0f;
     }
     __syncthreads();
-    const Point q = locate<SLAB>(pn, keep, origin, blockIdx.x * THREADS + threadIdx.x, n, X, Y, Z,
-                                 rx, ry, rz, ys0, Ys);
+    const Point q = locate<SLAB>(points, keep, origin, inv_xy, inv_z, blockIdx.x * THREADS + threadIdx.x, n,
+                                 X, Y, Z, rx, ry, rz, ys0, Ys);
     const float* l = q.l;
     const float v[9] = {l[0], l[1], l[2],
                         __fmul_rn(l[0], l[0]), __fmul_rn(l[0], l[1]), __fmul_rn(l[0], l[2]),
@@ -270,22 +275,23 @@ __global__ void __launch_bounds__(THREADS) bin_sums_kernel(
 }
 
 template <bool SLAB>
-void launch_passes(const float* pn, const uint8_t* keep, const int* origin, int n,
+void launch_passes(const float* points, const uint8_t* keep, const int* origin, float inv_xy, float inv_z, int n,
                    int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int P,
                    int* hit, int* minh, float* sums, cudaStream_t st)
 {
     const int blocks = (n + THREADS - 1) / THREADS;
-    bin_count_kernel<SLAB><<<blocks, THREADS, 0, st>>>(pn, keep, origin, n, X, Y, Z, rx, ry, rz, ys0, Ys, P,
-                                                       hit, minh, sums);
-    bin_sums_kernel<SLAB><<<blocks, THREADS, 0, st>>>(pn, keep, origin, n, X, Y, Z, rx, ry, rz, ys0, Ys, P,
-                                                      sums);
+    bin_count_kernel<SLAB><<<blocks, THREADS, 0, st>>>(points, keep, origin, inv_xy, inv_z, n, X, Y, Z,
+                                                       rx, ry, rz, ys0, Ys, P, hit, minh, sums);
+    bin_sums_kernel<SLAB><<<blocks, THREADS, 0, st>>>(points, keep, origin, inv_xy, inv_z, n, X, Y, Z,
+                                                      rx, ry, rz, ys0, Ys, P, sums);
 }
 
 }  // namespace
 
-// The fill, then the two passes, on `stream`.
+// The fill, then the two passes, on `stream`. points are world-frame [n, 3];
+// inv_xy and inv_z are f32(1/res).
 extern "C" int gvom_bin_points(
-    const void* pn, const void* keep, const void* origin,
+    const void* points, const void* keep, const void* origin, float inv_xy, float inv_z,
     int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys,
     void* hit, void* minh, void* sums, void* stream)
 {
@@ -298,11 +304,11 @@ extern "C" int gvom_bin_points(
     fill_kernel<<<132 * 8, THREADS, 0, st>>>((int*)hit, (int*)minh, (float*)sums, (int)V, (int)P, vec4);
     if (n > 0) {
         if (slab)
-            launch_passes<true>((const float*)pn, (const uint8_t*)keep, (const int*)origin, n, X, Y, Z,
-                                rx, ry, rz, ys0, Ys, (int)P, (int*)hit, (int*)minh, (float*)sums, st);
+            launch_passes<true>((const float*)points, (const uint8_t*)keep, (const int*)origin, inv_xy, inv_z, n,
+                                X, Y, Z, rx, ry, rz, ys0, Ys, (int)P, (int*)hit, (int*)minh, (float*)sums, st);
         else
-            launch_passes<false>((const float*)pn, (const uint8_t*)keep, (const int*)origin, n, X, Y, Z,
-                                 rx, ry, rz, ys0, Ys, (int)P, (int*)hit, (int*)minh, (float*)sums, st);
+            launch_passes<false>((const float*)points, (const uint8_t*)keep, (const int*)origin, inv_xy, inv_z, n,
+                                 X, Y, Z, rx, ry, rz, ys0, Ys, (int)P, (int*)hit, (int*)minh, (float*)sums, st);
     }
     return (int)cudaGetLastError();
 }

@@ -33,6 +33,7 @@ __all__ = [
     "nudge_off_grid",
     "STENCIL_PATTERNS",
     "stencil_maps",
+    "edge_points",
 ]
 
 
@@ -234,3 +235,32 @@ def stencil_maps(pattern: str, X: int, seed: int = 0) -> Tuple[np.ndarray, np.nd
     inferred = rng.random((X, X)) < 0.8
     ihm = np.where(inferred, rng.normal(0.5, 2.0, (X, X)), UNKNOWN_HEIGHT).astype(np.float32)
     return hm, ihm
+
+
+def edge_points(resolution, grid_shape, origin, min_distance: float) -> np.ndarray:
+    """[K, 3] float32 world points on the edges of the point preparation, for
+    a window of `grid_shape` voxels of `resolution` (x, y, z) metres at the
+    voxel `origin`: on voxel faces (the window's first and last faces and
+    one past them, in float32 world coordinates), at and one float32 step
+    either side of `min_distance` from the world origin, and at ±1e9, ±inf
+    and NaN in one coordinate with the others inside the window."""
+    res = np.asarray(resolution, np.float32)
+    origin = np.asarray(origin, np.int64)
+    size = np.asarray(grid_shape, np.int64)
+    inside = ((origin + size // 2) * res).astype(np.float32)
+    out = []
+    for k in (-1, 0, 1, 5):
+        for face in (np.float32(origin + k) * res, np.float32(origin + size - k) * res):
+            for a in range(3):
+                q = inside.copy()
+                q[a] = face[a]
+                out.append(q)
+    md = np.float32(min_distance)
+    for d in (md, np.nextafter(md, np.float32(0)), np.nextafter(md, np.float32(np.inf))):
+        out += [np.array([d, 0, 0], np.float32), np.array([0, 0, -d], np.float32)]
+    for v in (1e9, -1e9, np.inf, -np.inf, np.nan):
+        for a in range(3):
+            q = inside.copy()
+            q[a] = v
+            out.append(q)
+    return np.stack(out).astype(np.float32)

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops import binning, kernels, maps2d
+from gvom_tpu_torch.ops import kernels, maps2d
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops import raycast
 from gvom_tpu_torch.types import BufferState, MapProducts, VoxelGrid, WorldState
@@ -54,6 +54,17 @@ def _target_slot(cfg: GvomConfig, buf: BufferState, scan_ok: torch.Tensor) -> to
     return torch.where(scan_ok, buf.cursor, torch.full_like(buf.cursor, cfg.buffer_size)).to(torch.int32)
 
 
+def _prepare(cfg: GvomConfig, points, valid, ego, transform, origin=None):
+    """One scan's (p [N,3] world frame, keep [N], origin, scan_ok) from the
+    point-preparation kernel (the plain twin on the CPU); the origin is the
+    pinned one, or the ego's."""
+    p, keep, origin, scan_ok = kernels.prepare_points(
+        cfg, points.float().contiguous()[None], valid.contiguous()[None], ego.reshape(1, 3).contiguous(),
+        frame_ego=ego.contiguous() if origin is None else None, origin=origin,
+        transform=None if transform is None else transform.float().contiguous())
+    return p[0], keep[0], origin, scan_ok[0]
+
+
 def ingest_scan(
     cfg: GvomConfig,
     points: torch.Tensor,
@@ -74,9 +85,7 @@ def ingest_scan(
     scan_ok refers to the slab. The moments are occupancy-masked: stored
     zero wherever hit == 0, since every consumer reads them under hit > 0."""
     ego = ego_position.float()
-    p, keep = binning.prepare_points(cfg, points, valid, ego, transform)
-    if origin is None:
-        origin = gridops.compute_origin(cfg, ego)
+    p, keep, origin, _ = _prepare(cfg, points, valid, ego, transform, origin)
     passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin, y_window=y_window)
     hit, min_height, mom = kernels.point_moments(cfg, p, keep, origin, y_window=y_window)
     grid = VoxelGrid(hit=hit, miss=passes, min_height=min_height, mom=mom, origin=origin)
@@ -114,14 +123,11 @@ def ingest_and_insert(
     moments straight into buf.grids.mom[slot], and the other channels are
     indexed copies into the same slot. Nothing here waits for the host."""
     ego = ego_position.float()
-    p, keep = binning.prepare_points(cfg, points, valid, ego, transform)
-    origin = gridops.compute_origin(cfg, ego)
-    pn = gridops.map_local(cfg, p, origin)
-    scan_ok = (keep & gridops.in_bounds(cfg, torch.floor(pn).to(torch.int32))).any()
+    p, keep, origin, scan_ok = _prepare(cfg, points, valid, ego, transform)
     slot = _target_slot(cfg, buf, scan_ok)
 
     passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
-    bins = kernels.bin_points(cfg, pn, keep, origin)
+    bins = kernels.bin_points(cfg, p, keep, origin)
     g = buf.grids
     kernels.ingest_epilogue(cfg, bins.sums, bins.hit, origin, g.mom, slot)
     for stacked, leaf in ((g.hit, bins.hit), (g.miss, passes), (g.min_height, bins.min_height),

@@ -2,13 +2,16 @@
 gvom.py:1084-1090, min height gvom.py:1301-1329, and the per-voxel raw stage
 of the metrics pipeline gvom.py:1170-1299).
 
-`bin_points` is the plain PyTorch twin of kernel K2 (ops/kernels.py,
-csrc/binning.cu): endpoint hit counts and min sub-voxel z in the torus
-layout, and the ten OWN-voxel raw moment sums on a grid padded by the eigen
-support radius in the window layout. The reference expands each point into
-neighbors without checking the point's own voxel bounds (gvom.py:1184-1202),
-so points just outside the window feed border voxels: hence the padding. The
-neighborhood box itself is ops/moments (kernels K3 and K5).
+`prepare_plain` is the plain PyTorch twin of the point-preparation kernel
+(ops/kernels.py, csrc/prepare.cu): the transform and min-distance filter of
+`prepare_points`, the grid origin, and each scan's scan_ok. `bin_points` is
+the plain twin of kernel K2 (csrc/binning.cu): endpoint hit counts and min
+sub-voxel z in the torus layout, and the ten OWN-voxel raw moment sums on a
+grid padded by the eigen support radius in the window layout. The reference
+expands each point into neighbors without checking the point's own voxel
+bounds (gvom.py:1184-1202), so points just outside the window feed border
+voxels: hence the padding. The neighborhood box itself is ops/moments
+(kernels K3 and K5).
 
 The slab form (`y_window=(ys0, Ys)`, counterpart of the JAX package's
 fused_point_moments(y_window=) and binning.slab_point_moments) accumulates
@@ -27,8 +30,8 @@ import torch
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import grid as gridops
 
-__all__ = ["PAIRS", "PointBins", "prepare_points", "bin_points", "moment_pad", "padded_shape", "slab_rows",
-           "scratch_pieces", "check_y_window", "is_slab", "sum_sq3"]
+__all__ = ["PAIRS", "PointBins", "transform_points", "prepare_points", "prepare_plain", "bin_points", "moment_pad",
+           "padded_shape", "slab_rows", "scratch_pieces", "check_y_window", "is_slab", "sum_sq3"]
 
 # second-moment pairs, in MOMENT_CHANNELS order (xx, xy, xz, yy, yz, zz)
 PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
@@ -122,6 +125,19 @@ def sum_sq3(v: torch.Tensor) -> torch.Tensor:
     return gridops.fma32(v[:, 2], v[:, 2], gridops.fma32(v[:, 1], v[:, 1], v[:, 0] * v[:, 0]))
 
 
+def transform_points(points: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
+    """points [N,3] @ R.T + t of a [4,4] transform, rounded as the JAX
+    package's compiled `p @ t[:3, :3].T + t[:3, 3]`: each output coordinate
+    is the chain fma(p2, r2, fma(p1, r1, p0·r0)) over its row r of R, then
+    + t. Written out, so that it rounds so on every device (a matmul's
+    order and fusing are the library's)."""
+    t = transform.float()
+    p = points.float()
+    rows = [gridops.fma32(p[:, 2], t[r, 2], gridops.fma32(p[:, 1], t[r, 1], p[:, 0] * t[r, 0])) + t[r, 3]
+            for r in range(3)]
+    return torch.stack(rows, dim=1)
+
+
 def prepare_points(
     cfg: GvomConfig,
     points: torch.Tensor,
@@ -135,8 +151,7 @@ def prepare_points(
     reference quirk — unless cfg.ego_relative_min_distance."""
     p = points.float()
     if transform is not None:
-        t = transform.float()
-        p = p @ t[:3, :3].T + t[:3, 3]
+        p = transform_points(p, transform)
     if cfg.ego_relative_min_distance:
         d2 = sum_sq3(p - ego_position.float())
     else:
@@ -146,12 +161,49 @@ def prepare_points(
     return p, keep
 
 
-def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor,
+def prepare_plain(
+    cfg: GvomConfig,
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    egos: torch.Tensor,
+    frame_ego: Optional[torch.Tensor] = None,
+    origin: Optional[torch.Tensor] = None,
+    transform: Optional[torch.Tensor] = None,
+    drop_dead: bool = False,
+):
+    """The plain twin of the point-preparation kernel: S scans (points
+    [S,N,3], valid [S,N], each scan's ego [S,3]) → (p [S,N,3] world frame,
+    keep [S,N], origin [3] int32, scan_ok [S]).
+
+    prepare_points on every scan (egos serve ego_relative_min_distance);
+    the origin is `origin`, or compute_origin(frame_ego); scan_ok[s] is
+    whether scan s keeps an endpoint inside that window, floor(p/res −
+    origin) in bounds (gvom_tpu/models/pipeline.py:209-213, the dead-scan
+    test of gvom_tpu/parallel/sharding.py:193-202). drop_dead also takes a
+    dead scan's points out of keep (sharding.py:202)."""
+    if (frame_ego is None) == (origin is None):
+        raise ValueError("prepare: give the frame's ego or a pinned origin, one of the two")
+    S, N = valid.shape
+    if origin is None:
+        origin = gridops.compute_origin(cfg, frame_ego)
+    egos_pt = egos.float()[:, None, :].expand(S, N, 3).reshape(-1, 3)
+    p, keep = prepare_points(cfg, points.reshape(-1, 3), valid.reshape(-1), egos_pt, transform)
+    vox = gridops.floor_i32(gridops.map_local(cfg, p, origin))
+    scan_ok = (keep & gridops.in_bounds(cfg, vox)).view(S, N).any(dim=1)
+    keep = keep.view(S, N)
+    if drop_dead:
+        keep = keep & scan_ok[:, None]
+    return p.view(S, N, 3), keep, origin, scan_ok
+
+
+def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor,
                y_window=None) -> PointBins:
-    """Dense binning of a point set from its map-local voxel coordinates
-    pn = points/res − origin [N,3] (grid.map_local): the plain twin of
-    kernel K2. With y_window = (ys0, Ys) only the torus rows [ys0, ys0+Ys):
-    hit and min_height [X, Ys, Z], the sums in the slab scratch (slab_rows)."""
+    """Dense binning of a point set [N,3] in the world frame: the plain twin
+    of kernel K2. The map-local voxel coordinates pn = points/res − origin
+    are grid.map_local's. With y_window = (ys0, Ys) only the torus rows
+    [ys0, ys0+Ys): hit and min_height [X, Ys, Z], the sums in the slab
+    scratch (slab_rows)."""
+    pn = gridops.map_local(cfg, points, origin)
     dev = pn.device
     X, Y, Z = cfg.grid_shape
     ys0, Ys = check_y_window(cfg, y_window)

@@ -25,6 +25,7 @@ __all__ = [
     "resolution_vector",
     "inv_resolution_vector",
     "size_vector",
+    "floor_i32",
     "compute_origin",
     "map_local",
     "in_bounds",
@@ -214,13 +215,24 @@ def size_vector(cfg: GvomConfig, device) -> torch.Tensor:
     return torch.tensor([cfg.xy_size, cfg.xy_size, cfg.z_size], dtype=torch.int32, device=device)
 
 
+def floor_i32(x: torch.Tensor) -> torch.Tensor:
+    """floor(x) as int32, converted as XLA converts float to int: saturated
+    to [INT32_MIN, INT32_MAX], NaN to 0 (a plain .to(torch.int32) of a NaN,
+    an infinity or a value beyond the range is undefined, INT32_MIN on x86)."""
+    f = torch.floor(x)
+    lim = float(2 ** 31)
+    i = torch.where((f >= -lim) & (f < lim), f, torch.zeros_like(f)).to(torch.int32)
+    i = torch.where(f >= lim, torch.full_like(i, 2 ** 31 - 1), i)
+    return torch.where(f < -lim, torch.full_like(i, -2 ** 31), i)
+
+
 def compute_origin(cfg: GvomConfig, ego_position: torch.Tensor) -> torch.Tensor:
     """Grid origin in voxel units (gvom.py:123-126): floor(ego/res − size/2)."""
     dev = ego_position.device
     half = torch.tensor([cfg.xy_size / 2.0, cfg.xy_size / 2.0, cfg.z_size / 2.0],
                         dtype=torch.float32, device=dev)
     e = ego_position.float()
-    return torch.floor(fma32(e, inv_resolution_vector(cfg, dev), -half)).to(torch.int32)
+    return floor_i32(fma32(e, inv_resolution_vector(cfg, dev), -half))
 
 
 def map_local(cfg: GvomConfig, points: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:

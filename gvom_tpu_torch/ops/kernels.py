@@ -13,6 +13,10 @@ tensors (there is no fallback), and counts its launches in `launches`.
 
 | wrapper            | source       | replaces (gvom_tpu/ops/pallas_kernels.py) | plain twin                         |
 |--------------------|--------------|-------------------------------------------|------------------------------------|
+| prepare_points     | prepare.cu   | none: the port's own (the JAX package's   | binning.prepare_plain              |
+|                    |              | point preparation in XLA, ops/binning.py: |                                    |
+|                    |              | 47-69, models/pipeline.py:209-213,        |                                    |
+|                    |              | parallel/sharding.py:193-202)             |                                    |
 | ray_pass_counts    | raycast.cu   | _run_hist and _run_hist_steppair, via     | raycast.pass_counts_plain (per     |
 |                    |              | ray_pass_counts_matmul                    | scan: march_inputs, then           |
 |                    |              |                                           | ray_pass_counts_plain)             |
@@ -28,11 +32,15 @@ tensors (there is no fallback), and counts its launches in `launches`.
 | guess_height       | guess.cu     | none: the port's own (the JAX package's   | maps2d.guess_height_plain          |
 |                    |              | guess-height search in XLA, :201)         |                                    |
 
-ray_pass_counts takes what the JAX function takes: world-frame points
-[S, N, 3], keep [S, N], one ego per scan [S, 3] and one origin; it builds the
-ray geometry itself and marches all S scans in one launch (S = 1 is one
-scan). ray_pass_counts, bin_points and moments_epilogue take y_window =
-(ys0, Ys), the slab forms: the same kernels restricted to the torus rows
+prepare_points turns S scans of raw points into what the kernels after it
+take: world-frame points, keep, the origin and each scan's scan_ok, in one
+launch (two with the batched step's dead-scan mask). ray_pass_counts takes
+what the JAX function takes: world-frame points [S, N, 3], keep [S, N], one
+ego per scan [S, 3] and one origin; it builds the ray geometry itself and
+marches all S scans in one launch (S = 1 is one scan). bin_points takes
+world-frame points too and computes their map-local coordinates itself.
+ray_pass_counts, bin_points and moments_epilogue take y_window = (ys0, Ys),
+the slab forms: the same kernels restricted to the torus rows
 [ys0, ys0+Ys). A slab launch is counted by an entry of its own (RAY_SLAB,
 BIN_SLAB, XBOX_SLAB), so a run shows which form the path went through.
 """
@@ -60,6 +68,7 @@ __all__ = [
     "KERNELS",
     "build_all",
     "reset_launches",
+    "prepare_points",
     "ray_pass_counts",
     "bin_points",
     "ingest_epilogue",
@@ -160,9 +169,14 @@ class CudaKernel:
 
 _PK = "gvom_tpu/ops/pallas_kernels.py"
 _RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 4 + [_F] * 2 + [_I] * 8 + [_P, _P])
-_BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_I] * 9 + [_P] * 4)
+_BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_F] * 2 + [_I] * 9 + [_P] * 4)
 _EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P, _P])
 
+# the point preparation: no TPU kernel, the JAX package computes it in XLA
+PREP = CudaKernel("prepare_points", "prepare.cu", "gvom_prepare_points",
+                  [_P] * 6 + [_F] * 3 + [_I] * 7 + [_P] * 5,
+                  "none: the port's own (gvom_tpu/ops/binning.py:47-69, gvom_tpu/models/pipeline.py:209-213, "
+                  "gvom_tpu/parallel/sharding.py:193-202: the point preparation in XLA)")
 RAY = CudaKernel(
     "ray_pass_counts", *_RAY_ARGS,
     f"{_PK}:335 (_run_hist, via ray_pass_counts_matmul :510) and {_PK}:478 (_run_hist_steppair)")
@@ -194,7 +208,7 @@ GUESS = CudaKernel("guess_height", "guess.cu", "gvom_guess_height", [_P, _P, _I,
                    f"none: the port's own ({_M2}:201-282, the guess-height search in XLA)")
 
 KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB, PLANEFIT, PLANEFIT_TAIL,
-                             GUESS]
+                             GUESS, PREP]
 
 
 def build_all(cfg: Optional[GvomConfig] = None) -> Dict[str, str]:
@@ -252,6 +266,56 @@ def _f32(v: float) -> float:
 
 
 # ----------------------------------------------------------------------
+# the point preparation
+
+
+def prepare_points(cfg: GvomConfig, points: torch.Tensor, valid: torch.Tensor, egos: torch.Tensor,
+                   frame_ego: Optional[torch.Tensor] = None, origin: Optional[torch.Tensor] = None,
+                   transform: Optional[torch.Tensor] = None, drop_dead: bool = False):
+    """S scans' raw points [S,N,3] f32, valid [S,N] bool and egos [S,3] f32
+    → (p [S,N,3] f32 world frame, keep [S,N] bool, origin [3] int32,
+    scan_ok [S] bool), binning.prepare_plain's function, bitwise.
+
+    The origin is the pinned `origin` [3] int32 or that of `frame_ego` [3]
+    f32, one of the two. `transform` [4,4] f32 maps the points to the world
+    frame (without it p is `points` itself). drop_dead also takes the points
+    of a scan with no kept endpoint in the window out of keep (the batched
+    step), a second launch."""
+    if points.ndim != 3:
+        raise ValueError(f"points: shape {tuple(points.shape)}, expected [S, N, 3]")
+    if (frame_ego is None) == (origin is None):
+        raise ValueError("prepare_points: give frame_ego or a pinned origin, one of the two")
+    S, n = points.shape[:2]
+    dev = points.device
+    _check("points", points, torch.float32, (S, n, 3), dev)
+    _check("valid", valid, torch.bool, (S, n), dev)
+    _check("egos", egos, torch.float32, (S, 3), dev)
+    if frame_ego is not None:
+        _check("frame_ego", frame_ego, torch.float32, (3,), dev)
+    else:
+        _check("origin", origin, torch.int32, (3,), dev)
+    if transform is not None:
+        _check("transform", transform, torch.float32, (4, 4), dev)
+    if _is_cpu(points):
+        return binning.prepare_plain(cfg, points, valid, egos, frame_ego, origin, transform, drop_dead)
+    X, Y, Z = cfg.grid_shape
+    inv = gridops.inv_resolution_vector(cfg, "cpu")
+    md = torch.tensor(cfg.min_distance, dtype=torch.float32)
+    p = points if transform is None else torch.empty_like(points)
+    keep = torch.empty((S, n), dtype=torch.bool, device=dev)
+    origin_out = torch.empty((3,), dtype=torch.int32, device=dev)
+    # scan_ok is a bool array over whole 4-byte words, which the kernel ORs into
+    words = torch.empty(((S + 3) // 4,), dtype=torch.int32, device=dev)
+    null = _P(None)
+    PREP.launch(_ptr(points), _ptr(valid), _ptr(egos), null if frame_ego is None else _ptr(frame_ego),
+                null if origin is None else _ptr(origin), null if transform is None else _ptr(transform),
+                float(inv[0]), float(inv[2]), float(md * md), int(cfg.ego_relative_min_distance),
+                S, n, X, Y, Z, int(drop_dead), null if transform is None else _ptr(p), _ptr(keep),
+                _ptr(origin_out), _ptr(words), _stream())
+    return p, keep, origin_out, words.view(torch.bool)[:S]
+
+
+# ----------------------------------------------------------------------
 # K1
 
 
@@ -290,17 +354,18 @@ def ray_pass_counts(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, e
 # K2
 
 
-def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor, y_window=None):
-    """One point set's binning from map-local coordinates pn [N,3]: returns
-    binning.PointBins (hit, min_height torus [X,Ys,Z]; own-voxel sums padded
-    [10, Xp, Yp, Zp], or the slab scratch [10, Xp, Ys+4ry, Zp] with
-    y_window = (ys0, Ys), see binning.slab_rows). The sums' channels 1-9 are
-    defined only where n > 0 (PointBins)."""
-    if _is_cpu(pn):
-        return binning.bin_points(cfg, pn, keep, origin, y_window)
-    dev = pn.device
-    n = pn.shape[0]
-    _check("pn", pn, torch.float32, (n, 3), dev)
+def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor, y_window=None):
+    """One point set's binning from its world-frame points [N,3] (the kernel
+    computes the map-local coordinates): returns binning.PointBins (hit,
+    min_height torus [X,Ys,Z]; own-voxel sums padded [10, Xp, Yp, Zp], or
+    the slab scratch [10, Xp, Ys+4ry, Zp] with y_window = (ys0, Ys), see
+    binning.slab_rows). The sums' channels 1-9 are defined only where n > 0
+    (PointBins)."""
+    if _is_cpu(points):
+        return binning.bin_points(cfg, points, keep, origin, y_window)
+    dev = points.device
+    n = points.shape[0]
+    _check("points", points, torch.float32, (n, 3), dev)
     _check("keep", keep, torch.bool, (n,), dev)
     _check("origin", origin, torch.int32, (3,), dev)
     X, Y, Z = cfg.grid_shape
@@ -310,8 +375,9 @@ def bin_points(cfg: GvomConfig, pn: torch.Tensor, keep: torch.Tensor, origin: to
     hit = torch.empty((X, Ys, Z), dtype=torch.int32, device=dev)
     minh = torch.empty((X, Ys, Z), dtype=torch.float32, device=dev)
     sums = torch.empty((10,) + binning.padded_shape(cfg, y_window), dtype=torch.float32, device=dev)
+    inv = gridops.inv_resolution_vector(cfg, "cpu")
     (BIN_SLAB if binning.is_slab(cfg, y_window) else BIN).launch(
-        _ptr(pn), _ptr(keep), _ptr(origin), n, X, Y, Z, rx, ry, rz, ys0, Ys,
+        _ptr(points), _ptr(keep), _ptr(origin), float(inv[0]), float(inv[2]), n, X, Y, Z, rx, ry, rz, ys0, Ys,
         _ptr(hit), _ptr(minh), _ptr(sums), _stream())
     return binning.PointBins(hit=hit, min_height=minh, sums=sums)
 
@@ -373,7 +439,7 @@ def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ori
     the JAX package's fused_point_moments), moments.point_moments on the CPU."""
     if _is_cpu(points):
         return moments.point_moments(cfg, points, keep, origin, y_window, occupancy_mask)
-    bins = bin_points(cfg, gridops.map_local(cfg, points, origin), keep, origin, y_window)
+    bins = bin_points(cfg, points, keep, origin, y_window)
     mom = moments_epilogue(cfg, bins.sums, bins.hit, origin, y_window, occupancy_mask)
     return bins.hit, bins.min_height, mom
 

@@ -139,8 +139,7 @@ def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ori
     plain twin of K2 then K5, and the counterpart of the JAX package's
     fused_point_moments. occupancy_mask=False returns the moments raw (the
     batched step masks by the whole batch's occupancy later)."""
-    pn = gridops.map_local(cfg, points, origin)
-    bins = binning.bin_points(cfg, pn, keep, origin, y_window)
+    bins = binning.bin_points(cfg, points, keep, origin, y_window)
     mom = moments_epilogue_plain(cfg, bins.sums, bins.hit, origin, y_window, occupancy_mask)
     return bins.hit, bins.min_height, mom
 

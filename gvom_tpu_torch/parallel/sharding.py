@@ -28,7 +28,9 @@ from the combine timer (gvom.py:163-175), which a batched step subsumes.
 Negative evidence uses the associative form: the batch's total misses at
 voxels the fused map leaves unoccupied.
 
-Per step and rank: kernel K1 once for the rank's scans (each scan's rays
+Per step and rank: the point preparation once for the rank's scans (the
+transform-free world points, keep with the dead scans masked out, the
+common origin); kernel K1 once for the rank's scans (each scan's rays
 from its own ego, all adding into one miss grid); kernels K2 and K5 once on
 the merged points of the rank's scans, the moments raw (no occupancy mask);
 then the merge with the old world and the 2D maps in plain PyTorch, as the
@@ -43,7 +45,7 @@ from typing import Callable, Tuple
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops import binning, kernels, maps2d
+from gvom_tpu_torch.ops import kernels, maps2d
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, Mesh
 from gvom_tpu_torch.types import MapProducts, VoxelGrid, WorldState
@@ -90,21 +92,18 @@ def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid, co
 
 
 def prepare_batch(cfg: GvomConfig, scans: torch.Tensor, valid: torch.Tensor, egos: torch.Tensor,
-                  origin: torch.Tensor = None):
+                  frame_ego: torch.Tensor = None):
     """The batch as one flat point set in the common frame: (origin, points
-    [S·N,3], keep [S·N]). The frame is `origin`, by default that of the
-    batch's last scan. A scan that bins no in-grid endpoint (the same
+    [S·N,3], keep [S·N]), from the point-preparation kernel (the plain twin
+    on the CPU). The frame is that of `frame_ego`, by default the batch's
+    last scan's ego. A scan that bins no in-grid endpoint (the same
     predicate as "produced no occupied voxel", gvom.py:148-150) is dead: its
     points are masked out of keep and it contributes nothing."""
-    S, N = valid.shape
-    egos = egos.float()
-    if origin is None:
-        origin = gridops.compute_origin(cfg, egos[-1])
-    egos_pt = egos[:, None, :].expand(S, N, 3).reshape(-1, 3)
-    pw, keep = binning.prepare_points(cfg, scans.reshape(-1, 3), valid.reshape(-1), egos_pt)
-    vox = torch.floor(gridops.map_local(cfg, pw, origin)).to(torch.int32)
-    oks = (keep & gridops.in_bounds(cfg, vox)).view(S, N).any(dim=1)
-    return origin, pw, keep & oks[:, None].expand(S, N).reshape(-1)
+    egos = egos.float().contiguous()
+    frame = egos[-1] if frame_ego is None else frame_ego.float()
+    pw, keep, origin, _ = kernels.prepare_points(cfg, scans.float().contiguous(), valid.contiguous(), egos,
+                                                 frame_ego=frame.contiguous(), drop_dead=True)
+    return origin, pw.view(-1, 3), keep.view(-1)
 
 
 def _ingest(ingest: str) -> str:
@@ -212,7 +211,7 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
         egos = egos.float().contiguous()
         # ---- the common frame: the origin of the batch's globally last scan ----
         ego_last = mesh.all_gather(egos, scan_axis, 0)[-1]
-        origin, pw, keep = prepare_batch(cfg, scans, valid, egos, gridops.compute_origin(cfg, ego_last))
+        origin, pw, keep = prepare_batch(cfg, scans, valid, egos, ego_last)
 
         # ---- the raycast: one launch, each scan's rays from ITS ego, all
         # adding into one miss grid (this rank's slab under slab ingest) ----

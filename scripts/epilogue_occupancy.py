@@ -50,7 +50,7 @@ def main() -> int:
     e = torch.tensor(ego, dtype=torch.float32, device=dev)
     pw, keep = binning.prepare_points(cfg, torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev), e)
     origin = gridops.compute_origin(cfg, e)
-    bins = kernels.bin_points(cfg, gridops.map_local(cfg, pw, origin), keep, origin)
+    bins = kernels.bin_points(cfg, pw, keep, origin)
     sums = torch.where(bins.sums[:1] > 0, bins.sums, torch.zeros((), device=dev))
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)

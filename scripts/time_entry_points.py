@@ -23,17 +23,21 @@ times, with CUDA events, the mean of N warm calls of:
 and, as the card runs them alone (the launches of GRAPH_CALLS calls captured
 once in a CUDA graph and replayed: fills and small launches included, the
 host's pace left out), each kernel wrapper of ops/kernels.py at the shapes
-of its path: K1 on the scan and on the slab; K2 on the scan, on the slab and
-on a batch's merged points; K3 into a ring-buffer slot; K5 with the mask off
-on the batch's sums; the slab epilogue (mask on); and the pairs K2 then K3
-(the scan) and K2 then K5 (the batch). Each epilogue takes its own commit's
-K2 sums. The batch is chip_smoke.py's second batched step: 8 scans made in
-worker processes, repeated to 32 with moving egos; --batch-cache keeps its
-points in a file, written when it is missing.
+of its path: the point preparation of the scan and of the batch (with the
+dead-scan mask), where the commit has it; K1 on the scan and on the slab; K2
+on the scan, on the slab and on a batch's merged points; K3 into a
+ring-buffer slot; K5 with the mask off on the batch's sums; the slab
+epilogue (mask on); and the pairs K2 then K3 (the scan) and K2 then K5 (the
+batch). Each epilogue takes its own commit's K2 sums. The batch is
+chip_smoke.py's second batched step: 8 scans made in worker processes,
+repeated to 32 with moving egos; --batch-cache keeps its points in a file,
+written when it is missing.
 
 These signatures are the same since the slab forms came in, whatever each
-commit builds inside them. Prints one JSON line, then the card's name and
-power limit.
+commit builds inside them, but for K2's points: a commit with
+kernels.prepare_points gives K2 world-frame points, an older one the
+map-local coordinates (grid.map_local). Prints one JSON line, then the
+card's name and power limit.
 """
 
 import argparse
@@ -164,6 +168,7 @@ def main(argv=None) -> int:
     ego = torch.tensor(ego_np, dtype=torch.float32, device=dev)
     p, keep = binning.prepare_points(cfg, pts, valid, ego)
     origin = gridops.compute_origin(cfg, ego)
+    world_k2 = hasattr(kernels, "prepare_points")    # this commit's K2 takes world-frame points
     Ys = cfg.xy_size // 4
     yw = ((int(origin[1]) % cfg.xy_size) // Ys * Ys, Ys)
 
@@ -189,11 +194,13 @@ def main(argv=None) -> int:
 
     # ---- each kernel's launches alone ----
     X, Y, Z = cfg.grid_shape
-    pn = gridops.map_local(cfg, p, origin)
     bp, bv, be = (torch.from_numpy(a).to(dev) for a in batch_points(str(Path(args.root).resolve()), cfg,
                                                                     args.batch_cache))
-    borigin, bpw, bkeep = prepare_batch(cfg, *make_batch(bp, bv, be))
-    bpn = gridops.map_local(cfg, bpw, borigin)
+    batch = make_batch(bp, bv, be)
+    borigin, bpw, bkeep = prepare_batch(cfg, *batch)
+    # K2's input: world-frame points, or an older commit's map-local coordinates
+    pn = p if world_k2 else gridops.map_local(cfg, p, origin)
+    bpn = bpw if world_k2 else gridops.map_local(cfg, bpw, borigin)
     scan_bins = kernels.bin_points(cfg, pn, keep, origin)
     slab_bins = kernels.bin_points(cfg, pn, keep, origin, yw)
     batch_bins = kernels.bin_points(cfg, bpn, bkeep, borigin)
@@ -222,6 +229,9 @@ def main(argv=None) -> int:
         "K2_then_K3_scan": k2_k3,
         "K2_then_K5_batch": k2_k5,
     }
+    if world_k2:
+        launches["prepare_scan"] = lambda: kernels.prepare_points(cfg, pts[None], valid[None], ego[None], frame_ego=ego)
+        launches["prepare_batch"] = lambda: kernels.prepare_points(cfg, *batch, frame_ego=batch[2][-1], drop_dead=True)
     out["batch_points"] = int(bpn.shape[0])
     out["launch_alone_ms"] = {name: graph_ms(fn, args.reps) for name, fn in launches.items()}
     smi = ""

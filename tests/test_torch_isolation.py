@@ -96,6 +96,9 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CPU or a CUDA"):
         kernels.bin_points(cfg, pn, torch.ones(4, dtype=torch.bool, device="meta"),
                            torch.zeros(3, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        kernels.prepare_points(cfg, pn[None], torch.ones((1, 4), dtype=torch.bool, device="meta"),
+                               torch.zeros((1, 3), device="meta"), frame_ego=torch.zeros(3, device="meta"))
     f = torch.zeros((2, 2), device="meta")
     with pytest.raises(ValueError, match="CPU or a CUDA"):
         kernels.plane_fit_tail(f, torch.ones((2, 2), dtype=torch.bool, device="meta"), f, f, f)
@@ -107,10 +110,11 @@ def test_kernel_wrappers_refuse_other_devices():
     assert [k.name for k in kernels.KERNELS] == [
         "ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "moments_epilogue",
         "ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab", "plane_fit", "plane_fit_tail",
-        "guess_height"]
-    ours = (kernels.PLANEFIT, kernels.PLANEFIT_TAIL, kernels.GUESS)
+        "guess_height", "prepare_points"]
+    ours = (kernels.PLANEFIT, kernels.PLANEFIT_TAIL, kernels.GUESS, kernels.PREP)
     for k in kernels.KERNELS:
-        # every kernel but the 2-D maps' stencils, which the port adds, replaces a TPU kernel
+        # every kernel but the 2-D maps' stencils and the point preparation, which the port adds,
+        # replaces a TPU kernel
         assert k.source.exists() and k.replaces.startswith(
             "none: the port's own" if k in ours else "gvom_tpu/ops/pallas_kernels.py:")
 
@@ -146,13 +150,14 @@ def test_build_all_builds_the_configs_combine_depth(monkeypatch):
     reports = kernels.build_all()
     assert sorted(reports) == sorted(k.name for k in kernels.KERNELS)
     assert sorted(started) == [("binning.cu", ()), ("combine.cu", ("-DGVOM_COMBINE_B=4",)),
-                               ("epilogue.cu", ()), ("guess.cu", ()), ("planefit.cu", ()), ("raycast.cu", ())]
+                               ("epilogue.cu", ()), ("guess.cu", ()), ("planefit.cu", ()), ("prepare.cu", ()),
+                               ("raycast.cu", ())]
     started.clear()
     kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3))
-    assert ("combine.cu", ("-DGVOM_COMBINE_B=3",)) in started and len(started) == 7
+    assert ("combine.cu", ("-DGVOM_COMBINE_B=3",)) in started and len(started) == 8
     started.clear()
     kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=4))
-    assert len(started) == 6
+    assert len(started) == 7
     started.clear()
     Gvom(config=GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3), device="cpu")
     assert started == []

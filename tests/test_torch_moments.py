@@ -24,6 +24,7 @@ from gvom_tpu_torch.ops import binning as tbinning
 from gvom_tpu_torch.ops import grid as tgrid
 from gvom_tpu_torch.ops import kernels as tkernels
 from gvom_tpu_torch.ops import moments as tmoments
+from gvom_tpu_torch.ros.node import _quat_to_mat
 from gvom_tpu_torch.types import empty_buffer_state
 
 from conftest import make_scan
@@ -45,9 +46,8 @@ def test_binning_and_box_moments(xye, ze):
     c = tcfg(cfg)
     tp, tk = tbinning.prepare_points(c, t(pad), t(mask), t(e))
     to = tgrid.compute_origin(c, t(e))
-    pn = tgrid.map_local(c, tp, to)
     launches = tkernels.BIN.launches
-    tb = tkernels.bin_points(c, pn, tk, to)
+    tb = tkernels.bin_points(c, tp, tk, to)
     assert tkernels.BIN.launches == launches  # CPU tensors take the plain version
     np.testing.assert_array_equal(tb.hit.numpy(), np.asarray(bins.hit))
     np.testing.assert_array_equal(tb.min_height.numpy(), np.asarray(bins.min_height))
@@ -98,25 +98,32 @@ def test_border_points_feed_border_voxels(small_cfg):
     res = np.array([c.xy_resolution, c.xy_resolution, c.z_resolution], np.float32)
     pts = np.array([[0.5, 0.5, 0.5], [-0.5, 0.5, 0.5]], np.float32) * res
     origin = t(np.zeros(3, np.int32))
-    pn = tgrid.map_local(c, t(pts), origin)
-    tb = tkernels.bin_points(c, pn, t(np.ones(2, bool)), origin)
+    tb = tkernels.bin_points(c, t(pts), t(np.ones(2, bool)), origin)
     assert int(tb.hit.sum()) == 1
     mom = tmoments.box_aggregate_moments(c, tb.sums)
     assert float(mom[0, 0, 0, 0]) == 2.0
 
 
-def test_ingest_scan_with_transform_matches_jax(small_cfg):
+@pytest.mark.parametrize("rotation", ["exact", "quaternion"])
+def test_ingest_scan_with_transform_matches_jax(small_cfg, rotation):
     """The sensor→world transform (gvom.py:1038-1056, applied before the
-    world-frame min-distance filter), with 0/±1 rotation entries and dyadic
-    translations so that the product is exact in both packages."""
+    world-frame min-distance filter): with 0/±1 rotation entries and dyadic
+    translations, so that the product is exact in both packages; and a
+    general rotation from a quaternion as the ROS node builds it
+    (ros/node.py::_quat_to_mat), whose products round as the JAX package's
+    compiled dot rounds them."""
     cfg = small_cfg
     ego = np.array([0.3, -0.2, 1.5])
     pts_world = make_scan(synthetic.composite_terrain(), ego, cfg=cfg)
-    R = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
-    tr = np.array([2.25, -1.5, 0.5])
-    tf = np.eye(4, dtype=np.float32)
-    tf[:3, :3] = R
-    tf[:3, 3] = tr
+    if rotation == "exact":
+        R = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+        tr = np.array([2.25, -1.5, 0.5])
+        tf = np.eye(4, dtype=np.float32)
+        tf[:3, :3] = R
+        tf[:3, 3] = tr
+    else:
+        tf = _quat_to_mat(1.7, -0.9, 0.35, 0.12, -0.31, 0.87, 0.36).astype(np.float32)
+        R, tr = tf[:3, :3].astype(np.float64), tf[:3, 3].astype(np.float64)
     pad, mask = synthetic.pad_scan((pts_world - tr) @ R, cfg.max_points)
     e = np.float32(ego)
     jg, _ = jax.jit(lambda *a: jpipeline.ingest_scan(cfg, *a))(jnp.asarray(pad), jnp.asarray(mask),
@@ -137,11 +144,13 @@ def test_epilogue_twins_read_the_sums_only_where_n_is_positive(form):
     hold NaN everywhere else."""
     c = tcfg(GvomConfig(xy_size=32, z_size=16, max_points=2048))
     rng = np.random.default_rng(7)
-    pn = t((rng.uniform(-1.5, 33.5, (3000, 3)) * np.array([1.0, 1.0, 0.5])).astype(np.float32))
+    pn = rng.uniform(-1.5, 33.5, (3000, 3)) * np.array([1.0, 1.0, 0.5])     # map-local voxel coordinates
     keep = t(rng.uniform(size=3000) > 0.2)
-    origin = t(np.array([5, 27, -3], np.int32))        # the window seam at torus row 27, inside the slab
+    o = np.array([5, 27, -3], np.int32)                 # the window seam at torus row 27, inside the slab
+    res = np.array([c.xy_resolution, c.xy_resolution, c.z_resolution])
+    points, origin = t(((pn + o) * res).astype(np.float32)), t(o)
     y_window = (16, 16) if form.startswith("slab") else None
-    bins = tbinning.bin_points(c, pn, keep, origin, y_window)
+    bins = tbinning.bin_points(c, points, keep, origin, y_window)
     poisoned = bins.sums.clone()
     poisoned[1:, bins.sums[0] == 0] = float("nan")
     if form == "ingest":

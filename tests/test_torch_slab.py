@@ -117,14 +117,13 @@ def test_slab_scratch_scales_with_the_slab(scene):
     c = scene["c"]
     tp, tkeep, torigin = scene["port"]
     Ys = c.xy_size // 4
-    pn = gridops.map_local(c, tp, torigin)
-    full = binning.bin_points(c, pn, tkeep, torigin)
-    slab = binning.bin_points(c, pn, tkeep, torigin, (Ys, Ys))
+    full = binning.bin_points(c, tp, tkeep, torigin)
+    slab = binning.bin_points(c, tp, tkeep, torigin, (Ys, Ys))
     ry = binning.moment_pad(c)[1]
     assert slab.sums.shape[2] == Ys + 4 * ry and full.sums.shape[2] == c.xy_size + 2 * ry
     assert 0 < float(slab.sums[0].sum()) < 0.6 * float(full.sums[0].sum())
     with pytest.raises(ValueError, match="y_window"):
-        binning.bin_points(c, pn, tkeep, torigin, (3 * Ys, 2 * Ys))
+        binning.bin_points(c, tp, tkeep, torigin, (3 * Ys, 2 * Ys))
 
 
 def test_window_of_every_row_is_the_full_grid(scene):
