@@ -40,15 +40,23 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      where the guess kernel reads the map from global memory) and the guess
      at R = 0, 1, 15 and 300 on a 64×64 grid; the plane fit's tail alone (its
      own entry, off the map path) on a seeded sweep of 2^20 cells of its
-     domain;
+     domain. The maps' tail (csrc/maptail.cu: the window layout of the
+     height maps, the obstacle maps and the visibility) bit for bit on each
+     combine's maps and on io.synthetic.map_tail_inputs' crafted 256×256
+     map (cells at the slope and negative thresholds, den = 0,
+     UNKNOWN_HEIGHT) at four origins; the batched merge (csrc/merge.cu:
+     the merge and the column maps) bit for bit, moments included, on
+     seeded upstream worlds (origin moved, world not valid, windows apart,
+     z shift) and on their quarter slab y0 = 64 against the full rows;
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
-     and read just after (the preparation, K1-K4, the plane fit and the
-     guess height once a scan), no float64 fma32 on a tensor of a scan's
-     points (grid.fma32 watched), and checks the 5-tuple it returns; then
+     and read just after (the preparation, K1-K4, the plane fit, the guess
+     height and the maps' two entries once a scan), no float64 fma32 or
+     sqrt32 on the card (watch_fma32), and checks the 5-tuple it returns;
+     then
      counts every launch of one warm combine_maps and of one warm
      process_pointcloud with torch.profiler (the kernels' and PyTorch's) and
-     prints them with the device's busy share and float64 time;
+     prints them with the device's busy share and float64 time (none);
   3. checks the facade's outputs and ring buffer on a small grid (B = 3,
      whose K4 library the facade builds when it is made), over a
      drive with one degenerate scan, against the same facade on the CPU,
@@ -75,9 +83,13 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      then two steps of 32 scans of 131,072 points (the second merges with a
      live world at a moved origin), timed, with the launch counts set to 0
      just before and read just after (the preparation, K1, K2, K5, the
-     plane fit and the guess height: one launch a step each), no float64
-     fma32 on the points, and one warm step's launches and float64 time
-     counted with torch.profiler; then K1 on a
+     merge, the plane fit, the guess height and the maps' two entries: one
+     launch a step each), no float64 fma32 or sqrt32 on the card, and one
+     warm step's launches and float64 time (none) counted with
+     torch.profiler; the merge kernel bit for bit against its plain version
+     on the second step's 32-scan contribution into the first step's live
+     world (the origin moved), and on its quarter slab y0 = 64 against the
+     full rows, timed against its bound; then K1 on a
      whole 32-scan batch, timed and held bitwise against the sum of its
      one-scan launches over the same scans, and K2 and K5 on its merged
      points against their plain versions, timed;
@@ -113,7 +125,7 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      slab, (2, 2) slab and (2, 2) scatter, each gathered world and its
      products bitwise the one-rank step's (the moments within
      MOM_ATOL_BATCH), the slab kernels launched on every rank of a space
-     mesh; dryrun_multichip(4, backend="gloo"); and `bench --mode scaling
+     mesh and the merge and the maps' tail on every rank; dryrun_multichip(4, backend="gloo"); and `bench --mode scaling
      --devices 1`. It prints each rank's step time, peak device memory,
      slab launches and the bytes gloo moved through the host. Four ranks
      on one card measure no scaling.
@@ -167,7 +179,9 @@ STENCIL_RADII = (0, 1, 15, 300)
 BENCH_MODES = ("perscan", "combine", "async", "batched")
 # the kernels that the facade launches once a scan (ingest) or once a combine
 FACADE_KERNELS = ("prepare_points", "ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit",
-                  "guess_height")
+                  "guess_height", "maps_to_window", "map_products")
+MERGE_OPS = 40               # f32 and int operations of the merge a voxel (masks, sums, ten moment adds)
+MAP_TAIL_ORIGINS = ((5, -7, 2), (0, 0, 0), (-300, 1000, 0), (255, 1, -5))   # phase 1's crafted map-tail origins
 MESH_RANKS = 4               # phase 9's gloo ranks on the one card
 MESH_SHAPES = (("(1, 4) slab", 4, "slab"), ("(2, 2) slab", 2, "slab"), ("(2, 2) scatter", 2, "scatter"))
 
@@ -542,22 +556,31 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log):
         buf, scan_ok = pipeline.ingest_and_insert(cfg, buf, pts, valid, ego)
         check(bool(scan_ok), f"scan {i} has no occupied voxel")
         target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
-        combine_vs_plain(cfg, buf, world, ego, "K4")
+        ko = combine_vs_plain(cfg, buf, world, ego, "K4")
         world, products, ok = pipeline.combine(cfg, buf, world, ego)
         check(bool(ok), f"combine after scan {i} reports an empty buffer")
         hm, ihm = products.height, products.inferred_height
+        tail_in = ko[5:10] + (products.slope_x, products.slope_y, products.guessed_height_delta, target)
+        tail = maptail_vs_plain(f"combine {i}", cfg, *tail_in)
+        for name, a in zip(("height", "inferred_height", "positive_obstacle", "negative_obstacle", "visibility"),
+                           tail):
+            bitwise(f"combine {i}: the maps' tail vs the pipeline's {name}", a, getattr(products, name))
+        del ko
         plane_fit_vs_plain(f"combine {i}", cfg, hm)
         guess_vs_plain(f"combine {i}", cfg, hm, ihm)
         revived = int(((world.grid.hit > 0) & (buf.grids.hit[buf.last_slot.long()] == 0)).sum())
         log(f"phase 1 scan {i}: origin {origin.tolist()}, {int(keep.sum())} points kept, "
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan): "
-            "the preparation, K1-K5, the plane fit and the guess height agree with their plain versions" + (
+            "the preparation, K1-K5, the plane fit, the guess height and the maps' tail agree with their plain "
+            "versions" + (
                 ", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned sums" if i == 0 else ""))
         last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, keep=keep, bins=kb, target=target,
-                    hm=hm, ihm=ihm)
+                    hm=hm, ihm=ihm, tail_in=tail_in)
     last["tail_fit"] = plane_fit_sweep(dev, log)
     last["guess_routes"] = phase1_stencils(cfg, dev, log)
+    phase1_maptail(cfg, dev, log)
+    phase1_merge(cfg, dev, log)
     return err, buf, world, last
 
 
@@ -577,6 +600,7 @@ def combine_vs_plain(cfg, buf, world, ego, what):
     po = pipeline.fuse_plain(cfg, buf, world, target, ego)
     for name, a, b in zip(COMBINE_OUTPUTS, ko, po):
         exact(f"{what} {name}", a, b)
+    return ko
 
 
 def phase1_combine_other_b(dev, log):
@@ -600,6 +624,164 @@ def phase1_combine_other_b(dev, log):
             check(bool(ok), f"K4 B={B}: combine after scan {i} reports an empty buffer")
         log(f"phase 1 K4 at B = {B}, 64×64×{Z}: every output bitwise against fuse_plain over 4 scans, world "
             f"occupied {int((world.grid.hit > 0).sum())}")
+
+
+def maptail_vs_plain(what, cfg, hm_t, ihm_t, pnum, pden, band_ok, sx, sy, ghd, origin):
+    """The maps' tail (csrc/maptail.cu) against its plain twins on the same
+    inputs: the window-layout height maps, then the positive and negative
+    obstacles and the visibility, bit for bit. Returns the kernels' (hm,
+    ihm, pos, neg, vis)."""
+    from gvom_tpu_torch.ops import kernels, maps2d
+
+    hm, ihm = kernels.maps_to_window(hm_t, ihm_t, origin)
+    for name, a, b in zip(("height", "inferred height"), (hm, ihm), maps2d.maps_to_window_plain(hm_t, ihm_t, origin)):
+        bitwise(f"{what}: maps_to_window {name}", a, b)
+    args = (pnum, pden, band_ok, sx, sy, ghd, hm, origin)
+    got = kernels.map_products(cfg, *args)
+    for name, a, b in zip(("positive", "negative", "visibility"), got, maps2d.map_products_plain(cfg, *args)):
+        bitwise(f"{what}: map_products {name}", a, b)
+    return (hm, ihm) + tuple(got)
+
+
+def phase1_maptail(cfg, dev, log):
+    """The maps' tail against its twins on io.synthetic.map_tail_inputs at
+    the upstream map size (slopes at the slope threshold and one float on
+    either side, guessed deltas at the negative threshold, den = 0, heights
+    at UNKNOWN_HEIGHT, band cells on the map's edges), at four origins."""
+    import torch
+
+    from gvom_tpu_torch.io.synthetic import map_tail_inputs
+
+    X = cfg.xy_size
+    counts = []
+    for i, origin in enumerate(MAP_TAIL_ORIGINS):
+        d = {k: torch.from_numpy(v).to(dev) for k, v in map_tail_inputs(
+            X, cfg.slope_obstacle_threshold, cfg.negative_obstacle_threshold, i).items()}
+        o = torch.tensor(origin, dtype=torch.int32, device=dev)
+        out = maptail_vs_plain(f"crafted map at origin {origin}", cfg, d["hm_t"], d["ihm_t"], d["pnum"], d["pden"],
+                               d["band_ok"], d["slope_x"], d["slope_y"], d["ghd"], o)
+        counts.append([int((out[2] == 100).sum()), int((out[3] > 0).sum()), int(out[4].sum())])
+    log(f"phase 1 maps' tail: maps_to_window and map_products bitwise their plain versions on the crafted "
+        f"{X}×{X} map at origins {list(MAP_TAIL_ORIGINS)} (cells at 100, negative, visible: {counts})")
+
+
+def copy_grid(g):
+    from gvom_tpu_torch.types import VoxelGrid
+
+    return VoxelGrid(hit=g.hit.clone(), miss=g.miss.clone(), min_height=g.min_height.clone(), mom=g.mom.clone(),
+                     origin=g.origin.clone())
+
+
+def merge_vs_plain(what, cfg, world, contrib, ego, y0=0):
+    """The merge kernel (csrc/merge.cu) against its plain twin on the same
+    inputs: every merged channel (the moments too: one add a voxel, in the
+    twin's order), the evidence and the column maps bit for bit. The kernel
+    writes over its contribution, so it gets a copy. Returns its outputs."""
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain
+
+    ref = merge_and_columns_plain(cfg, world, contrib, ego, y0)
+    got = kernels.merge_batch(cfg, world, copy_grid(contrib), ego, y0)
+    for name in ("hit", "miss", "min_height", "mom", "origin"):
+        bitwise(f"{what}: merged {name}", getattr(got[0], name), getattr(ref[0], name))
+    for name, a, b in zip(("evidence", "height and inferred height", "band sums and band_ok"), got[1:], ref[1:]):
+        bitwise(f"{what}: {name}", a, b)
+    return got
+
+
+def merge_slab_vs_full(what, cfg, world, contrib, ego, full, y0, Ys):
+    """The merge kernel on the y-slab [y0, y0+Ys) of the world and the
+    contribution against the rows of its full-grid result `full`."""
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.types import VoxelGrid, WorldState
+
+    def rows(t, dim):
+        return t.narrow(dim, y0, Ys).contiguous()
+
+    w = world.grid
+    ws = WorldState(grid=VoxelGrid(hit=rows(w.hit, 1), miss=rows(w.miss, 1), min_height=rows(w.min_height, 1),
+                                   mom=rows(w.mom, 2), origin=w.origin), evidence=rows(world.evidence, 1),
+                    valid=world.valid)
+    cs = VoxelGrid(hit=rows(contrib.hit, 1), miss=rows(contrib.miss, 1), min_height=rows(contrib.min_height, 1),
+                   mom=rows(contrib.mom, 2), origin=contrib.origin)
+    got = kernels.merge_batch(cfg, ws, cs, ego, y0)
+    for name in ("hit", "miss", "min_height", "mom"):
+        d = 2 if name == "mom" else 1
+        bitwise(f"{what}: slab {name}", getattr(got[0], name), rows(getattr(full[0], name), d))
+    bitwise(f"{what}: slab evidence", got[1], rows(full[1], 1))
+    bitwise(f"{what}: slab column maps", got[2], rows(full[2], 2))
+    bitwise(f"{what}: slab band sums", got[3], rows(full[3], 2))
+
+
+def seeded_merge_inputs(cfg, dev, seed, d_origin, valid):
+    """(world, contrib, ego) on the card from a seeded generator: an old
+    world at (10, -5, 3), 5 % of its voxels occupied, its moments masked by
+    its occupancy, evidence where it is empty; a contribution at the origin
+    moved by d_origin with raw moments everywhere."""
+    import torch
+
+    from gvom_tpu_torch.types import VoxelGrid, WorldState
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = cfg.grid_shape
+
+    def grid(origin, raw):
+        hit = (torch.rand(shape, generator=g, device=dev) < 0.05).int() * torch.randint(
+            1, 40, shape, generator=g, device=dev, dtype=torch.int32)
+        mom = torch.randn((10,) + shape, generator=g, device=dev)
+        return VoxelGrid(hit=hit, miss=torch.randint(0, 30, shape, generator=g, device=dev, dtype=torch.int32),
+                         min_height=torch.rand(shape, generator=g, device=dev), mom=mom if raw else mom * (hit > 0),
+                         origin=torch.tensor(origin, dtype=torch.int32, device=dev))
+
+    old = grid((10, -5, 3), False)
+    ev = torch.randint(0, 5, shape, generator=g, device=dev, dtype=torch.int32) * (old.hit == 0)
+    world = WorldState(grid=old, evidence=ev, valid=torch.tensor(valid, device=dev))
+    o = tuple(a + b for a, b in zip((10, -5, 3), d_origin))
+    ego = torch.tensor([(cfg.xy_size / 2 + 10.3 + o[0]) * cfg.xy_resolution,
+                        (cfg.xy_size / 2 - 4.7 + o[1]) * cfg.xy_resolution, 1.3], device=dev)
+    return world, grid(o, True), ego
+
+
+def phase1_merge(cfg, dev, log):
+    """The merge kernel against its twin on seeded upstream worlds: the
+    origin moved in x, y and z, an old world not yet valid, an origin so
+    far that the windows do not overlap, a shift in z alone; and the
+    quarter slab y0 = 64 of each against the full result's rows."""
+    cases = (("moved", (3, -2, 1), True), ("invalid world", (3, -2, 1), False), ("far", (500, 0, 0), True),
+             ("z shift", (0, 1, -7), True))
+    Ys = cfg.xy_size // 4
+    counts = {}
+    for i, (case, d_origin, valid) in enumerate(cases):
+        world, contrib, ego = seeded_merge_inputs(cfg, dev, 100 + i, d_origin, valid)
+        full = merge_vs_plain(f"merge, {case}", cfg, world, contrib, ego)
+        merge_slab_vs_full(f"merge, {case}", cfg, world, contrib, ego, full, Ys, Ys)
+        counts[case] = [int((full[0].hit > 0).sum()), int((full[0].hit > contrib.hit).sum())]
+    log(f"phase 1 merge: the merge kernel bitwise its plain version on seeded upstream worlds and their quarter "
+        f"slab y0 = {Ys} (occupied, old voxels joined: {counts})")
+
+
+def merge_bound(cfg, world, contrib):
+    """(bytes, counts) that the merge must move on this data, as its twin
+    reads its inputs: the batch's hit, miss and min_height everywhere and its
+    moments where it occupies; the old world's hit and evidence where the
+    windows overlap and it is valid, its miss and min_height where its
+    occupied voxel stays occupied, its moments where the windows overlap and
+    the merged voxel is occupied; four scalar channels and ten moment
+    channels written, and five [X, Ys] maps."""
+    from gvom_tpu_torch.ops import grid as gridops
+    from gvom_tpu_torch.parallel.sharding import merge_batch_plain
+
+    X, Ys, Z = contrib.hit.shape
+    V, f32 = X * Ys * Z, 4
+    _, _, occ2 = merge_batch_plain(cfg, world, contrib)
+    om = gridops.overlap_mask(cfg, contrib.origin, world.grid.origin)
+    ow = om & world.valid
+    counts = dict(voxels=V, batch_occupied=int((contrib.hit > 0).sum()), old_read=int(ow.sum()),
+                  old_kept=int((ow & (world.grid.hit > 0) & occ2).sum()), old_moments=int((om & occ2).sum()))
+    words = (3 * V + 10 * counts["batch_occupied"] + 2 * counts["old_read"] + 2 * counts["old_kept"]
+             + 10 * counts["old_moments"] + 14 * V + 5 * X * Ys + 3 + 3 + 3 + 1)
+    return words * f32, counts
 
 
 def scan_tensors(scan, dev):
@@ -664,11 +846,11 @@ def phase1_slabs(cfg, scan, dev, log, err):
     del full_mom, full_pass
 
     kernels.reset_launches()
-    with watch_fma32(pts.shape[0]) as per_point:
+    with watch_fma32() as per_point:
         grid, ok = pipeline.ingest_scan(cfg, pts, valid, ego)
         slabs = [pipeline.ingest_scan(cfg, pts, valid, ego, y_window=(k * Ys, Ys)) for k in range(4)]
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    check(not per_point, f"ingest_scan: float64 fma32 on a scan's points: {per_point[:3]}")
+    check(not per_point, f"ingest_scan: float64 fma32 or sqrt32 on the card: {per_point[:3]}")
     for name in ("ray_pass_counts", "bin_points", "moments_epilogue"):
         check(launches[name] == 1 and launches[name + "_slab"] == 4,
               f"ingest_scan: {name} launched {launches[name]} times, its slab form {launches[name + '_slab']}")
@@ -730,14 +912,14 @@ def phase2_facade(cfg, scans, log):
     kernels.reset_launches()
     for i, (pad, mask, ego) in enumerate(scans):
         pts = pad[mask]
-        t0 = time.perf_counter()
-        with watch_fma32(len(pts)) as per_point:
+        with watch_fma32() as per_point:
+            t0 = time.perf_counter()
             scan_ok = g.process_pointcloud(pts, ego)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = g.combine_maps()
-        t2 = time.perf_counter()
-        check(not per_point, f"facade scan {i}: float64 fma32 on the scan's points: {per_point[:3]}")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = g.combine_maps()
+            t2 = time.perf_counter()
+        check(not per_point, f"facade scan {i}: float64 fma32 or sqrt32 on the card: {per_point[:3]}")
         ingest_s.append(t1 - t0)
         combine_s.append(t2 - t1)
         check(bool(scan_ok), f"facade scan {i}: scan_ok is False")
@@ -757,12 +939,14 @@ def phase2_facade(cfg, scans, log):
     kernels.reset_launches()
     combine_profile = profile_calls(dict(combine_maps=g.combine_maps), log)["combine_maps"]
     profiled = {k.name: k.launches for k in kernels.KERNELS}
-    for name in ("combine", "plane_fit", "guess_height"):
+    for name in ("combine", "plane_fit", "guess_height", "maps_to_window", "map_products"):
         check(profiled[name] == 3, f"kernel {name}: {profiled[name]} launches in the profile's three combine_maps")
     # and of one warm process_pointcloud (the scan given again)
     pad, mask, ego = scans[-1]
     ingest_profile = profile_calls(dict(process_pointcloud=lambda: g.process_pointcloud(pad[mask], ego)),
                                    log)["process_pointcloud"]
+    for name, prof in (("combine_maps", combine_profile), ("process_pointcloud", ingest_profile)):
+        check(prof["f64_launches"] == 0, f"{name}: {prof['f64_launches']} float64 launches on the card")
     occ = g.get_map_as_occupancy_grid()
     check(occ.shape == cfg.grid_shape and occ.any(), "occupancy grid")
     warm = slice(1, None)
@@ -781,6 +965,7 @@ def phase2_facade(cfg, scans, log):
         f"{res['combine_wall_ms_median_warm']:.3f} ms; one combine_maps launches {combine_profile['launches']} "
         f"kernels in all, the device busy {combine_profile['device_us']:.1f} us of "
         f"{combine_profile['wall_us']:.1f} us; "
+        f"float64 {combine_profile['f64_us']:.1f} us in {combine_profile['f64_launches']} launches; "
         f"one process_pointcloud launches {ingest_profile['launches']}, the device busy "
         f"{ingest_profile['device_us']:.1f} us of {ingest_profile['wall_us']:.1f} us, float64 "
         f"{ingest_profile['f64_us']:.1f} us in {ingest_profile['f64_launches']} launches")
@@ -1145,8 +1330,7 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
         k4_bytes, 40 * V / F32_OPS_PER_S)
     rows[-1]["wrapper_ms"] = cuda_ms(lambda: kernels.combine(cfg, buf, world, target, ego), 20, warm=5)
     # the timed launches computed what the wrapper computes
-    for name, a, b in zip(COMBINE_OUTPUTS, k4_out[:-1] + (k4_out[-1].bool(),),
-                          kernels.combine(cfg, buf, world, target, ego)):
+    for name, a, b in zip(COMBINE_OUTPUTS, k4_out, kernels.combine(cfg, buf, world, target, ego)):
         exact(f"K4 timed launch vs the wrapper: {name}", a, b)
     log(f"timing combine wrapper (meta vector, outputs, launch): {rows[-1]['wrapper_ms']:.4f} ms; K4 reads "
         f"{k4_counts}")
@@ -1197,6 +1381,26 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
         None, n_cells * 4 * 4, n_cells * PLANE_FIT_OPS / F32_OPS_PER_S)
     row(kernels.GUESS, lambda: kernels.guess_height(cfg, hm, ihm), lambda: maps2d.guess_height_plain(cfg, hm, ihm),
         100, 5, None, n_cells * 3 * 4, n_cells / F32_OPS_PER_S)
+    # the maps' tail on the same combine's maps: maps_to_window reads two
+    # torus maps and writes two window maps, 16 B a cell; map_products reads
+    # the band sums (4 + 4), band_ok (1), the slopes, the guessed delta and
+    # the height (16) and writes three maps (12), 37 B a cell; a few
+    # operations a cell. The library call for maps_to_window is torch.roll
+    # of the two maps stacked as the merge gives them ([2, X, Y]), by minus
+    # the origin (read once, outside the timing): window[r] = torus[(r + o)
+    # mod n], the same function
+    tail_in = last["tail_in"]
+    hm_t, ihm_t, pnum, pden, bok, sx, sy, ghd, target = tail_in
+    hm_w, ihm_w = kernels.maps_to_window(hm_t, ihm_t, target)
+    cols = torch.stack([hm_t, ihm_t])
+    shifts = tuple(-int(v) for v in target[:2].cpu())
+    exact("maps_to_window against torch.roll", torch.stack([hm_w, ihm_w]), torch.roll(cols, shifts, (1, 2)))
+    row(kernels.MAPS_WINDOW, lambda: kernels.maps_to_window(hm_t, ihm_t, target),
+        lambda: maps2d.maps_to_window_plain(hm_t, ihm_t, target), 100, 5,
+        lambda: torch.roll(cols, shifts, (1, 2)), n_cells * 16 + 12, 2 * n_cells / F32_OPS_PER_S)
+    row(kernels.MAP_PRODUCTS, lambda: kernels.map_products(cfg, pnum, pden, bok, sx, sy, ghd, hm_w, target),
+        lambda: maps2d.map_products_plain(cfg, pnum, pden, bok, sx, sy, ghd, hm_w, target), 100, 5, None,
+        n_cells * 37 + 12, 12 * n_cells / F32_OPS_PER_S)
     # the tail alone (off the map path), on the sweep's cells: ok read at every
     # cell, the residual and the three coefficients where the fit is ok, three
     # outputs written; a log and two atan2 where it is ok
@@ -1283,36 +1487,45 @@ def make_batch(scans_dev, batch, step_index):
 
 
 @contextlib.contextmanager
-def watch_fma32(n_points):
-    """Inside, every float64 grid.fma32 on a CUDA tensor whose leading
-    dimension is a multiple of n_points (a scan's points, or a batch's) is
-    listed in the yielded list: the card paths compute their per-point
-    roundings in the kernels, and fma32 is the plain versions' emulation."""
+def watch_fma32():
+    """Inside, every call of grid.fma32 or grid.sqrt32 (the plain versions'
+    float64 emulation of one f32 rounding) on a CUDA tensor is listed in
+    the yielded list, by function and shape, wherever a module of the port
+    holds them: the card paths round in the kernels."""
     from gvom_tpu_torch.ops import grid as gridops
 
-    calls, fma32 = [], gridops.fma32
+    calls, originals = [], dict(fma32=gridops.fma32, sqrt32=gridops.sqrt32)
 
-    def watched(a, b, c):
-        if a.is_cuda and a.ndim and a.shape[0] >= n_points and a.shape[0] % n_points == 0:
-            calls.append(tuple(a.shape))
-        return fma32(a, b, c)
+    def watched(name):
+        def fn(*args):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                calls.append((name, tuple(args[0].shape)))
+            return originals[name](*args)
+        return fn
 
-    gridops.fma32 = watched
+    patched = [(mod, name) for mod in list(sys.modules.values())
+               if getattr(mod, "__name__", "").startswith("gvom_tpu_torch") for name in originals
+               if getattr(mod, name, None) is originals[name]]
+    for mod, name in patched:
+        setattr(mod, name, watched(name))
     try:
         yield calls
     finally:
-        gridops.fma32 = fma32
+        for mod, name in patched:
+            setattr(mod, name, originals[name])
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside, the batched step's five kernel wrappers run their plain
+    """Inside, the batched step's eight kernel wrappers run their plain
     versions on whatever device the tensors are on."""
     from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
+    from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain
 
     plain = dict(prepare_points=binning.prepare_plain, ray_pass_counts=raycast.pass_counts_plain,
                  point_moments=moments.point_moments, plane_fit=maps2d.plane_fit_plain,
-                 guess_height=maps2d.guess_height_plain)
+                 guess_height=maps2d.guess_height_plain, merge_batch=merge_and_columns_plain,
+                 maps_to_window=maps2d.maps_to_window_plain, map_products=maps2d.map_products_plain)
     saved = {name: getattr(kernels, name) for name in plain}
     for name, fn in plain.items():
         setattr(kernels, name, fn)
@@ -1379,10 +1592,12 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
 
     # ---- the full batch ----
     step = make_batched_step(cb)
-    with watch_fma32(scans_dev[0].shape[1]) as per_point:
-        step(empty_world_state(cfg, dev), *batches[0])      # warm: allocator and kernels
+    w_warm, _ = step(empty_world_state(cfg, dev), *batches[0])      # warm: allocator and kernels
+    with watch_fma32() as per_point:
+        step(w_warm, *batches[1])                                   # a warm step into a live world
     torch.cuda.synchronize()
-    check(not per_point, f"batched path: float64 fma32 on the points: {per_point[:3]}")
+    check(not per_point, f"batched path: float64 fma32 or sqrt32 on the card: {per_point[:3]}")
+    del w_warm
     world = empty_world_state(cfg, dev)
     step_ms, step_wall_ms = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -1400,7 +1615,8 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
             first_origin = world.grid.origin
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    want = dict(prepare_points=2, ray_pass_counts=2, bin_points=2, moments_epilogue=2, plane_fit=2, guess_height=2)
+    want = dict(prepare_points=2, ray_pass_counts=2, bin_points=2, moments_epilogue=2, plane_fit=2, guess_height=2,
+                merge_batch=2, maps_to_window=2, map_products=2)
     for name, n in want.items():
         check(launches[name] == n, f"batched path: {name} launched {launches[name]} times, expected {n}")
     for name in PRODUCT_FIELDS[1:]:
@@ -1427,7 +1643,13 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     # ---- one warm step's launches and float64 time, by torch.profiler ----
     w0 = empty_world_state(cfg, dev)    # the step leaves its input world untouched
     res["profile"] = profile_calls(dict(batched_step=lambda: step(w0, *batches[0])), log)
+    check(res["profile"]["batched_step"]["f64_launches"] == 0,
+          f"batched step: {res['profile']['batched_step']['f64_launches']} float64 launches on the card")
     del w0
+
+    # ---- the merge kernel against its twin: the second step's 32-scan
+    # contribution into the first step's live world, whose origin it moves ----
+    m_row, res["merge"] = phase5_merge(cb, step, batches, dev, log)
 
     # ---- K5 and K2 on a whole batch's merged points ----
     origin, pw, keep = prepare_batch(cb, *batches[1])
@@ -1496,7 +1718,47 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
                            bin_points_atomic_floor_ms=k2_atomic_floor_ms(n_grid, n_win, rates),
                            moments_epilogue_mask_on_ms=k5_on_ms, pair_k2_k5=pair),
                ray_pass_counts_batch=k1)
-    return launches, row, res
+    return launches, [row, m_row], res
+
+
+def phase5_merge(cfg, step, batches, dev, log):
+    """The merge kernel on a real batch: the contribution of the second
+    step's BATCH scans (the preparation, K1, K2 and K5 with the mask off, as
+    the step computes it on one device) and the first step's world, at the
+    moved origin. Every output bitwise its twin's, moments included; the
+    quarter slab y0 = 64 bitwise the full result's rows; timed, with its
+    bound from this data."""
+    import torch
+
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain, prepare_batch
+    from gvom_tpu_torch.types import VoxelGrid, empty_world_state
+
+    world, _ = step(empty_world_state(cfg, dev), *batches[0])
+    scans, valid, egos = batches[1]
+    S, N = valid.shape
+    origin, pw, keep = prepare_batch(cfg, scans, valid, egos)
+    miss = kernels.ray_pass_counts(cfg, pw.view(S, N, 3), keep.view(S, N), egos, origin)
+    hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, occupancy_mask=False)
+    contrib = VoxelGrid(hit=hit, miss=miss, min_height=minh, mom=mom, origin=origin)
+    ego = egos[-1].contiguous()
+    check(not torch.equal(origin, world.grid.origin), "merge check: the batch did not move the origin")
+    full = merge_vs_plain(f"merge of {S} scans into a live world", cfg, world, contrib, ego)
+    Ys = cfg.xy_size // 4
+    merge_slab_vs_full(f"merge of {S} scans into a live world", cfg, world, contrib, ego, full, Ys, Ys)
+    nbytes, counts = merge_bound(cfg, world, contrib)
+    V = counts["voxels"]
+    # the timed calls merge over one copy again and again: each call's input
+    # is the previous call's output, so a later call also reads the batch
+    # moments of the voxels that the first one revived (merge_bound counts
+    # the first call's: the bound is, if anything, low)
+    timed = copy_grid(contrib)
+    row = kernel_row(kernels.MERGE, lambda: kernels.merge_batch(cfg, world, timed, ego),
+                     lambda: merge_and_columns_plain(cfg, world, contrib, ego), 20, 3, None, nbytes,
+                     MERGE_OPS * V / F32_OPS_PER_S, log)
+    log(f"merge of {S} scans into a live world: bitwise its plain version (every merged channel, the moments, "
+        f"the evidence, the column maps) and on the quarter slab y0 = {Ys}; it reads {counts}")
+    return row, dict(counts, occupied=int((full[0].hit > 0).sum()), bytes=nbytes)
 
 
 def phase5_raycast_batch(cfg, pw, keep, egos, origin, rates, log):
@@ -2160,11 +2422,13 @@ def phase9_mesh(cfg, scans, dev, log):
     for name, space, ingest in MESH_SHAPES:
         per = sorted((x for x in lines if x["mesh"] == name), key=lambda x: x["rank"])
         check(len(per) == MESH_RANKS, f"mesh {name}: {len(per)} ranks reported")
-        if ingest == "slab" and space > 1:
-            for x in per:
-                for k in ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab"):
-                    check(x["launches"].get(k, 0) == 2, f"mesh {name} rank {x['rank']}: {k} launched "
-                                                         f"{x['launches'].get(k, 0)} times in two steps")
+        for x in per:
+            own = ("merge_batch", "maps_to_window", "map_products") + (
+                ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab") if ingest == "slab" and space > 1
+                else ())
+            for k in own:
+                check(x["launches"].get(k, 0) == 2, f"mesh {name} rank {x['rank']}: {k} launched "
+                                                     f"{x['launches'].get(k, 0)} times in two steps")
         meshes[name] = per
         log(f"phase 9 (b) mesh {name} ({MESH_RANKS} ranks on one card, gloo): bitwise the one-rank step, "
             f"moments max abs err {per[0]['max_abs_err']}; step ms per rank (host clock) "
@@ -2414,7 +2678,7 @@ def run(args, torch) -> int:
     rows, report["inputs"] = phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log)
     del buf, world, last, slab, prep
     report["end_to_end"] = phase_end_to_end(cfg, scans, dev, log)
-    batched_launches, k5_row, report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err)
+    batched_launches, (k5_row, merge_row), report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err)
     phase6_replay(log)
     node_launches, report["host_path"] = phase7_host_path(cfg, scans, log)
     report["bench"] = phase8_bench_and_entry(log)
@@ -2423,18 +2687,23 @@ def run(args, torch) -> int:
         report["profile"] = phase_profile(cfg, scans, dev, log)
 
     # each kernel's launches on the path that is its own: the facade's for
-    # K1-K4 and the 2-D stencils, the batched step's for K5,
-    # ingest_scan(y_window=)'s for the slabs. The plane fit's tail alone is
-    # off every path: its sweep and timing are in the report, not the line
-    rows.insert(4, k5_row)
+    # K1-K4, the 2-D stencils and the maps' tail, the batched step's for K5
+    # and the merge, ingest_scan(y_window=)'s for the slabs. The plane fit's
+    # tail alone is off every path: its sweep and timing are in the report,
+    # not the line
+    rows += [k5_row, merge_row]
+    order = [k.name for k in kernels.KERNELS]
+    rows.sort(key=lambda r: order.index(r["name"]))
+    mesh_kernels = ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab", "merge_batch",
+                    "maps_to_window", "map_products")
     for r in rows:
         own = (slab_launches if r["name"].endswith("_slab") else
-               batched_launches if r["name"] == "moments_epilogue" else launches)
+               batched_launches if r["name"] in ("moments_epilogue", "merge_batch") else launches)
         r["launches"] = own[r["name"]]
         r["launches_batched_path"] = batched_launches[r["name"]]
         r["launches_slab_path"] = slab_launches[r["name"]]
         r["launches_node_path"] = node_launches[r["name"]]
-        if r["name"].endswith("_slab"):
+        if r["name"] in mesh_kernels:
             r["launches_mesh_path"] = [x["launches"].get(r["name"], 0) for x in report["mesh"]["gloo_4_ranks"]["(1, 4) slab"]]
         r["max_abs_err"] = err[r["name"]]
         check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")

@@ -177,8 +177,9 @@ def cmd_selftest(args):
     """The compiled CUDA kernels against their plain PyTorch versions on the
     card, at the upstream shapes (the counterpart of the JAX package's
     compiled-Pallas-vs-XLA selftest): the point preparation, pass counts,
-    hit, min_height, n, every combine output and the 2-D stencils (the plane fit, its tail
-    alone, the guess height) bitwise, the other moment channels within
+    hit, min_height, n, every combine output, the 2-D stencils (the plane
+    fit, its tail alone, the guess height), the maps' tail and the batched
+    merge (its moments too) bitwise, the other moment channels within
     compare.MOM_RTOL / MOM_ATOL. One JSON verdict line; exit 1 on a
     mismatch, 2 without a GPU."""
     import torch
@@ -191,6 +192,7 @@ def cmd_selftest(args):
     from gvom_tpu_torch.io import synthetic
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.ops import kernels, maps2d
+    from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
     from gvom_tpu_torch.utils.compare import Failed, bitwise, check, exact
 
@@ -216,11 +218,30 @@ def cmd_selftest(args):
             if seed >= cfg.buffer_size - 1:
                 # K4 against fuse_plain: every output bitwise, the moments too
                 target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
-                for i, (a, b) in enumerate(zip(kernels.combine(cfg, buf, world, target, e),
-                                               pipeline.fuse_plain(cfg, buf, world, target, e))):
+                ko = kernels.combine(cfg, buf, world, target, e)
+                for i, (a, b) in enumerate(zip(ko, pipeline.fuse_plain(cfg, buf, world, target, e))):
                     exact(f"K4 output {i} after scan {seed}", a, b)
                 world, products, ok = pipeline.combine(cfg, buf, world, e)
                 check(bool(ok), f"combine after scan {seed} reports an empty buffer")
+                # the maps' tail on K4's column maps, bit for bit
+                tail = (ko[5], ko[6], target)
+                hm_w = kernels.maps_to_window(*tail)
+                for name, a, b in zip(("height", "inferred height"), hm_w, maps2d.maps_to_window_plain(*tail)):
+                    bitwise(f"maps_to_window {name} after scan {seed}", a, b)
+                prod = (ko[7], ko[8], ko[9], products.slope_x, products.slope_y, products.guessed_height_delta,
+                        hm_w[0], target)
+                for name, a, b in zip(("positive", "negative", "visibility"), kernels.map_products(cfg, *prod),
+                                      maps2d.map_products_plain(cfg, *prod)):
+                    bitwise(f"map_products {name} after scan {seed}", a, b)
+                # the batched merge of this scan's grid into the new world, bit for bit
+                contrib, _ = pipeline.ingest_scan(cfg, torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev),
+                                                  e)
+                ref = merge_and_columns_plain(cfg, world, contrib, e)
+                got = kernels.merge_batch(cfg, world, contrib, e)
+                for name in ("hit", "miss", "min_height", "mom"):
+                    bitwise(f"merge {name} after scan {seed}", getattr(got[0], name), getattr(ref[0], name))
+                for name, a, b in zip(("evidence", "column maps", "band sums"), got[1:], ref[1:]):
+                    bitwise(f"merge {name} after scan {seed}", a, b)
                 # the 2-D stencils on this combine's maps, bit for bit
                 hm, ihm = products.height, products.inferred_height
                 for name, a, b in zip(("roughness", "slope_x", "slope_y"), kernels.plane_fit(cfg, hm),

@@ -17,7 +17,8 @@
 //   the any_valid latch: with no valid slot the old world passes through.
 // Per column, with warp shuffles: height (first occupied voxel, bottom-up
 // in window z, with the ego-disk seed), inferred height (first observed-
-// empty voxel), and the positive-obstacle band sums num, den and band_ok.
+// empty voxel), and the positive-obstacle band sums num, den and band_ok
+// (columns.cuh's column tail, which the batched merge, merge.cu, shares).
 // Everything but mom is integer logic or the same f32 roundings as the XLA
 // reference (explicit __fmaf_rn where XLA contracts a multiply-add), so it
 // is bitwise equal to the plain version; the moments add slots 0..B−1 then
@@ -59,8 +60,7 @@
 //     Two, three and five blocks an SM were tried on the card and were no
 //     faster (PERF.md §6): loads in flight, not occupancy, were the limit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "columns.cuh"
 
 #define MAX_B 16
 #ifndef GVOM_COMBINE_B
@@ -69,59 +69,9 @@
 
 namespace {
 
-__device__ __forceinline__ int pmod(int a, int n) {
-    int r = a % n;
-    return r < 0 ? r + n : r;
-}
-
-// the overlap test of gvom_tpu/ops/grid.py::overlap_mask along one axis
-__device__ __forceinline__ bool axis_ok(int i, int o_t, int o_s, int size) {
-    const int rel_t = pmod(i - o_t, size);
-    const int d = o_t - o_s;
-    return rel_t >= -min(d, 0) && rel_t < size - max(d, 0);
-}
-
-struct CombineConsts {
-    float zres, xyres, inv_z, pot, rh, rr2, g2l, unknown;
-    int decay, hct;
+struct CombineConsts : ColumnConsts {
+    int decay;
 };
-
-template <typename T> struct Vec2;
-template <> struct Vec2<int> { using type = int2; };
-template <> struct Vec2<float> { using type = float2; };
-
-// one lane's two adjacent z of a channel: element 0 at p[i], 1 at p[i + 1]
-template <bool PAIR, typename T>
-__device__ __forceinline__ void ld2(const T* __restrict__ p, int64_t i, bool ok0, bool ok1, T& a, T& b) {
-    if (PAIR) {
-        if (ok0 || ok1) {
-            const typename Vec2<T>::type q = __ldcs(reinterpret_cast<const typename Vec2<T>::type*>(p + i));
-            a = q.x;
-            b = q.y;
-        } else {
-            a = T(0);
-            b = T(0);
-        }
-    } else {
-        a = ok0 ? __ldcs(p + i) : T(0);
-        b = ok1 ? __ldcs(p + i + 1) : T(0);
-    }
-}
-
-template <bool PAIR, typename T>
-__device__ __forceinline__ void st2(T* __restrict__ p, int64_t i, bool ok0, bool ok1, T a, T b) {
-    if (PAIR) {
-        if (ok0) {
-            typename Vec2<T>::type q;
-            q.x = a;
-            q.y = b;
-            __stcs(reinterpret_cast<typename Vec2<T>::type*>(p + i), q);
-        }
-    } else {
-        if (ok0) __stcs(p + i, a);
-        if (ok1) __stcs(p + i + 1, b);
-    }
-}
 
 // B ring-buffer slots, ZC chunks of 64 z per column (lane l holds z = 64c +
 // 2l and 64c + 2l + 1), PAIR: 8-byte accesses (Z even, pointers aligned)
@@ -318,54 +268,8 @@ __global__ void __launch_bounds__(256, 4) combine_kernel(
         }
     }
 
-    // ---- column reductions (window-relative z values are unique per column) ----
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const int sc = __shfl_xor_sync(0xffffffffu, best_sc, off);
-        const float mm = __shfl_xor_sync(0xffffffffu, best_mh, off);
-        if (sc < best_sc) { best_sc = sc; best_mh = mm; }
-        best_sc2 = min(best_sc2, __shfl_xor_sync(0xffffffffu, best_sc2, off));
-    }
-    const float o2f = (float)ot2;
-    float hm;
-    if (best_sc < Z) {
-        hm = __fmul_rn(__fadd_rn(__fadd_rn(best_mh, (float)best_sc), o2f), k.zres);
-    } else {
-        const float relx = (float)pmod(x - ot0, X);
-        const float rely = (float)pmod(y - ot1, Y);
-        const float gx = __fmaf_rn(__fadd_rn((float)ot0, relx), k.xyres, -ego[0]);
-        const float gy = __fmaf_rn(__fadd_rn((float)ot1, rely), k.xyres, -ego[1]);
-        const bool disk = __fmaf_rn(gx, gx, __fmul_rn(gy, gy)) <= k.rr2;
-        hm = disk ? __fsub_rn(ego[2], k.g2l) : k.unknown;
-    }
-    const float ihm = best_sc2 < Z ? __fmul_rn(__fadd_rn((float)best_sc2, o2f), k.zres) : k.unknown;
-
-    const int lo = (int)floorf(__fmaf_rn(__fadd_rn(hm, k.pot), k.inv_z, -o2f)) + 1;
-    const int hi = (int)floorf(__fmaf_rn(__fadd_rn(hm, k.rh), k.inv_z, -o2f));
-    const bool band_ok = lo >= 0 && lo < Z && hi >= 0 && hi < Z;
-    int num = 0, den = 0;
-#pragma unroll
-    for (int c = 0; c < ZC; ++c) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            if (occ_r[c][e] && hit_r[c][e] > k.hct && pz_r[c][e] >= lo && pz_r[c][e] <= hi) {
-                num += hit_r[c][e];
-                den += tot_r[c][e];
-            }
-        }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        num += __shfl_xor_sync(0xffffffffu, num, off);
-        den += __shfl_xor_sync(0xffffffffu, den, off);
-    }
-    if (lane == 0) {
-        hm_o[col] = hm;
-        ihm_o[col] = ihm;
-        pnum_o[col] = num;
-        pden_o[col] = den;
-        bok_o[col] = band_ok ? 1 : 0;
-    }
+    column_tail<ZC>(best_sc, best_mh, best_sc2, occ_r, hit_r, tot_r, pz_r, Z, pmod(x - ot0, X), pmod(y - ot1, Y),
+                    ot0, ot1, ot2, ego, k, lane, col, hm_o, ihm_o, pnum_o, pden_o, bok_o);
 }
 
 struct Args {
@@ -388,8 +292,6 @@ void launch(const Args& a, cudaStream_t stream) {
         a.hm_o, a.ihm_o, a.pnum_o, a.pden_o, a.bok_o);
 }
 
-bool aligned8(const void* p) { return ((uintptr_t)p & 7u) == 0; }
-
 }  // namespace
 
 extern "C" int gvom_combine(
@@ -407,7 +309,7 @@ extern "C" int gvom_combine(
     Args a{(const int*)meta, (const float*)ego,
            (const int*)bhit, (const int*)bmiss, (const float*)bminh, (const float*)bmom,
            (const int*)ohit, (const int*)omiss, (const float*)ominh, (const int*)oev, (const float*)omom,
-           X, Y, Z, CombineConsts{zres, xyres, inv_z, pot, rh, rr2, g2l, unknown, decay, hct},
+           X, Y, Z, CombineConsts{{zres, xyres, inv_z, pot, rh, rr2, g2l, unknown, hct}, decay},
            (int*)hit_o, (int*)miss_o, (float*)minh_o, (int*)ev_o, (float*)mom_o,
            (float*)hm_o, (float*)ihm_o, (int*)pnum_o, (int*)pden_o, (int*)bok_o};
     const bool pair = Z % 2 == 0 && Z <= 64 &&

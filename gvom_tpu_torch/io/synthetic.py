@@ -33,6 +33,7 @@ __all__ = [
     "nudge_off_grid",
     "STENCIL_PATTERNS",
     "stencil_maps",
+    "map_tail_inputs",
     "edge_points",
 ]
 
@@ -235,6 +236,48 @@ def stencil_maps(pattern: str, X: int, seed: int = 0) -> Tuple[np.ndarray, np.nd
     inferred = rng.random((X, X)) < 0.8
     ihm = np.where(inferred, rng.normal(0.5, 2.0, (X, X)), UNKNOWN_HEIGHT).astype(np.float32)
     return hm, ihm
+
+
+def map_tail_inputs(X: int, slope_threshold: float, negative_threshold: float, seed: int = 0) -> dict:
+    """Seeded inputs of the 2-D maps' tail (ops/maps2d.py maps_to_window_plain
+    and map_products_plain), each [X, X]: the torus-layout column maps hm_t
+    and ihm_t (float32), band sums pnum <= pden and band_ok (int32),
+    and the window-layout slope_x, slope_y and guessed height delta ghd
+    (float32), with the cells that the tail's tests are for, by row
+    (x mod 8) and column (y mod 8) class:
+
+    slopes, by row: |slope| exactly the slope threshold along x (0), one
+    float below it (1) and above (2), along y, negative (3); den = 0 (4),
+    num = den (5), num/den = 29/100, whose density ×100 lands next to an
+    integer (6), num = den − 1 (7). ghd, by column: exactly the negative
+    threshold (0), one float below (1) and above (2), 0 (3); hm_t exactly
+    UNKNOWN_HEIGHT (4), one float above it (5) and below (6). band_ok holds
+    on the map's outer ring, whose cells the window's edges wrap onto."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x, y = np.meshgrid(np.arange(X), np.arange(X), indexing="ij")
+    rx, cy = x % 8, y % 8
+    thr, nthr, unk = f32(slope_threshold), f32(negative_threshold), f32(UNKNOWN_HEIGHT)
+    sx = rng.normal(0.0, 0.15, (X, X)).astype(f32)
+    sy = rng.normal(0.0, 0.15, (X, X)).astype(f32)
+    for k, v in ((0, thr), (1, np.nextafter(thr, f32(0))), (2, np.nextafter(thr, f32(np.inf)))):
+        sx[rx == k], sy[rx == k] = v, f32(0)
+    sx[rx == 3], sy[rx == 3] = f32(0), -thr
+    den = rng.integers(1, 2000, (X, X)).astype(np.int32)
+    num = (rng.random((X, X)) * (den + 1)).astype(np.int32).clip(0, den)
+    num[rx == 4], den[rx == 4] = 0, 0
+    num[rx == 5] = den[rx == 5]
+    num[rx == 6], den[rx == 6] = 29, 100
+    num[rx == 7] = den[rx == 7] - 1
+    ghd = rng.uniform(0.0, 1.0, (X, X)).astype(f32)
+    for k, v in ((0, nthr), (1, np.nextafter(nthr, f32(0))), (2, np.nextafter(nthr, f32(np.inf))), (3, f32(0))):
+        ghd[cy == k] = v
+    hm_t = rng.normal(1.0, 2.0, (X, X)).astype(f32)
+    for k, v in ((4, unk), (5, np.nextafter(unk, f32(np.inf))), (6, np.nextafter(unk, f32(-np.inf)))):
+        hm_t[cy == k] = v
+    ihm_t = np.where(rng.random((X, X)) < 0.8, rng.normal(0.5, 2.0, (X, X)), unk).astype(f32)
+    band_ok = ((rng.random((X, X)) < 0.7) | (x == 0) | (y == 0) | (x == X - 1) | (y == X - 1)).astype(np.int32)
+    return dict(hm_t=hm_t, ihm_t=ihm_t, pnum=num, pden=den, band_ok=band_ok, slope_x=sx, slope_y=sy, ghd=ghd)
 
 
 def edge_points(resolution, grid_shape, origin, min_distance: float) -> np.ndarray:

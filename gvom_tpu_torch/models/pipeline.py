@@ -10,7 +10,8 @@ process_pointcloud + combine_maps, gvom.py:99-354):
                        (kernels K1, K2, K3);
   * buffer_insert      write an already voxelized scan into the buffer;
   * combine            fuse the buffer and the previous world (kernel K4),
-                       then derive the 2D maps;
+                       then derive the 2D maps (the stencil and map-tail
+                       kernels);
   * full_step          ingest_and_insert + combine.
 
 The buffer is updated IN PLACE: its tensors are written at a slot index that
@@ -218,8 +219,9 @@ def combine(
     new world is the old one.
 
     The fusion and the per-column products are kernel K4 (the plain twin
-    fuse_plain on the CPU); the slope, guess-height and negative-obstacle
-    stencils run on the small [X, Y] maps in plain PyTorch."""
+    fuse_plain on the CPU); then the maps' tail moves the height maps to the
+    window layout, the plane-fit and guess-height kernels run the stencils,
+    and the maps' tail computes the obstacle maps and the visibility."""
     ego = ego_position.float()
     origin = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
     any_valid = buf.slot_valid.any()
@@ -229,13 +231,10 @@ def combine(
                      origin=torch.where(any_valid, origin, world.grid.origin))
     new_world = WorldState(grid=grid, evidence=evidence, valid=world.valid | any_valid)
 
-    hm = gridops.torus_to_window(hm_t, origin, grid_ndim=2)
-    ihm = gridops.torus_to_window(ihm_t, origin, grid_ndim=2)
+    hm, ihm = kernels.maps_to_window(hm_t, ihm_t, origin)
     slope_x, slope_y, rough = maps2d.slope_and_roughness(cfg, hm)
     ghd = maps2d.guess_height_delta(cfg, hm, ihm)
-    sx_t = gridops.window_to_torus(slope_x, origin, grid_ndim=2)
-    sy_t = gridops.window_to_torus(slope_y, origin, grid_ndim=2)
-    pos_t = maps2d.positive_obstacle_from_band(cfg, pnum, pden, band_ok, sx_t, sy_t)
+    pos, neg, vis = kernels.map_products(cfg, pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin)
     products = MapProducts(
         origin=origin,
         height=hm,
@@ -244,9 +243,9 @@ def combine(
         slope_y=slope_y,
         roughness=rough,
         guessed_height_delta=ghd,
-        positive_obstacle=gridops.torus_to_window(pos_t, origin, grid_ndim=2),
-        negative_obstacle=maps2d.negative_obstacle_map(cfg, ghd),
-        visibility=maps2d.visibility_map(hm),
+        positive_obstacle=pos,
+        negative_obstacle=neg,
+        visibility=vis,
     )
     return new_world, products, any_valid
 

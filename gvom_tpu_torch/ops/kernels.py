@@ -31,6 +31,14 @@ tensors (there is no fallback), and counts its launches in `launches`.
 |                    |              | off the map path (a sweep of its domain)  |                                    |
 | guess_height       | guess.cu     | none: the port's own (the JAX package's   | maps2d.guess_height_plain          |
 |                    |              | guess-height search in XLA, :201)         |                                    |
+| merge_batch        | merge.cu     | none: the port's own (the batched step's  | sharding.merge_and_columns_plain   |
+|                    |              | merge and column maps in XLA,             | (merge_batch_plain, then the       |
+|                    |              | parallel/sharding.py:264-328)             | column maps)                       |
+| maps_to_window     | maptail.cu   | none: the port's own (torus_to_window of  | maps2d.maps_to_window_plain        |
+|                    |              | the height maps in XLA)                   |                                    |
+| map_products       | maptail.cu   | none: the port's own (positive, negative  | maps2d.map_products_plain          |
+|                    |              | obstacle and visibility in XLA,           |                                    |
+|                    |              | models/pipeline.py:380-389, :442-458)     |                                    |
 
 prepare_points turns S scans of raw points into what the kernels after it
 take: world-frame points, keep, the origin and each scan's scan_ok, in one
@@ -43,6 +51,11 @@ ray_pass_counts, bin_points and moments_epilogue take y_window = (ys0, Ys),
 the slab forms: the same kernels restricted to the torus rows
 [ys0, ys0+Ys). A slab launch is counted by an entry of its own (RAY_SLAB,
 BIN_SLAB, XBOX_SLAB), so a run shows which form the path went through.
+merge_batch merges the batched step's contribution with the old world and
+takes the merged world's column maps; maps_to_window and map_products are
+the 2-D maps' tail after K4 or merge_batch (window layout, the positive and
+negative obstacles, the visibility). combine.cu and merge.cu share the
+column tail of columns.cuh.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -60,8 +74,8 @@ import torch
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import binning, maps2d, moments, raycast
 from gvom_tpu_torch.ops import grid as gridops
-from gvom_tpu_torch.ops.maps2d import f32_square
-from gvom_tpu_torch.types import UNKNOWN_HEIGHT
+from gvom_tpu_torch.ops.maps2d import f32_square, f32_value
+from gvom_tpu_torch.types import UNKNOWN_HEIGHT, VoxelGrid
 
 __all__ = [
     "CudaKernel",
@@ -79,6 +93,9 @@ __all__ = [
     "plane_fit",
     "plane_fit_tail",
     "guess_height",
+    "merge_batch",
+    "maps_to_window",
+    "map_products",
     "NVCC_FLAGS",
 ]
 
@@ -121,8 +138,14 @@ class CudaKernel:
         return self.defines if defines is None else tuple(defines)
 
     def library(self, defines: Optional[Sequence[str]] = None) -> Path:
+        """The library of this source and -D set, named by a hash of the
+        source, the headers it includes from its own directory and the
+        flags, so that an edit of any of them builds anew."""
         flags = NVCC_FLAGS + list(self._defines(defines))
-        h = hashlib.sha256(self.source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        text = self.source.read_bytes()
+        headers = re.findall(rb'^\s*#include\s+"([^"]+)"', text, re.M)
+        h = hashlib.sha256(b"".join([text, *((self.source.parent / n.decode()).read_bytes() for n in headers),
+                                     " ".join(flags).encode()])).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{h}.so"
 
     def start_build(self, defines: Optional[Sequence[str]] = None) -> Optional[subprocess.Popen]:
@@ -207,8 +230,20 @@ PLANEFIT_TAIL = CudaKernel("plane_fit_tail", "planefit.cu", "gvom_plane_fit_tail
 GUESS = CudaKernel("guess_height", "guess.cu", "gvom_guess_height", [_P, _P, _I, _I, _F, _P, _P],
                    f"none: the port's own ({_M2}:201-282, the guess-height search in XLA)")
 
+# the batched step's merge and the maps' tail: no TPU kernel, XLA in the JAX package
+MERGE = CudaKernel("merge_batch", "merge.cu", "gvom_merge_batch",
+                   [_P] * 13 + [_I] * 5 + [_F] * 8 + [_I] * 2 + [_P] * 4,
+                   "none: the port's own (gvom_tpu/parallel/sharding.py:264-328, the batched merge and the "
+                   "column maps in XLA)")
+MAPS_WINDOW = CudaKernel("maps_to_window", "maptail.cu", "gvom_maps_to_window", [_P] * 3 + [_I] * 2 + [_P] * 3,
+                         "none: the port's own (gvom_tpu/models/pipeline.py:382-383, torus_to_window in XLA)")
+MAP_PRODUCTS = CudaKernel("map_products", "maptail.cu", "gvom_map_products",
+                          [_P] * 8 + [_I] * 2 + [_F] * 3 + [_P] * 4,
+                          "none: the port's own (gvom_tpu/models/pipeline.py:386-389, :442-458, the obstacle "
+                          "maps and the visibility in XLA)")
+
 KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB, PLANEFIT, PLANEFIT_TAIL,
-                             GUESS, PREP]
+                             GUESS, PREP, MERGE, MAPS_WINDOW, MAP_PRODUCTS]
 
 
 def build_all(cfg: Optional[GvomConfig] = None) -> Dict[str, str]:
@@ -261,8 +296,13 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return _P(t.data_ptr())
 
 
-def _f32(v: float) -> float:
-    return float(torch.tensor(v, dtype=torch.float32))
+def _column_consts(cfg: GvomConfig) -> tuple:
+    """The f32 constants and the two integer ones of columns.cuh's column
+    tail and the merges (K4, merge_batch), in their C argument order."""
+    inv_z = float(torch.reciprocal(torch.tensor(cfg.z_resolution, dtype=torch.float32)))
+    return (f32_value(cfg.z_resolution), f32_value(cfg.xy_resolution), inv_z,
+            f32_value(cfg.positive_obstacle_threshold), f32_value(cfg.robot_height), f32_square(cfg.robot_radius),
+            f32_value(cfg.ground_to_lidar_height), UNKNOWN_HEIGHT, cfg.decay_miss_limit, cfg.hit_count_threshold)
 
 
 # ----------------------------------------------------------------------
@@ -455,14 +495,15 @@ def _combine_defines(cfg: GvomConfig) -> tuple:
 def combine(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch.Tensor):
     """Fuse the ring buffer and the old world. Returns (hit, miss, min_height,
     evidence, mom) of the new world with the any_valid latch applied, and
-    the torus-layout column products (hm_t, ihm_t, pnum, pden, band_ok)."""
+    the torus-layout column products (hm_t, ihm_t, pnum, pden, band_ok;
+    band_ok int32)."""
     from gvom_tpu_torch.models import pipeline   # pipeline imports this module
 
     if _is_cpu(buf.grids.hit):
         return pipeline.fuse_plain(cfg, buf, world, origin, ego)
     launch, outs = combine_launch(cfg, buf, world, origin, ego)
     launch()
-    return outs[:-1] + (outs[-1].bool(),)
+    return outs
 
 
 def combine_launch(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch.Tensor):
@@ -501,14 +542,9 @@ def combine_launch(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch
     pnum = torch.empty((X, Y), dtype=torch.int32, device=dev)
     pden = torch.empty_like(pnum)
     bok = torch.empty_like(pnum)
-    inv_z = float(torch.reciprocal(torch.tensor(cfg.z_resolution, dtype=torch.float32)))
     ins = (meta, ego, g.hit, g.miss, g.min_height, g.mom, w.hit, w.miss, w.min_height, world.evidence, w.mom)
     outs = (hit, miss, minh, ev, mom, hm_t, ihm_t, pnum, pden, bok)
-    consts = (B, X, Y, Z,
-              _f32(cfg.z_resolution), _f32(cfg.xy_resolution), inv_z,
-              _f32(cfg.positive_obstacle_threshold), _f32(cfg.robot_height),
-              f32_square(cfg.robot_radius), _f32(cfg.ground_to_lidar_height), UNKNOWN_HEIGHT,
-              cfg.decay_miss_limit, cfg.hit_count_threshold)
+    consts = (B, X, Y, Z) + _column_consts(cfg)
 
     def launch():
         # the closure holds the tensors (meta is made here), not bare pointers
@@ -530,7 +566,7 @@ def plane_fit(cfg: GvomConfig, hm: torch.Tensor):
     if _is_cpu(hm):
         return maps2d.plane_fit_plain(cfg, hm)
     outs = tuple(torch.empty((X, X), dtype=torch.float32, device=hm.device) for _ in range(3))
-    PLANEFIT.launch(_ptr(hm), X, X, _f32(cfg.xy_resolution), UNKNOWN_HEIGHT, *map(_ptr, outs), _stream())
+    PLANEFIT.launch(_ptr(hm), X, X, f32_value(cfg.xy_resolution), UNKNOWN_HEIGHT, *map(_ptr, outs), _stream())
     return outs
 
 
@@ -565,3 +601,97 @@ def guess_height(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor) -> torch.
     out = torch.empty((X, X), dtype=torch.float32, device=hm.device)
     GUESS.launch(_ptr(hm), _ptr(ihm), X, R, UNKNOWN_HEIGHT, _ptr(out), _stream())
     return out
+
+
+# ----------------------------------------------------------------------
+# the batched step's merge with its column maps
+
+
+def merge_batch(cfg: GvomConfig, world, contrib: VoxelGrid, ego: torch.Tensor, y0: int = 0):
+    """Merge a batch's contribution (hit, miss, min_height and RAW moments at
+    contrib.origin, for the torus rows [y0, y0+Ys) of a y-slab: [X, Ys, Z],
+    mom [10, X, Ys, Z]) with the old world's slab, and take the merged
+    world's column maps. Returns (merged VoxelGrid, evidence [X, Ys, Z],
+    cols [2, X, Ys] f32: height and inferred height, bands [3, X, Ys] int32:
+    the band's hit sum, total sum and band_ok), torus layout:
+    sharding.merge_and_columns_plain's function, bitwise, in one launch.
+    On the card the merged channels are written over contrib's own
+    buffers, which the caller hands over; the old world is only read."""
+    from gvom_tpu_torch.parallel import sharding   # sharding imports this module
+
+    X, Y, Z = cfg.grid_shape
+    if contrib.hit.ndim != 3:
+        raise ValueError(f"contrib hit: shape {tuple(contrib.hit.shape)}, expected [X, Ys, Z]")
+    Ys = contrib.hit.shape[1]
+    if not (0 <= y0 and Ys > 0 and y0 + Ys <= Y):
+        raise ValueError(f"merge_batch: rows [{y0}, {y0 + Ys}) are not inside the torus's {Y}")
+    dev = contrib.hit.device
+    w = world.grid
+    for nm, t, dt in (("hit", contrib.hit, torch.int32), ("miss", contrib.miss, torch.int32),
+                      ("min_height", contrib.min_height, torch.float32)):
+        _check("contrib " + nm, t, dt, (X, Ys, Z), dev)
+    _check("contrib mom", contrib.mom, torch.float32, (10, X, Ys, Z), dev)
+    _check("contrib origin", contrib.origin, torch.int32, (3,), dev)
+    for nm, t, dt in (("hit", w.hit, torch.int32), ("miss", w.miss, torch.int32),
+                      ("min_height", w.min_height, torch.float32), ("evidence", world.evidence, torch.int32)):
+        _check("world " + nm, t, dt, (X, Ys, Z), dev)
+    _check("world mom", w.mom, torch.float32, (10, X, Ys, Z), dev)
+    _check("world origin", w.origin, torch.int32, (3,), dev)
+    _check("world valid", world.valid, torch.bool, (), dev)
+    _check("ego", ego, torch.float32, (3,), dev)
+    if _is_cpu(contrib.hit):
+        return sharding.merge_and_columns_plain(cfg, world, contrib, ego, y0)
+    if Z > 256:
+        raise ValueError(f"merge_batch: z_size {Z}; the kernel takes up to 256")
+    ev = torch.empty((X, Ys, Z), dtype=torch.int32, device=dev)
+    cols = torch.empty((2, X, Ys), dtype=torch.float32, device=dev)
+    bands = torch.empty((3, X, Ys), dtype=torch.int32, device=dev)
+    MERGE.launch(*map(_ptr, (contrib.origin, w.origin, world.valid, ego, contrib.hit, contrib.miss,
+                             contrib.min_height, contrib.mom, w.hit, w.miss, w.min_height, world.evidence, w.mom)),
+                 X, Ys, Y, Z, y0, *_column_consts(cfg), _ptr(ev), _ptr(cols), _ptr(bands), _stream())
+    merged = VoxelGrid(hit=contrib.hit, miss=contrib.miss, min_height=contrib.min_height, mom=contrib.mom,
+                       origin=contrib.origin)
+    return merged, ev, cols, bands
+
+
+# ----------------------------------------------------------------------
+# the 2-D maps' tail
+
+
+def maps_to_window(hm_t: torch.Tensor, ihm_t: torch.Tensor, origin: torch.Tensor):
+    """(height, inferred height) [X, Y] in window layout from the torus-layout
+    column maps: maps2d.maps_to_window_plain's function, in one launch."""
+    dev, shape = hm_t.device, tuple(hm_t.shape)
+    if len(shape) != 2:
+        raise ValueError(f"hm_t: shape {shape}, expected [X, Y]")
+    _check("hm_t", hm_t, torch.float32, shape, dev)
+    _check("ihm_t", ihm_t, torch.float32, shape, dev)
+    _check("origin", origin, torch.int32, (3,), dev)
+    if _is_cpu(hm_t):
+        return maps2d.maps_to_window_plain(hm_t, ihm_t, origin)
+    hm, ihm = torch.empty_like(hm_t), torch.empty_like(ihm_t)
+    MAPS_WINDOW.launch(_ptr(hm_t), _ptr(ihm_t), _ptr(origin), *shape, _ptr(hm), _ptr(ihm), _stream())
+    return hm, ihm
+
+
+def map_products(cfg: GvomConfig, pnum: torch.Tensor, pden: torch.Tensor, band_ok: torch.Tensor,
+                 slope_x: torch.Tensor, slope_y: torch.Tensor, ghd: torch.Tensor, hm: torch.Tensor,
+                 origin: torch.Tensor):
+    """(positive_obstacle, negative_obstacle, visibility) [X, X] int32 in
+    window layout: from the torus-layout band sums pnum, pden (int32) and
+    band_ok (int32), and the window-layout slopes, guessed height
+    delta and height map; maps2d.map_products_plain's function, bitwise,
+    in one launch."""
+    shape, dev = cfg.map_shape, hm.device
+    for nm, t in (("pnum", pnum), ("pden", pden), ("band_ok", band_ok)):
+        _check(nm, t, torch.int32, shape, dev)
+    for nm, t in (("slope_x", slope_x), ("slope_y", slope_y), ("ghd", ghd), ("hm", hm)):
+        _check(nm, t, torch.float32, shape, dev)
+    _check("origin", origin, torch.int32, (3,), dev)
+    if _is_cpu(hm):
+        return maps2d.map_products_plain(cfg, pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin)
+    outs = tuple(torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
+    thresholds = (f32_value(cfg.slope_obstacle_threshold), f32_value(cfg.negative_obstacle_threshold))
+    MAP_PRODUCTS.launch(*map(_ptr, (pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin)), *shape, *thresholds, UNKNOWN_HEIGHT,
+                        *map(_ptr, outs), _stream())
+    return outs

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops.grid import atan2_32, fma32, log32, sqrt32
+from gvom_tpu_torch.ops.grid import atan2_32, fma32, log32, sqrt32, torus_to_window, window_to_torus
 from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 
 __all__ = [
@@ -39,15 +39,22 @@ __all__ = [
     "plane_fit_tail_plain",
     "guess_height_delta",
     "guess_height_plain",
-    "positive_obstacle_map",
     "positive_obstacle_from_band",
     "positive_band_sums",
     "negative_obstacle_map",
     "visibility_map",
+    "maps_to_window_plain",
+    "map_products_plain",
+    "f32_value",
     "f32_square",
 ]
 
 _BIG = 1 << 20
+
+
+def f32_value(v: float) -> float:
+    """f32(v) as a Python float (exactly), the constant XLA computes with."""
+    return float(torch.tensor(v, dtype=torch.float32))
 
 
 def f32_square(v: float) -> float:
@@ -90,8 +97,9 @@ def height_map(cfg: GvomConfig, occ, min_height, origin, ego_position, y_coords=
     col_h = (mh + zrel.float() + origin[2].float()) * cfg.z_resolution
     ego = ego_position.float()
     rel_y = _rel_cols(cfg, origin, 1, y_coords)
-    gx = fma32(origin[0].float() + _rel_cols(cfg, origin, 0), cfg.xy_resolution, -ego[0].expand(cfg.xy_size))
-    gy = fma32(origin[1].float() + rel_y, cfg.xy_resolution, -ego[1].expand(rel_y.shape[0]))
+    res = f32_value(cfg.xy_resolution)     # XLA's constant is f32(res), not the decimal
+    gx = fma32(origin[0].float() + _rel_cols(cfg, origin, 0), res, -ego[0].expand(cfg.xy_size))
+    gy = fma32(origin[1].float() + rel_y, res, -ego[1].expand(rel_y.shape[0]))
     gx2, gy2 = torch.broadcast_tensors(gx[:, None], gy[None, :])
     disk = fma32(gx2, gx2, gy2 * gy2) <= f32_square(cfg.robot_radius)
     seed = torch.where(disk, ego[2] - torch.tensor(cfg.ground_to_lidar_height, dtype=torch.float32),
@@ -322,26 +330,20 @@ def positive_obstacle_from_band(cfg: GvomConfig, num, den, band_ok, slope_x, slo
     den = den.float()
     dens = torch.where(den > 0, num / torch.where(den > 0, den, torch.ones_like(den)), torch.zeros_like(den))
     val = (dens * 100.0).to(torch.int32)
-    return torch.where(steep, 100, torch.where(band_ok, val, 0)).to(torch.int32)
+    return torch.where(steep, 100, torch.where(band_ok > 0, val, 0)).to(torch.int32)
 
 
 def positive_band_sums(cfg: GvomConfig, occ, hit, total, hm, origin):
     """Per column (torus [X,Y]): the hit and total sums over strong occupied
     voxels in the band [height+threshold, height+robot_height], and whether
-    the band lies inside the window (plain twin of kernel K4's band sums)."""
+    the band lies inside the window, all int32 (plain twin of kernel K4's
+    band sums)."""
     lo, hi, band_ok = _band_limits(cfg, hm, origin)
     zs = _z_priority(cfg, origin)
     sel = (zs >= lo[..., None]) & (zs <= hi[..., None]) & occ & (hit > cfg.hit_count_threshold)
     num = torch.where(sel, hit, 0).sum(dim=-1).to(torch.int32)
     den = torch.where(sel, total, 0).sum(dim=-1).to(torch.int32)
-    return num, den, band_ok
-
-
-def positive_obstacle_map(cfg: GvomConfig, occ, hit, total, hm, slope_x, slope_y, origin) -> torch.Tensor:
-    """Mean occupied-voxel density in the column band
-    [height+threshold, height+robot_height] (gvom.py:487-521); torus in/out."""
-    num, den, band_ok = positive_band_sums(cfg, occ, hit, total, hm, origin)
-    return positive_obstacle_from_band(cfg, num, den, band_ok, slope_x, slope_y)
+    return num, den, band_ok.to(torch.int32)
 
 
 def negative_obstacle_map(cfg: GvomConfig, guessed_delta: torch.Tensor) -> torch.Tensor:
@@ -353,3 +355,21 @@ def negative_obstacle_map(cfg: GvomConfig, guessed_delta: torch.Tensor) -> torch
 def visibility_map(hm: torch.Tensor) -> torch.Tensor:
     """gvom.py:412-422."""
     return (hm > UNKNOWN_HEIGHT).to(torch.int32)
+
+
+def maps_to_window_plain(hm_t: torch.Tensor, ihm_t: torch.Tensor, origin: torch.Tensor):
+    """(height, inferred height) in window layout from the torus-layout
+    column maps: the plain twin of the map-tail kernel's first entry."""
+    return torus_to_window(hm_t, origin, grid_ndim=2), torus_to_window(ihm_t, origin, grid_ndim=2)
+
+
+def map_products_plain(cfg: GvomConfig, pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin):
+    """(positive_obstacle, negative_obstacle, visibility) in window layout:
+    the positive obstacle from the torus-layout band sums (band_ok int32)
+    and the window-layout slopes moved onto the torus, as the JAX
+    package computes it; the plain twin of the map-tail kernel's second
+    entry."""
+    sx_t = window_to_torus(slope_x, origin, grid_ndim=2)
+    sy_t = window_to_torus(slope_y, origin, grid_ndim=2)
+    pos_t = positive_obstacle_from_band(cfg, pnum, pden, band_ok, sx_t, sy_t)
+    return (torus_to_window(pos_t, origin, grid_ndim=2), negative_obstacle_map(cfg, ghd), visibility_map(hm))

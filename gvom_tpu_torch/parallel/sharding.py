@@ -14,9 +14,9 @@ ingest strategy (make_batched_step), over torch.distributed (parallel/mesh.py):
     rank, then sliced.
 
 The merge with the world slab is shard-local (masks built from the slab's
-global torus y indices, ops/grid.overlap_mask(coords=)); the column maps run
-on the slab and only the [X, X] 2D maps are gathered over `space` for the
-stencils. The world never leaves its slabs in 3D. On one device (mesh=None)
+global torus y indices); the column maps run on the slab and only the
+[X, X] 2D maps are gathered over `space` for the stencils and the maps'
+tail. The world never leaves its slabs in 3D. On one device (mesh=None)
 the step is the same code on a mesh of one rank, whose collectives return
 their input.
 
@@ -33,8 +33,10 @@ transform-free world points, keep with the dead scans masked out, the
 common origin); kernel K1 once for the rank's scans (each scan's rays
 from its own ego, all adding into one miss grid); kernels K2 and K5 once on
 the merged points of the rank's scans, the moments raw (no occupancy mask);
-then the merge with the old world and the 2D maps in plain PyTorch, as the
-JAX package computes them outside any Pallas kernel.
+then the merge kernel (the merge with the old world and the column maps,
+csrc/merge.cu), the plane fit, the guess height and the maps' tail
+(csrc/maptail.cu): the port's kernels for what the JAX package computes in
+XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, Mesh
 from gvom_tpu_torch.types import MapProducts, VoxelGrid, WorldState
 
-__all__ = ["batched_step", "make_batched_step", "prepare_batch", "merge_batch_plain", "shard_batch", "shard_world",
-           "gather_world"]
+__all__ = ["batched_step", "make_batched_step", "prepare_batch", "merge_batch_plain", "merge_and_columns_plain",
+           "shard_batch", "shard_world", "gather_world"]
 
 
 def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid, coords=None):
@@ -89,6 +91,25 @@ def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid, co
         origin=origin,
     )
     return merged, evidence, occ2
+
+
+def merge_and_columns_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid, ego: torch.Tensor, y0: int = 0):
+    """The plain twin of the merge kernel (kernels.merge_batch): the merge of
+    merge_batch_plain on the y-slab of torus rows [y0, y0+Ys) (Ys is the
+    contribution's), then the merged world's column maps. Returns (merged
+    VoxelGrid, evidence, cols [2, X, Ys] f32: height and inferred height,
+    bands [3, X, Ys] int32: the band's hit sum, total sum and band_ok),
+    torus layout."""
+    X, Ys, Z = contrib.hit.shape
+    dev = contrib.hit.device
+    y_coords = torch.arange(y0, y0 + Ys, dtype=torch.int32, device=dev)
+    coords = (torch.arange(X, dtype=torch.int32, device=dev), y_coords, torch.arange(Z, dtype=torch.int32, device=dev))
+    merged, evidence, occ2 = merge_batch_plain(cfg, world, contrib, coords)
+    origin = contrib.origin
+    hm_t = maps2d.height_map(cfg, occ2, merged.min_height, origin, ego, y_coords)
+    ihm_t = maps2d.inferred_height_map(cfg, occ2, evidence, origin)
+    pnum, pden, band_ok = maps2d.positive_band_sums(cfg, occ2, merged.hit, merged.hit + merged.miss, hm_t, origin)
+    return merged, evidence, torch.stack([hm_t, ihm_t]), torch.stack([pnum, pden, band_ok])
 
 
 def prepare_batch(cfg: GvomConfig, scans: torch.Tensor, valid: torch.Tensor, egos: torch.Tensor,
@@ -191,8 +212,6 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
     nsp = mesh.shape[1]
     X, Y, Z = cfg.grid_shape
     Ys = rows.stop - rows.start
-    y_coords = torch.arange(rows.start, rows.stop, dtype=torch.int32, device=dev)
-    coords = (torch.arange(X, dtype=torch.int32, device=dev), y_coords, torch.arange(Z, dtype=torch.int32, device=dev))
     ywin = (rows.start, Ys) if slab and nsp > 1 else None
     scan_axis = DATA_AXIS if slab else None
     if dev.type == "cuda":
@@ -233,28 +252,19 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
             minh = mesh.all_reduce(minh, "min")[:, rows].contiguous()
         contrib = VoxelGrid(hit=hit, miss=miss, min_height=minh, mom=mom, origin=origin)
 
-        # ---- merge with the world slab, then the 2D maps: column maps on
-        # the slab, stencils on the gathered [X, X] maps ----
-        merged, evidence, occ2 = merge_batch_plain(cfg, world, contrib, coords)
-        hm_t = mesh.all_gather(maps2d.height_map(cfg, occ2, merged.min_height, origin, ego_last, y_coords),
-                               SPACE_AXIS, 1)
-        ihm_t = mesh.all_gather(maps2d.inferred_height_map(cfg, occ2, evidence, origin), SPACE_AXIS, 1)
-        hm = gridops.torus_to_window(hm_t, origin, grid_ndim=2)
-        ihm = gridops.torus_to_window(ihm_t, origin, grid_ndim=2)
+        # ---- merge with the world slab and the column maps (one kernel, in
+        # place over the contribution), then the 2D maps on the gathered
+        # [X, X] maps: the stencils and the maps' tail ----
+        merged, evidence, cols, bands = kernels.merge_batch(cfg, world, contrib, ego_last, rows.start)
+        cols = mesh.all_gather(cols, SPACE_AXIS, 2)
+        bands = mesh.all_gather(bands, SPACE_AXIS, 2)
+        hm, ihm = kernels.maps_to_window(cols[0], cols[1], origin)
         sx, sy, rough = maps2d.slope_and_roughness(cfg, hm)
         ghd = maps2d.guess_height_delta(cfg, hm, ihm)
-        sx_t = gridops.window_to_torus(sx, origin, grid_ndim=2)
-        sy_t = gridops.window_to_torus(sy, origin, grid_ndim=2)
-        pos_t = mesh.all_gather(
-            maps2d.positive_obstacle_map(cfg, occ2, merged.hit, merged.hit + merged.miss, hm_t[:, rows],
-                                         sx_t[:, rows], sy_t[:, rows], origin), SPACE_AXIS, 1)
+        pos, neg, vis = kernels.map_products(cfg, bands[0], bands[1], bands[2], sx, sy, ghd, hm, origin)
         products = MapProducts(
             origin=origin, height=hm, inferred_height=ihm, slope_x=sx, slope_y=sy, roughness=rough,
-            guessed_height_delta=ghd,
-            positive_obstacle=gridops.torus_to_window(pos_t, origin, grid_ndim=2),
-            negative_obstacle=maps2d.negative_obstacle_map(cfg, ghd),
-            visibility=maps2d.visibility_map(hm),
-        )
+            guessed_height_delta=ghd, positive_obstacle=pos, negative_obstacle=neg, visibility=vis)
         new_world = WorldState(grid=merged, evidence=evidence,
                                valid=torch.ones((), dtype=torch.bool, device=dev))
         return new_world, products

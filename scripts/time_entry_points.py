@@ -18,7 +18,13 @@ times, with CUDA events, the mean of N warm calls of:
   pipeline.combine             the combine of a ring buffer that holds the
                                scan (B = 4), with the device work it
                                launches counted by torch.profiler over one
-                               warm call (kernels, copies and fills)
+                               warm call (kernels, copies and fills), and
+                               its float64 launches among them
+  the batched step             make_batched_step on the 32-scan batch below
+                               into the live world of a first step, also on
+                               the host clock (synchronized), with its
+                               launches and float64 launches counted the
+                               same way
 
 and, as the card runs them alone (the launches of GRAPH_CALLS calls captured
 once in a CUDA graph and replayed: fills and small launches included, the
@@ -44,8 +50,10 @@ import argparse
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
 from pathlib import Path
@@ -149,7 +157,7 @@ def main(argv=None) -> int:
         print("time_entry_points: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.root).resolve()))
-    from gvom_tpu_torch import GvomConfig
+    from gvom_tpu_torch import GvomConfig, make_batched_step
     from gvom_tpu_torch.io import synthetic
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.ops import binning, kernels, raycast
@@ -187,10 +195,18 @@ def main(argv=None) -> int:
     buf, _ = pipeline.ingest_and_insert(cfg, empty_buffer_state(cfg, dev), pts, valid, ego)
     world = empty_world_state(cfg, dev)
     out["combine_ms"] = cuda_ms(lambda: pipeline.combine(cfg, buf, world, ego), 10)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pipeline.combine(cfg, buf, world, ego)
-        torch.cuda.synchronize()
-    out["combine_launches"] = sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
+
+    def count_launches(fn):
+        """(launches, float64 launches: PyTorch's kernels whose name names
+        double) of one warm call, by torch.profiler."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        return len(kern), sum("double" in ev.name for ev in kern)
+
+    out["combine_launches"], out["combine_f64_launches"] = count_launches(
+        lambda: pipeline.combine(cfg, buf, world, ego))
 
     # ---- each kernel's launches alone ----
     X, Y, Z = cfg.grid_shape
@@ -232,6 +248,20 @@ def main(argv=None) -> int:
     if world_k2:
         launches["prepare_scan"] = lambda: kernels.prepare_points(cfg, pts[None], valid[None], ego[None], frame_ego=ego)
         launches["prepare_batch"] = lambda: kernels.prepare_points(cfg, *batch, frame_ego=batch[2][-1], drop_dead=True)
+    # ---- the batched step: the batch into the live world of a first step ----
+    step = make_batched_step(cfg)
+    live, _ = step(empty_world_state(cfg, dev), *make_batch(bp, bv, be, step_index=0))
+    out["batched_step_ms"] = cuda_ms(lambda: step(live, *batch), 10)
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(live, *batch)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    out["batched_step_host_ms_median"] = statistics.median(host)
+    out["batched_step_launches"], out["batched_step_f64_launches"] = count_launches(lambda: step(live, *batch))
+    del live
     out["batch_points"] = int(bpn.shape[0])
     out["launch_alone_ms"] = {name: graph_ms(fn, args.reps) for name, fn in launches.items()}
     smi = ""

@@ -13,6 +13,7 @@ torch_helpers."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gvom_tpu.types import empty_buffer_state as jempty_buffer
 from gvom_tpu.types import empty_world_state as jempty_world
@@ -110,8 +111,9 @@ def test_state_round_trip(drive, small_cfg):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_column_products_random(small_cfg, seed):
     """maps2d's per-column products (the plain twins of K4's height,
-    inferred height and positive-obstacle band) against gvom_tpu's on
-    random torus grids at a random origin, bitwise."""
+    inferred height and positive-obstacle band sums, the latter through
+    positive_obstacle_from_band as the maps' tail assembles them) against
+    gvom_tpu's on random torus grids at a random origin, bitwise."""
     from gvom_tpu.ops import maps2d as jmaps2d
 
     from gvom_tpu_torch.ops import maps2d as tmaps2d
@@ -141,8 +143,10 @@ def test_column_products_random(small_cfg, seed):
     to = t(origin)
     np.testing.assert_array_equal(tmaps2d.height_map(c, t(occ), t(minh), to, t(ego)).numpy(), hm)
     np.testing.assert_array_equal(tmaps2d.inferred_height_map(c, t(occ), t(evidence), to).numpy(), ihm)
+    num, den, band_ok = tmaps2d.positive_band_sums(c, t(occ), t(hit), t(total), t(hm), to)
+    assert band_ok.dtype == torch.int32
     np.testing.assert_array_equal(
-        tmaps2d.positive_obstacle_map(c, t(occ), t(hit), t(total), t(hm), t(sx), t(sy), to).numpy(), pos)
+        tmaps2d.positive_obstacle_from_band(c, num, den, band_ok, t(sx), t(sy)).numpy(), pos)
     assert (hm > -1000).any() and (ihm > -1000).any() and ((pos > 0) & (pos < 100)).any()
 
 

@@ -17,7 +17,7 @@ from gvom_tpu_torch import Gvom, GvomConfig, VoxelMapperNode, batched_replay, cl
 from gvom_tpu_torch.entry import entry
 from gvom_tpu_torch.io.logio import ScanLog
 from gvom_tpu_torch.ops import kernels
-from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
+from gvom_tpu_torch.types import VoxelGrid, WorldState, empty_buffer_state, empty_world_state
 from gvom_tpu_torch.utils.checkpoint import load_world
 from gvom_tpu_torch.utils.failures import load_resumable
 
@@ -107,14 +107,27 @@ def test_kernel_wrappers_refuse_other_devices():
         kernels.plane_fit(cfg, m)
     with pytest.raises(ValueError, match="CPU or a CUDA"):
         kernels.guess_height(cfg, m, m)
+    o = torch.zeros(3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        kernels.maps_to_window(m, m, o)
+    mi = torch.zeros((16, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        kernels.map_products(cfg, mi, mi, mi, m, m, m, m, o)
+    g = lambda dt: torch.zeros(cfg.grid_shape, dtype=dt, device="meta")
+    grid = VoxelGrid(hit=g(torch.int32), miss=g(torch.int32), min_height=g(torch.float32),
+                     mom=torch.zeros((10,) + cfg.grid_shape, device="meta"), origin=o)
+    world = WorldState(grid=grid, evidence=g(torch.int32), valid=torch.ones((), dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="CPU or a CUDA"):
+        kernels.merge_batch(cfg, world, grid, torch.zeros(3, device="meta"))
     assert [k.name for k in kernels.KERNELS] == [
         "ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "moments_epilogue",
         "ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab", "plane_fit", "plane_fit_tail",
-        "guess_height", "prepare_points"]
-    ours = (kernels.PLANEFIT, kernels.PLANEFIT_TAIL, kernels.GUESS, kernels.PREP)
+        "guess_height", "prepare_points", "merge_batch", "maps_to_window", "map_products"]
+    ours = (kernels.PLANEFIT, kernels.PLANEFIT_TAIL, kernels.GUESS, kernels.PREP, kernels.MERGE,
+            kernels.MAPS_WINDOW, kernels.MAP_PRODUCTS)
     for k in kernels.KERNELS:
-        # every kernel but the 2-D maps' stencils and the point preparation, which the port adds,
-        # replaces a TPU kernel
+        # every kernel but the 2-D maps' stencils and tail, the point preparation and the batched
+        # merge, which the port adds, replaces a TPU kernel
         assert k.source.exists() and k.replaces.startswith(
             "none: the port's own" if k in ours else "gvom_tpu/ops/pallas_kernels.py:")
 
@@ -150,14 +163,14 @@ def test_build_all_builds_the_configs_combine_depth(monkeypatch):
     reports = kernels.build_all()
     assert sorted(reports) == sorted(k.name for k in kernels.KERNELS)
     assert sorted(started) == [("binning.cu", ()), ("combine.cu", ("-DGVOM_COMBINE_B=4",)),
-                               ("epilogue.cu", ()), ("guess.cu", ()), ("planefit.cu", ()), ("prepare.cu", ()),
-                               ("raycast.cu", ())]
+                               ("epilogue.cu", ()), ("guess.cu", ()), ("maptail.cu", ()), ("merge.cu", ()),
+                               ("planefit.cu", ()), ("prepare.cu", ()), ("raycast.cu", ())]
     started.clear()
     kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3))
-    assert ("combine.cu", ("-DGVOM_COMBINE_B=3",)) in started and len(started) == 8
+    assert ("combine.cu", ("-DGVOM_COMBINE_B=3",)) in started and len(started) == 10
     started.clear()
     kernels.build_all(GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=4))
-    assert len(started) == 7
+    assert len(started) == 9
     started.clear()
     Gvom(config=GvomConfig(xy_size=16, z_size=8, max_points=64, buffer_size=3), device="cpu")
     assert started == []
