@@ -70,20 +70,22 @@ struct ColumnConsts {
     int hct;
 };
 
-// The five column maps of one column from its warp's candidates: best_sc is
-// the lane's lowest window-relative z of an occupied voxel and best_mh that
-// voxel's min_height, best_sc2 the lowest of an unoccupied voxel with
-// evidence (Z where none); occ_r, hit_r, tot_r and pz_r are each of the
-// lane's voxels' occupancy, hit, hit + miss and window-relative z. relx and
-// rely are the column's window-relative x and y, (ot0, ot1, ot2) the
-// window's origin. Lane 0 writes the maps at index `col`.
-template <int ZC>
-__device__ __forceinline__ void column_tail(
-    int best_sc, float best_mh, int best_sc2, const bool (&occ_r)[ZC][2], const int (&hit_r)[ZC][2],
-    const int (&tot_r)[ZC][2], const int (&pz_r)[ZC][2], int Z, int relx, int rely, int ot0, int ot1, int ot2,
-    const float* __restrict__ ego, const ColumnConsts& k, int lane, int64_t col,
-    float* __restrict__ hm_o, float* __restrict__ ihm_o, int* __restrict__ pnum_o, int* __restrict__ pden_o,
-    int* __restrict__ bok_o)
+// A column's heights from its warp's candidates: best_sc is the lane's
+// lowest window-relative z of an occupied voxel and best_mh that voxel's
+// min_height, best_sc2 the lowest of an unoccupied voxel with evidence (Z
+// where none). relx and rely are the column's window-relative x and y,
+// (ot0, ot1, ot2) the window's origin. Every lane gets the height, the
+// inferred height and the band [lo, hi] of window-relative z whose voxels
+// the band sums take.
+struct ColumnHeights {
+    float hm, ihm;
+    int lo, hi;
+    bool band_ok;
+};
+
+__device__ __forceinline__ ColumnHeights column_heights(
+    int best_sc, float best_mh, int best_sc2, int Z, int relx, int rely, int ot0, int ot1, int ot2,
+    const float* __restrict__ ego, const ColumnConsts& k)
 {
     // window-relative z values are unique per column
 #pragma unroll
@@ -94,43 +96,75 @@ __device__ __forceinline__ void column_tail(
         best_sc2 = min(best_sc2, __shfl_xor_sync(0xffffffffu, best_sc2, off));
     }
     const float o2f = (float)ot2;
-    float hm;
+    ColumnHeights c;
     if (best_sc < Z) {
-        hm = __fmul_rn(__fadd_rn(__fadd_rn(best_mh, (float)best_sc), o2f), k.zres);
+        c.hm = __fmul_rn(__fadd_rn(__fadd_rn(best_mh, (float)best_sc), o2f), k.zres);
     } else {
         const float gx = __fmaf_rn(__fadd_rn((float)ot0, (float)relx), k.xyres, -ego[0]);
         const float gy = __fmaf_rn(__fadd_rn((float)ot1, (float)rely), k.xyres, -ego[1]);
         const bool disk = __fmaf_rn(gx, gx, __fmul_rn(gy, gy)) <= k.rr2;
-        hm = disk ? __fsub_rn(ego[2], k.g2l) : k.unknown;
+        c.hm = disk ? __fsub_rn(ego[2], k.g2l) : k.unknown;
     }
-    const float ihm = best_sc2 < Z ? __fmul_rn(__fadd_rn((float)best_sc2, o2f), k.zres) : k.unknown;
+    c.ihm = best_sc2 < Z ? __fmul_rn(__fadd_rn((float)best_sc2, o2f), k.zres) : k.unknown;
+    c.lo = (int)floorf(__fmaf_rn(__fadd_rn(c.hm, k.pot), k.inv_z, -o2f)) + 1;
+    c.hi = (int)floorf(__fmaf_rn(__fadd_rn(c.hm, k.rh), k.inv_z, -o2f));
+    c.band_ok = c.lo >= 0 && c.lo < Z && c.hi >= 0 && c.hi < Z;
+    return c;
+}
 
-    const int lo = (int)floorf(__fmaf_rn(__fadd_rn(hm, k.pot), k.inv_z, -o2f)) + 1;
-    const int hi = (int)floorf(__fmaf_rn(__fadd_rn(hm, k.rh), k.inv_z, -o2f));
-    const bool band_ok = lo >= 0 && lo < Z && hi >= 0 && hi < Z;
-    int num = 0, den = 0;
-#pragma unroll
-    for (int c = 0; c < ZC; ++c) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            if (occ_r[c][e] && hit_r[c][e] > k.hct && pz_r[c][e] >= lo && pz_r[c][e] <= hi) {
-                num += hit_r[c][e];
-                den += tot_r[c][e];
-            }
-        }
-    }
+// whether a voxel joins the band sums: occupied, more hits than the
+// threshold, its window-relative z inside the band
+__device__ __forceinline__ bool in_band(const ColumnHeights& c, const ColumnConsts& k, bool occ, int hit, int pz) {
+    return occ && hit > k.hct && pz >= c.lo && pz <= c.hi;
+}
+
+// The warp's band sums added up, and lane 0 writes the column's five maps
+// at index `col`.
+__device__ __forceinline__ void column_write(
+    const ColumnHeights& c, int num, int den, int lane, int64_t col,
+    float* __restrict__ hm_o, float* __restrict__ ihm_o, int* __restrict__ pnum_o, int* __restrict__ pden_o,
+    int* __restrict__ bok_o)
+{
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
         num += __shfl_xor_sync(0xffffffffu, num, off);
         den += __shfl_xor_sync(0xffffffffu, den, off);
     }
     if (lane == 0) {
-        hm_o[col] = hm;
-        ihm_o[col] = ihm;
+        hm_o[col] = c.hm;
+        ihm_o[col] = c.ihm;
         pnum_o[col] = num;
         pden_o[col] = den;
-        bok_o[col] = band_ok ? 1 : 0;
+        bok_o[col] = c.band_ok ? 1 : 0;
     }
+}
+
+// The five column maps of one column whose voxels the warp's lanes hold in
+// registers: occ_r, hit_r, tot_r and pz_r are each of the lane's voxels'
+// occupancy, hit, hit + miss and window-relative z (the rest as
+// column_heights). A column longer than the registers hold is taken in two
+// passes by the *_any kernels instead: the heights, then the band sums.
+template <int ZC>
+__device__ __forceinline__ void column_tail(
+    int best_sc, float best_mh, int best_sc2, const bool (&occ_r)[ZC][2], const int (&hit_r)[ZC][2],
+    const int (&tot_r)[ZC][2], const int (&pz_r)[ZC][2], int Z, int relx, int rely, int ot0, int ot1, int ot2,
+    const float* __restrict__ ego, const ColumnConsts& k, int lane, int64_t col,
+    float* __restrict__ hm_o, float* __restrict__ ihm_o, int* __restrict__ pnum_o, int* __restrict__ pden_o,
+    int* __restrict__ bok_o)
+{
+    const ColumnHeights c = column_heights(best_sc, best_mh, best_sc2, Z, relx, rely, ot0, ot1, ot2, ego, k);
+    int num = 0, den = 0;
+#pragma unroll
+    for (int z = 0; z < ZC; ++z) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            if (in_band(c, k, occ_r[z][e], hit_r[z][e], pz_r[z][e])) {
+                num += hit_r[z][e];
+                den += tot_r[z][e];
+            }
+        }
+    }
+    column_write(c, num, den, lane, col, hm_o, ihm_o, pnum_o, pden_o, bok_o);
 }
 
 bool aligned8(const void* p) { return ((uintptr_t)p & 7u) == 0; }

@@ -59,10 +59,22 @@
 //   * __launch_bounds__(256, 4): at most 64 registers, 32 warps per SM.
 //     Two, three and five blocks an SM were tried on the card and were no
 //     faster (PERF.md §6): loads in flight, not occupancy, were the limit.
+//
+// Every depth and every Z the JAX package takes: past 16 slots or 256 z the
+// unrolled kernel does not apply (its slot masks are bits of one word, its
+// column lives in registers), and combine_any_kernel takes the combine. B
+// is a runtime argument there and the slot loop is not unrolled; one lane
+// holds one z of each 32-z chunk, the chunks a runtime loop. A column no
+// longer fits in registers, so it is taken in two passes: the first reads
+// the scalar channels and finds the column's heights (columns.cuh), the
+// second computes every output, stores it and adds the band sums (the
+// column's bytes are in L2 by then). The arithmetic is the unrolled
+// kernel's, in the same order, so its outputs are bitwise fuse_plain's too.
 
 #include "columns.cuh"
 
-#define MAX_B 16
+#define MAX_B 16      // the unrolled kernel's depths; combine_any_kernel takes any other
+#define MAX_ZC 4      // the unrolled kernel's 64-z chunks a column
 #ifndef GVOM_COMBINE_B
 #error "build with -DGVOM_COMBINE_B=<ring-buffer depth>, 1..16"
 #endif
@@ -272,6 +284,140 @@ __global__ void __launch_bounds__(256, 4) combine_kernel(
                     ot0, ot1, ot2, ego, k, lane, col, hm_o, ihm_o, pnum_o, pden_o, bok_o);
 }
 
+// Whether source s (a slot, or the old world at s = B) is valid and its
+// window holds the voxel at window-relative (relx, rely, pz) of the target
+// window: the overlap test of axis_ok on each axis.
+__device__ __forceinline__ bool source_ok(const int* __restrict__ org, const int* __restrict__ ival, int s,
+                                          int relx, int rely, int pz, int ot0, int ot1, int ot2, int X, int Y, int Z)
+{
+    if (ival[s] <= 0) return false;
+    const int dx = ot0 - org[3 * s], dy = ot1 - org[3 * s + 1], dz = ot2 - org[3 * s + 2];
+    return relx >= -min(dx, 0) && relx < X - max(dx, 0) && rely >= -min(dy, 0) && rely < Y - max(dy, 0) &&
+           pz >= -min(dz, 0) && pz < Z - max(dz, 0);
+}
+
+// what the column tail reads of one voxel
+struct Voxel {
+    int hs, ms, ev;
+    float mh;
+    bool occ2;
+};
+
+struct AnyArgs {
+    const int* org; const int* ival; const float* ego;
+    const int* bhit; const int* bmiss; const float* bminh; const float* bmom;
+    const int* ohit; const int* omiss; const float* ominh; const int* oev; const float* omom;
+    int B, X, Y, Z;
+    CombineConsts k;
+    int* hit_o; int* miss_o; float* minh_o; int* ev_o; float* mom_o;
+    float* hm_o; float* ihm_o; int* pnum_o; int* pden_o; int* bok_o;
+};
+
+// One voxel of combine_kernel's function, its slots in a runtime loop.
+// FULL: also the moments, and every output stored.
+template <bool FULL>
+__device__ __forceinline__ Voxel combine_voxel(const AnyArgs& a, bool anyv, int relx, int rely, int pz,
+                                               int ot0, int ot1, int ot2, int64_t v)
+{
+    const int64_t V = (int64_t)a.X * a.Y * a.Z;
+    int evv = 0, hh = 0, mm = 0;
+    bool occ = false;
+    float mhh = 1.0f;
+    float acc[10];
+#pragma unroll
+    for (int ch = 0; ch < 10; ++ch) acc[ch] = 0.0f;
+    // ---- phase A in slot order, and the slots' share of phase B ----
+    for (int s = 0; s < a.B; ++s) {
+        const bool al = source_ok(a.org, a.ival, s, relx, rely, pz, ot0, ot1, ot2, a.X, a.Y, a.Z);
+        const int h = al ? a.bhit[s * V + v] : 0;
+        const int m = al ? a.bmiss[s * V + v] : 0;
+        const bool s_occ = al && h > 0;
+        const int s_ev = (al && !s_occ) ? m : 0;
+        if (s_ev > 0 && !occ) evv += s_ev;
+        occ = occ || s_occ;
+        if (s_occ) {
+            hh += h;
+            mm += m;
+            mhh = fminf(mhh, a.bminh[s * V + v]);
+        }
+        if (FULL) {
+#pragma unroll
+            for (int ch = 0; ch < 10; ++ch)
+                acc[ch] = __fadd_rn(acc[ch], al ? a.bmom[((int64_t)s * 10 + ch) * V + v] : 0.0f);
+        }
+    }
+    // ---- the old world: with no valid slot every channel passes through ----
+    const bool oam = source_ok(a.org, a.ival, a.B, relx, rely, pz, ot0, ot1, ot2, a.X, a.Y, a.Z);
+    const bool ol = anyv ? oam : true;
+    const int oh = ol ? a.ohit[v] : 0, oe = ol ? a.oev[v] : 0;
+    const bool old_occ = oam && oh > 0;
+    const bool revive = old_occ && !occ && evv <= a.k.decay;
+    const bool o2 = occ || revive;
+    const int old_ev = oam ? oe : 0;
+    if (!old_occ && old_ev > 0 && !o2) evv += old_ev;
+    if (o2) evv = 0;
+    const bool mold = old_occ && o2;
+    const bool l = anyv ? mold : true;
+    const int om = l ? a.omiss[v] : 0;
+    const float omh = l ? a.ominh[v] : 0.0f;
+    if (mold) {
+        hh += oh;
+        mm += om;
+        mhh = fminf(mhh, omh);
+    }
+    if (FULL) {
+        const bool oo = oam && o2;
+#pragma unroll
+        for (int ch = 0; ch < 10; ++ch) {
+            const float ov = (anyv ? oo : true) ? a.omom[(int64_t)ch * V + v] : 0.0f;
+            const float sum = __fadd_rn(acc[ch], oo ? ov : 0.0f);
+            __stcs(a.mom_o + (int64_t)ch * V + v, anyv ? sum : ov);
+        }
+        __stcs(a.hit_o + v, anyv ? hh : oh);
+        __stcs(a.miss_o + v, anyv ? mm : om);
+        __stcs(a.minh_o + v, anyv ? mhh : omh);
+        __stcs(a.ev_o + v, anyv ? evv : oe);
+    }
+    return Voxel{hh, mm, evv, mhh, o2};
+}
+
+// K4 for any B and Z: one warp a column, two passes over it (the header)
+__global__ void __launch_bounds__(256) combine_any_kernel(AnyArgs a)
+{
+    const int lane = threadIdx.x & 31;
+    const int64_t col = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    if (col >= (int64_t)a.X * a.Y) return;
+    const int x = (int)(col / a.Y), y = (int)(col % a.Y), Z = a.Z;
+    const int* tgt = a.org + 3 * (a.B + 1);
+    const int ot0 = tgt[0], ot1 = tgt[1], ot2 = tgt[2];
+    const int relx = pmod(x - ot0, a.X), rely = pmod(y - ot1, a.Y), ot2m = pmod(ot2, Z);
+    const bool anyv = a.ival[a.B + 1] > 0;
+
+    int best_sc = Z, best_sc2 = Z;
+    float best_mh = 0.0f;
+    for (int z0 = 0; z0 < Z; z0 += 32) {
+        const int z = z0 + lane;
+        if (z >= Z) continue;
+        const int pz = z >= ot2m ? z - ot2m : z - ot2m + Z;
+        const Voxel r = combine_voxel<false>(a, anyv, relx, rely, pz, ot0, ot1, ot2, col * Z + z);
+        if (r.occ2 && pz < best_sc) { best_sc = pz; best_mh = r.mh; }
+        if (!r.occ2 && r.ev > 0 && pz < best_sc2) best_sc2 = pz;
+    }
+    const ColumnHeights c = column_heights(best_sc, best_mh, best_sc2, Z, relx, rely, ot0, ot1, ot2, a.ego, a.k);
+    int num = 0, den = 0;
+    for (int z0 = 0; z0 < Z; z0 += 32) {
+        const int z = z0 + lane;
+        if (z >= Z) continue;
+        const int pz = z >= ot2m ? z - ot2m : z - ot2m + Z;
+        const Voxel r = combine_voxel<true>(a, anyv, relx, rely, pz, ot0, ot1, ot2, col * Z + z);
+        if (in_band(c, a.k, r.occ2, r.hs, pz)) {
+            num += r.hs;
+            den += r.hs + r.ms;
+        }
+    }
+    column_write(c, num, den, lane, col, a.hm_o, a.ihm_o, a.pnum_o, a.pden_o, a.bok_o);
+}
+
 struct Args {
     const int* meta; const float* ego;
     const int* bhit; const int* bmiss; const float* bminh; const float* bmom;
@@ -305,11 +451,25 @@ extern "C" int gvom_combine(
     void* hm_o, void* ihm_o, void* pnum_o, void* pden_o, void* bok_o, void* stream)
 {
     static_assert(GVOM_COMBINE_B >= 1 && GVOM_COMBINE_B <= MAX_B, "GVOM_COMBINE_B is 1..16");
-    if (Z > 256 || B != GVOM_COMBINE_B) return (int)cudaErrorInvalidValue;
+    if (B < 1 || X < 1 || Y < 1 || Z < 1) return (int)cudaErrorInvalidValue;
+    const CombineConsts k{{zres, xyres, inv_z, pot, rh, rr2, g2l, unknown, hct}, decay};
+    if (B > MAX_B || Z > 64 * MAX_ZC) {
+        // the meta vector: origins [(B + 2) * 3], then valid flags [B + 2]
+        const AnyArgs a{(const int*)meta, (const int*)meta + (B + 2) * 3, (const float*)ego,
+                        (const int*)bhit, (const int*)bmiss, (const float*)bminh, (const float*)bmom,
+                        (const int*)ohit, (const int*)omiss, (const float*)ominh, (const int*)oev, (const float*)omom,
+                        B, X, Y, Z, k, (int*)hit_o, (int*)miss_o, (float*)minh_o, (int*)ev_o, (float*)mom_o,
+                        (float*)hm_o, (float*)ihm_o, (int*)pnum_o, (int*)pden_o, (int*)bok_o};
+        const int warps = 8;
+        const int64_t blocks = ((int64_t)X * Y + warps - 1) / warps;
+        combine_any_kernel<<<(unsigned)blocks, warps * 32, 0, (cudaStream_t)stream>>>(a);
+        return (int)cudaGetLastError();
+    }
+    if (B != GVOM_COMBINE_B) return (int)cudaErrorInvalidValue;
     Args a{(const int*)meta, (const float*)ego,
            (const int*)bhit, (const int*)bmiss, (const float*)bminh, (const float*)bmom,
            (const int*)ohit, (const int*)omiss, (const float*)ominh, (const int*)oev, (const float*)omom,
-           X, Y, Z, CombineConsts{{zres, xyres, inv_z, pot, rh, rr2, g2l, unknown, hct}, decay},
+           X, Y, Z, k,
            (int*)hit_o, (int*)miss_o, (float*)minh_o, (int*)ev_o, (float*)mom_o,
            (float*)hm_o, (float*)ihm_o, (int*)pnum_o, (int*)pden_o, (int*)bok_o};
     const bool pair = Z % 2 == 0 && Z <= 64 &&
@@ -317,6 +477,6 @@ extern "C" int gvom_combine(
                       aligned8(ohit) && aligned8(omiss) && aligned8(ominh) && aligned8(oev) && aligned8(omom) &&
                       aligned8(hit_o) && aligned8(miss_o) && aligned8(minh_o) && aligned8(ev_o) && aligned8(mom_o);
     if (pair) launch<GVOM_COMBINE_B, 1, true>(a, (cudaStream_t)stream);
-    else launch<GVOM_COMBINE_B, 4, false>(a, (cudaStream_t)stream);
+    else launch<GVOM_COMBINE_B, MAX_ZC, false>(a, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

@@ -59,6 +59,14 @@
 // EVERY voxel, since a voxel with no endpoint of its own still receives its
 // neighbours' sums.
 //
+// Any eigen distance: the tiled kernel stages a column's n bits in one
+// 64-bit word (TZ + 4rz <= 64) and the box's halo in shared memory, which
+// grows with (8+4rx)(8+4ry)(32+4rz). Where either does not hold (rz >= 9,
+// rx >= 8, (rx, rz) = (5, 8) on the H100's 227 KB), the launcher takes
+// epilogue_direct_kernel, one thread a target reading its box from the
+// scratch, in the same order of additions; it asks the device what a
+// block may opt in to, so it never fails the attribute call.
+//
 // Slab form ((ys0, Ys) != (0, Y), the same rule as raycast.cu and
 // binning.cu): the output and hit are [.., X, Ys, Z], the torus
 // rows [ys0, ys0+Ys), and the sums are K2's slab scratch
@@ -130,6 +138,26 @@ __device__ __forceinline__ Axis slab_axis(int j0, int T, int Ys, int lenA, int r
 
 // the non-empty voxels of a staged tile whose channels 1-9 are staged too
 constexpr int CAP = 640;
+
+// A source voxel's term of a target's box: n and its channels 1-9 v,
+// translated by (ox, oy, oz) into the target's frame and added to acc
+// (the plain twin's arithmetic and order; -fmad=false keeps it unfused).
+__device__ __forceinline__ void add_term(float (&acc)[10], const float (&v)[9], float n, int ox, int oy, int oz)
+{
+    const float tv[3] = {(float)ox, (float)oy, (float)oz};
+    const float* s1 = v;
+    acc[0] += n;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) acc[1 + a] += s1[a] + tv[a] * n;
+    // (xx, xy, xz, yy, yz, zz)
+    const int pa[6] = {0, 0, 0, 1, 1, 2};
+    const int pb[6] = {0, 1, 2, 1, 2, 2};
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+        const int a = pa[q], b = pb[q];
+        acc[4 + q] += v[3 + q] + tv[a] * s1[b] + tv[b] * s1[a] + tv[a] * tv[b] * n;
+    }
+}
 
 template <bool MASK>
 __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
@@ -367,19 +395,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
 #pragma unroll
                         for (int ch = 0; ch < 9; ++ch) v[ch] = srow[oz + (ch + 1) * P];
                     }
-                    const float tv[3] = {(float)ox, (float)oy, (float)oz};
-                    const float* s1 = v;
-                    acc[0] += n;
-#pragma unroll
-                    for (int a = 0; a < 3; ++a) acc[1 + a] += s1[a] + tv[a] * n;
-                    // (xx, xy, xz, yy, yz, zz)
-                    const int pa[6] = {0, 0, 0, 1, 1, 2};
-                    const int pb[6] = {0, 1, 2, 1, 2, 2};
-#pragma unroll
-                    for (int q = 0; q < 6; ++q) {
-                        const int a = pa[q], b = pb[q];
-                        acc[4 + q] += v[3 + q] + tv[a] * s1[b] + tv[b] * s1[a] + tv[a] * tv[b] * n;
-                    }
+                    add_term(acc, v, n, ox, oy, oz);
                 }
             }
         }
@@ -389,17 +405,110 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
     }
 }
 
+// The box at any eigen distance: one thread a target, z fastest, its box
+// read from the scratch in global memory (L1 and L2 hold the neighbourhood
+// that a block's targets share), in the order (ox, oy, oz) of the tiled
+// kernel and the twin, channels 1-9 only where n != 0. Chosen where the
+// tiled kernel's staged box does not fit: TZ + 4rz > 64 (a staged column's
+// bits are one 64-bit word) or more shared memory than a block may have.
+template <bool MASK>
+__global__ void __launch_bounds__(THREADS) epilogue_direct_kernel(
+    const float* __restrict__ sums, const int* __restrict__ hit, const int* __restrict__ origin,
+    const int* __restrict__ slot, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys,
+    float* __restrict__ out)
+{
+    const int64_t V = (int64_t)X * Ys * Z;
+    const int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+    if (t >= V) return;
+    float* o = out + (int64_t)(slot ? slot[0] : 0) * 10 * V;
+    const int z = (int)(t % Z), y = (int)(t / Z % Ys), x = (int)(t / ((int64_t)Z * Ys));
+    const bool slab = !(ys0 == 0 && Ys == Y);
+    // the target's scratch coordinates (torus_axis and slab_axis)
+    const int cx = pmod(x - origin[0], X) + rx, cz = pmod(z - origin[2], Z) + rz;
+    int cy, Ysc;
+    if (slab) {
+        const int lenA = min(Ys, Y - pmod(ys0 - origin[1], Y));
+        cy = y + ry + (y >= lenA ? 2 * ry : 0);
+        Ysc = Ys + 4 * ry;
+    } else {
+        cy = pmod(y - origin[1], Y) + ry;
+        Ysc = Y + 2 * ry;
+    }
+    const int Zp = Z + 2 * rz;
+    const int64_t P = (int64_t)(X + 2 * rx) * Ysc * Zp;
+    float acc[10];
+#pragma unroll
+    for (int c = 0; c < 10; ++c) acc[c] = 0.0f;
+    if (!MASK || hit[t] > 0) {
+        for (int ox = -rx; ox <= rx; ++ox) {
+            for (int oy = -ry; oy <= ry; ++oy) {
+                const float* row = sums + ((int64_t)(cx + ox) * Ysc + (cy + oy)) * Zp + cz;
+                for (int oz = -rz; oz <= rz; ++oz) {
+                    const float n = __ldg(row + oz);
+                    if (n == 0.0f) continue;
+                    float v[9];
+#pragma unroll
+                    for (int ch = 0; ch < 9; ++ch) v[ch] = __ldg(row + oz + (ch + 1) * P);
+                    add_term(acc, v, n, ox, oy, oz);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < 10; ++c) o[c * V + t] = acc[c];
+}
+
+// the tiled kernel's dynamic shared memory: the staged floats (an even
+// count: TZ + 4rz is even), then the columns' 64-bit words and ranks, then
+// the compacted channels
+size_t tiled_smem(int rx, int ry, int rz)
+{
+    const size_t ncol = (size_t)(TX + 4 * rx) * (TY + 4 * ry);
+    return sizeof(float) * ncol * (TZ + 4 * rz) + (sizeof(uint64_t) + sizeof(int)) * ncol + sizeof(float) * 9 * CAP;
+}
+
+// Whether the tiled kernel takes this shape: its grid within the launch
+// limits, a staged column's bits in one 64-bit word, and its shared memory
+// (with the static arrays) within what a block of the current device may
+// opt in to. Else the direct kernel. rc: a CUDA error of the queries.
+template <bool MASK>
+bool tiled(int X, int Ys, int rx, int ry, int rz, int* rc)
+{
+    static size_t fixed = 0;
+    static int optin = 0;
+    *rc = 0;
+    if (!optin) {
+        int dev = 0;
+        cudaFuncAttributes fa;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, epilogue_kernel<MASK>);
+        if (e != cudaSuccess) {
+            optin = 0;
+            *rc = (int)e;
+            return false;
+        }
+        fixed = fa.sharedSizeBytes;
+    }
+    return (Ys + TY - 1) / TY <= 65535 && (X + TX - 1) / TX <= 65535 && TZ + 4 * rz <= 64 &&
+           tiled_smem(rx, ry, rz) + fixed <= (size_t)optin;
+}
+
 template <bool MASK>
 int launch(const void* sums, const void* hit, const void* origin, const void* slot,
            int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, void* out, cudaStream_t st)
 {
+    int rc = 0;
+    if (!tiled<MASK>(X, Ys, rx, ry, rz, &rc)) {
+        if (rc) return rc;
+        const int64_t V = (int64_t)X * Ys * Z;
+        epilogue_direct_kernel<MASK><<<(unsigned)((V + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+            (const float*)sums, (const int*)hit, (const int*)origin, (const int*)slot,
+            X, Y, Z, rx, ry, rz, ys0, Ys, (float*)out);
+        return (int)cudaGetLastError();
+    }
     const dim3 grid((Z + TZ - 1) / TZ, (Ys + TY - 1) / TY, (X + TX - 1) / TX);
-    const size_t ncol = (size_t)(TX + 4 * rx) * (TY + 4 * ry);
-    // the staged floats (an even count: TZ + 4rz is even), then the columns'
-    // 64-bit words and ranks, then the compacted channels
-    const size_t smem = sizeof(float) * ncol * (TZ + 4 * rz) + (sizeof(uint64_t) + sizeof(int)) * ncol
-                        + sizeof(float) * 9 * CAP;
-    if (grid.y > 65535 || grid.z > 65535 || TZ + 4 * rz > 64) return (int)cudaErrorInvalidValue;
+    const size_t smem = tiled_smem(rx, ry, rz);
     // past 48 KB with the static arrays the block must opt in; the first
     // call's size is set once, before any graph capture
     static size_t set = 0;
@@ -428,4 +537,13 @@ extern "C" int gvom_moments_epilogue(
     cudaStream_t st = (cudaStream_t)stream;
     return mask ? launch<true>(sums, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, st)
                 : launch<false>(sums, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, st);
+}
+
+// 1 when gvom_moments_epilogue takes the tiled kernel for this shape, 0 when
+// the direct one; a negative CUDA error when the device cannot be queried
+extern "C" int gvom_moments_epilogue_tiled(int X, int Ys, int rx, int ry, int rz, int mask)
+{
+    int rc = 0;
+    const bool t = mask ? tiled<true>(X, Ys, rx, ry, rz, &rc) : tiled<false>(X, Ys, rx, ry, rz, &rc);
+    return rc ? -rc : (int)t;
 }

@@ -1,7 +1,7 @@
 // The guess-height search of the 2-D maps: for each cell with no measured
 // height but an inferred one, the spread (max − min) of the nearest measured
 // heights found in four wedges within guess_search_radius steps, and the
-// inferred height. One launch, one thread a map cell.
+// inferred height. One launch.
 //
 // No TPU kernel: the JAX package computes this in XLA
 // (gvom_tpu/ops/maps2d.py:201-282, guess_height_delta), as nearest-known
@@ -24,28 +24,46 @@
 // What bounds it on the H100: bytes. hm and ihm are read once and one map
 // written, 12 bytes a cell (0.79 MB at 256×256). A cell whose output is 0
 // whatever the search finds (a measured cell, or one with no inferred
-// height) does not search. Design: a block stages its 16×16 tile and an
-// R-cell halo of hm (clipped to the map) in shared memory, and with it, for
-// every staged row and column, the offset of the next known cell at or
-// after each position (one thread a row or a column scans it backwards, as
-// the twin's flip-cummin-flip). A wedge query is then two shared loads:
-// the next known cell at or after the wedge's first cell, taken if it lies
-// before the wedge's end. A wedge lies inside the staged region, so the
-// offsets never need the map beyond it. When the region would not fit in
-// 48 KB (R > 31 on a map wider than 78 cells) the blocks walk each wedge
-// cell by cell, reading hm from global memory (the map is L2-resident). The
-// launcher chooses by R, so every radius the config accepts is right, R = 0
-// and R >= X included.
+// height) does not search. The kernel is far from that bound: at 256×256 it
+// is one wave of 256 blocks, and its time is one block's chain of
+// dependent steps. Its first version (256 threads a block, a thread
+// a cell) staged the tile's R-cell halo, then 92 of its threads each
+// scanned a staged row or column backwards for the next-known offsets, 46
+// dependent shared-memory steps, whether or not any of its cells searched,
+// and each searching thread walked its four wedges in one loop. Now:
+//   * the idle test and the staging overlap: each thread loads its cell's
+//     hm and ihm while the block's cp.async copies of the region are in
+//     flight, and a block none of whose cells searches (__syncthreads_or)
+//     writes its zeros and exits without reading the region;
+//   * the next-known offsets a warp a staged row or column: a ballot of the
+//     known cells a 32-cell word, the words taken from the end, and each
+//     lane's offset the first set bit at or after it (__ffs), else the
+//     carry from the words after: no dependent chain but the words';
+//   * the walks are tasks: the block lists its searching cells and walks
+//     each wedge of each as a task of its own, one wedge's tasks after
+//     another, on 512 threads, so a warp's lanes run the same query and no
+//     lane idles on a cell that does not search; the four wedges of a cell
+//     meet in shared memory, where the walk's quirks are applied (below).
+// PERF.md §6 has its times beside the first version's (scripts/
+// time_guess_routes.py --parent). When the region would not fit in the
+// shared memory left beside the static arrays (R > 27 on a map wider than
+// 71 cells) the blocks walk each wedge cell by cell, reading hm from global
+// memory (the map is L2-resident). The launcher chooses by R, so every
+// radius the config accepts is right, R = 0 and R >= X included.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 16;                       // a block's cells per side, one thread each
-constexpr int SHARED_MAX = 48 * 1024;          // dynamic shared memory without an opt-in
-constexpr int STAGED_BYTES = 8;                // a staged cell: hm, and two 16-bit next-known offsets
+constexpr int TILE = 16;                       // a block's cells per side
+constexpr int STAGED_THREADS = 512;            // the staged route's block
+// the staged route's dynamic shared memory without an opt-in: 48 KB less its
+// static arrays (a cell's four tasks, 8 bytes each, its list entry and the
+// group counts)
+constexpr int SHARED_MAX = 48 * 1024 - TILE * TILE * (4 * 8 + 2) - TILE * TILE / 32 * 4;
 
 __device__ __forceinline__ float min_nan(float a, float b)
 {
@@ -83,8 +101,6 @@ struct Staged {
         *v = h[r * cols + j];
         return true;
     }
-
-    __device__ __forceinline__ float at(int x, int y) const { return h[(x - r0) * cols + (y - c0)]; }
 };
 
 // hm in global memory, each wedge walked cell by cell
@@ -119,6 +135,46 @@ struct Global {
     __device__ __forceinline__ float at(int x, int y) const { return __ldg(h + (size_t)x * X + y); }
 };
 
+// Step i of wedge w (0 x_p, 1 x_n, 2 y_p, 3 y_n) of the cell (x0, y0): true
+// when the wedge is done at this step, its row or column outside the map or
+// a known height found (then *v holds it).
+template <class H>
+__device__ __forceinline__ bool wedge_step(const H& h, int w, int i, int x0, int y0, int X, float unknown, float* v)
+{
+    switch (w) {
+    case 0: return x0 + i >= X || h.row(x0 + i, max(y0 - i, 0), min(y0 + i - 1, X - 1), unknown, v);
+    case 1: return x0 - i < 0 || h.row(x0 - i, max(y0 - i + 1, 0), min(y0 + i, X - 1), unknown, v);
+    case 2: return y0 + i >= X || h.col(y0 + i, max(x0 - i + 1, 0), min(x0 + i, X - 1), unknown, v);
+    default: return y0 - i < 0 || h.col(y0 - i, max(x0 - i, 0), min(x0 + i - 1, X - 1), unknown, v);
+    }
+}
+
+// The guessed delta of a searching cell from its inferred height ih and
+// the four wedges' heights hv (unknown where a wedge found none).
+__device__ __forceinline__ float guess_delta(float ih, const float (&hv)[4], float unknown)
+{
+    float min_h = 1000.0f, max_h = ih;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        // y_n is merged under x_n's guard (gvom.py:655)
+        if (hv[w == 3 ? 1 : w] > unknown) {
+            min_h = min_nan(hv[w], min_h);
+            max_h = max_nan(hv[w], max_h);
+        }
+    }
+    const float dh = __fsub_rn(max_h, min_h);
+    return dh > 0.0f ? dh : 0.0f;
+}
+
+// whether the cell searches: no measured height, an inferred one
+__device__ __forceinline__ bool searches(const float* __restrict__ hm, const float* __restrict__ ihm, size_t i,
+                                         float unknown)
+{
+    return !(hm[i] > unknown) && ihm[i] != unknown;
+}
+
+// The reference's walk at one cell, its four wedges in one loop (the
+// global route)
 template <class H>
 __device__ __forceinline__ void search(const H& h, const float* __restrict__ ihm, int X, int R, float unknown,
                                        int x0, int y0, float* __restrict__ out)
@@ -130,76 +186,138 @@ __device__ __forceinline__ void search(const H& h, const float* __restrict__ ihm
         out[i0] = 0.0f;
         return;
     }
-    bool xp_done = false, xn_done = false, yp_done = false, yn_done = false;
-    float hxp = unknown, hxn = unknown, hyp = unknown, hyn = unknown;
-    for (int i = 1; i <= R && !(xn_done && yp_done && yn_done); ++i) {
-        if (!xp_done)
-            xp_done = x0 + i >= X || h.row(x0 + i, max(y0 - i, 0), min(y0 + i - 1, X - 1), unknown, &hxp);
-        if (!xn_done)
-            xn_done = x0 - i < 0 || h.row(x0 - i, max(y0 - i + 1, 0), min(y0 + i, X - 1), unknown, &hxn);
-        if (!yp_done)
-            yp_done = y0 + i >= X || h.col(y0 + i, max(x0 - i + 1, 0), min(x0 + i, X - 1), unknown, &hyp);
-        if (!yn_done)
-            yn_done = y0 - i < 0 || h.col(y0 - i, max(x0 - i, 0), min(x0 + i - 1, X - 1), unknown, &hyn);
+    bool done[4] = {false, false, false, false};
+    float hv[4] = {unknown, unknown, unknown, unknown};
+    for (int i = 1; i <= R && !(done[1] && done[2] && done[3]); ++i) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+            if (!done[w]) done[w] = wedge_step(h, w, i, x0, y0, X, unknown, &hv[w]);
     }
-
-    float min_h = 1000.0f, max_h = ih;
-    if (hxp > unknown) {
-        min_h = min_nan(hxp, min_h);
-        max_h = max_nan(hxp, max_h);
-    }
-    if (hxn > unknown) {
-        min_h = min_nan(hxn, min_h);
-        max_h = max_nan(hxn, max_h);
-    }
-    if (hyp > unknown) {
-        min_h = min_nan(hyp, min_h);
-        max_h = max_nan(hyp, max_h);
-    }
-    if (hxn > unknown) {   // y_n under x_n's guard (gvom.py:655)
-        min_h = min_nan(hyn, min_h);
-        max_h = max_nan(hyn, max_h);
-    }
-    const float dh = __fsub_rn(max_h, min_h);
-    out[i0] = dh > 0.0f ? dh : 0.0f;
+    out[i0] = guess_delta(ih, hv, unknown);
 }
 
-__global__ void __launch_bounds__(TILE * TILE) guess_staged_kernel(
+// One 32-cell word j of a staged line's next-known offsets, by one warp:
+// m is the ballot of the word's known cells (bit k: cell 32j + k), carry
+// the first known cell after the word (n if none); the lane's cell k gets
+// the first set bit at or after it, or the carry. Returns the carry of the
+// word before. The words of a line are taken from the end.
+__device__ __forceinline__ int word_offsets(unsigned m, int j, int lane, int n, int carry, int16_t* __restrict__ off)
+{
+    const int k = (j << 5) + lane;
+    const unsigned at = m >> lane;
+    if (k < n) *off = (int16_t)(at ? k + __ffs(at) - 1 : carry);
+    return m ? (j << 5) + __ffs(m) - 1 : carry;
+}
+
+// Wedge W of the cell (x0, y0) walked to the step at which it is done:
+// that step, with *v the height it found (if it found one), or R + 1
+template <int W, class H>
+__device__ __forceinline__ int walk(const H& h, int R, int x0, int y0, int X, float unknown, float* v)
+{
+    for (int i = 1; i <= R; ++i)
+        if (wedge_step(h, W, i, x0, y0, X, unknown, v)) return i;
+    return R + 1;
+}
+
+// The staged route: a block of TILE × TILE cells. After the staging, the
+// block lists its searching cells and walks each of their four wedges as
+// a task of its own, the tasks of one wedge after another (so a warp's
+// lanes run the same query, and no lane idles on a cell that does not
+// search). The reference's walk runs all four wedges until x_n, y_p and
+// y_n are done (x_p's done flag is never tested, gvom.py:581), so a cell's
+// walk ends at the last of those three steps (R if one never is), and
+// x_p's height counts only if x_p was done by then.
+__global__ void __launch_bounds__(STAGED_THREADS) guess_staged_kernel(
     const float* __restrict__ hm, const float* __restrict__ ihm, int X, int R, float unknown,
     float* __restrict__ out)
 {
+    constexpr int WARPS = STAGED_THREADS / 32, C = TILE * TILE;
     extern __shared__ float stage[];
+    __shared__ int firsts[4 * C];           // each task's done step
+    __shared__ float heights[4 * C];        // and the height it found
+    __shared__ unsigned short list[C];      // the searching cells
+    __shared__ int counts[C / 32];          // searching cells of each 32-cell group
     const int tx0 = blockIdx.y * TILE, ty0 = blockIdx.x * TILE;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int r0 = max(tx0 - R, 0), c0 = max(ty0 - R, 0);
     const int rows = min(tx0 + TILE - 1 + R, X - 1) - r0 + 1;
     const int cols = min(ty0 + TILE - 1 + R, X - 1) - c0 + 1;
     const int n = rows * cols;
-    const int tid = threadIdx.y * TILE + threadIdx.x;
+    // threads 0..C-1 hold a cell each: the idle test's loads and the staging
+    // copies, all in flight together
+    const int x0 = tx0 + tid / TILE, y0 = ty0 + tid % TILE;
+    const bool inside = tid < C && x0 < X && y0 < X;
+    const size_t i0 = (size_t)x0 * X + y0;
+    const bool searching = inside && searches(hm, ihm, i0, unknown);
+    for (int r = warp; r < rows; r += WARPS)
+        for (int c = lane; c < cols; c += 32)
+            __pipeline_memcpy_async(stage + r * cols + c, hm + (size_t)(r0 + r) * X + c0 + c, 4);
+    __pipeline_commit();
+    const unsigned group = __ballot_sync(0xffffffffu, searching);
+    if (tid < C && lane == 0) counts[warp] = __popc(group);
+    const bool any = __syncthreads_or(searching);
+    __pipeline_wait_prior(0);
+    if (!any) {
+        if (inside) out[i0] = 0.0f;
+        return;
+    }
+    __syncthreads();    // every thread's copies have landed
+    // the searching cells' list, in cell order
+    int pos = 0, count = 0;
+#pragma unroll
+    for (int g = 0; g < C / 32; ++g) {
+        pos += g < warp ? counts[g] : 0;
+        count += counts[g];
+    }
+    pos += __popc(group & ((1u << lane) - 1));
+    if (searching) list[pos] = (unsigned short)tid;
+    // every staged row's and column's next-known offsets, a warp a line
     int16_t* ny = reinterpret_cast<int16_t*>(stage + n);
     int16_t* nx = ny + n;
-    for (int t = tid; t < n; t += TILE * TILE)
-        stage[t] = hm[(size_t)(r0 + t / cols) * X + c0 + t % cols];
-    __syncthreads();
-    // one thread a staged row (then a staged column): the next known offset, backwards
-    for (int t = tid; t < rows + cols; t += TILE * TILE) {
-        if (t < rows) {
-            int next = cols;
-            for (int c = cols - 1; c >= 0; --c) {
-                if (stage[t * cols + c] > unknown) next = c;
-                ny[t * cols + c] = (int16_t)next;
-            }
-        } else {
-            const int c = t - rows;
-            int next = rows;
-            for (int r = rows - 1; r >= 0; --r) {
-                if (stage[r * cols + c] > unknown) next = r;
-                nx[r * cols + c] = (int16_t)next;
-            }
+    for (int r = warp; r < rows; r += WARPS) {
+        int carry = cols;
+        for (int j = (cols - 1) >> 5; j >= 0; --j) {
+            const int c = (j << 5) + lane;
+            const unsigned m = __ballot_sync(0xffffffffu, c < cols && stage[r * cols + c] > unknown);
+            carry = word_offsets(m, j, lane, cols, carry, ny + r * cols + c);
+        }
+    }
+    for (int c = warp; c < cols; c += WARPS) {
+        int carry = rows;
+        for (int j = (rows - 1) >> 5; j >= 0; --j) {
+            const int r = (j << 5) + lane;
+            const unsigned m = __ballot_sync(0xffffffffu, r < rows && stage[r * cols + c] > unknown);
+            carry = word_offsets(m, j, lane, rows, carry, nx + r * cols + c);
         }
     }
     __syncthreads();
-    const int x0 = tx0 + threadIdx.y, y0 = ty0 + threadIdx.x;
-    if (x0 < X && y0 < X) search(Staged{stage, ny, nx, rows, cols, r0, c0}, ihm, X, R, unknown, x0, y0, out);
+    // the tasks: wedge w of the searching cell list[k] is task w·count + k
+    const Staged h{stage, ny, nx, rows, cols, r0, c0};
+    for (int t = tid; t < 4 * count; t += STAGED_THREADS) {
+        const int w = t / count, cell = list[t - w * count];
+        const int x = tx0 + cell / TILE, y = ty0 + cell % TILE;
+        float v = unknown;
+        int first;
+        switch (w) {
+        case 0: first = walk<0>(h, R, x, y, X, unknown, &v); break;
+        case 1: first = walk<1>(h, R, x, y, X, unknown, &v); break;
+        case 2: first = walk<2>(h, R, x, y, X, unknown, &v); break;
+        default: first = walk<3>(h, R, x, y, X, unknown, &v); break;
+        }
+        firsts[t] = first;
+        heights[t] = v;
+    }
+    __syncthreads();
+    if (!inside) return;
+    if (!searching) {
+        out[i0] = 0.0f;
+        return;
+    }
+    const int steps = min(R, max(firsts[count + pos], max(firsts[2 * count + pos], firsts[3 * count + pos])));
+    float hv[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) hv[w] = firsts[w * count + pos] <= steps ? heights[w * count + pos] : unknown;
+    out[i0] = guess_delta(ihm[i0], hv, unknown);
 }
 
 __global__ void __launch_bounds__(TILE * TILE) guess_global_kernel(
@@ -218,7 +336,8 @@ __global__ void __launch_bounds__(TILE * TILE) guess_global_kernel(
 static size_t staged_bytes(int X, int R)
 {
     const long side = (long)TILE + 2L * R < X ? (long)TILE + 2L * R : X;
-    return (size_t)(side * side) * STAGED_BYTES;
+    // hm and two 16-bit offsets a cell
+    return (size_t)(side * side) * (sizeof(float) + 2 * sizeof(int16_t));
 }
 
 extern "C" int gvom_guess_height(const void* hm, const void* ihm, int X, int R, float unknown, void* out,
@@ -227,7 +346,7 @@ extern "C" int gvom_guess_height(const void* hm, const void* ihm, int X, int R, 
     const dim3 block(TILE, TILE), grid((X + TILE - 1) / TILE, (X + TILE - 1) / TILE);
     const size_t bytes = staged_bytes(X, R);
     if (bytes <= SHARED_MAX)
-        guess_staged_kernel<<<grid, block, bytes, (cudaStream_t)stream>>>(
+        guess_staged_kernel<<<grid, STAGED_THREADS, bytes, (cudaStream_t)stream>>>(
             (const float*)hm, (const float*)ihm, X, R, unknown, (float*)out);
     else
         guess_global_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(

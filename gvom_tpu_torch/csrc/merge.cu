@@ -34,6 +34,12 @@
 // streaming hints, every load of a voxel issued before its first use, and
 // each channel loaded only where it is needed.
 //
+// Past 256 z the column no longer fits in a lane's registers, and
+// merge_any_kernel takes the merge: one lane a z of each 32-z chunk, the
+// chunks a runtime loop, and two passes over the column, the first reading
+// the scalar channels for the column's heights, the second merging,
+// storing and adding the band sums, in the same arithmetic and order.
+//
 // In place: the merged hit, miss, min_height and moments are written over
 // the contribution's own buffers (each voxel is read and written by one
 // thread); the old world is only read. The origins, the old world's valid
@@ -166,6 +172,104 @@ __global__ void __launch_bounds__(256, 4) merge_kernel(
                     ot0, ot1, ot2, ego, k, lane, col, hm_o, ihm_o, pnum_o, pden_o, bok_o);
 }
 
+// what the column tail reads of one voxel
+struct Voxel {
+    int hs, ms, ev;
+    float mh;
+    bool occ2;
+};
+
+struct AnyArgs {
+    int* hit; int* miss; float* minh; float* mom;
+    const int* ohit; const int* omiss; const float* ominh; const int* oev; const float* omom;
+    int64_t V;
+    int decay;
+    int* ev_o;
+};
+
+// One voxel of merge_kernel's function. om: inside the two windows'
+// overlap; valid: the old world is. FULL: also the moments, and the merged
+// channels stored over the contribution's.
+template <bool FULL>
+__device__ __forceinline__ Voxel merge_voxel(const AnyArgs& a, bool om, bool valid, int64_t v)
+{
+    const bool ow = om && valid;
+    const int h = a.hit[v], m = a.miss[v];
+    const float mh = a.minh[v];
+    const int oh = ow ? a.ohit[v] : 0, oe = ow ? a.oev[v] : 0;
+    const bool occ = h > 0;
+    const bool old_occ = ow && oh > 0;
+    const bool revive = old_occ && !occ && m <= a.decay;
+    const bool occ2 = occ || revive;
+    const int old_ev = ow ? oe : 0;
+    const int evv = (!old_occ && old_ev > 0 && !occ2) ? m + old_ev : m;
+    const int ev = occ2 ? 0 : evv;
+    const bool msel = old_occ && occ2;
+    const int om_ = msel ? a.omiss[v] : 0;
+    const float omh = msel ? a.ominh[v] : 0.0f;
+    const int hs = h + (msel ? oh : 0), ms = m + (msel ? om_ : 0);
+    const float mhs = msel ? fminf(mh, omh) : mh;
+    if (FULL) {
+        const bool oo = om && occ2;
+#pragma unroll
+        for (int ch = 0; ch < 10; ++ch) {
+            float* p = a.mom + (int64_t)ch * a.V + v;
+            const float cm = occ ? *p : 0.0f;
+            const float ov = oo ? a.omom[(int64_t)ch * a.V + v] : 0.0f;
+            *p = __fadd_rn(occ ? cm : 0.0f, oo ? ov : 0.0f);
+        }
+        a.hit[v] = hs;
+        a.miss[v] = ms;
+        a.minh[v] = mhs;
+        __stcs(a.ev_o + v, ev);
+    }
+    return Voxel{hs, ms, ev, mhs, occ2};
+}
+
+// the merge for any Z: one warp a column, two passes over it (the header)
+__global__ void __launch_bounds__(256) merge_any_kernel(
+    const int* __restrict__ origin, const int* __restrict__ oorigin, const unsigned char* __restrict__ ovalid,
+    const float* __restrict__ ego, AnyArgs a, int X, int Ys, int Y, int Z, int y0, MergeConsts k,
+    float* __restrict__ hm_o, float* __restrict__ ihm_o, int* __restrict__ pnum_o, int* __restrict__ pden_o,
+    int* __restrict__ bok_o)
+{
+    const int lane = threadIdx.x & 31;
+    const int64_t col = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    if (col >= (int64_t)X * Ys) return;
+    const int x = (int)(col / Ys), yg = y0 + (int)(col % Ys);
+    const int ot0 = origin[0], ot1 = origin[1], ot2 = origin[2];
+    const bool valid = ovalid[0] != 0;
+    const bool okxy = axis_ok(x, ot0, oorigin[0], X) && axis_ok(yg, ot1, oorigin[1], Y);
+    const int d = ot2 - oorigin[2];
+    const int zlo = -min(d, 0), zhi = Z - max(d, 0);
+    const int ot2m = pmod(ot2, Z);
+
+    int best_sc = Z, best_sc2 = Z;
+    float best_mh = 0.0f;
+    for (int z0 = 0; z0 < Z; z0 += 32) {
+        const int z = z0 + lane;
+        if (z >= Z) continue;
+        const int pz = z >= ot2m ? z - ot2m : z - ot2m + Z;
+        const Voxel r = merge_voxel<false>(a, okxy && pz >= zlo && pz < zhi, valid, col * Z + z);
+        if (r.occ2 && pz < best_sc) { best_sc = pz; best_mh = r.mh; }
+        if (!r.occ2 && r.ev > 0 && pz < best_sc2) best_sc2 = pz;
+    }
+    const ColumnHeights c = column_heights(best_sc, best_mh, best_sc2, Z, pmod(x - ot0, X), pmod(yg - ot1, Y),
+                                           ot0, ot1, ot2, ego, k);
+    int num = 0, den = 0;
+    for (int z0 = 0; z0 < Z; z0 += 32) {
+        const int z = z0 + lane;
+        if (z >= Z) continue;
+        const int pz = z >= ot2m ? z - ot2m : z - ot2m + Z;
+        const Voxel r = merge_voxel<true>(a, okxy && pz >= zlo && pz < zhi, valid, col * Z + z);
+        if (in_band(c, k, r.occ2, r.hs, pz)) {
+            num += r.hs;
+            den += r.hs + r.ms;
+        }
+    }
+    column_write(c, num, den, lane, col, hm_o, ihm_o, pnum_o, pden_o, bok_o);
+}
+
 struct Args {
     const int* origin; const int* oorigin; const unsigned char* ovalid; const float* ego;
     int* hit; int* miss; float* minh; float* mom;
@@ -197,12 +301,23 @@ extern "C" int gvom_merge_batch(
     float zres, float xyres, float inv_z, float pot, float rh, float rr2, float g2l, float unknown,
     int decay, int hct, void* ev_o, void* cols, void* bands, void* stream)
 {
-    if (Z > 256 || Z < 1 || y0 < 0 || y0 + Ys > Y) return (int)cudaErrorInvalidValue;
+    if (Z < 1 || y0 < 0 || y0 + Ys > Y) return (int)cudaErrorInvalidValue;
     const int64_t n2 = (int64_t)X * Ys;
+    const MergeConsts k{{zres, xyres, inv_z, pot, rh, rr2, g2l, unknown, hct}, decay};
+    if (Z > 256) {
+        const AnyArgs a{(int*)hit, (int*)miss, (float*)minh, (float*)mom,
+                        (const int*)ohit, (const int*)omiss, (const float*)ominh, (const int*)oev, (const float*)omom,
+                        n2 * Z, decay, (int*)ev_o};
+        const int warps = 8;
+        merge_any_kernel<<<(unsigned)((n2 + warps - 1) / warps), warps * 32, 0, (cudaStream_t)stream>>>(
+            (const int*)origin, (const int*)oorigin, (const unsigned char*)ovalid, (const float*)ego, a,
+            X, Ys, Y, Z, y0, k, (float*)cols, (float*)cols + n2, (int*)bands, (int*)bands + n2, (int*)bands + 2 * n2);
+        return (int)cudaGetLastError();
+    }
     Args a{(const int*)origin, (const int*)oorigin, (const unsigned char*)ovalid, (const float*)ego,
            (int*)hit, (int*)miss, (float*)minh, (float*)mom,
            (const int*)ohit, (const int*)omiss, (const float*)ominh, (const int*)oev, (const float*)omom,
-           X, Ys, Y, Z, y0, MergeConsts{{zres, xyres, inv_z, pot, rh, rr2, g2l, unknown, hct}, decay},
+           X, Ys, Y, Z, y0, k,
            (int*)ev_o, (float*)cols, (float*)cols + n2, (int*)bands, (int*)bands + n2, (int*)bands + 2 * n2};
     const bool pair = Z % 2 == 0 && Z <= 64 &&
                       aligned8(hit) && aligned8(miss) && aligned8(minh) && aligned8(mom) &&

@@ -93,6 +93,7 @@ class Gvom:
         self.device = resolve_device(device)
         self._stream = None
         if self.device.type == "cuda":
+            kernels.check_card_limits(self.config)
             kernels.build_all(self.config)     # nvcc at start-up, never on the map path
             self._stream = torch.cuda.current_stream(self.device)
         self._lock = threading.Lock()          # state: buffer writes, world swaps

@@ -81,6 +81,8 @@ __all__ = [
     "CudaKernel",
     "KERNELS",
     "build_all",
+    "check_card_limits",
+    "check_batch",
     "reset_launches",
     "prepare_points",
     "ray_pass_counts",
@@ -205,9 +207,11 @@ RAY = CudaKernel(
     f"{_PK}:335 (_run_hist, via ray_pass_counts_matmul :510) and {_PK}:478 (_run_hist_steppair)")
 BIN = CudaKernel("bin_points", *_BIN_ARGS, f"{_PK}:1510 (fused_point_moments)")
 EPI = CudaKernel("ingest_epilogue", *_EPI_ARGS, f"{_PK}:1459 (_xbox_epilogue_into)")
-# K4 unrolls its slot loops: one library per ring-buffer depth B, the
-# upstream B = 4 built by build_all(), another by build_all(cfg) (the Gvom
-# facade calls it when it is made on the card) or at first use
+# K4 unrolls its slot loops: one library per ring-buffer depth B up to
+# CMB_MAX_B, the upstream B = 4 built by build_all(), another by
+# build_all(cfg) (the Gvom facade calls it when it is made on the card) or at
+# first use. Every library also holds the form with a runtime slot loop,
+# which takes any deeper buffer, and any z_size past 256
 CMB_MAX_B = 16
 CMB = CudaKernel(
     "combine", "combine.cu", "gvom_combine",
@@ -258,6 +262,39 @@ def build_all(cfg: Optional[GvomConfig] = None) -> Dict[str, str]:
     procs = {key: k.start_build(key[1]) for key, k in builds.items()}
     reports = {key: k.finish_build(procs[key]) for key, k in builds.items()}
     return {k.name: reports[(k.source, k.defines)] for k in KERNELS}
+
+
+def check_card_limits(cfg: GvomConfig, slab: bool = False) -> None:
+    """Raise ValueError naming the limit when cfg is past what the kernels'
+    int32 indexing takes: the grid's X·Y·Z voxels and K2's padded moment
+    scratch (X+2rx)·(Y+2ry)·(Z+2rz), or with `slab` the slab scratch's
+    Y + 4ry rows, below 2^31 - 1. The entry points call it when they are
+    made on the card, before any state is allocated; the plain versions on
+    the CPU have no such limit. A batch's scans are checked by the batched
+    step when it gets them (check_batch)."""
+    X, Y, Z = cfg.grid_shape
+    rx, ry, rz = binning.moment_pad(cfg)
+    if X * Y * Z >= INT32_LIMIT:
+        raise ValueError(f"grid {X}x{Y}x{Z} has {X * Y * Z} voxels; the CUDA kernels index them in int32, "
+                         f"below {INT32_LIMIT}")
+    padded = (X + 2 * rx) * (Y + (4 if slab else 2) * ry) * (Z + 2 * rz)
+    if padded >= INT32_LIMIT:
+        raise ValueError(f"the moment scratch of grid {X}x{Y}x{Z} at eigen distances ({cfg.xy_eigen_dist}, "
+                         f"{cfg.z_eigen_dist}) has {padded} cells; K2 indexes it in int32, below {INT32_LIMIT}")
+
+
+def check_batch(S: int, N: int) -> None:
+    """Raise ValueError when a batch of S scans of N points is past what the
+    kernels take: S scans in one raycast launch (a grid's y dimension, at
+    most RAY_MAX_SCANS) and S·N points in one K2 launch (int32)."""
+    if S > RAY_MAX_SCANS:
+        raise ValueError(f"a batch of {S} scans; one raycast launch takes at most {RAY_MAX_SCANS}")
+    if S * N >= INT32_LIMIT:
+        raise ValueError(f"a batch of {S} scans of {N} points; K2 indexes the points in int32, below {INT32_LIMIT}")
+
+
+INT32_LIMIT = 2 ** 31 - 1
+RAY_MAX_SCANS = 65535
 
 
 def reset_launches() -> None:
@@ -489,7 +526,10 @@ def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ori
 
 
 def _combine_defines(cfg: GvomConfig) -> tuple:
-    return (f"-DGVOM_COMBINE_B={cfg.buffer_size}",)
+    """K4's library for cfg: its unrolled depth, or past CMB_MAX_B the
+    up-front library, whose runtime slot loop takes any depth."""
+    B = cfg.buffer_size
+    return (f"-DGVOM_COMBINE_B={B}",) if B <= CMB_MAX_B else CMB.defines
 
 
 def combine(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch.Tensor):
@@ -516,8 +556,6 @@ def combine_launch(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch
     dev = buf.grids.hit.device
     B = cfg.buffer_size
     X, Y, Z = cfg.grid_shape
-    if not 1 <= B <= CMB_MAX_B or Z > 256:
-        raise ValueError(f"combine: buffer_size {B} and z_size {Z}; the kernel takes 1..{CMB_MAX_B} and up to 256")
     g, w = buf.grids, world.grid
     for nm, t, dt in (("hit", g.hit, torch.int32), ("miss", g.miss, torch.int32),
                       ("min_height", g.min_height, torch.float32)):
@@ -641,8 +679,6 @@ def merge_batch(cfg: GvomConfig, world, contrib: VoxelGrid, ego: torch.Tensor, y
     _check("ego", ego, torch.float32, (3,), dev)
     if _is_cpu(contrib.hit):
         return sharding.merge_and_columns_plain(cfg, world, contrib, ego, y0)
-    if Z > 256:
-        raise ValueError(f"merge_batch: z_size {Z}; the kernel takes up to 256")
     ev = torch.empty((X, Ys, Z), dtype=torch.int32, device=dev)
     cols = torch.empty((2, X, Ys), dtype=torch.float32, device=dev)
     bands = torch.empty((3, X, Ys), dtype=torch.int32, device=dev)

@@ -195,7 +195,9 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
     [X, Ys, Z] (shard_world; mom [10, X, Ys, Z]) and its shard of the batch
     (shard_batch), and gets its new slab and the full products. `ingest` is
     "slab" (the default, "auto") or "scatter" (the module docstring). The
-    grid's y size must divide by the space axis.
+    grid's y size must divide by the space axis. On the card, a grid past
+    the kernels' int32 indexing is refused here (kernels.check_card_limits)
+    and a batch past them when the step gets it (kernels.check_batch).
 
     All scans of a batch rasterize at the LAST scan's origin, so earlier
     egos can sit anywhere in the grid, and the centered-ego DDA budget
@@ -215,6 +217,7 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
     ywin = (rows.start, Ys) if slab and nsp > 1 else None
     scan_axis = DATA_AXIS if slab else None
     if dev.type == "cuda":
+        kernels.check_card_limits(cfg, slab=ywin is not None)
         kernels.build_all()      # nvcc at start-up, never inside a step
     if cfg.ray_steps_override is None:
         cfg = dataclasses.replace(cfg, ray_steps_override=max(cfg.xy_size, cfg.z_size) + 4)
@@ -227,6 +230,8 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
         if tuple(world.grid.hit.shape) != (X, Ys, Z):
             raise ValueError(f"world of shape {tuple(world.grid.hit.shape)}; this rank's slab is {(X, Ys, Z)}")
         S, N = valid.shape
+        if dev.type == "cuda":
+            kernels.check_batch(S, N)
         egos = egos.float().contiguous()
         # ---- the common frame: the origin of the batch's globally last scan ----
         ego_last = mesh.all_gather(egos, scan_axis, 0)[-1]

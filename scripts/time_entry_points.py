@@ -33,8 +33,9 @@ of its path: the point preparation of the scan and of the batch (with the
 dead-scan mask), where the commit has it; K1 on the scan and on the slab; K2
 on the scan, on the slab and on a batch's merged points; K3 into a
 ring-buffer slot; K5 with the mask off on the batch's sums; the slab
-epilogue (mask on); and the pairs K2 then K3 (the scan) and K2 then K5 (the
-batch). Each epilogue takes its own commit's K2 sums. The batch is
+epilogue (mask on); the pairs K2 then K3 (the scan) and K2 then K5 (the
+batch); K4 on the ring buffer that holds the scan (its launch alone,
+kernels.combine_launch); and the guess height on that combine's maps. Each epilogue takes its own commit's K2 sums. The batch is
 chip_smoke.py's second batched step: 8 scans made in worker processes,
 repeated to 32 with moving egos; --batch-cache keeps its points in a file,
 written when it is missing.
@@ -207,6 +208,10 @@ def main(argv=None) -> int:
 
     out["combine_launches"], out["combine_f64_launches"] = count_launches(
         lambda: pipeline.combine(cfg, buf, world, ego))
+    target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
+    k4_launch, _ = kernels.combine_launch(cfg, buf, world, target, ego)
+    _, products, _ = pipeline.combine(cfg, buf, world, ego)
+    hm, ihm = products.height.contiguous(), products.inferred_height.contiguous()
 
     # ---- each kernel's launches alone ----
     X, Y, Z = cfg.grid_shape
@@ -244,6 +249,8 @@ def main(argv=None) -> int:
         "K5_slab_mask_on": lambda: kernels.moments_epilogue(cfg, slab_bins.sums, slab_bins.hit, origin, yw),
         "K2_then_K3_scan": k2_k3,
         "K2_then_K5_batch": k2_k5,
+        "K4_combine": k4_launch,
+        "guess_height": lambda: kernels.guess_height(cfg, hm, ihm),
     }
     if world_k2:
         launches["prepare_scan"] = lambda: kernels.prepare_points(cfg, pts[None], valid[None], ego[None], frame_ego=ego)

@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""The guess-height kernel's two routes on one NVIDIA GPU.
+"""The guess-height kernel's routes on one NVIDIA GPU, and against a parent tree's.
 
-    python3 scripts/time_guess_routes.py [--scans N]
+    python3 scripts/time_guess_routes.py [--scans N] [--parent DIR]
 
 gvom_tpu_torch/csrc/guess.cu answers a wedge query in one of two ways,
 chosen by the launcher from the map's width X and the search radius R: with
-the block's tile, its R-cell halo and each staged row's and column's
-next-known offsets in shared memory (two shared loads a query; the route of
-the upstream R = 15), or by walking the wedge cell by cell in global memory
-(the route when that region would not fit in 48 KB). This script builds the
-source as committed and with its shared-memory limit set to 0, so that every
-launch walks in global memory, holds the two builds bit for bit against
-each other, and times both in turns (committed, walk, walk, committed) with
-the launches alone captured in a CUDA graph: on the height and
-inferred-height maps of the upstream deployment's combine (the Gvom facade
-after N synthetic OS1-128 scans at 256×256×64) and on the nine seeded
-patterns of io.synthetic.stencil_maps at 256×256, R = 15. It prints one
-JSON line and the card's name and power limit.
+the block's tile, its R-cell halo and each staged row's and column's known
+bits in shared memory (the route of the upstream R = 15), or by walking the
+wedge cell by cell in global memory (the route when that region would not
+fit in 48 KB). This script builds the source as committed and with its
+shared-memory limit set to 0, so that every launch walks in global memory,
+and, with --parent, the guess.cu of the checkout at DIR (unpack the parent
+commit there with git archive). It holds the builds bit for bit against
+each other and times them in turns (parent, committed, walk, walk,
+committed, parent) with the launches alone captured in a CUDA graph: on the
+height and inferred-height maps of the upstream deployment's combine (the
+Gvom facade after N synthetic OS1-128 scans at 256×256×64) and on the nine
+seeded patterns of io.synthetic.stencil_maps at 256×256, R = 15. For each
+map it counts the cells that search (no measured height, an inferred one).
+It prints one JSON line and the card's name and power limit.
 """
+
 
 import argparse
 import json
@@ -32,6 +35,7 @@ sys.path.insert(0, str(ROOT))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=4)
+    ap.add_argument("--parent", help="a checkout whose gvom_tpu_torch/csrc/guess.cu is timed beside this one's")
     args = ap.parse_args()
     import torch
 
@@ -45,7 +49,7 @@ def main() -> int:
     from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 
     src = kernels.GUESS.source.read_text()
-    limit = "constexpr int SHARED_MAX = 48 * 1024;"
+    limit = "constexpr int SHARED_MAX = 48 * 1024 - TILE * TILE * (4 * 8 + 2) - TILE * TILE / 32 * 4;"
     if limit not in src:
         raise SystemExit(f"time_guess_routes: {limit!r} is not in {kernels.GUESS.source}")
     walk_src = ROOT / "gvom_tpu_torch" / "_build" / "guess_walk_global.cu"
@@ -54,6 +58,12 @@ def main() -> int:
     walk = kernels.CudaKernel("guess_walk_global", "guess.cu", kernels.GUESS.entry, kernels.GUESS.argtypes,
                               "the committed kernel with every launch on the global-memory walk")
     walk.source = walk_src
+    builds = {"committed": None, "walk": walk}
+    if args.parent:
+        parent = kernels.CudaKernel("guess_parent", "guess.cu", kernels.GUESS.entry, kernels.GUESS.argtypes,
+                                    "the parent tree's kernel")
+        parent.source = Path(args.parent).resolve() / "gvom_tpu_torch" / "csrc" / "guess.cu"
+        builds["parent"] = parent
 
     cfg = GvomConfig()
     g = Gvom(config=cfg)
@@ -64,25 +74,32 @@ def main() -> int:
     for pattern in STENCIL_PATTERNS:
         maps[pattern] = tuple(torch.from_numpy(a).cuda() for a in stencil_maps(pattern, cfg.xy_size, 0))
 
-    def run_walk(hm, ihm):
-        out = torch.empty_like(hm)
-        walk.launch(kernels._ptr(hm), kernels._ptr(ihm), cfg.xy_size, cfg.guess_search_radius, UNKNOWN_HEIGHT,
-                    kernels._ptr(out), kernels._stream())
-        return out
+    def runner(k, hm, ihm):
+        if k is None:
+            return lambda: kernels.guess_height(cfg, hm, ihm)
 
+        def run():
+            out = torch.empty_like(hm)
+            k.launch(kernels._ptr(hm), kernels._ptr(ihm), cfg.xy_size, cfg.guess_search_radius, UNKNOWN_HEIGHT,
+                     kernels._ptr(out), kernels._stream())
+            return out
+        return run
+
+    order = (["parent"] if args.parent else []) + ["committed", "walk", "walk", "committed"] + (
+        ["parent"] if args.parent else [])
     res = {}
     for name, (hm, ihm) in maps.items():
-        committed = lambda: kernels.guess_height(cfg, hm, ihm)
-        walked = lambda: run_walk(hm, ihm)
-        a, b = committed(), walked()
-        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            raise SystemExit(f"time_guess_routes: the two routes differ on {name}")
-        t = {"committed": [], "walk": []}
-        for which, fn in (("committed", committed), ("walk", walked), ("walk", walked), ("committed", committed)):
-            t[which].append(chip_smoke.graph_ms(fn, 200)[0])
+        fns = {b: runner(k, hm, ihm) for b, k in builds.items()}
+        ref = fns["committed"]()
+        for b, fn in fns.items():
+            if not torch.equal(fn().view(torch.int32), ref.view(torch.int32)):
+                raise SystemExit(f"time_guess_routes: {b} differs from the committed kernel on {name}")
+        t = {b: [] for b in builds}
+        for b in order:
+            t[b].append(chip_smoke.graph_ms(fns[b], 200)[0])
         res[name] = dict(t, cells_that_search=int(((hm <= UNKNOWN_HEIGHT) & (ihm != UNKNOWN_HEIGHT)).sum()))
-        print(f"{name}: committed {t['committed']} ms, global walk {t['walk']} ms "
-              f"({res[name]['cells_that_search']} cells search)", flush=True)
+        print(f"{name}: " + ", ".join(f"{b} {v} ms" for b, v in t.items())
+              + f" ({res[name]['cells_that_search']} cells search)", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"guess_routes_ms": res, "R": cfg.guess_search_radius, "X": cfg.xy_size}))

@@ -150,14 +150,15 @@ def test_column_products_random(small_cfg, seed):
     assert (hm > -1000).any() and (ihm > -1000).any() and ((pos > 0) & (pos < 100)).any()
 
 
-@pytest.mark.parametrize("buffer_size", [1, 5])
+@pytest.mark.parametrize("buffer_size", [1, 5, 17])
 def test_fuse_plain_at_other_buffer_depths(buffer_size):
     """fuse_plain (the plain twin of K4, which the kernel instantiates once per
-    ring-buffer depth B) against gvom_tpu's combine(impl="xla") at B = 1 and
-    B = 5 on a small grid, over a drive of 3 scans with a moving ego: B = 1
-    replaces its one slot every scan, B = 5 never wraps. The world channels
-    are held as torch_helpers states, the products bitwise but for the
-    slopes and roughness."""
+    ring-buffer depth B up to 16 and takes in a runtime slot loop past it)
+    against gvom_tpu's combine(impl="xla") at B = 1, 5 and 17 on a small
+    grid, over a drive of 3 scans with a moving ego: B = 1 replaces its one
+    slot every scan, B = 5 and 17 never wrap. The world channels are held
+    as torch_helpers states, the products bitwise but for the slopes and
+    roughness."""
     from gvom_tpu.config import GvomConfig
 
     cfg = GvomConfig(xy_size=32, z_size=16, max_points=1024, buffer_size=buffer_size)
@@ -181,3 +182,38 @@ def test_fuse_plain_at_other_buffer_depths(buffer_size):
             np.testing.assert_array_equal(a.numpy(), convert.to_numpy(tworld)[name], err_msg=name)
         assert_products_equal(products_numpy(tprod), products_numpy(jprod), f"B={buffer_size}, scan {i}")
     assert (ref["hit"] > 0).sum() > 50
+
+
+def test_fuse_plain_past_256_z():
+    """fuse_plain and the combine at 16×16×320 (the kernel's two-pass form
+    past 256 z) against gvom_tpu's combine(impl="xla"), over a drive of 3
+    scans. Each combine takes JAX's own ring buffer (from_jax_numpy) and the
+    port's world, so the combine is held on the same slots as JAX's; on
+    this grid the raycast meets fault C4 (ROADMAP §C,
+    test_torch_raycast.py::test_raycast_knife_edge_follows_the_oracle)."""
+    from gvom_tpu.config import GvomConfig
+
+    cfg = GvomConfig(xy_size=16, z_size=320, max_points=1024, buffer_size=4)
+    c = tcfg(cfg)
+    ingest, combine = jax_ingest(cfg), jax_combine(cfg)
+    jbuf, jworld = jempty_buffer(cfg), jempty_world(cfg)
+    tworld = empty_world_state(c, "cpu")
+    for i in range(3):
+        ego = np.array([0.3, -0.2, 1.5]) + i * np.array([0.9, 0.6, 0.02])
+        pad, mask = scan(cfg, i, ego)
+        e = np.float32(ego)
+        jbuf, _ = ingest(jbuf, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
+        jworld, jprod, _ = combine(jbuf, jworld, jnp.asarray(e))
+        tbuf = convert.from_jax_numpy(jax_numpy(jbuf), "cpu")
+        target = tbuf.grids.origin[int(tbuf.last_slot)]
+        fused = tpipeline.fuse_plain(c, tbuf, tworld, target, t(e))
+        tworld, tprod, _ = tpipeline.combine(c, tbuf, tworld, t(e))
+        ref = convert.logical_from_jax_numpy(jax_numpy(jworld))
+        assert_state_equal(convert.to_numpy(tworld), ref, f"world after scan {i}")
+        for name, a in zip(("hit", "miss", "min_height", "evidence", "mom"), fused[:5]):
+            np.testing.assert_array_equal(a.numpy(), convert.to_numpy(tworld)[name], err_msg=name)
+        assert_products_equal(products_numpy(tprod), products_numpy(jprod), f"scan {i}")
+    assert (ref["hit"] > 0).sum() > 50
+    # the window's occupied voxels reach past z = 256
+    assert (ref["hit"][:, :, 256:] > 0).any() or (ref["miss"][:, :, 256:] > 0).any()
+    assert (tprod.height.numpy() > -1000).any() and (tprod.inferred_height.numpy() > -1000).any()

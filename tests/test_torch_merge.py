@@ -56,16 +56,17 @@ def _same(what, got, ref):
     np.testing.assert_array_equal(_bits(got), _bits(ref), err_msg=what)
 
 
-def _merge_inputs(case, seed=0):
-    """(world, contrib, ego) in numpy: an old world at OLD_ORIGIN with its
-    moments masked by its occupancy, and a batch contribution at the moved
-    origin whose raw moments are nonzero within a voxel of its hits."""
+def _merge_inputs(case, seed=0, shape=(X, X, Z), zlo=0):
+    """(world, contrib, ego) in numpy on a grid of `shape`: an old world at
+    OLD_ORIGIN with its moments masked by its occupancy, and a batch
+    contribution at the moved origin whose raw moments are nonzero within a
+    voxel of its hits; hits only at torus z >= zlo."""
     d_origin, valid = MERGE_CASES[case]
     rng = np.random.default_rng([seed, list(MERGE_CASES).index(case)])
-    shape = (X, X, Z)
+    high = np.arange(shape[2]) >= zlo
 
     def channels(p):
-        hit = np.where(rng.random(shape) < p, rng.integers(1, 30, shape), 0).astype(np.int32)
+        hit = np.where((rng.random(shape) < p) & high, rng.integers(1, 30, shape), 0).astype(np.int32)
         return hit, rng.integers(0, 25, shape).astype(np.int32), rng.random(shape).astype(np.float32)
 
     hit, miss, minh = channels(0.06)
@@ -81,7 +82,8 @@ def _merge_inputs(case, seed=0):
     origin = np.array(OLD_ORIGIN, np.int32) + np.array(d_origin, np.int32)
     cmom = (rng.normal(size=(10,) + shape) * near).astype(np.float32)
     contrib = dict(hit=chit, miss=cmiss, min_height=cminh, mom=cmom, origin=origin)
-    ego = ((origin + np.array([X / 2 + 0.3, X / 2 - 0.6, Z / 2], np.float32)) * np.float32(0.4)).astype(np.float32)
+    n, _, nz = shape
+    ego = ((origin + np.array([n / 2 + 0.3, n / 2 - 0.6, nz / 2], np.float32)) * np.float32(0.4)).astype(np.float32)
     return world, contrib, ego
 
 
@@ -97,20 +99,20 @@ def _torch_state(world, contrib, rows=slice(None)):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_columns():
+def _jax_columns(jcfg=JCFG):
     def f(occ2, minh, ev, hit, total, origin, ego, ys, sx_t, sy_t):
         p = jgrid.pack_yz
-        hm = jmaps2d.height_map(JCFG, p(occ2), p(minh), origin, ego, y_coords=ys)
-        ihm = jmaps2d.inferred_height_map(JCFG, p(occ2), p(ev), origin)
-        pos = jmaps2d.positive_obstacle_map(JCFG, p(occ2), p(hit), p(total), hm, sx_t, sy_t, origin)
+        hm = jmaps2d.height_map(jcfg, p(occ2), p(minh), origin, ego, y_coords=ys)
+        ihm = jmaps2d.inferred_height_map(jcfg, p(occ2), p(ev), origin)
+        pos = jmaps2d.positive_obstacle_map(jcfg, p(occ2), p(hit), p(total), hm, sx_t, sy_t, origin)
         return hm, ihm, pos
 
     return jax.jit(f)
 
 
-def _slopes(seed):
+def _slopes(seed, n=X):
     rng = np.random.default_rng(seed)
-    return tuple(rng.normal(0.0, 0.2, (X, X)).astype(np.float32) for _ in range(2))
+    return tuple(rng.normal(0.0, 0.2, (n, n)).astype(np.float32) for _ in range(2))
 
 
 @pytest.mark.parametrize("case", list(MERGE_CASES))
@@ -118,30 +120,48 @@ def test_merge_twin_column_maps_against_jax(case):
     """The twin's merged channels are merge_batch_plain's; its height,
     inferred height and, through the maps' tail, positive obstacle are the
     JAX package's functions of the same merged world, bitwise."""
-    world, contrib, ego = _merge_inputs(case)
+    _merge_twin_against_jax(case, CFG, JCFG)
+
+
+def test_merge_twin_past_256_z():
+    """The same at 16×16×320, where the merge kernel takes its two-pass
+    form, with hits only at torus z >= 270: the heights and the band sums
+    come from voxels past z = 256 of the window."""
+    n, nz = 16, 320
+    cols = _merge_twin_against_jax("moved", GvomConfig(xy_size=n, z_size=nz, max_points=4096, buffer_size=3),
+                                   JaxConfig(xy_size=n, z_size=nz, max_points=4096, buffer_size=3), zlo=270)
+    lowest = (cols[0].numpy() / np.float32(0.4)).max() - (OLD_ORIGIN[2] + MERGE_CASES["moved"][0][2])
+    assert lowest > 256
+
+
+def _merge_twin_against_jax(case, cfg, jcfg, zlo=0):
+    """Returns the twin's column maps."""
+    X, _, Z = cfg.grid_shape
+    world, contrib, ego = _merge_inputs(case, shape=cfg.grid_shape, zlo=zlo)
     w, c = _torch_state(world, contrib)
-    merged, evidence, cols, bands = merge_and_columns_plain(CFG, w, c, torch.from_numpy(ego), 0)
-    ref_merged, ref_ev, occ2 = merge_batch_plain(CFG, w, c)
+    merged, evidence, cols, bands = merge_and_columns_plain(cfg, w, c, torch.from_numpy(ego), 0)
+    ref_merged, ref_ev, occ2 = merge_batch_plain(cfg, w, c)
     for name in ("hit", "miss", "min_height", "mom", "origin"):
         _same(f"{case}: {name}", getattr(merged, name), getattr(ref_merged, name))
     _same(f"{case}: evidence", evidence, ref_ev)
     assert cols.shape == (2, X, X) and bands.shape == (3, X, X) and bands.dtype == torch.int32
-    sx, sy = _slopes(1)
+    sx, sy = _slopes(1, X)
     origin = contrib["origin"]
     sx_t, sy_t = (np.asarray(jgrid.window_to_torus(jnp.asarray(s), origin, grid_ndim=2)) for s in (sx, sy))
     hit, miss = merged.hit.numpy(), merged.miss.numpy()
-    hm, ihm, pos_t = _jax_columns()(occ2.numpy(), merged.min_height.numpy(), evidence.numpy(), hit, hit + miss,
-                                    origin, ego, np.arange(X, dtype=np.int32), sx_t, sy_t)
+    hm, ihm, pos_t = _jax_columns(jcfg)(occ2.numpy(), merged.min_height.numpy(), evidence.numpy(), hit,
+                                        hit + miss, origin, ego, np.arange(X, dtype=np.int32), sx_t, sy_t)
     _same(f"{case}: height", cols[0], hm)
     _same(f"{case}: inferred height", cols[1], ihm)
     hm_w, _ = maps2d.maps_to_window_plain(cols[0], cols[1], c.origin)
-    pos, _, _ = maps2d.map_products_plain(CFG, bands[0], bands[1], bands[2], torch.from_numpy(sx),
+    pos, _, _ = maps2d.map_products_plain(cfg, bands[0], bands[1], bands[2], torch.from_numpy(sx),
                                           torch.from_numpy(sy), torch.zeros((X, X)), hm_w, c.origin)
     _same(f"{case}: positive obstacle", pos, jgrid.torus_to_window(pos_t, origin, grid_ndim=2))
     occupied = occ2.numpy().any(-1)
     assert occupied.mean() > 0.5 and (bands[2].numpy() > 0).any() and (bands[0].numpy() > 0).any()
     # old voxels join the merge where the windows overlap and the old world is valid
     assert bool((merged.hit > c.hit).any()) == (case in ("moved", "z shift"))
+    return cols
 
 
 @pytest.mark.parametrize("case", ["moved", "z shift"])

@@ -31,7 +31,7 @@ from conftest import make_scan
 from torch_helpers import MOM_ATOL, MOM_RTOL, convert, jax_numpy, t, tcfg
 
 
-@pytest.mark.parametrize("xye,ze", [(1, 1), (2, 1), (0, 0)])
+@pytest.mark.parametrize("xye,ze", [(1, 1), (2, 1), (0, 0), (1, 9), (8, 1)])
 def test_binning_and_box_moments(xye, ze):
     cfg = GvomConfig(xy_size=32, z_size=16, max_points=2048, xy_eigen_dist=xye, z_eigen_dist=ze)
     ego = np.array([0.3, -0.2, 1.5])

@@ -108,6 +108,25 @@ def test_raycast_knife_edge_dominant_row_exact():
     assert out[4 + 27].sum() == 1 and out[4 + 28].sum() == 1
 
 
+def test_raycast_knife_edge_follows_the_oracle():
+    """Fault C4 (ROADMAP §C): on a 16×16×32 grid with the ego at (1.2, 0.4,
+    1.52) two diagonal rays (step_y = 1 − 2⁻²³) reach y = 13 − 5·2⁻²³ at
+    step 5. The JAX package's rule, start_rel + fl(k·step) with the product
+    rounded (an optimization_barrier), gives 13.0; the jitted XLA:CPU path
+    contracts it into an FMA anyway and gives 13 − 2⁻²⁰, one row lower. The
+    port and the NumPy oracle follow the rule: they agree bit for bit, and
+    the JAX path differs from both at those four voxels."""
+    from torch_helpers import scan
+
+    cfg = GvomConfig(xy_size=16, z_size=32, max_points=1024, buffer_size=4)
+    ego = np.array([0.3, -0.2, 1.5]) + np.array([0.9, 0.6, 0.02])
+    pad, mask = scan(cfg, 1, ego)
+    ref, out, origin = both_raycasts(cfg, pad, mask, ego)
+    orc = NumpyOracle(cfg).process_pointcloud(pad[mask], ego)
+    np.testing.assert_array_equal(canonical(out, origin), orc.passes)
+    assert (out != ref).sum() == 4 and out.sum() == ref.sum()
+
+
 @pytest.mark.parametrize("egoi", [0, 1, 2])
 def test_ray_geometry_length_and_budget_bitwise(scene, egoi):
     """length and budget (the liveness bound of every step) round exactly
