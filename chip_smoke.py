@@ -15,7 +15,10 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      bit for bit; also on one scan with a general quaternion transform, with
      ego_relative_min_distance and with a pinned origin, on the 32-scan batch
      with a dead scan, and on points on voxel faces, at min_distance, at
-     ±1e9, ±inf and NaN, valid and not), K1 pass counts (from points: the
+     ±1e9, ±inf and NaN, valid and not; on scans of n % 4 != 0 points, on a
+     scan off the 16-byte grid, on a batch with every scan dead, and on
+     batches back to back on two streams; one launch a call, by the
+     launch count and torch.profiler), K1 pass counts (from points: the
      kernel builds the ray geometry), K2 hit and min_height and the moment count n, and every K4 output bitwise (its
      moments too); the other moment channels within MOM_RTOL / MOM_ATOL (f32
      sums in another order), K2's where n > 0, the only voxels where its
@@ -33,9 +36,10 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      by side against ingest_scan(). K1 on a near-tier scene (every ray
      shorter than 30 steps, the tier of the JAX package's step-pair kernel).
      The 2-D stencils bit for bit against their plain versions: the plane
-     fit (csrc/planefit.cu, the whole 3×3 fit from the height map) and the
-     guess height (csrc/guess.cu) on each combine's height and
-     inferred-height maps, and on the seeded maps of
+     fit (csrc/planefit.cu, the torus-layout column maps moved to the window
+     layout as its load, then the whole 3×3 fit) and the guess height
+     (csrc/guess.cu, the positive and negative obstacles and the visibility
+     as its epilogue) on each combine's column maps, and on the seeded maps of
      io.synthetic.stencil_maps (all known, all unknown, checkerboard, border
      only, collinear triples with det = 0, a count of exactly 3, heights
      near ±1e4, sparse, terrain with holes) at 256×256 (R = 15, and R = 60,
@@ -45,11 +49,12 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      with the count of searching cells of each combine's maps printed; the
      plane fit's tail alone (its
      own entry, off the map path) on a seeded sweep of 2^20 cells of its
-     domain. The maps' tail (csrc/maptail.cu: the window layout of the
-     height maps, the obstacle maps and the visibility) bit for bit on each
-     combine's maps and on io.synthetic.map_tail_inputs' crafted 256×256
-     map (cells at the slope and negative thresholds, den = 0,
-     UNKNOWN_HEIGHT) at four origins; the batched merge (csrc/merge.cu:
+     domain. The maps' tail that the two kernels took over (the window
+     layout of the height maps, the obstacle maps and the visibility) bit
+     for bit against its own twins on io.synthetic.map_tail_inputs' crafted
+     256×256 map (cells at the slope threshold, den = 0, UNKNOWN_HEIGHT, and
+     guessed deltas at the negative threshold) at four origins; the batched
+     merge (csrc/merge.cu:
      the merge and the column maps) bit for bit, moments included, on
      seeded upstream worlds (origin moved, world not valid, windows apart,
      z shift) and on their quarter slab y0 = 64 against the full rows.
@@ -66,8 +71,8 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      plain versions, with the peak device memory of its drive;
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
-     and read just after (the preparation, K1-K4, the plane fit, the guess
-     height and the maps' two entries once a scan), no float64 fma32 or
+     and read just after (the preparation, K1-K4, the plane fit and the
+     guess height once a scan), no float64 fma32 or
      sqrt32 on the card (watch_fma32), and checks the 5-tuple it returns;
      then
      counts every launch of one warm combine_maps and of one warm
@@ -99,8 +104,8 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      then two steps of 32 scans of 131,072 points (the second merges with a
      live world at a moved origin), timed, with the launch counts set to 0
      just before and read just after (the preparation, K1, K2, K5, the
-     merge, the plane fit, the guess height and the maps' two entries: one
-     launch a step each), no float64 fma32 or sqrt32 on the card, and one
+     merge, the plane fit and the guess height: one launch a step each), no
+     float64 fma32 or sqrt32 on the card, and one
      warm step's launches and float64 time (none) counted with
      torch.profiler; the merge kernel bit for bit against its plain version
      on the second step's 32-scan contribution into the first step's live
@@ -141,14 +146,16 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      slab, (2, 2) slab and (2, 2) scatter, each gathered world and its
      products bitwise the one-rank step's (the moments within
      MOM_ATOL_BATCH), the slab kernels launched on every rank of a space
-     mesh and the merge and the maps' tail on every rank; dryrun_multichip(4, backend="gloo"); and `bench --mode scaling
+     mesh and the merge, the plane fit and the guess height on every rank;
+     dryrun_multichip(4, backend="gloo"); and `bench --mode scaling
      --devices 1`. It prints each rank's step time, peak device memory,
      slab launches and the bytes gloo moved through the host. Four ranks
      on one card measure no scaling.
 
 Prints the timings, one JSON line {"kernels": [...]} (every kernel of the
-paths; the plane fit's tail, which no path launches, is timed in the --out
-report), the card's name and power limit, and as its last line
+paths, the maps' tail named under the two kernels that took it over as
+"includes"; the plane fit's tail, which no path launches, is timed in the
+--out report), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits
 non-zero without that line when there is no CUDA device or a phase fails.
 --out also writes every number to a JSON file.
@@ -189,13 +196,18 @@ PLANE_FIT_TAIL_OPS = 80      # f32 operations of the plane-fit tail at a cell wh
 PLANE_FIT_OPS = 150          # f32 operations of the whole plane fit at a cell (the sums, the moments, the tail)
 PREP_OPS = 16                # f32 operations of the preparation a point: d², its test, voxel, bounds
 PREP_TRANSFORM_OPS = 12      # and of the transform a point: three rows of a product, two fmas and an add
+PROFILED_CALLS = 20          # calls of the preparation in its profiled trace
+GUESS_OPS = 13               # f32 operations of the guess and its products a cell: the delta, steepness, density
 DEAD_SCAN = 5                # the scan of phase 1's 32-scan batch that is moved out of the grid
 STENCIL_SMALL = 64           # the small grid of phase 1's stencil radii
 STENCIL_RADII = (0, 1, 15, 300)
+C4_SCANS = 15                # scans of phase 1's knife-edge drive (fault C4's 16×16×32 grid)
 BENCH_MODES = ("perscan", "combine", "async", "batched")
 # the kernels that the facade launches once a scan (ingest) or once a combine
 FACADE_KERNELS = ("prepare_points", "ray_pass_counts", "bin_points", "ingest_epilogue", "combine", "plane_fit",
-                  "guess_height", "maps_to_window", "map_products")
+                  "guess_height")
+# the kernels that took the maps' tail over: its two entries' work is in their launches
+TAIL_HOSTS = dict(plane_fit="maps_to_window", guess_height="map_products")
 MERGE_OPS = 40               # f32 and int operations of the merge a voxel (masks, sums, ten moment adds)
 MAP_TAIL_ORIGINS = ((5, -7, 2), (0, 0, 0), (-300, 1000, 0), (255, 1, -5))   # phase 1's crafted map-tail origins
 MESH_RANKS = 4               # phase 9's gloo ranks on the one card
@@ -272,17 +284,27 @@ def cuda_ms(fn, reps, warm=1):
 GRAPH_CALLS = 10    # calls of fn captured in one graph by graph_ms
 
 
+_CAPTURE = []   # graph_ms's capture stream, made at its first call
+
+
 def graph_ms(fn, reps):
     """The card's time for what fn() launches, alone: GRAPH_CALLS calls
     captured in one CUDA graph (fills and small launches included, no host in
     between), replayed until about reps calls ran, timed with CUDA events.
+    fn runs once on the capture stream first, so that what a wrapper keeps
+    a stream (the preparation's workspace) exists before the capture.
     Returns (ms per call, what the last captured call returned)."""
     import torch
 
-    fn()
+    if not _CAPTURE:
+        _CAPTURE.append(torch.cuda.Stream())
+    stream = _CAPTURE[0]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=stream):
         for _ in range(GRAPH_CALLS):
             last = fn()
     g.replay()
@@ -323,26 +345,67 @@ def box_conv_weights(cfg, dev):
     return w.to(dev)
 
 
-def plane_fit_vs_plain(what, cfg, hm):
-    """The plane-fit kernel against its plain version (plane_fit_inputs and
-    its tail in PyTorch ops on the card) on a height map: every output bit
-    for bit. Returns the kernel's outputs."""
+# the plane-fit kernel's outputs and the guess kernel's, by their MapProducts names
+FIT_OUTPUTS = ("height", "inferred_height", "roughness", "slope_x", "slope_y")
+GUESS_OUTPUTS = ("guessed_height_delta", "positive_obstacle", "negative_obstacle", "visibility")
+STENCIL_ORIGIN = (3, -5, 0)  # the origin at which phase 1 puts the stencil patterns on the torus
+
+
+def plane_fit_vs_plain(what, cfg, hm_t, ihm_t, origin):
+    """The plane-fit kernel against its plain version (the torus-layout maps
+    moved to the window layout, then plane_fit_inputs and its tail, in
+    PyTorch ops on the card) on the same maps: the window-layout height and
+    inferred height and the fit's three maps, bit for bit. Returns the
+    kernel's outputs (FIT_OUTPUTS)."""
     from gvom_tpu_torch.ops import kernels, maps2d
 
-    got = kernels.plane_fit(cfg, hm)
-    for name, a, b in zip(("roughness", "slope_x", "slope_y"), got, maps2d.plane_fit_plain(cfg, hm)):
+    got = kernels.plane_fit(cfg, hm_t, ihm_t, origin)
+    for name, a, b in zip(FIT_OUTPUTS, got, maps2d.plane_fit_window_plain(cfg, hm_t, ihm_t, origin)):
         bitwise(f"{what}: plane fit {name}", a, b)
     return got
 
 
-def guess_vs_plain(what, cfg, hm, ihm):
-    """The guess-height kernel against its plain version on a height and
-    inferred-height map, bit for bit. Returns the kernel's output."""
+def guess_vs_plain(what, cfg, hm, ihm, sx, sy, pnum, pden, band_ok, origin):
+    """The guess-height kernel against its plain version (the search, then
+    the obstacle maps and the visibility) on the same maps, bit for bit.
+    Returns the kernel's outputs (GUESS_OUTPUTS)."""
     from gvom_tpu_torch.ops import kernels, maps2d
 
-    got = kernels.guess_height(cfg, hm, ihm)
-    bitwise(f"{what}: guess height (R = {cfg.guess_search_radius})", got, maps2d.guess_height_plain(cfg, hm, ihm))
+    args = (hm, ihm, sx, sy, pnum, pden, band_ok, origin)
+    got = kernels.guess_height(cfg, *args)
+    for name, a, b in zip(GUESS_OUTPUTS, got, maps2d.guess_products_plain(cfg, *args)):
+        bitwise(f"{what}: guess height (R = {cfg.guess_search_radius}) {name}", a, b)
     return got
+
+
+def tail_maps(X, cfg, dev, seed):
+    """The maps that the guess kernel's epilogue reads beside the delta, from
+    io.synthetic.map_tail_inputs at X×X: (slope_x, slope_y, pnum, pden,
+    band_ok) on the card."""
+    import torch
+
+    from gvom_tpu_torch.io.synthetic import map_tail_inputs
+
+    d = map_tail_inputs(X, cfg.slope_obstacle_threshold, cfg.negative_obstacle_threshold, seed)
+    return tuple(torch.from_numpy(d[k]).to(dev) for k in ("slope_x", "slope_y", "pnum", "pden", "band_ok"))
+
+
+def stencils_vs_plain(what, cfg, hm, ihm, seed, fit=True):
+    """The two stencil kernels on window-layout maps hm and ihm: the plane
+    fit from the same maps put on the torus at STENCIL_ORIGIN (its window
+    layout held bitwise against hm and ihm themselves), then the guess on
+    hm and ihm with tail_maps(seed) beside them. Returns the delta map."""
+    import torch
+
+    from gvom_tpu_torch.ops.grid import window_to_torus
+
+    o = torch.tensor(STENCIL_ORIGIN, dtype=torch.int32, device=hm.device)
+    if fit:
+        got = plane_fit_vs_plain(what, cfg, window_to_torus(hm, o, grid_ndim=2), window_to_torus(ihm, o, grid_ndim=2),
+                                 o)
+        bitwise(f"{what}: the plane fit's window height vs the map", got[0], hm)
+        bitwise(f"{what}: the plane fit's window inferred height vs the map", got[1], ihm)
+    return guess_vs_plain(what, cfg, hm, ihm, *tail_maps(hm.shape[0], cfg, hm.device, seed), o)[0]
 
 
 def guess_staged(X, R):
@@ -358,10 +421,12 @@ def guess_staged(X, R):
 
 def phase1_stencils(cfg, dev, log):
     """Both stencil kernels bitwise against their plain versions on the
-    seeded maps of io.synthetic.stencil_maps: at the upstream 256×256 map
-    (R = 15, and R = 60, whose halo does not fit in shared memory), and
-    at R in STENCIL_RADII on a small grid (R = 0 searches nothing, R = 300
-    is wider than the map)."""
+    seeded maps of io.synthetic.stencil_maps (the plane fit from them put on
+    the torus at STENCIL_ORIGIN, the guess with the crafted band sums and
+    slopes of io.synthetic.map_tail_inputs beside them): at the upstream
+    256×256 map (R = 15, and R = 60, whose halo does not fit in shared
+    memory), and at R in STENCIL_RADII on a small grid (R = 0 searches
+    nothing, R = 300 is wider than the map)."""
     import torch
 
     from gvom_tpu_torch import GvomConfig
@@ -377,9 +442,7 @@ def phase1_stencils(cfg, dev, log):
         routes[f"{X}x{X} R={R}"] = "shared" if guess_staged(X, R) else "global"
         for pattern in STENCIL_PATTERNS:
             hm, ihm = (torch.from_numpy(a).to(dev) for a in stencil_maps(pattern, X, seed))
-            if fit:
-                plane_fit_vs_plain(f"{pattern} {X}x{X}", c, hm)
-            positive += int((guess_vs_plain(f"{pattern} {X}x{X}", c, hm, ihm) > 0).sum())
+            positive += int((stencils_vs_plain(f"{pattern} {X}x{X}", c, hm, ihm, seed, fit) > 0).sum())
     check(set(routes.values()) == {"shared", "global"}, f"the guess kernel's two routes were not both run: {routes}")
     idle = guess_idle_and_single(cfg, dev)
     log(f"phase 1 stencils: the plane-fit and guess-height kernels bitwise their plain versions on "
@@ -403,14 +466,14 @@ def guess_idle_and_single(cfg, dev):
     unknown = torch.full_like(ihm, UNKNOWN_HEIGHT)
     none = torch.where(hm > UNKNOWN_HEIGHT, ihm, unknown)
     check(not bool(((hm <= UNKNOWN_HEIGHT) & (none != UNKNOWN_HEIGHT)).any()), "guess idle map: a cell searches")
-    got = guess_vs_plain("no cell searches", cfg, hm, none)
+    got = stencils_vs_plain("no cell searches", cfg, hm, none, 3, fit=False)
     check(not bool(got.any()), "guess idle map: a nonzero delta")
     holes = torch.nonzero(hm <= UNKNOWN_HEIGHT)
     check(len(holes) > 0, "guess single-cell map: no unknown cell")
     cell = holes[len(holes) // 2]
     one = unknown.clone()
     one[cell[0], cell[1]] = hm.max() + 1.0
-    got = guess_vs_plain("one cell searches", cfg, hm, one)
+    got = stencils_vs_plain("one cell searches", cfg, hm, one, 3, fit=False)
     check(int((got != 0).sum()) <= 1, "guess single-cell map: more than one nonzero delta")
     return cell.tolist()
 
@@ -461,16 +524,37 @@ def bitwise_nan(name, a, b):
     bitwise(name, torch.where(nan, torch.zeros_like(a), a), torch.where(nan, torch.zeros_like(b), b))
 
 
-def prepare_vs_plain(what, cfg, *args, **kw):
-    """The prepare kernel against its plain version on the card: p, keep,
-    origin and scan_ok bit for bit. Returns the kernel's outputs."""
-    from gvom_tpu_torch.ops import binning, kernels
+def poison_free_memory(n_bytes, dev):
+    """Fill n_bytes of the allocator's free memory with 0x02 bytes: an
+    output allocated next (torch.empty) then holds them wherever a kernel
+    does not write, and a bool byte 0x02 is neither value it writes."""
+    import torch
 
-    got = kernels.prepare_points(cfg, *args, **kw)
-    ref = binning.prepare_plain(cfg, *args, **kw)
+    junk = torch.full((n_bytes,), 2, dtype=torch.uint8, device=dev)
+    del junk
+
+
+def prepare_same(what, got, ref):
+    """The preparation's outputs bit for bit: p (NaN where the plain p is
+    NaN), keep and scan_ok by their bytes, the origin."""
+    import torch
+
     bitwise_nan(f"{what}: prepare p", got[0], ref[0])
     for name, a, b in zip(("keep", "origin", "scan_ok"), got[1:], ref[1:]):
+        if a.dtype == torch.bool:
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
         bitwise(f"{what}: prepare {name}", a, b)
+
+
+def prepare_vs_plain(what, cfg, *args, **kw):
+    """The prepare kernel against its plain version on the card, on outputs
+    allocated over poisoned memory (poison_free_memory): p, keep, origin and
+    scan_ok bit for bit. Returns the kernel's outputs."""
+    from gvom_tpu_torch.ops import binning, kernels
+
+    poison_free_memory(16 * args[1].numel() + (1 << 21), args[0].device)
+    got = kernels.prepare_points(cfg, *args, **kw)
+    prepare_same(what, got, binning.prepare_plain(cfg, *args, **kw))
     return got
 
 
@@ -549,19 +633,116 @@ def phase1_prepare(cfg, scans, dev, log):
     for k, fe in enumerate(bad):
         prepare_vs_plain(f"frame ego {k} not finite", cfg, ep[None], patterns["valid"].to(dev)[None], ego[None],
                          frame_ego=fe)
+    odd = phase1_prepare_odd_shapes(cfg, pts, valid, ego, sensor, tf, (bpts, bvalid, begos))
     log(f"phase 1 prepare: bitwise its plain version on one scan ({int(got[1].sum())} kept; a quaternion "
         f"transform, {moved} points not at their world coordinates after the round trip; ego_relative_min_distance "
         f"{int(got_rel[1].sum())} kept at 4 m; a pinned origin), on the {BATCH}-scan batch (scan {DEAD_SCAN} dead, "
         f"{int(bprep[1].sum())} points kept), on {n_edge} edge points valid, invalid and alternating with and "
-        f"without the transform, and from two non-finite frame egos")
+        f"without the transform, from two non-finite frame egos, and {odd}")
     return dict(one=one, ego=ego, sensor=sensor, tf=tf, batch=(bpts, bvalid, begos), n_dead=len(dead))
+
+
+def phase1_prepare_odd_shapes(cfg, pts, valid, ego, sensor, tf, batch):
+    """The prepare kernel's other paths, bitwise its plain version: scans of
+    n % 4 != 0 points (the last points of a scan on the scalar path; with
+    S scans, every other scan's rows off the 16-byte grid, so on the scalar
+    path whole), with and without the transform, the dead scan among them;
+    a scan whose points start 12 bytes into the buffer (not 16-byte
+    aligned); a batch in which every scan is dead; and two batches on two
+    streams, launched back to back so that the card may run them at once
+    (each stream has its own workspace). Returns what it ran, for the log."""
+    import torch
+
+    bpts, bvalid, begos = batch
+    S8 = 8
+    n1 = pts.shape[0] - 3       # n % 4 == 1
+    prepare_vs_plain("one scan, n % 4 = 1", cfg, pts[None, :n1], valid[None, :n1], ego[None], frame_ego=ego)
+    prepare_vs_plain("one scan, n % 4 = 1, quaternion transform", cfg, sensor[None, :n1], valid[None, :n1], ego[None],
+                     frame_ego=ego, transform=tf)
+    got = prepare_vs_plain(f"{S8} scans of n % 4 = 1 points, dead scan {DEAD_SCAN}", cfg,
+                           bpts[:S8, :n1].contiguous(), bvalid[:S8, :n1].contiguous(), begos[:S8],
+                           frame_ego=begos[S8 - 1], drop_dead=True)
+    check(not bool(got[3][DEAD_SCAN]) and not bool(got[1][DEAD_SCAN].any()) and bool(got[3][0]),
+          "n % 4 = 1 batch: the dead scan's points were kept, or scan 0 is dead")
+    prepare_vs_plain(f"{S8} scans of n % 4 = 1 points, a transform", cfg, bpts[:S8, :n1].contiguous(),
+                     bvalid[:S8, :n1].contiguous(), begos[:S8], frame_ego=begos[S8 - 1], transform=tf)
+    off = pts[1:]
+    check(off.data_ptr() % 16 != 0, "the offset scan is 16-byte aligned")
+    prepare_vs_plain("one scan 12 bytes off the 16-byte grid", cfg, off[None], valid[None, 1:], ego[None],
+                     frame_ego=ego)
+    gone = bpts.clone()
+    gone[:, :, 1] += 1000.0 + 3 * cfg.xy_size * cfg.xy_resolution
+    got = prepare_vs_plain(f"{BATCH}-scan batch, every scan dead", cfg, gone, bvalid, begos, frame_ego=begos[-1],
+                           drop_dead=True)
+    check(not bool(got[3].any()) and not bool(got[1].any()), "every scan dead: a scan is ok or a point kept")
+    # two batches on two streams, back to back
+    from gvom_tpu_torch.ops import binning, kernels
+
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    inputs = ((bpts, bvalid, begos), (gone, bvalid, begos))
+    outs = []
+    poison_free_memory(16 * 6 * bvalid.numel(), bvalid.device)
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for rep in range(3):
+        for st, (p, v, e) in zip(streams, inputs):
+            with torch.cuda.stream(st):
+                outs.append(kernels.prepare_points(cfg, p, v, e, frame_ego=e[-1], drop_dead=True))
+    torch.cuda.synchronize()
+    for k, got in enumerate(outs):
+        ref = binning.prepare_plain(cfg, *inputs[k % 2], frame_ego=inputs[k % 2][2][-1], drop_dead=True)
+        prepare_same(f"two streams, call {k}", got, ref)
+    return (f"the odd shapes (n % 4 = 1 on one scan, with a transform, and on {S8} scans with the dead scan; a scan "
+            f"12 bytes off the 16-byte grid; a batch with every scan dead; {len(outs)} batches back to back on two "
+            f"streams)")
+
+
+def phase1_knife_edges(dev, log):
+    """K1 on the drive where a ray's position meets a fused multiply-add
+    knife-edge (fault C4, closed): 16×16×32, scans s = 1..C4_SCANS at ego
+    (0.3, −0.2, 1.5) + s·(0.9, 0.6, 0.02), bitwise its plain version, which
+    rounds start + k·step as one FMA as the JAX package's compiled raycast
+    does. The plain march with the product rounded before the add is run
+    beside it: the voxels where the two roundings part are counted, and
+    some must, or the drive reaches no knife-edge."""
+    import numpy as np
+    import torch
+
+    from gvom_tpu_torch import GvomConfig
+    from gvom_tpu_torch.io import synthetic
+    from gvom_tpu_torch.ops import kernels, raycast
+
+    cfg = GvomConfig(xy_size=16, z_size=32, max_points=1024, buffer_size=4)
+    parted, passes = [], 0
+    for s in range(1, C4_SCANS + 1):
+        ego_np = np.array([0.3, -0.2, 1.5]) + s * np.array([0.9, 0.6, 0.02])
+        pts = synthetic.nudge_off_grid(synthetic.simulate_lidar_scan(
+            synthetic.composite_terrain(), ego_np, channels=32, azimuth_steps=64, max_range=25.0, seed=s),
+            cfg.xy_resolution, cfg.z_resolution)
+        pad, mask = synthetic.pad_scan(pts, cfg.max_points)
+        pts_t, valid, ego = scan_tensors((pad, mask, ego_np), dev)
+        p, keep, origin, _ = kernels.prepare_points(cfg, pts_t[None], valid[None], ego[None], frame_ego=ego)
+        got = kernels.ray_pass_counts(cfg, p, keep, ego[None], origin)
+        m = raycast.march_inputs(cfg, p[0], keep[0], ego, origin)
+        exact(f"K1 on knife-edge scan {s}", got, raycast.ray_pass_counts_plain(cfg, m, origin))
+        fma = raycast.gridops.fma32
+        raycast.gridops.fma32 = lambda a, b, c: a * b + c      # the product rounded first
+        try:
+            rounded = raycast.ray_pass_counts_plain(cfg, m, origin)
+        finally:
+            raycast.gridops.fma32 = fma
+        parted.append(int((rounded != got).sum()))
+        passes += int(got.sum())
+    check(sum(parted) > 0, "knife-edge drive: no voxel where the FMA and the rounded product part")
+    log(f"phase 1 knife edges (16×16×32, {C4_SCANS} scans, {passes} passes): K1 bitwise its plain version (one "
+        f"FMA a position); the product rounded first would part from it at {parted} voxels")
 
 
 def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
     """Each kernel against its plain version on the same inputs, over a drive
     with a moving ego. Returns the max abs error per kernel and the last
     scan's inputs (for the timings). extras: also the sweeps and the
-    crafted inputs of the plane fit, the stencils, the maps' tail and the
+    crafted inputs of the plane fit's tail, the stencils, the maps' tail and the
     merge, which do not depend on the drive."""
     import torch
 
@@ -620,25 +801,25 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
         world, products, ok = pipeline.combine(cfg, buf, world, ego)
         check(bool(ok), f"combine after scan {i} reports an empty buffer")
         hm, ihm = products.height, products.inferred_height
-        tail_in = ko[5:10] + (products.slope_x, products.slope_y, products.guessed_height_delta, target)
-        tail = maptail_vs_plain(f"combine {i}", cfg, *tail_in)
-        for name, a in zip(("height", "inferred_height", "positive_obstacle", "negative_obstacle", "visibility"),
-                           tail):
-            bitwise(f"combine {i}: the maps' tail vs the pipeline's {name}", a, getattr(products, name))
+        # the 2-D maps from K4's torus-layout column maps: the plane fit, then the guess
+        fit_in = (ko[5], ko[6], target)
+        fitted = plane_fit_vs_plain(f"combine {i}", cfg, *fit_in)
+        guess_in = (fitted[0], fitted[1], fitted[3], fitted[4]) + tuple(ko[7:10]) + (target,)
+        guessed = guess_vs_plain(f"combine {i}", cfg, *guess_in)
+        for name, a in zip(FIT_OUTPUTS + GUESS_OUTPUTS, tuple(fitted) + tuple(guessed)):
+            bitwise(f"combine {i}: the kernels vs the pipeline's {name}", a, getattr(products, name))
         del ko
-        plane_fit_vs_plain(f"combine {i}", cfg, hm)
-        guess_vs_plain(f"combine {i}", cfg, hm, ihm)
         revived = int(((world.grid.hit > 0) & (buf.grids.hit[buf.last_slot.long()] == 0)).sum())
         log(f"phase 1 scan {i} ({cfg.xy_size}×{cfg.xy_size}×{cfg.z_size}): origin {origin.tolist()}, "
             f"{int(keep.sum())} points kept, "
             f"{int((kb.hit > 0).sum())} occupied voxels, {int(passes.sum())} passes, "
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan), "
             f"{searching_cells(hm, ihm)} of {hm.numel()} map cells search in the guess: "
-            "the preparation, K1-K5, the plane fit, the guess height and the maps' tail agree with their plain "
-            "versions" + (
+            "the preparation, K1-K5, the plane fit and the guess height (the maps' tail folded into them) agree "
+            "with their plain versions" + (
                 ", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned sums" if i == 0 else ""))
         last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, keep=keep, bins=kb, target=target,
-                    hm=hm, ihm=ihm, tail_in=tail_in)
+                    hm=hm, ihm=ihm, fit_in=fit_in, guess_in=guess_in)
     if extras:
         last["tail_fit"] = plane_fit_sweep(dev, log)
         last["guess_routes"] = phase1_stencils(cfg, dev, log)
@@ -693,31 +874,45 @@ def phase1_combine_other_b(dev, log):
             f"occupied {int((world.grid.hit > 0).sum())}" + (f" ({top} at torus z >= 256)" if Z > 256 else ""))
 
 
-def maptail_vs_plain(what, cfg, hm_t, ihm_t, pnum, pden, band_ok, sx, sy, ghd, origin):
-    """The maps' tail (csrc/maptail.cu) against its plain twins on the same
-    inputs: the window-layout height maps, then the positive and negative
-    obstacles and the visibility, bit for bit. Returns the kernels' (hm,
-    ihm, pos, neg, vis)."""
-    from gvom_tpu_torch.ops import kernels, maps2d
+def negative_threshold_cells(cfg, hm_t, ihm_t, origin):
+    """hm_t and ihm_t with three window cells whose guessed delta is exactly
+    the negative-obstacle threshold, one float below it and one above: an
+    unmeasured cell whose inferred height is that value, its eight
+    neighbours measured at 0, so that every wedge finds a 0 at its first
+    step. Returns (hm_t, ihm_t, the cells, their deltas)."""
+    import numpy as np
+    import torch
 
-    hm, ihm = kernels.maps_to_window(hm_t, ihm_t, origin)
-    for name, a, b in zip(("height", "inferred height"), (hm, ihm), maps2d.maps_to_window_plain(hm_t, ihm_t, origin)):
-        bitwise(f"{what}: maps_to_window {name}", a, b)
-    args = (pnum, pden, band_ok, sx, sy, ghd, hm, origin)
-    got = kernels.map_products(cfg, *args)
-    for name, a, b in zip(("positive", "negative", "visibility"), got, maps2d.map_products_plain(cfg, *args)):
-        bitwise(f"{what}: map_products {name}", a, b)
-    return (hm, ihm) + tuple(got)
+    from gvom_tpu_torch.ops.grid import torus_to_window, window_to_torus
+    from gvom_tpu_torch.types import UNKNOWN_HEIGHT
+
+    thr = np.float32(cfg.negative_obstacle_threshold)
+    values = (thr, np.nextafter(thr, np.float32(0)), np.nextafter(thr, np.float32(np.inf)))
+    hm, ihm = (torus_to_window(a, origin, grid_ndim=2).clone() for a in (hm_t, ihm_t))
+    cells = [(16 * (k + 1), 16) for k in range(len(values))]
+    for (x, y), v in zip(cells, values):
+        hm[x - 1:x + 2, y - 1:y + 2] = 0.0
+        hm[x, y] = UNKNOWN_HEIGHT
+        ihm[x, y] = float(v)
+    return (window_to_torus(hm, origin, grid_ndim=2).contiguous(), window_to_torus(ihm, origin, grid_ndim=2).contiguous(),
+            cells, torch.tensor(values, dtype=torch.float32, device=hm.device))
 
 
 def phase1_maptail(cfg, dev, log):
-    """The maps' tail against its twins on io.synthetic.map_tail_inputs at
-    the upstream map size (slopes at the slope threshold and one float on
-    either side, guessed deltas at the negative threshold, den = 0, heights
-    at UNKNOWN_HEIGHT, band cells on the map's edges), at four origins."""
+    """The maps' tail, which the plane-fit kernel takes as its load and the
+    guess kernel as its epilogue, on io.synthetic.map_tail_inputs at the
+    upstream map size (slopes at the slope threshold and one float on
+    either side, den = 0, heights at UNKNOWN_HEIGHT and one float on either
+    side, band cells on the map's edges), at four origins, with three cells
+    whose guessed delta the search makes exactly the negative threshold and
+    one float on either side (negative_threshold_cells): both kernels
+    against their plain versions, and the folded outputs against the tail's
+    own twins (maps_to_window_plain; map_products_plain on the kernel's
+    delta), bit for bit."""
     import torch
 
     from gvom_tpu_torch.io.synthetic import map_tail_inputs
+    from gvom_tpu_torch.ops import maps2d
 
     X = cfg.xy_size
     counts = []
@@ -725,11 +920,24 @@ def phase1_maptail(cfg, dev, log):
         d = {k: torch.from_numpy(v).to(dev) for k, v in map_tail_inputs(
             X, cfg.slope_obstacle_threshold, cfg.negative_obstacle_threshold, i).items()}
         o = torch.tensor(origin, dtype=torch.int32, device=dev)
-        out = maptail_vs_plain(f"crafted map at origin {origin}", cfg, d["hm_t"], d["ihm_t"], d["pnum"], d["pden"],
-                               d["band_ok"], d["slope_x"], d["slope_y"], d["ghd"], o)
-        counts.append([int((out[2] == 100).sum()), int((out[3] > 0).sum()), int(out[4].sum())])
-    log(f"phase 1 maps' tail: maps_to_window and map_products bitwise their plain versions on the crafted "
-        f"{X}×{X} map at origins {list(MAP_TAIL_ORIGINS)} (cells at 100, negative, visible: {counts})")
+        what = f"crafted map at origin {origin}"
+        hm_t, ihm_t, cells, deltas = negative_threshold_cells(cfg, d["hm_t"], d["ihm_t"], o)
+        fitted = plane_fit_vs_plain(what, cfg, hm_t, ihm_t, o)
+        for name, a, b in zip(("height", "inferred height"), fitted[:2], maps2d.maps_to_window_plain(hm_t, ihm_t, o)):
+            bitwise(f"{what}: the plane fit's window {name} vs maps_to_window_plain", a, b)
+        bands = (d["pnum"], d["pden"], d["band_ok"])
+        got = guess_vs_plain(what, cfg, fitted[0], fitted[1], d["slope_x"], d["slope_y"], *bands, o)
+        for name, a, b in zip(("positive", "negative", "visibility"), got[1:], maps2d.map_products_plain(
+                cfg, *bands, d["slope_x"], d["slope_y"], got[0], fitted[0], o)):
+            bitwise(f"{what}: the guess kernel's {name} vs map_products_plain", a, b)
+        at = tuple(torch.tensor(c, device=dev) for c in zip(*cells))
+        bitwise(f"{what}: the deltas at the negative threshold", got[0][at], deltas)
+        exact(f"{what}: negative obstacles at the threshold", got[2][at],
+              torch.tensor([0, 0, 100], dtype=torch.int32, device=dev))
+        counts.append([int((got[1] == 100).sum()), int((got[2] > 0).sum()), int(got[3].sum())])
+    log(f"phase 1 maps' tail: the plane fit's window layout and the guess kernel's obstacle maps and visibility "
+        f"bitwise their plain versions on the crafted {X}×{X} map at origins {list(MAP_TAIL_ORIGINS)}, deltas at "
+        f"the negative threshold and one float on either side (cells at 100, negative, visible: {counts})")
 
 
 def copy_grid(g):
@@ -1185,8 +1393,8 @@ def phase1_wide_configs(cfg, scans, dev, log):
 def phase1_large(dev, log, err):
     """The JAX record's larger grid, 512×512×64 at B = 4: the kernels
     against their plain versions over WIDE_SCANS scans (phase1_kernels_vs_plain's
-    drive: the preparation, K1-K5, the plane fit, the guess height and the
-    maps' tail), then the Gvom facade against the same facade on its plain
+    drive: the preparation, K1-K5, the plane fit and the guess height with
+    the maps' tail), then the Gvom facade against the same facade on its plain
     versions, bitwise; prints the peak device memory of the facade drive."""
     import torch
 
@@ -1257,7 +1465,7 @@ def phase2_facade(cfg, scans, log):
     kernels.reset_launches()
     combine_profile = profile_calls(dict(combine_maps=g.combine_maps), log)["combine_maps"]
     profiled = {k.name: k.launches for k in kernels.KERNELS}
-    for name in ("combine", "plane_fit", "guess_height", "maps_to_window", "map_products"):
+    for name in ("combine",) + tuple(TAIL_HOSTS):
         check(profiled[name] == 3, f"kernel {name}: {profiled[name]} launches in the profile's three combine_maps")
     # and of one warm process_pointcloud (the scan given again)
     pad, mask, ego = scans[-1]
@@ -1564,15 +1772,34 @@ def combine_bound(cfg, buf, world, target, new_hit):
     return words * f32, counts
 
 
-def prep_bound(n_points, n_scans, transform, dead_points=0):
+def prep_bound(n_points, n_scans, transform):
     """(bytes, seconds of operations) of the preparation, whatever
     implements it: it reads the points (12 bytes), valid (1 byte) and the
-    egos, writes keep (1 byte), the origin and scan_ok, and with a transform
-    reads it once and writes the world points (12 bytes); the dead-scan mask
-    writes the dead scans' keep again (dead_points bytes). PREP_OPS f32
-    operations a point, PREP_TRANSFORM_OPS more with a transform."""
-    nbytes = n_points * 14 + n_scans * 13 + 2 * 12 + dead_points + (64 + 12 * n_points if transform else 0)
+    egos, writes keep (1 byte) once, the origin and scan_ok, and with a
+    transform reads it once and writes the world points (12 bytes). PREP_OPS
+    f32 operations a point, PREP_TRANSFORM_OPS more with a transform."""
+    nbytes = n_points * 14 + n_scans * 13 + 2 * 12 + (64 + 12 * n_points if transform else 0)
     return nbytes, n_points * (PREP_OPS + (PREP_TRANSFORM_OPS if transform else 0)) / F32_OPS_PER_S
+
+
+def plane_fit_bound(n_cells):
+    """(bytes, seconds of operations) of the plane fit with the window layout
+    as its load, whatever implements it: the two torus-layout maps read (8
+    bytes a cell) and the origin, the window height and inferred height and
+    the fit's three maps written (20 bytes a cell); PLANE_FIT_OPS f32
+    operations a cell."""
+    return n_cells * 28 + 12, n_cells * PLANE_FIT_OPS / F32_OPS_PER_S
+
+
+def guess_bound(n_cells):
+    """(bytes, seconds of operations) of the guess height with the maps'
+    products as its epilogue, whatever implements it: the height, inferred
+    height and two slopes read (16 bytes a cell), the band sums and band_ok
+    (12) and the origin, the delta and the three int32 maps written (16);
+    about GUESS_OPS operations a cell (the search only compares: one
+    subtraction; the products a square root, a division and a few
+    compares)."""
+    return n_cells * 44 + 12, n_cells * GUESS_OPS / F32_OPS_PER_S
 
 
 def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
@@ -1702,38 +1929,40 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
         lambda: moments.moments_epilogue_plain(cfg, sbins.sums, sbins.hit, so, yw), 20, 5,
         lambda: torch.nn.functional.conv3d(s_conv_in, wconv), s_bytes, 52 * s_terms / F32_OPS_PER_S)
 
-    # ---- the 2-D stencils, on the last phase-1 combine's maps ----
-    # The plane fit reads the height map once and writes three maps; about
-    # PLANE_FIT_OPS f32 operations a cell. The guess height reads the height
-    # and inferred-height maps once and writes one map; its search only
-    # compares (one subtraction a cell). No one PyTorch call computes either
-    # function (torch.log and torch.atan2 round otherwise)
+    # ---- the 2-D maps, on the last phase-1 combine's column maps ----
+    # The plane fit moves the torus-layout maps to the window layout as it
+    # loads them (plane_fit_bound); the guess height writes the obstacle maps
+    # and the visibility as its epilogue (guess_bound). No one PyTorch call
+    # computes either function (torch.log and torch.atan2 round otherwise).
+    # The window layout that the fit writes is torch.roll of the two torus
+    # maps by minus the origin: held exactly here
+    fit_in, guess_in = last["fit_in"], last["guess_in"]
     hm, ihm = last["hm"], last["ihm"]
     n_cells = hm.numel()
-    row(kernels.PLANEFIT, lambda: kernels.plane_fit(cfg, hm), lambda: maps2d.plane_fit_plain(cfg, hm), 100, 5,
-        None, n_cells * 4 * 4, n_cells * PLANE_FIT_OPS / F32_OPS_PER_S)
-    row(kernels.GUESS, lambda: kernels.guess_height(cfg, hm, ihm), lambda: maps2d.guess_height_plain(cfg, hm, ihm),
-        100, 5, None, n_cells * 3 * 4, n_cells / F32_OPS_PER_S)
-    # the maps' tail on the same combine's maps: maps_to_window reads two
-    # torus maps and writes two window maps, 16 B a cell; map_products reads
-    # the band sums (4 + 4), band_ok (1), the slopes, the guessed delta and
-    # the height (16) and writes three maps (12), 37 B a cell; a few
-    # operations a cell. The library call for maps_to_window is torch.roll
-    # of the two maps stacked as the merge gives them ([2, X, Y]), by minus
-    # the origin (read once, outside the timing): window[r] = torus[(r + o)
-    # mod n], the same function
-    tail_in = last["tail_in"]
-    hm_t, ihm_t, pnum, pden, bok, sx, sy, ghd, target = tail_in
-    hm_w, ihm_w = kernels.maps_to_window(hm_t, ihm_t, target)
-    cols = torch.stack([hm_t, ihm_t])
+    hm_t, ihm_t, target = fit_in
     shifts = tuple(-int(v) for v in target[:2].cpu())
-    exact("maps_to_window against torch.roll", torch.stack([hm_w, ihm_w]), torch.roll(cols, shifts, (1, 2)))
-    row(kernels.MAPS_WINDOW, lambda: kernels.maps_to_window(hm_t, ihm_t, target),
-        lambda: maps2d.maps_to_window_plain(hm_t, ihm_t, target), 100, 5,
-        lambda: torch.roll(cols, shifts, (1, 2)), n_cells * 16 + 12, 2 * n_cells / F32_OPS_PER_S)
-    row(kernels.MAP_PRODUCTS, lambda: kernels.map_products(cfg, pnum, pden, bok, sx, sy, ghd, hm_w, target),
-        lambda: maps2d.map_products_plain(cfg, pnum, pden, bok, sx, sy, ghd, hm_w, target), 100, 5, None,
-        n_cells * 37 + 12, 12 * n_cells / F32_OPS_PER_S)
+    fitted = kernels.plane_fit(cfg, *fit_in)
+    exact("the plane fit's window layout against torch.roll", torch.stack(fitted[:2]),
+          torch.roll(torch.stack([hm_t, ihm_t]), shifts, (1, 2)))
+    row(kernels.PLANEFIT, lambda: kernels.plane_fit(cfg, *fit_in), lambda: maps2d.plane_fit_window_plain(cfg, *fit_in),
+        100, 5, None, *plane_fit_bound(n_cells))
+    rows[-1]["includes"] = TAIL_HOSTS["plane_fit"]
+    row(kernels.GUESS, lambda: kernels.guess_height(cfg, *guess_in), lambda: maps2d.guess_products_plain(cfg, *guess_in),
+        100, 5, None, *guess_bound(n_cells))
+    rows[-1]["includes"] = TAIL_HOSTS["guess_height"]
+
+    # the 2-D chain as a combine launches it: the plane fit, then the guess
+    def chain():
+        f = kernels.plane_fit(cfg, *fit_in)
+        return kernels.guess_height(cfg, f[0], f[1], f[3], f[4], *guess_in[4:])
+
+    chain_ms, _ = graph_ms(chain, 100)
+    chain_wrapper_ms = cuda_ms(chain, 100, warm=5)
+    chain_bound_ms = sum(1e3 * max(b / HBM_BYTES_PER_S, o) for b, o in (plane_fit_bound(n_cells),
+                                                                         guess_bound(n_cells)))
+    maps_chain = dict(launches=2, ms=chain_ms, wrapper_ms=chain_wrapper_ms, bound_ms=chain_bound_ms)
+    log(f"timing the 2-D chain (plane fit, then guess height): launches alone {chain_ms:.4f} ms, wrappers "
+        f"{chain_wrapper_ms:.4f} ms, bound {chain_bound_ms:.4f} ms")
     # the tail alone (off the map path), on the sweep's cells: ok read at every
     # cell, the residual and the three coefficients where the fit is ok, three
     # outputs written; a log and two atan2 where it is ok
@@ -1757,7 +1986,7 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
     bpts, bvalid, begos = prep["batch"]
     S, NB = bvalid.shape
     prep_forms["batch"] = dict(
-        bound=prep_bound(S * NB, S, False, prep["n_dead"] * NB),
+        bound=prep_bound(S * NB, S, False),
         fn=lambda: kernels.prepare_points(cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True),
         plain=lambda: binning.prepare_plain(cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True))
     prep_report = {}
@@ -1771,7 +2000,34 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
         log(f"timing prepare_points ({form}): launch alone {ms:.4f} ms, wrapper {wms:.4f} ms, plain {pms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({prep_report[form]['bound_by']}, {nbytes / 1e6:.2f} MB), "
             f"{100 * b_ms / ms:.0f} % of it")
-    return rows, dict(prepare=prep_report, slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
+    # one launch a call, for one scan and for a batch with the dead-scan mask: no memset, no second kernel.
+    # The trace holds PROFILED_CALLS calls, each between two launches of PyTorch's own (the markers): a
+    # profile of one short call comes back empty on this card's profiler, the markers' launches too, and
+    # a longer one can lose its first call; every call it holds has one launch of the kernel and nothing else
+    marker = torch.zeros(1, device=dev)
+
+    def between(fn):
+        def calls():
+            for _ in range(PROFILED_CALLS):
+                marker.add_(1)
+                fn()
+                marker.add_(1)
+        return calls
+
+    forms = dict(prepare_scan=between(lambda: kernels.prepare_points(cfg, *one.values(), frame_ego=pego)),
+                 prepare_batch=between(prep_forms["batch"]["fn"]))
+    for form, prof in profile_calls(forms, log).items():
+        markers = sum(t["count"] for t in prof["top"] if "CUDAFunctorOnSelf_add" in t["kernel"])
+        ours = sum(t["count"] for t in prof["top"] if "prepare_kernel" in t["kernel"])
+        check(markers == 2 * ours and prof["launches"] == 3 * ours and ours >= PROFILED_CALLS - 2,
+              f"{form}: {prof['launches']} launches on the card in {PROFILED_CALLS} calls between the markers "
+              f"({markers} markers traced, {ours} of the kernel); each call must launch the kernel once and nothing "
+              f"else")
+        prep_report[form + "_launches"] = dict(calls_traced=ours, launches_a_call=(prof["launches"] - markers) / ours)
+    launches0 = kernels.PREP.launches
+    prep_forms["batch"]["fn"]()
+    check(kernels.PREP.launches == launches0 + 1, "prepare_points: the batch's call counted other than one launch")
+    return rows, dict(prepare=prep_report, maps_chain=maps_chain, slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
                                 points_in_scratch=n_win_s, box_terms=s_terms),
                       points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
                       scratch_nonempty=n_nz, pair_k2_k3=pair, occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
@@ -1850,15 +2106,14 @@ def watch_fma32():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside, the batched step's eight kernel wrappers run their plain
+    """Inside, the batched step's six kernel wrappers run their plain
     versions on whatever device the tensors are on."""
     from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
     from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain
 
     plain = dict(prepare_points=binning.prepare_plain, ray_pass_counts=raycast.pass_counts_plain,
-                 point_moments=moments.point_moments, plane_fit=maps2d.plane_fit_plain,
-                 guess_height=maps2d.guess_height_plain, merge_batch=merge_and_columns_plain,
-                 maps_to_window=maps2d.maps_to_window_plain, map_products=maps2d.map_products_plain)
+                 point_moments=moments.point_moments, plane_fit=maps2d.plane_fit_window_plain,
+                 guess_height=maps2d.guess_products_plain, merge_batch=merge_and_columns_plain)
     saved = {name: getattr(kernels, name) for name in plain}
     for name, fn in plain.items():
         setattr(kernels, name, fn)
@@ -1949,7 +2204,7 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     want = dict(prepare_points=2, ray_pass_counts=2, bin_points=2, moments_epilogue=2, plane_fit=2, guess_height=2,
-                merge_batch=2, maps_to_window=2, map_products=2)
+                merge_batch=2)
     for name, n in want.items():
         check(launches[name] == n, f"batched path: {name} launched {launches[name]} times, expected {n}")
     for name in PRODUCT_FIELDS[1:]:
@@ -2756,7 +3011,7 @@ def phase9_mesh(cfg, scans, dev, log):
         per = sorted((x for x in lines if x["mesh"] == name), key=lambda x: x["rank"])
         check(len(per) == MESH_RANKS, f"mesh {name}: {len(per)} ranks reported")
         for x in per:
-            own = ("merge_batch", "maps_to_window", "map_products") + (
+            own = ("merge_batch",) + tuple(TAIL_HOSTS) + (
                 ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab") if ingest == "slab" and space > 1
                 else ())
             for k in own:
@@ -3001,6 +3256,7 @@ def run(args, torch) -> int:
         f"(grid {cfg.grid_shape}, buffer {cfg.buffer_size})")
 
     prep = phase1_prepare(cfg, scans, dev, log)
+    phase1_knife_edges(dev, log)
     err, buf, world, last = phase1_kernels_vs_plain(cfg, scans[:4], dev, log)
     phase1_combine_other_b(dev, log)
     slab_launches, slab = phase1_slabs(cfg, scans[0], dev, log, err)
@@ -3023,15 +3279,15 @@ def run(args, torch) -> int:
         report["profile"] = phase_profile(cfg, scans, dev, log)
 
     # each kernel's launches on the path that is its own: the facade's for
-    # K1-K4, the 2-D stencils and the maps' tail, the batched step's for K5
-    # and the merge, ingest_scan(y_window=)'s for the slabs. The plane fit's
-    # tail alone is off every path: its sweep and timing are in the report,
-    # not the line
+    # K1-K4 and the 2-D stencils (the maps' tail is in theirs: "includes"),
+    # the batched step's for K5 and the merge, ingest_scan(y_window=)'s for
+    # the slabs. The plane fit's tail alone is off every path: its sweep and
+    # timing are in the report, not the line
     rows += [k5_row, merge_row]
     order = [k.name for k in kernels.KERNELS]
     rows.sort(key=lambda r: order.index(r["name"]))
-    mesh_kernels = ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab", "merge_batch",
-                    "maps_to_window", "map_products")
+    mesh_kernels = ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab", "merge_batch") + tuple(
+        TAIL_HOSTS)
     for r in rows:
         own = (slab_launches if r["name"].endswith("_slab") else
                batched_launches if r["name"] in ("moments_epilogue", "merge_batch") else launches)
@@ -3049,7 +3305,7 @@ def run(args, torch) -> int:
           "the kernels line misses a kernel")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    line = {"kernels": [{k: r[k] for k in keys + ("atomic_floor_ms", "wrapper_ms", "launches_node_path",
+    line = {"kernels": [{k: r[k] for k in keys + ("includes", "atomic_floor_ms", "wrapper_ms", "launches_node_path",
                                                  "launches_mesh_path") if k in r}
                         for r in rows]}
     smi = []

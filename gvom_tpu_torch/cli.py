@@ -177,9 +177,10 @@ def cmd_selftest(args):
     """The compiled CUDA kernels against their plain PyTorch versions on the
     card, at the upstream shapes (the counterpart of the JAX package's
     compiled-Pallas-vs-XLA selftest): the point preparation, pass counts,
-    hit, min_height, n, every combine output, the 2-D stencils (the plane
-    fit, its tail alone, the guess height), the maps' tail and the batched
-    merge (its moments too) bitwise, the other moment channels within
+    hit, min_height, n, every combine output, the 2-D maps (the plane fit
+    with the window layout, its tail alone, the guess height with the
+    obstacle maps and the visibility) and the batched merge (its moments
+    too) bitwise, the other moment channels within
     compare.MOM_RTOL / MOM_ATOL. One JSON verdict line; exit 1 on a
     mismatch, 2 without a GPU."""
     import torch
@@ -223,16 +224,6 @@ def cmd_selftest(args):
                     exact(f"K4 output {i} after scan {seed}", a, b)
                 world, products, ok = pipeline.combine(cfg, buf, world, e)
                 check(bool(ok), f"combine after scan {seed} reports an empty buffer")
-                # the maps' tail on K4's column maps, bit for bit
-                tail = (ko[5], ko[6], target)
-                hm_w = kernels.maps_to_window(*tail)
-                for name, a, b in zip(("height", "inferred height"), hm_w, maps2d.maps_to_window_plain(*tail)):
-                    bitwise(f"maps_to_window {name} after scan {seed}", a, b)
-                prod = (ko[7], ko[8], ko[9], products.slope_x, products.slope_y, products.guessed_height_delta,
-                        hm_w[0], target)
-                for name, a, b in zip(("positive", "negative", "visibility"), kernels.map_products(cfg, *prod),
-                                      maps2d.map_products_plain(cfg, *prod)):
-                    bitwise(f"map_products {name} after scan {seed}", a, b)
                 # the batched merge of this scan's grid into the new world, bit for bit
                 contrib, _ = pipeline.ingest_scan(cfg, torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev),
                                                   e)
@@ -242,13 +233,19 @@ def cmd_selftest(args):
                     bitwise(f"merge {name} after scan {seed}", getattr(got[0], name), getattr(ref[0], name))
                 for name, a, b in zip(("evidence", "column maps", "band sums"), got[1:], ref[1:]):
                     bitwise(f"merge {name} after scan {seed}", a, b)
-                # the 2-D stencils on this combine's maps, bit for bit
-                hm, ihm = products.height, products.inferred_height
-                for name, a, b in zip(("roughness", "slope_x", "slope_y"), kernels.plane_fit(cfg, hm),
-                                      maps2d.plane_fit_plain(cfg, hm)):
+                # the 2-D maps on K4's column maps, bit for bit: the plane fit
+                # (from the torus-layout maps), then the guess height and its epilogue
+                fit_in = (ko[5], ko[6], target)
+                fitted = kernels.plane_fit(cfg, *fit_in)
+                for name, a, b in zip(("height", "inferred height", "roughness", "slope_x", "slope_y"), fitted,
+                                      maps2d.plane_fit_window_plain(cfg, *fit_in)):
                     bitwise(f"plane fit {name} after scan {seed}", a, b)
-                bitwise(f"guess height after scan {seed}", kernels.guess_height(cfg, hm, ihm),
-                        maps2d.guess_height_plain(cfg, hm, ihm))
+                hm = products.height
+                guess_in = (hm, products.inferred_height, products.slope_x, products.slope_y, ko[7], ko[8], ko[9],
+                            target)
+                for name, a, b in zip(("guessed height delta", "positive", "negative", "visibility"),
+                                      kernels.guess_height(cfg, *guess_in), maps2d.guess_products_plain(cfg, *guess_in)):
+                    bitwise(f"guess height {name} after scan {seed}", a, b)
                 # and the fit's tail alone (its own entry) on this fit's inputs
                 fit = maps2d.plane_fit_inputs(cfg, hm)
                 for name, a, b in zip(("roughness", "slope_x", "slope_y"), kernels.plane_fit_tail(*fit),

@@ -1,13 +1,17 @@
 // The guess-height search of the 2-D maps: for each cell with no measured
 // height but an inferred one, the spread (max − min) of the nearest measured
 // heights found in four wedges within guess_search_radius steps, and the
-// inferred height. One launch.
+// inferred height; then, as its epilogue, the maps that need that spread or
+// nothing after it: the positive obstacle, the negative obstacle and the
+// visibility. One launch.
 //
 // No TPU kernel: the JAX package computes this in XLA
 // (gvom_tpu/ops/maps2d.py:201-282, guess_height_delta), as nearest-known
 // scans and R unrolled constant-time steps; that is the reference's per-cell
 // search (gvom.py:556-661), which this kernel runs as written. Its plain twin
-// is gvom_tpu_torch/ops/maps2d.py::guess_height_plain. At step i = 1..R a
+// is gvom_tpu_torch/ops/maps2d.py::guess_height_plain (with the epilogue,
+// guess_products_plain: guess_height_plain, then map_products_plain). At
+// step i = 1..R a
 // cell (x0, y0) queries four wedges, each for its lowest-index known cell:
 //   x_p: row x0+i, columns [max(y0−i, 0), min(y0+i−1, X−1)]
 //   x_n: row x0−i, columns [max(y0−i+1, 0), min(y0+i, X−1)]
@@ -21,8 +25,25 @@
 // heights, so the output is bitwise the twin's once the same heights are
 // selected; min and max propagate NaN as torch.minimum / torch.maximum do.
 //
+// The epilogue (no TPU kernel: XLA in the JAX package, gvom_tpu/models/
+// pipeline.py:386-389 and :442-458): each block writes its tile's positive
+// obstacle, negative obstacle and visibility once the tile's deltas are
+// known, the idle blocks that exit early included. A cell reads its slopes
+// (window layout, from the plane fit earlier on the stream) at its own index
+// and its band sums (torus layout, from K4 or the batched merge) at its
+// torus index: the products are elementwise, so reading at the permuted
+// index is bitwise the twin's round trip through the torus layout. steep =
+// sqrt(fma(sx, sx, sy·sy)) >= threshold (__fsqrt_rn, __fmaf_rn); density =
+// num / den (__fdiv_rn) where den > 0; 100·density truncated to an int, as
+// the twin's .to(torch.int32) does (the density lies in [0, 1], num <= den);
+// negative = delta > threshold; visible = height > unknown. These maps are
+// this kernel's epilogue rather than a launch of their own: they need the
+// deltas, and nothing after them reads the deltas again.
+//
 // What bounds it on the H100: bytes. hm and ihm are read once and one map
-// written, 12 bytes a cell (0.79 MB at 256×256). A cell whose output is 0
+// written, 12 bytes a cell (0.79 MB at 256×256); the epilogue reads the two
+// slopes and the three band words and writes three maps, 32 bytes a cell
+// more. A cell whose output is 0
 // whatever the search finds (a measured cell, or one with no inferred
 // height) does not search. The kernel is far from that bound: at 256×256 it
 // is one wave of 256 blocks, and its time is one block's chain of
@@ -131,8 +152,6 @@ struct Global {
         }
         return false;
     }
-
-    __device__ __forceinline__ float at(int x, int y) const { return __ldg(h + (size_t)x * X + y); }
 };
 
 // Step i of wedge w (0 x_p, 1 x_n, 2 y_p, 3 y_n) of the cell (x0, y0): true
@@ -166,26 +185,51 @@ __device__ __forceinline__ float guess_delta(float ih, const float (&hv)[4], flo
     return dh > 0.0f ? dh : 0.0f;
 }
 
-// whether the cell searches: no measured height, an inferred one
-__device__ __forceinline__ bool searches(const float* __restrict__ hm, const float* __restrict__ ihm, size_t i,
-                                         float unknown)
+// What the epilogue reads and writes, and its constants
+struct Tail {
+    const float *sx, *sy;                 // [X, X] window layout
+    const int *pnum, *pden, *bok;         // [X, X] torus layout
+    const int* origin;                    // [3]
+    int* pos;                             // [X, X] window layout
+    int* neg;
+    int* vis;
+    float slope_thr, neg_thr;
+};
+
+__device__ __forceinline__ int pmod(int a, int n)
 {
-    return !(hm[i] > unknown) && ihm[i] != unknown;
+    const int r = a % n;
+    return r < 0 ? r + n : r;
 }
 
-// The reference's walk at one cell, its four wedges in one loop (the
-// global route)
-template <class H>
-__device__ __forceinline__ void search(const H& h, const float* __restrict__ ihm, int X, int R, float unknown,
-                                       int x0, int y0, float* __restrict__ out)
+// The maps of the window cell (x, y), i0 its index, from its height hv and
+// its delta ghd; (ox, oy) the origin mod X
+__device__ __forceinline__ void products(const Tail& T, int X, int ox, int oy, float unknown, int x, int y,
+                                         size_t i0, float hv, float ghd)
 {
-    const size_t i0 = (size_t)x0 * X + y0;
-    const float ih = ihm[i0];
-    // the output is dh only at an unmeasured cell with an inferred height
-    if (h.at(x0, y0) > unknown || ih == unknown) {
-        out[i0] = 0.0f;
-        return;
-    }
+    const int tx = x + ox - (x + ox >= X ? X : 0), ty = y + oy - (y + oy >= X ? X : 0);
+    const size_t t = (size_t)tx * X + ty;
+    const float a = T.sx[i0], b = T.sy[i0];
+    const bool steep = __fsqrt_rn(__fmaf_rn(a, a, __fmul_rn(b, b))) >= T.slope_thr;
+    const float num = __int2float_rn(T.pnum[t]), den = __int2float_rn(T.pden[t]);
+    const float dens = den > 0.0f ? __fdiv_rn(num, den) : 0.0f;
+    const int val = __float2int_rz(__fmul_rn(dens, 100.0f));
+    T.pos[i0] = steep ? 100 : (T.bok[t] > 0 ? val : 0);
+    T.neg[i0] = ghd > T.neg_thr ? 100 : 0;
+    T.vis[i0] = hv > unknown ? 1 : 0;
+}
+
+// whether the cell searches: no measured height, an inferred one
+__device__ __forceinline__ bool searches(float hv, float ih, float unknown)
+{
+    return !(hv > unknown) && ih != unknown;
+}
+
+// The reference's walk at one searching cell, its four wedges in one loop
+// (the global route): the cell's delta
+template <class H>
+__device__ __forceinline__ float search(const H& h, float ih, int X, int R, float unknown, int x0, int y0)
+{
     bool done[4] = {false, false, false, false};
     float hv[4] = {unknown, unknown, unknown, unknown};
     for (int i = 1; i <= R && !(done[1] && done[2] && done[3]); ++i) {
@@ -193,7 +237,7 @@ __device__ __forceinline__ void search(const H& h, const float* __restrict__ ihm
         for (int w = 0; w < 4; ++w)
             if (!done[w]) done[w] = wedge_step(h, w, i, x0, y0, X, unknown, &hv[w]);
     }
-    out[i0] = guess_delta(ih, hv, unknown);
+    return guess_delta(ih, hv, unknown);
 }
 
 // One 32-cell word j of a staged line's next-known offsets, by one warp:
@@ -229,7 +273,7 @@ __device__ __forceinline__ int walk(const H& h, int R, int x0, int y0, int X, fl
 // x_p's height counts only if x_p was done by then.
 __global__ void __launch_bounds__(STAGED_THREADS) guess_staged_kernel(
     const float* __restrict__ hm, const float* __restrict__ ihm, int X, int R, float unknown,
-    float* __restrict__ out)
+    float* __restrict__ out, Tail T)
 {
     constexpr int WARPS = STAGED_THREADS / 32, C = TILE * TILE;
     extern __shared__ float stage[];
@@ -248,7 +292,9 @@ __global__ void __launch_bounds__(STAGED_THREADS) guess_staged_kernel(
     const int x0 = tx0 + tid / TILE, y0 = ty0 + tid % TILE;
     const bool inside = tid < C && x0 < X && y0 < X;
     const size_t i0 = (size_t)x0 * X + y0;
-    const bool searching = inside && searches(hm, ihm, i0, unknown);
+    const float hv = inside ? hm[i0] : unknown, ih = inside ? ihm[i0] : unknown;
+    const bool searching = inside && searches(hv, ih, unknown);
+    const int ox = pmod(T.origin[0], X), oy = pmod(T.origin[1], X);
     for (int r = warp; r < rows; r += WARPS)
         for (int c = lane; c < cols; c += 32)
             __pipeline_memcpy_async(stage + r * cols + c, hm + (size_t)(r0 + r) * X + c0 + c, 4);
@@ -258,7 +304,10 @@ __global__ void __launch_bounds__(STAGED_THREADS) guess_staged_kernel(
     const bool any = __syncthreads_or(searching);
     __pipeline_wait_prior(0);
     if (!any) {
-        if (inside) out[i0] = 0.0f;
+        if (inside) {
+            out[i0] = 0.0f;
+            products(T, X, ox, oy, unknown, x0, y0, i0, hv, 0.0f);
+        }
         return;
     }
     __syncthreads();    // every thread's copies have landed
@@ -309,23 +358,30 @@ __global__ void __launch_bounds__(STAGED_THREADS) guess_staged_kernel(
     }
     __syncthreads();
     if (!inside) return;
-    if (!searching) {
-        out[i0] = 0.0f;
-        return;
-    }
-    const int steps = min(R, max(firsts[count + pos], max(firsts[2 * count + pos], firsts[3 * count + pos])));
-    float hv[4];
+    float ghd = 0.0f;
+    if (searching) {
+        const int steps = min(R, max(firsts[count + pos], max(firsts[2 * count + pos], firsts[3 * count + pos])));
+        float found[4];
 #pragma unroll
-    for (int w = 0; w < 4; ++w) hv[w] = firsts[w * count + pos] <= steps ? heights[w * count + pos] : unknown;
-    out[i0] = guess_delta(ihm[i0], hv, unknown);
+        for (int w = 0; w < 4; ++w) found[w] = firsts[w * count + pos] <= steps ? heights[w * count + pos] : unknown;
+        ghd = guess_delta(ih, found, unknown);
+    }
+    out[i0] = ghd;
+    products(T, X, ox, oy, unknown, x0, y0, i0, hv, ghd);
 }
 
 __global__ void __launch_bounds__(TILE * TILE) guess_global_kernel(
     const float* __restrict__ hm, const float* __restrict__ ihm, int X, int R, float unknown,
-    float* __restrict__ out)
+    float* __restrict__ out, Tail T)
 {
     const int x0 = blockIdx.y * TILE + threadIdx.y, y0 = blockIdx.x * TILE + threadIdx.x;
-    if (x0 < X && y0 < X) search(Global{hm, X}, ihm, X, R, unknown, x0, y0, out);
+    if (x0 >= X || y0 >= X) return;
+    const size_t i0 = (size_t)x0 * X + y0;
+    const float hv = hm[i0], ih = ihm[i0];
+    // the delta is nonzero only at an unmeasured cell with an inferred height
+    const float ghd = searches(hv, ih, unknown) ? search(Global{hm, X}, ih, X, R, unknown, x0, y0) : 0.0f;
+    out[i0] = ghd;
+    products(T, X, pmod(T.origin[0], X), pmod(T.origin[1], X), unknown, x0, y0, i0, hv, ghd);
 }
 
 }  // namespace
@@ -340,17 +396,25 @@ static size_t staged_bytes(int X, int R)
     return (size_t)(side * side) * (sizeof(float) + 2 * sizeof(int16_t));
 }
 
-extern "C" int gvom_guess_height(const void* hm, const void* ihm, int X, int R, float unknown, void* out,
+// The delta map out and the epilogue's positive, negative and visibility
+// maps, each [X, X] window layout, from the window-layout hm, ihm, slope_x
+// and slope_y, the torus-layout band sums pnum, pden and band_ok, and the
+// origin [3]
+extern "C" int gvom_guess_height(const void* hm, const void* ihm, const void* sx, const void* sy, const void* pnum,
+                                 const void* pden, const void* bok, const void* origin, int X, int R, float unknown,
+                                 float slope_thr, float neg_thr, void* out, void* pos, void* neg, void* vis,
                                  void* stream)
 {
+    const Tail T{(const float*)sx, (const float*)sy, (const int*)pnum, (const int*)pden, (const int*)bok,
+                 (const int*)origin, (int*)pos, (int*)neg, (int*)vis, slope_thr, neg_thr};
     const dim3 block(TILE, TILE), grid((X + TILE - 1) / TILE, (X + TILE - 1) / TILE);
     const size_t bytes = staged_bytes(X, R);
     if (bytes <= SHARED_MAX)
         guess_staged_kernel<<<grid, STAGED_THREADS, bytes, (cudaStream_t)stream>>>(
-            (const float*)hm, (const float*)ihm, X, R, unknown, (float*)out);
+            (const float*)hm, (const float*)ihm, X, R, unknown, (float*)out, T);
     else
         guess_global_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-            (const float*)hm, (const float*)ihm, X, R, unknown, (float*)out);
+            (const float*)hm, (const float*)ihm, X, R, unknown, (float*)out, T);
     return (int)cudaGetLastError();
 }
 

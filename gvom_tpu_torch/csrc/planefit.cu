@@ -1,11 +1,18 @@
-// The 3×3 plane fit of the 2-D maps, whole: roughness, slope_x and slope_y
-// from the window-layout height map, one launch, one thread a map cell.
+// The 3×3 plane fit of the 2-D maps, whole, with the maps' move to the window
+// layout as its load: from the torus-layout column maps (the height and the
+// inferred height that K4 or the batched merge writes) to the window-layout
+// height and inferred height, roughness, slope_x and slope_y, one launch,
+// one thread a map cell.
 //
 // No TPU kernel: the JAX package computes the fit in XLA
-// (gvom_tpu/ops/maps2d.py:129-179, slope_and_roughness). The kernel is
-// bitwise its plain twin, gvom_tpu_torch/ops/maps2d.py::plane_fit_plain
-// (plane_fit_inputs, then plane_fit_tail_plain), which is bitwise the JAX
-// package's compiled CPU result:
+// (gvom_tpu/ops/maps2d.py:129-179, slope_and_roughness), after moving the
+// maps to the window layout (torus_to_window, gvom_tpu/models/pipeline.py:
+// 382-383). The kernel is bitwise its plain twin,
+// gvom_tpu_torch/ops/maps2d.py::plane_fit_window_plain (maps_to_window_plain,
+// then plane_fit_plain: plane_fit_inputs and plane_fit_tail_plain), which is
+// bitwise the JAX package's compiled CPU result:
+//   * the window layout: window[r] = torus[(r + origin) mod size], a copy of
+//     the bits, as maps_to_window_plain's gather;
 //   * the fit (plane_fit_inputs): nine shifted neighbours with zeros outside
 //     the map, cnt and sz as plain adds in (di, dj) order, every other sum a
 //     chain of fused multiply-adds as XLA contracts it (_fma_sum), the
@@ -21,14 +28,16 @@
 // elsewhere (and the build passes -fmad=false), so nvcc contracts nothing.
 // CUDA's logf and atan2f are not used: they round otherwise.
 //
-// What bounds it on the H100: bytes. The height map is read once and three
-// maps written: 16 bytes a cell, 1 MB at 256×256. Its ~150 float32
+// What bounds it on the H100: bytes. The two torus maps are read once and
+// five maps written: 28 bytes a cell, 1.8 MB at 256×256. Its ~150 float32
 // operations a cell (the fit, a log, two atan2) are far below the float32
-// rate. Design: a block stages its 16×16 tile and a one-cell halo of the map
-// in shared memory (outside the map: unknown, so k = z = 0 as the twin's
-// zero fill), then each thread runs the whole chain in registers. One launch
-// takes the place of the ~1,800 PyTorch launches of the twin on the card
-// (float64 fma emulation, shifts and selects).
+// rate. Design: a block stages its 16×16 tile and a one-cell halo of the
+// height map in shared memory, each cell read at its torus index (outside
+// the window: unknown, so k = z = 0 as the twin's zero fill), writes its
+// cells' window heights and inferred heights, then each thread runs the
+// whole chain in registers. The window layout is this load rather than a
+// launch of its own: the fit reads the window map's halo anyway, and a torus
+// index costs it an add and a compare.
 //
 // A second entry, gvom_plane_fit_tail, is the tail alone on given fit
 // outputs (the twin plane_fit_tail_plain): it is off the map path and lets a
@@ -172,20 +181,40 @@ __device__ __forceinline__ void fit_tail(bool ok, float e, float a0n, float a1n,
     }
 }
 
+// r + om with om = origin mod n, r in [0, n): the torus index of window row r
+__device__ __forceinline__ int torus(int r, int om, int n)
+{
+    const int t = r + om;
+    return t >= n ? t - n : t;
+}
+
+__device__ __forceinline__ int pmod(int a, int n)
+{
+    const int r = a % n;
+    return r < 0 ? r + n : r;
+}
+
 __global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
-    const float* __restrict__ hm, int X, int Y, float res, float unknown,
+    const float* __restrict__ hm_t, const float* __restrict__ ihm_t, const int* __restrict__ origin,
+    int X, int Y, float res, float unknown,
+    float* __restrict__ hm, float* __restrict__ ihm,
     float* __restrict__ rough, float* __restrict__ slope_x, float* __restrict__ slope_y)
 {
     __shared__ float tile[TILE + 2][TILE + 2];
     const int x0 = blockIdx.y * TILE, y0 = blockIdx.x * TILE;
+    const int ox = pmod(origin[0], X), oy = pmod(origin[1], Y);
     for (int t = threadIdx.y * TILE + threadIdx.x; t < (TILE + 2) * (TILE + 2); t += TILE * TILE) {
         const int r = t / (TILE + 2), c = t % (TILE + 2);
         const int x = x0 + r - 1, y = y0 + c - 1;
-        tile[r][c] = (x >= 0 && x < X && y >= 0 && y < Y) ? hm[(size_t)x * Y + y] : unknown;
+        tile[r][c] = (x >= 0 && x < X && y >= 0 && y < Y) ? hm_t[(size_t)torus(x, ox, X) * Y + torus(y, oy, Y)]
+                                                          : unknown;
     }
     __syncthreads();
     const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
     if (x >= X || y >= Y) return;
+    const size_t i = (size_t)x * Y + y;
+    hm[i] = tile[threadIdx.y + 1][threadIdx.x + 1];
+    ihm[i] = ihm_t[(size_t)torus(x, ox, X) * Y + torus(y, oy, Y)];
 
     // the nine offsets in the twin's order: di = -1..1, then dj = -1..1
     float cnt = 0.0f, sz = 0.0f, sx = 0.0f, sy = 0.0f, sxx = 0.0f, sxy = 0.0f, syy = 0.0f;
@@ -258,7 +287,6 @@ __global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
     e = __fmaf_rn(__fmul_rn(a0n, a0n), xx, e);
     e = __fmaf_rn(__fmul_rn(__fmul_rn(a0n, 2.0f), a1n), xy, e);
     e = __fmaf_rn(__fmul_rn(a1n, a1n), yy, e);
-    const size_t i = (size_t)x * Y + y;
     fit_tail(ok, __fdiv_rn(e, c), a0n, a1n, __fdiv_rn(1.0f, m), rough + i, slope_x + i, slope_y + i);
 }
 
@@ -275,12 +303,16 @@ __global__ void plane_fit_tail_kernel(const float* __restrict__ err, const uint8
 
 }  // namespace
 
-extern "C" int gvom_plane_fit(const void* hm, int X, int Y, float res, float unknown, void* rough,
-                              void* slope_x, void* slope_y, void* stream)
+// The window-layout maps (hm, ihm) and the fit's (rough, slope_x, slope_y),
+// each [X, Y], from the torus-layout hm_t and ihm_t at the origin [3]
+extern "C" int gvom_plane_fit(const void* hm_t, const void* ihm_t, const void* origin, int X, int Y, float res,
+                              float unknown, void* hm, void* ihm, void* rough, void* slope_x, void* slope_y,
+                              void* stream)
 {
     const dim3 block(TILE, TILE), grid((Y + TILE - 1) / TILE, (X + TILE - 1) / TILE);
     plane_fit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)hm, X, Y, res, unknown, (float*)rough, (float*)slope_x, (float*)slope_y);
+        (const float*)hm_t, (const float*)ihm_t, (const int*)origin, X, Y, res, unknown, (float*)hm, (float*)ihm,
+        (float*)rough, (float*)slope_x, (float*)slope_y);
     return (int)cudaGetLastError();
 }
 

@@ -50,10 +50,13 @@
 //     slower on one scan. Integer adds commute, so the counts are those of
 //     one atomic a pass, bit for bit.
 //
-// Exactness (the three rules of gvom_tpu/ops/raycast.py): the dominant step
-// is exactly ±1 and its row is the integer floor(start_rel) ± k; position
-// and liveness round the product before the add (start_rel + fl(k·step),
-// fl((k−1)·delta) < budget).
+// Exactness: the dominant step is exactly ±1 and its row is the integer
+// floor(start_rel) ± k (the rules of gvom_tpu/ops/raycast.py). A position is
+// one fused multiply-add, fma(k, step, start_rel): gvom_tpu/ops/raycast.py
+// states the rule as the product rounded before the add, but XLA:CPU
+// contracts it into an FMA through its optimization_barrier, and the Pallas
+// K1 in interpret mode computes the same FMA, so the port follows them.
+// Liveness is fl((k−1)·delta) < budget, with no add to contract.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,8 +140,8 @@ __global__ void __launch_bounds__(THREADS) ray_pass_counts_kernel(
                 vd += sgn;
                 td += sgn;
                 td = td == nd ? 0 : (td < 0 ? nd - 1 : td);
-                const int vu = __float2int_rd(__fadd_rn(ru, __fmul_rn(kf, su)));
-                const int vw = __float2int_rd(__fadd_rn(rw, __fmul_rn(kf, sw)));
+                const int vu = __float2int_rd(__fmaf_rn(kf, su, ru));
+                const int vw = __float2int_rd(__fmaf_rn(kf, sw, rw));
                 if (!((unsigned)vd < (unsigned)nd && (unsigned)vu < (unsigned)nu && (unsigned)vw < (unsigned)nw)) {
                     if (entered) break;      // the in-grid steps are one run
                     continue;

@@ -219,9 +219,10 @@ def combine(
     new world is the old one.
 
     The fusion and the per-column products are kernel K4 (the plain twin
-    fuse_plain on the CPU); then the maps' tail moves the height maps to the
-    window layout, the plane-fit and guess-height kernels run the stencils,
-    and the maps' tail computes the obstacle maps and the visibility."""
+    fuse_plain on the CPU); then two kernels derive the 2D maps: the plane
+    fit, which moves the height maps to the window layout as it loads them,
+    and the guess height, which computes the obstacle maps and the
+    visibility as its epilogue."""
     ego = ego_position.float()
     origin = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
     any_valid = buf.slot_valid.any()
@@ -231,10 +232,8 @@ def combine(
                      origin=torch.where(any_valid, origin, world.grid.origin))
     new_world = WorldState(grid=grid, evidence=evidence, valid=world.valid | any_valid)
 
-    hm, ihm = kernels.maps_to_window(hm_t, ihm_t, origin)
-    slope_x, slope_y, rough = maps2d.slope_and_roughness(cfg, hm)
-    ghd = maps2d.guess_height_delta(cfg, hm, ihm)
-    pos, neg, vis = kernels.map_products(cfg, pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin)
+    hm, ihm, rough, slope_x, slope_y = kernels.plane_fit(cfg, hm_t, ihm_t, origin)
+    ghd, pos, neg, vis = kernels.guess_height(cfg, hm, ihm, slope_x, slope_y, pnum, pden, band_ok, origin)
     products = MapProducts(
         origin=origin,
         height=hm,

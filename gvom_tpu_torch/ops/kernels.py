@@ -25,24 +25,22 @@ tensors (there is no fallback), and counts its launches in `launches`.
 | combine            | combine.cu   | fused_combine (+ the XLA mom merge)       | models.pipeline.fuse_plain         |
 | moments_epilogue   | epilogue.cu  | _xbox_epilogue                            | moments.moments_epilogue_plain     |
 | point_moments      | (K2 then K5) | fused_point_moments' contract             | moments.point_moments              |
-| plane_fit          | planefit.cu  | none: the port's own (the JAX package's   | maps2d.plane_fit_plain             |
-|                    |              | 3×3 plane fit in XLA, ops/maps2d.py:129)  | (plane_fit_inputs, then the tail)  |
+| plane_fit          | planefit.cu  | none: the port's own (the JAX package's   | maps2d.plane_fit_window_plain      |
+|                    |              | torus_to_window of the height maps and    | (maps_to_window_plain, then        |
+|                    |              | 3×3 plane fit in XLA, ops/maps2d.py:129)  | plane_fit_plain)                   |
 | plane_fit_tail     | planefit.cu  | none: the fit's tail alone (log, atan2),  | maps2d.plane_fit_tail_plain        |
 |                    |              | off the map path (a sweep of its domain)  |                                    |
-| guess_height       | guess.cu     | none: the port's own (the JAX package's   | maps2d.guess_height_plain          |
-|                    |              | guess-height search in XLA, :201)         |                                    |
+| guess_height       | guess.cu     | none: the port's own (the JAX package's   | maps2d.guess_products_plain        |
+|                    |              | guess-height search in XLA, :201, and the | (guess_height_plain, then          |
+|                    |              | obstacle maps and visibility after it,    | map_products_plain)                |
+|                    |              | models/pipeline.py:380-389, :442-458)     |                                    |
 | merge_batch        | merge.cu     | none: the port's own (the batched step's  | sharding.merge_and_columns_plain   |
 |                    |              | merge and column maps in XLA,             | (merge_batch_plain, then the       |
 |                    |              | parallel/sharding.py:264-328)             | column maps)                       |
-| maps_to_window     | maptail.cu   | none: the port's own (torus_to_window of  | maps2d.maps_to_window_plain        |
-|                    |              | the height maps in XLA)                   |                                    |
-| map_products       | maptail.cu   | none: the port's own (positive, negative  | maps2d.map_products_plain          |
-|                    |              | obstacle and visibility in XLA,           |                                    |
-|                    |              | models/pipeline.py:380-389, :442-458)     |                                    |
 
 prepare_points turns S scans of raw points into what the kernels after it
 take: world-frame points, keep, the origin and each scan's scan_ok, in one
-launch (two with the batched step's dead-scan mask). ray_pass_counts takes
+launch (the batched step's dead-scan mask too). ray_pass_counts takes
 what the JAX function takes: world-frame points [S, N, 3], keep [S, N], one
 ego per scan [S, 3] and one origin; it builds the ray geometry itself and
 marches all S scans in one launch (S = 1 is one scan). bin_points takes
@@ -52,15 +50,17 @@ the slab forms: the same kernels restricted to the torus rows
 [ys0, ys0+Ys). A slab launch is counted by an entry of its own (RAY_SLAB,
 BIN_SLAB, XBOX_SLAB), so a run shows which form the path went through.
 merge_batch merges the batched step's contribution with the old world and
-takes the merged world's column maps; maps_to_window and map_products are
-the 2-D maps' tail after K4 or merge_batch (window layout, the positive and
-negative obstacles, the visibility). combine.cu and merge.cu share the
+takes the merged world's column maps. After K4 or merge_batch the 2-D maps
+are two launches: plane_fit moves the column maps to the window layout as
+it loads them, and guess_height writes the positive and negative obstacles
+and the visibility as its epilogue. combine.cu and merge.cu share the
 column tail of columns.cuh.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -96,8 +96,6 @@ __all__ = [
     "plane_fit_tail",
     "guess_height",
     "merge_batch",
-    "maps_to_window",
-    "map_products",
     "NVCC_FLAGS",
 ]
 
@@ -199,7 +197,7 @@ _EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P, 
 
 # the point preparation: no TPU kernel, the JAX package computes it in XLA
 PREP = CudaKernel("prepare_points", "prepare.cu", "gvom_prepare_points",
-                  [_P] * 6 + [_F] * 3 + [_I] * 7 + [_P] * 5,
+                  [_P] * 6 + [_F] * 3 + [_I] * 7 + [_P] * 6,
                   "none: the port's own (gvom_tpu/ops/binning.py:47-69, gvom_tpu/models/pipeline.py:209-213, "
                   "gvom_tpu/parallel/sharding.py:193-202: the point preparation in XLA)")
 RAY = CudaKernel(
@@ -227,27 +225,23 @@ XBOX_SLAB = CudaKernel("moments_epilogue_slab", *_EPI_ARGS,
 
 # the 2-D maps' stencils: no TPU kernel, the JAX package computes them in XLA
 _M2 = "gvom_tpu/ops/maps2d.py"
-PLANEFIT = CudaKernel("plane_fit", "planefit.cu", "gvom_plane_fit", [_P, _I, _I, _F, _F] + [_P] * 4,
-                      f"none: the port's own ({_M2}:129-179, the 3×3 plane fit in XLA)")
+PLANEFIT = CudaKernel("plane_fit", "planefit.cu", "gvom_plane_fit", [_P] * 3 + [_I, _I, _F, _F] + [_P] * 6,
+                      f"none: the port's own ({_M2}:129-179, the 3×3 plane fit in XLA, and "
+                      "gvom_tpu/models/pipeline.py:382-383, torus_to_window of the height maps)")
 PLANEFIT_TAIL = CudaKernel("plane_fit_tail", "planefit.cu", "gvom_plane_fit_tail", [_P] * 5 + [_I] + [_P] * 4,
                            f"none: the port's own ({_M2}:175-178, jnp.log and jnp.arctan2 in XLA)")
-GUESS = CudaKernel("guess_height", "guess.cu", "gvom_guess_height", [_P, _P, _I, _I, _F, _P, _P],
-                   f"none: the port's own ({_M2}:201-282, the guess-height search in XLA)")
+GUESS = CudaKernel("guess_height", "guess.cu", "gvom_guess_height", [_P] * 8 + [_I, _I] + [_F] * 3 + [_P] * 5,
+                   f"none: the port's own ({_M2}:201-282, the guess-height search in XLA, and "
+                   "gvom_tpu/models/pipeline.py:386-389, :442-458, the obstacle maps and the visibility)")
 
-# the batched step's merge and the maps' tail: no TPU kernel, XLA in the JAX package
+# the batched step's merge: no TPU kernel, XLA in the JAX package
 MERGE = CudaKernel("merge_batch", "merge.cu", "gvom_merge_batch",
                    [_P] * 13 + [_I] * 5 + [_F] * 8 + [_I] * 2 + [_P] * 4,
                    "none: the port's own (gvom_tpu/parallel/sharding.py:264-328, the batched merge and the "
                    "column maps in XLA)")
-MAPS_WINDOW = CudaKernel("maps_to_window", "maptail.cu", "gvom_maps_to_window", [_P] * 3 + [_I] * 2 + [_P] * 3,
-                         "none: the port's own (gvom_tpu/models/pipeline.py:382-383, torus_to_window in XLA)")
-MAP_PRODUCTS = CudaKernel("map_products", "maptail.cu", "gvom_map_products",
-                          [_P] * 8 + [_I] * 2 + [_F] * 3 + [_P] * 4,
-                          "none: the port's own (gvom_tpu/models/pipeline.py:386-389, :442-458, the obstacle "
-                          "maps and the visibility in XLA)")
 
 KERNELS: List[CudaKernel] = [RAY, BIN, EPI, CMB, XBOX, RAY_SLAB, BIN_SLAB, XBOX_SLAB, PLANEFIT, PLANEFIT_TAIL,
-                             GUESS, PREP, MERGE, MAPS_WINDOW, MAP_PRODUCTS]
+                             GUESS, PREP, MERGE]
 
 
 def build_all(cfg: Optional[GvomConfig] = None) -> Dict[str, str]:
@@ -325,12 +319,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _stream() -> ctypes.c_void_p:
-    return _P(torch.cuda.current_stream().cuda_stream)
+def _stream() -> int:
+    """PyTorch's current stream, as the int that ctypes passes as c_void_p."""
+    return torch.cuda.current_stream().cuda_stream
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return _P(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
 def _column_consts(cfg: GvomConfig) -> tuple:
@@ -351,13 +346,14 @@ def prepare_points(cfg: GvomConfig, points: torch.Tensor, valid: torch.Tensor, e
                    transform: Optional[torch.Tensor] = None, drop_dead: bool = False):
     """S scans' raw points [S,N,3] f32, valid [S,N] bool and egos [S,3] f32
     → (p [S,N,3] f32 world frame, keep [S,N] bool, origin [3] int32,
-    scan_ok [S] bool), binning.prepare_plain's function, bitwise.
+    scan_ok [S] bool), binning.prepare_plain's function, bitwise, in one
+    launch.
 
     The origin is the pinned `origin` [3] int32 or that of `frame_ego` [3]
     f32, one of the two. `transform` [4,4] f32 maps the points to the world
     frame (without it p is `points` itself). drop_dead also takes the points
     of a scan with no kept endpoint in the window out of keep (the batched
-    step), a second launch."""
+    step)."""
     if points.ndim != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected [S, N, 3]")
     if (frame_ego is None) == (origin is None):
@@ -375,21 +371,41 @@ def prepare_points(cfg: GvomConfig, points: torch.Tensor, valid: torch.Tensor, e
         _check("transform", transform, torch.float32, (4, 4), dev)
     if _is_cpu(points):
         return binning.prepare_plain(cfg, points, valid, egos, frame_ego, origin, transform, drop_dead)
-    X, Y, Z = cfg.grid_shape
-    inv = gridops.inv_resolution_vector(cfg, "cpu")
-    md = torch.tensor(cfg.min_distance, dtype=torch.float32)
+    stream = _stream()
     p = points if transform is None else torch.empty_like(points)
     keep = torch.empty((S, n), dtype=torch.bool, device=dev)
     origin_out = torch.empty((3,), dtype=torch.int32, device=dev)
-    # scan_ok is a bool array over whole 4-byte words, which the kernel ORs into
-    words = torch.empty(((S + 3) // 4,), dtype=torch.int32, device=dev)
-    null = _P(None)
-    PREP.launch(_ptr(points), _ptr(valid), _ptr(egos), null if frame_ego is None else _ptr(frame_ego),
-                null if origin is None else _ptr(origin), null if transform is None else _ptr(transform),
-                float(inv[0]), float(inv[2]), float(md * md), int(cfg.ego_relative_min_distance),
-                S, n, X, Y, Z, int(drop_dead), null if transform is None else _ptr(p), _ptr(keep),
-                _ptr(origin_out), _ptr(words), _stream())
-    return p, keep, origin_out, words.view(torch.bool)[:S]
+    scan_ok = torch.empty((S,), dtype=torch.bool, device=dev)
+    PREP.launch(_ptr(points), _ptr(valid), _ptr(egos), None if frame_ego is None else _ptr(frame_ego),
+                None if origin is None else _ptr(origin), None if transform is None else _ptr(transform),
+                *_prep_consts(cfg), S, n, *cfg.grid_shape, int(drop_dead), None if transform is None else _ptr(p),
+                _ptr(keep), _ptr(origin_out), _ptr(scan_ok), _ptr(_prep_workspace(dev, stream, S)), stream)
+    return p, keep, origin_out, scan_ok
+
+
+@functools.lru_cache(maxsize=None)
+def _prep_consts(cfg: GvomConfig) -> tuple:
+    """The preparation's constants of cfg in their C argument order: f32(1 /
+    res) for xy and z, fl(min_distance)², ego_relative_min_distance."""
+    inv = gridops.inv_resolution_vector(cfg, "cpu")
+    md = torch.tensor(cfg.min_distance, dtype=torch.float32)
+    return float(inv[0]), float(inv[2]), float(md * md), int(cfg.ego_relative_min_distance)
+
+
+# the preparation's workspace a CUDA stream: each scan's ticket word, zeroed
+# once here and reset by the kernel at the end of every call
+_PREP_WORK: Dict[int, torch.Tensor] = {}
+
+
+def _prep_workspace(dev, stream: int, S: int) -> torch.Tensor:
+    """The workspace of the stream's preparations, at least S int32 words of
+    zeros. One a stream, so that calls on two streams, which the card may
+    run at once, never count into the same words; a call on a stream runs
+    after the stream's last one, whose words it finds reset."""
+    work = _PREP_WORK.get(stream)
+    if work is None or work.numel() < S or work.device != dev:
+        work = _PREP_WORK[stream] = torch.zeros((max(S, 32),), dtype=torch.int32, device=dev)
+    return work
 
 
 # ----------------------------------------------------------------------
@@ -504,7 +520,7 @@ def moments_epilogue(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, ori
     _check("origin", origin, torch.int32, (3,), dev)
     out = torch.empty((10, X, Ys, Z), dtype=torch.float32, device=dev)
     (XBOX_SLAB if binning.is_slab(cfg, y_window) else XBOX).launch(
-        _ptr(sums), _ptr(hit), _ptr(origin), _P(None), X, Y, Z, rx, ry, rz, ys0, Ys,
+        _ptr(sums), _ptr(hit), _ptr(origin), None, X, Y, Z, rx, ry, rz, ys0, Ys,
         int(occupancy_mask), _ptr(out), _stream())
     return out
 
@@ -595,16 +611,22 @@ def combine_launch(cfg: GvomConfig, buf, world, origin: torch.Tensor, ego: torch
 # the 2-D maps' stencils
 
 
-def plane_fit(cfg: GvomConfig, hm: torch.Tensor):
-    """(roughness, slope_x, slope_y) [X, X] of the 3×3 plane fit of the
-    window-layout height map hm [X, X] f32: maps2d.plane_fit_plain's
+def plane_fit(cfg: GvomConfig, hm_t: torch.Tensor, ihm_t: torch.Tensor, origin: torch.Tensor):
+    """(height, inferred height, roughness, slope_x, slope_y) [X, X] in
+    window layout from the torus-layout column maps hm_t and ihm_t [X, X]
+    f32 at origin [3] int32: the maps moved to the window layout, then the
+    3×3 plane fit of the height map; maps2d.plane_fit_window_plain's
     function, bitwise, in one launch."""
     X = cfg.xy_size
-    _check("hm", hm, torch.float32, (X, X), hm.device)
-    if _is_cpu(hm):
-        return maps2d.plane_fit_plain(cfg, hm)
-    outs = tuple(torch.empty((X, X), dtype=torch.float32, device=hm.device) for _ in range(3))
-    PLANEFIT.launch(_ptr(hm), X, X, f32_value(cfg.xy_resolution), UNKNOWN_HEIGHT, *map(_ptr, outs), _stream())
+    dev = hm_t.device
+    _check("hm_t", hm_t, torch.float32, (X, X), dev)
+    _check("ihm_t", ihm_t, torch.float32, (X, X), dev)
+    _check("origin", origin, torch.int32, (3,), dev)
+    if _is_cpu(hm_t):
+        return maps2d.plane_fit_window_plain(cfg, hm_t, ihm_t, origin)
+    outs = tuple(torch.empty((X, X), dtype=torch.float32, device=dev) for _ in range(5))
+    PLANEFIT.launch(_ptr(hm_t), _ptr(ihm_t), _ptr(origin), X, X, f32_value(cfg.xy_resolution), UNKNOWN_HEIGHT,
+                    *map(_ptr, outs), _stream())
     return outs
 
 
@@ -625,20 +647,33 @@ def plane_fit_tail(err: torch.Tensor, ok: torch.Tensor, a0n: torch.Tensor, a1n: 
     return outs
 
 
-def guess_height(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor) -> torch.Tensor:
-    """guessed_height_delta [X, X] f32 of the window-layout height and
-    inferred-height maps: maps2d.guess_height_plain's function, bitwise, in
-    one launch, for any guess_search_radius >= 0."""
+def guess_height(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor, slope_x: torch.Tensor,
+                 slope_y: torch.Tensor, pnum: torch.Tensor, pden: torch.Tensor, band_ok: torch.Tensor,
+                 origin: torch.Tensor):
+    """(guessed_height_delta f32, positive_obstacle, negative_obstacle,
+    visibility int32) [X, X] in window layout, from the window-layout height,
+    inferred height and slopes (f32, plane_fit's) and the torus-layout band
+    sums pnum, pden and band_ok (int32) at origin [3] int32: the guess-height
+    search, for any guess_search_radius >= 0, then the obstacle maps and the
+    visibility as its epilogue; maps2d.guess_products_plain's function,
+    bitwise, in one launch."""
     X, R = cfg.xy_size, cfg.guess_search_radius
     if R < 0:
         raise ValueError(f"guess_search_radius {R}: must be >= 0")
-    _check("hm", hm, torch.float32, (X, X), hm.device)
-    _check("ihm", ihm, torch.float32, (X, X), hm.device)
+    dev = hm.device
+    for nm, t in (("hm", hm), ("ihm", ihm), ("slope_x", slope_x), ("slope_y", slope_y)):
+        _check(nm, t, torch.float32, (X, X), dev)
+    for nm, t in (("pnum", pnum), ("pden", pden), ("band_ok", band_ok)):
+        _check(nm, t, torch.int32, (X, X), dev)
+    _check("origin", origin, torch.int32, (3,), dev)
     if _is_cpu(hm):
-        return maps2d.guess_height_plain(cfg, hm, ihm)
-    out = torch.empty((X, X), dtype=torch.float32, device=hm.device)
-    GUESS.launch(_ptr(hm), _ptr(ihm), X, R, UNKNOWN_HEIGHT, _ptr(out), _stream())
-    return out
+        return maps2d.guess_products_plain(cfg, hm, ihm, slope_x, slope_y, pnum, pden, band_ok, origin)
+    ghd = torch.empty((X, X), dtype=torch.float32, device=dev)
+    maps = tuple(torch.empty((X, X), dtype=torch.int32, device=dev) for _ in range(3))
+    GUESS.launch(*map(_ptr, (hm, ihm, slope_x, slope_y, pnum, pden, band_ok, origin)), X, R, UNKNOWN_HEIGHT,
+                 f32_value(cfg.slope_obstacle_threshold), f32_value(cfg.negative_obstacle_threshold), _ptr(ghd),
+                 *map(_ptr, maps), _stream())
+    return (ghd,) + maps
 
 
 # ----------------------------------------------------------------------
@@ -688,46 +723,3 @@ def merge_batch(cfg: GvomConfig, world, contrib: VoxelGrid, ego: torch.Tensor, y
     merged = VoxelGrid(hit=contrib.hit, miss=contrib.miss, min_height=contrib.min_height, mom=contrib.mom,
                        origin=contrib.origin)
     return merged, ev, cols, bands
-
-
-# ----------------------------------------------------------------------
-# the 2-D maps' tail
-
-
-def maps_to_window(hm_t: torch.Tensor, ihm_t: torch.Tensor, origin: torch.Tensor):
-    """(height, inferred height) [X, Y] in window layout from the torus-layout
-    column maps: maps2d.maps_to_window_plain's function, in one launch."""
-    dev, shape = hm_t.device, tuple(hm_t.shape)
-    if len(shape) != 2:
-        raise ValueError(f"hm_t: shape {shape}, expected [X, Y]")
-    _check("hm_t", hm_t, torch.float32, shape, dev)
-    _check("ihm_t", ihm_t, torch.float32, shape, dev)
-    _check("origin", origin, torch.int32, (3,), dev)
-    if _is_cpu(hm_t):
-        return maps2d.maps_to_window_plain(hm_t, ihm_t, origin)
-    hm, ihm = torch.empty_like(hm_t), torch.empty_like(ihm_t)
-    MAPS_WINDOW.launch(_ptr(hm_t), _ptr(ihm_t), _ptr(origin), *shape, _ptr(hm), _ptr(ihm), _stream())
-    return hm, ihm
-
-
-def map_products(cfg: GvomConfig, pnum: torch.Tensor, pden: torch.Tensor, band_ok: torch.Tensor,
-                 slope_x: torch.Tensor, slope_y: torch.Tensor, ghd: torch.Tensor, hm: torch.Tensor,
-                 origin: torch.Tensor):
-    """(positive_obstacle, negative_obstacle, visibility) [X, X] int32 in
-    window layout: from the torus-layout band sums pnum, pden (int32) and
-    band_ok (int32), and the window-layout slopes, guessed height
-    delta and height map; maps2d.map_products_plain's function, bitwise,
-    in one launch."""
-    shape, dev = cfg.map_shape, hm.device
-    for nm, t in (("pnum", pnum), ("pden", pden), ("band_ok", band_ok)):
-        _check(nm, t, torch.int32, shape, dev)
-    for nm, t in (("slope_x", slope_x), ("slope_y", slope_y), ("ghd", ghd), ("hm", hm)):
-        _check(nm, t, torch.float32, shape, dev)
-    _check("origin", origin, torch.int32, (3,), dev)
-    if _is_cpu(hm):
-        return maps2d.map_products_plain(cfg, pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin)
-    outs = tuple(torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
-    thresholds = (f32_value(cfg.slope_obstacle_threshold), f32_value(cfg.negative_obstacle_threshold))
-    MAP_PRODUCTS.launch(*map(_ptr, (pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin)), *shape, *thresholds, UNKNOWN_HEIGHT,
-                        *map(_ptr, outs), _stream())
-    return outs

@@ -9,13 +9,16 @@ the stencils and the user-facing maps, as in gvom_tpu/ops/maps2d.py.
     plain twins of kernel K4's column products.
   * slope + roughness: the 3×3 least-squares plane fit from 9 shifted adds,
     with coordinates relative to the center cell (gvom.py:663-734); on the
-    card the whole fit is the port's plane-fit kernel (csrc/planefit.cu).
+    card the whole fit is the port's plane-fit kernel (csrc/planefit.cu),
+    which also moves the height maps to the window layout
+    (plane_fit_window_plain is its twin).
   * guess height: the reference's outward search (gvom.py:556-661) as
     nearest-known-index scans (a flip and a cummin) plus
     `guess_search_radius` constant-time steps, with the reference's quirks:
     x_p_done is never tested in the loop condition (G:581) and y_n merges
     under the x_n guard (G:655); on the card the guess-height kernel
-    (csrc/guess.cu) runs the reference's per-cell search.
+    (csrc/guess.cu) runs the reference's per-cell search, and the maps
+    after it as its epilogue (guess_products_plain is its twin).
   * positive obstacle: the masked per-column band reduction (gvom.py:487-521,
     including the +1 band-start offset).
 """
@@ -33,12 +36,12 @@ from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 __all__ = [
     "height_map",
     "inferred_height_map",
-    "slope_and_roughness",
     "plane_fit_inputs",
     "plane_fit_plain",
     "plane_fit_tail_plain",
-    "guess_height_delta",
+    "plane_fit_window_plain",
     "guess_height_plain",
+    "guess_products_plain",
     "positive_obstacle_from_band",
     "positive_band_sums",
     "negative_obstacle_map",
@@ -134,16 +137,6 @@ def _fma_sum(terms):
     return acc
 
 
-def slope_and_roughness(cfg: GvomConfig, hm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """3×3 neighborhood least-squares plane fit: x/y slope angles and
-    roughness = log mean squared residual (gvom.py:663-734). The plane-fit
-    kernel on the card, plane_fit_plain on the CPU."""
-    from gvom_tpu_torch.ops import kernels   # kernels imports this module
-
-    rough, slope_x, slope_y = kernels.plane_fit(cfg, hm)
-    return slope_x, slope_y, rough
-
-
 def plane_fit_plain(cfg: GvomConfig, hm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(roughness, slope_x, slope_y) of the 3×3 plane fit of hm [X, Y]: the
     plain twin of the plane-fit kernel, plane_fit_inputs then its tail."""
@@ -233,18 +226,8 @@ def _nearest_known_with_value(known: torch.Tensor, idx: torch.Tensor, hm: torch.
     return oi, oh
 
 
-def guess_height_delta(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor) -> torch.Tensor:
-    """Height uncertainty for inferred-only cells (gvom.py:556-661): search
-    outward up to guess_search_radius steps in ±x/±y wedges for the nearest
-    measured heights and output max−min over {found heights, inferred}. The
-    guess-height kernel on the card, guess_height_plain on the CPU."""
-    from gvom_tpu_torch.ops import kernels   # kernels imports this module
-
-    return kernels.guess_height(cfg, hm, ihm)
-
-
 def guess_height_plain(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor) -> torch.Tensor:
-    """guess_height_delta's function in PyTorch ops, the plain twin of the
+    """The JAX package's guess_height_delta in PyTorch ops, the plain twin of the
     guess-height kernel."""
     X = cfg.xy_size
     R = cfg.guess_search_radius
@@ -359,7 +342,7 @@ def visibility_map(hm: torch.Tensor) -> torch.Tensor:
 
 def maps_to_window_plain(hm_t: torch.Tensor, ihm_t: torch.Tensor, origin: torch.Tensor):
     """(height, inferred height) in window layout from the torus-layout
-    column maps: the plain twin of the map-tail kernel's first entry."""
+    column maps: the plain twin of the plane-fit kernel's load."""
     return torus_to_window(hm_t, origin, grid_ndim=2), torus_to_window(ihm_t, origin, grid_ndim=2)
 
 
@@ -367,9 +350,24 @@ def map_products_plain(cfg: GvomConfig, pnum, pden, band_ok, slope_x, slope_y, g
     """(positive_obstacle, negative_obstacle, visibility) in window layout:
     the positive obstacle from the torus-layout band sums (band_ok int32)
     and the window-layout slopes moved onto the torus, as the JAX
-    package computes it; the plain twin of the map-tail kernel's second
-    entry."""
+    package computes it; the plain twin of the guess kernel's epilogue."""
     sx_t = window_to_torus(slope_x, origin, grid_ndim=2)
     sy_t = window_to_torus(slope_y, origin, grid_ndim=2)
     pos_t = positive_obstacle_from_band(cfg, pnum, pden, band_ok, sx_t, sy_t)
     return (torus_to_window(pos_t, origin, grid_ndim=2), negative_obstacle_map(cfg, ghd), visibility_map(hm))
+
+
+def plane_fit_window_plain(cfg: GvomConfig, hm_t: torch.Tensor, ihm_t: torch.Tensor, origin: torch.Tensor):
+    """(height, inferred height, roughness, slope_x, slope_y) [X, X] in
+    window layout from the torus-layout column maps: the plain twin of the
+    plane-fit kernel, maps_to_window_plain then plane_fit_plain."""
+    hm, ihm = maps_to_window_plain(hm_t, ihm_t, origin)
+    return (hm, ihm) + plane_fit_plain(cfg, hm)
+
+
+def guess_products_plain(cfg: GvomConfig, hm, ihm, slope_x, slope_y, pnum, pden, band_ok, origin):
+    """(guessed_height_delta, positive_obstacle, negative_obstacle,
+    visibility) [X, X] in window layout: the plain twin of the guess-height
+    kernel, guess_height_plain then map_products_plain."""
+    ghd = guess_height_plain(cfg, hm, ihm)
+    return (ghd,) + map_products_plain(cfg, pnum, pden, band_ok, slope_x, slope_y, ghd, hm, origin)

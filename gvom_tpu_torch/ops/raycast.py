@@ -13,8 +13,10 @@ each scan. Both follow three exactness rules of the JAX package
 (gvom_tpu/ops/raycast.py), so the counts agree bit for bit:
   * the dominant step is exactly ±1;
   * the dominant row is the integer floor(start_rel) ± k, never floor(start + k);
-  * position and liveness round the product before the add:
-    start_rel + fl(k·step) and fl((k−1)·delta) < budget.
+  * a position is one fused multiply-add, fma(k, step, start_rel), as every
+    JAX path computes it (XLA:CPU contracts the product into the add through
+    its optimization_barrier, and the Pallas kernel in interpret mode does
+    the same); liveness is fl((k−1)·delta) < budget, with no add to contract.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def ray_pass_counts_plain(cfg: GvomConfig, m: RayMarch, origin: torch.Tensor, y_
     acc = out.view(-1)
     for k in range(1, cfg.ray_steps + 1):
         kf = float(k)
-        pos = m.start_rel[None, :] + kf * m.step
+        pos = gridops.fma32(m.step, kf, m.start_rel[None, :].expand_as(m.step))
         vox = torch.floor(pos).to(torch.int32)
         vox = torch.where(is_dom, (x0_dom + k * sgn)[:, None], vox)
         inb = torch.all((vox >= 0) & (vox < size[None, :]), dim=1)

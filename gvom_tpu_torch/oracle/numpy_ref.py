@@ -22,7 +22,12 @@ Replicated quirks (see ARCHITECTURE.md):
 Documented divergence: ray positions are evaluated as start + k*step (exact
 affine form) rather than the reference's sequentially accumulated f32 adds
 (gvom.py:1128-1132) — same math, different last-bit rounding. The engine
-uses the same affine form, so oracle and engine agree exactly on ray geometry.
+uses the same affine form, but rounds it as one fused multiply-add,
+fma(k, step, start), as the JAX package's compiled raycast does (XLA:CPU
+contracts the product into the add); this oracle rounds the product first.
+So the two agree on ray geometry except at FMA knife-edges, where a floor
+of the position lands one voxel apart: on the 16×16×32 grid of
+tests/test_torch_raycast.py, 2 to 8 voxels' pass counts on 8 of 15 scans.
 """
 
 from __future__ import annotations

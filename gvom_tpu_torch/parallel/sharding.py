@@ -34,9 +34,10 @@ common origin); kernel K1 once for the rank's scans (each scan's rays
 from its own ego, all adding into one miss grid); kernels K2 and K5 once on
 the merged points of the rank's scans, the moments raw (no occupancy mask);
 then the merge kernel (the merge with the old world and the column maps,
-csrc/merge.cu), the plane fit, the guess height and the maps' tail
-(csrc/maptail.cu): the port's kernels for what the JAX package computes in
-XLA outside any Pallas kernel.
+csrc/merge.cu), the plane fit (which moves the column maps to the window
+layout as it loads them) and the guess height (which writes the obstacle
+maps and the visibility as its epilogue): the port's kernels for what the
+JAX package computes in XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -259,14 +260,12 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
 
         # ---- merge with the world slab and the column maps (one kernel, in
         # place over the contribution), then the 2D maps on the gathered
-        # [X, X] maps: the stencils and the maps' tail ----
+        # [X, X] maps: the plane fit, then the guess height with the maps after it ----
         merged, evidence, cols, bands = kernels.merge_batch(cfg, world, contrib, ego_last, rows.start)
         cols = mesh.all_gather(cols, SPACE_AXIS, 2)
         bands = mesh.all_gather(bands, SPACE_AXIS, 2)
-        hm, ihm = kernels.maps_to_window(cols[0], cols[1], origin)
-        sx, sy, rough = maps2d.slope_and_roughness(cfg, hm)
-        ghd = maps2d.guess_height_delta(cfg, hm, ihm)
-        pos, neg, vis = kernels.map_products(cfg, bands[0], bands[1], bands[2], sx, sy, ghd, hm, origin)
+        hm, ihm, rough, sx, sy = kernels.plane_fit(cfg, cols[0], cols[1], origin)
+        ghd, pos, neg, vis = kernels.guess_height(cfg, hm, ihm, sx, sy, bands[0], bands[1], bands[2], origin)
         products = MapProducts(
             origin=origin, height=hm, inferred_height=ihm, slope_x=sx, slope_y=sy, roughness=rough,
             guessed_height_delta=ghd, positive_obstacle=pos, negative_obstacle=neg, visibility=vis)

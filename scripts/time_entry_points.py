@@ -35,7 +35,13 @@ on the scan, on the slab and on a batch's merged points; K3 into a
 ring-buffer slot; K5 with the mask off on the batch's sums; the slab
 epilogue (mask on); the pairs K2 then K3 (the scan) and K2 then K5 (the
 batch); K4 on the ring buffer that holds the scan (its launch alone,
-kernels.combine_launch); and the guess height on that combine's maps. Each epilogue takes its own commit's K2 sums. The batch is
+kernels.combine_launch); on that combine's maps the plane fit, the guess
+height, and the 2-D chain after K4 as the commit launches it (maps_chain:
+the maps' tail's two entries around the two stencils where the commit has
+them, else the plane fit and the guess height that took the tail over);
+and, on the host clock, the Gvom facade's combine_maps (median of 20 warm
+calls). The preparations, the chain and the stencils are also timed as
+their wrappers called back to back (wrapper_ms). Each epilogue takes its own commit's K2 sums. The batch is
 chip_smoke.py's second batched step: 8 scans made in worker processes,
 repeated to 32 with moving egos; --batch-cache keeps its points in a file,
 written when it is missing.
@@ -106,15 +112,25 @@ def make_batch(pts, valid, egos, step_index=1):
     return (pts[reps] + shift[:, None, :]).contiguous(), valid[reps].contiguous(), begos.contiguous()
 
 
+_CAPTURE = []   # graph_ms's capture stream, made at its first call
+
+
 def graph_ms(fn, reps):
     """The card's time for what fn() launches, alone: GRAPH_CALLS calls
-    captured in one CUDA graph, replayed until about reps calls ran."""
+    captured in one CUDA graph, replayed until about reps calls ran. fn runs
+    once on the capture stream first, so that what a wrapper keeps a stream
+    exists before the capture."""
     import torch
 
-    fn()
+    if not _CAPTURE:
+        _CAPTURE.append(torch.cuda.Stream())
+    stream = _CAPTURE[0]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=stream):
         for _ in range(GRAPH_CALLS):
             fn()
     g.replay()
@@ -158,7 +174,7 @@ def main(argv=None) -> int:
         print("time_entry_points: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.root).resolve()))
-    from gvom_tpu_torch import GvomConfig, make_batched_step
+    from gvom_tpu_torch import Gvom, GvomConfig, make_batched_step
     from gvom_tpu_torch.io import synthetic
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.ops import binning, kernels, raycast
@@ -209,9 +225,46 @@ def main(argv=None) -> int:
     out["combine_launches"], out["combine_f64_launches"] = count_launches(
         lambda: pipeline.combine(cfg, buf, world, ego))
     target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
-    k4_launch, _ = kernels.combine_launch(cfg, buf, world, target, ego)
+    k4_launch, k4_out = kernels.combine_launch(cfg, buf, world, target, ego)
+    k4_launch()
     _, products, _ = pipeline.combine(cfg, buf, world, ego)
     hm, ihm = products.height.contiguous(), products.inferred_height.contiguous()
+    sx, sy = products.slope_x.contiguous(), products.slope_y.contiguous()
+    hm_t, ihm_t, pnum, pden, bok = k4_out[5:10]
+    # the 2-D chain after K4, as this commit launches it: four launches where
+    # the maps' tail has entries of its own, two where the plane fit and the
+    # guess height took it over
+    tail_entries = hasattr(kernels, "maps_to_window")
+    if tail_entries:
+        def maps_chain():
+            w, iw = kernels.maps_to_window(hm_t, ihm_t, target)
+            r, fx, fy = kernels.plane_fit(cfg, w)
+            g = kernels.guess_height(cfg, w, iw)
+            return kernels.map_products(cfg, pnum, pden, bok, fx, fy, g, w, target)
+        stencils = {"plane_fit": lambda: kernels.plane_fit(cfg, hm),
+                    "guess_height": lambda: kernels.guess_height(cfg, hm, ihm),
+                    "maps_to_window": lambda: kernels.maps_to_window(hm_t, ihm_t, target),
+                    "map_products": lambda: kernels.map_products(cfg, pnum, pden, bok, sx, sy,
+                                                                 products.guessed_height_delta, hm, target)}
+    else:
+        def maps_chain():
+            w, iw, _, fx, fy = kernels.plane_fit(cfg, hm_t, ihm_t, target)
+            return kernels.guess_height(cfg, w, iw, fx, fy, pnum, pden, bok, target)
+        stencils = {"plane_fit": lambda: kernels.plane_fit(cfg, hm_t, ihm_t, target),
+                    "guess_height": lambda: kernels.guess_height(cfg, hm, ihm, sx, sy, pnum, pden, bok, target)}
+    out["maps_chain_launches"] = 4 if tail_entries else 2
+
+    # ---- combine_maps on the facade, on the host clock ----
+    g = Gvom(config=cfg)
+    g.process_pointcloud(pad[mask], ego_np)
+    host = []
+    for _ in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.combine_maps()
+        host.append(1e3 * (time.perf_counter() - t0))
+    out["combine_maps_host_ms_median"] = statistics.median(host[3:])
+    del g
 
     # ---- each kernel's launches alone ----
     X, Y, Z = cfg.grid_shape
@@ -250,7 +303,8 @@ def main(argv=None) -> int:
         "K2_then_K3_scan": k2_k3,
         "K2_then_K5_batch": k2_k5,
         "K4_combine": k4_launch,
-        "guess_height": lambda: kernels.guess_height(cfg, hm, ihm),
+        "maps_chain": maps_chain,
+        **stencils,
     }
     if world_k2:
         launches["prepare_scan"] = lambda: kernels.prepare_points(cfg, pts[None], valid[None], ego[None], frame_ego=ego)
@@ -271,6 +325,9 @@ def main(argv=None) -> int:
     del live
     out["batch_points"] = int(bpn.shape[0])
     out["launch_alone_ms"] = {name: graph_ms(fn, args.reps) for name, fn in launches.items()}
+    # the wrappers back to back, as the host paces them
+    out["wrapper_ms"] = {name: cuda_ms(launches[name], args.reps, warm=5) for name in
+                         ("prepare_scan", "prepare_batch", "maps_chain", *stencils) if name in launches}
     smi = ""
     if shutil.which("nvidia-smi"):
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -8,7 +8,11 @@ chosen by the launcher from the map's width X and the search radius R: with
 the block's tile, its R-cell halo and each staged row's and column's known
 bits in shared memory (the route of the upstream R = 15), or by walking the
 wedge cell by cell in global memory (the route when that region would not
-fit in 48 KB). This script builds the source as committed and with its
+fit in 48 KB); a source with the maps' epilogue (the obstacle maps and the
+visibility after the delta) gets io.synthetic.map_tail_inputs' seeded band
+sums and slopes at origin 0 beside each map, an older one is called by its
+own signature, and only the delta map is compared and timed with it. This
+script builds the source as committed and with its
 shared-memory limit set to 0, so that every launch walks in global memory,
 and, with --parent, the guess.cu of the checkout at DIR (unpack the parent
 commit there with git archive). It holds the builds bit for bit against
@@ -23,6 +27,7 @@ It prints one JSON line and the card's name and power limit.
 
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -44,8 +49,9 @@ def main() -> int:
         return 2
     import chip_smoke
     from gvom_tpu_torch import Gvom, GvomConfig
-    from gvom_tpu_torch.io.synthetic import STENCIL_PATTERNS, stencil_maps
+    from gvom_tpu_torch.io.synthetic import STENCIL_PATTERNS, map_tail_inputs, stencil_maps
     from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.ops.maps2d import f32_value
     from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 
     src = kernels.GUESS.source.read_text()
@@ -73,15 +79,34 @@ def main() -> int:
     maps = {"combine": (g.products.height.contiguous(), g.products.inferred_height.contiguous())}
     for pattern in STENCIL_PATTERNS:
         maps[pattern] = tuple(torch.from_numpy(a).cuda() for a in stencil_maps(pattern, cfg.xy_size, 0))
+    # the epilogue's inputs where a source has it (the maps after the delta): seeded, beside every map
+    tail = {k: torch.from_numpy(v).cuda() for k, v in map_tail_inputs(
+        cfg.xy_size, cfg.slope_obstacle_threshold, cfg.negative_obstacle_threshold).items()}
+    origin = torch.zeros(3, dtype=torch.int32, device="cuda")
+    tail_args = (tail["slope_x"], tail["slope_y"], tail["pnum"], tail["pden"], tail["band_ok"], origin)
 
     def runner(k, hm, ihm):
+        """The build's delta map: through the wrapper for the committed
+        source, else by its own C signature (with the epilogue or without)."""
         if k is None:
-            return lambda: kernels.guess_height(cfg, hm, ihm)
+            return lambda: kernels.guess_height(cfg, hm, ihm, *tail_args)[0]
+        epilogue = "const void* pnum" in k.source.read_text()
+        if epilogue:
+            k.argtypes = kernels.GUESS.argtypes
+        else:
+            k.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_void_p] * 2
 
         def run():
             out = torch.empty_like(hm)
-            k.launch(kernels._ptr(hm), kernels._ptr(ihm), cfg.xy_size, cfg.guess_search_radius, UNKNOWN_HEIGHT,
-                     kernels._ptr(out), kernels._stream())
+            if epilogue:
+                maps = [torch.empty(hm.shape, dtype=torch.int32, device=hm.device) for _ in range(3)]
+                k.launch(*map(kernels._ptr, (hm, ihm) + tail_args), cfg.xy_size, cfg.guess_search_radius,
+                         UNKNOWN_HEIGHT, f32_value(cfg.slope_obstacle_threshold),
+                         f32_value(cfg.negative_obstacle_threshold), kernels._ptr(out), *map(kernels._ptr, maps),
+                         kernels._stream())
+            else:
+                k.launch(kernels._ptr(hm), kernels._ptr(ihm), cfg.xy_size, cfg.guess_search_radius, UNKNOWN_HEIGHT,
+                         kernels._ptr(out), kernels._stream())
             return out
         return run
 

@@ -187,24 +187,24 @@ def test_fuse_plain_at_other_buffer_depths(buffer_size):
 def test_fuse_plain_past_256_z():
     """fuse_plain and the combine at 16×16×320 (the kernel's two-pass form
     past 256 z) against gvom_tpu's combine(impl="xla"), over a drive of 3
-    scans. Each combine takes JAX's own ring buffer (from_jax_numpy) and the
-    port's world, so the combine is held on the same slots as JAX's; on
-    this grid the raycast meets fault C4 (ROADMAP §C,
-    test_torch_raycast.py::test_raycast_knife_edge_follows_the_oracle)."""
+    scans, each ingested by both packages. The raycast rounds its positions
+    as one FMA, as the JAX path does (fault C4, closed:
+    test_torch_raycast.py::test_raycast_c4_sweep_equals_jax), so the
+    port's own ingest fills the ring buffer."""
     from gvom_tpu.config import GvomConfig
 
     cfg = GvomConfig(xy_size=16, z_size=320, max_points=1024, buffer_size=4)
     c = tcfg(cfg)
     ingest, combine = jax_ingest(cfg), jax_combine(cfg)
     jbuf, jworld = jempty_buffer(cfg), jempty_world(cfg)
-    tworld = empty_world_state(c, "cpu")
+    tbuf, tworld = empty_buffer_state(c, "cpu"), empty_world_state(c, "cpu")
     for i in range(3):
         ego = np.array([0.3, -0.2, 1.5]) + i * np.array([0.9, 0.6, 0.02])
         pad, mask = scan(cfg, i, ego)
         e = np.float32(ego)
         jbuf, _ = ingest(jbuf, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
         jworld, jprod, _ = combine(jbuf, jworld, jnp.asarray(e))
-        tbuf = convert.from_jax_numpy(jax_numpy(jbuf), "cpu")
+        tpipeline.ingest_and_insert(c, tbuf, t(pad), t(mask), t(e))
         target = tbuf.grids.origin[int(tbuf.last_slot)]
         fused = tpipeline.fuse_plain(c, tbuf, tworld, target, t(e))
         tworld, tprod, _ = tpipeline.combine(c, tbuf, tworld, t(e))

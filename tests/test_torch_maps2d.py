@@ -1,10 +1,8 @@
 """The port's 2-D stencils against the JAX package's, bitwise, on the CPU.
 
-`gvom_tpu_torch.ops.maps2d.slope_and_roughness` and `guess_height_delta`
-run their plain twins on CPU tensors (`plane_fit_plain`,
-`guess_height_plain`; on the card the plane-fit and guess-height kernels,
-which chip_smoke.py holds bitwise against the same twins). Here the twins
-meet `gvom_tpu/ops/maps2d.py::slope_and_roughness` and
+The plain twins of the stencils, `gvom_tpu_torch.ops.maps2d.plane_fit_plain`
+and `guess_height_plain` (on the card the plane-fit and guess-height
+kernels, which chip_smoke.py holds bitwise against the same twins), meet `gvom_tpu/ops/maps2d.py::slope_and_roughness` and
 `::guess_height_delta`, jitted on the CPU, on seeded 64×64 maps of every
 `io.synthetic.stencil_maps` pattern (all known, all unknown, checkerboard,
 border only, collinear triples with det = 0, a count of exactly 3, heights
@@ -71,9 +69,9 @@ def _assert_bitwise(name, got, want):
 def test_slope_and_roughness_bitwise_the_jax_package(pattern):
     cfg, _ = _cfgs()
     hm, _ = stencil_maps(pattern, X, seed=1)
-    got = maps2d.slope_and_roughness(cfg, torch.from_numpy(hm))
+    rough, slope_x, slope_y = maps2d.plane_fit_plain(cfg, torch.from_numpy(hm))
     want = _jax_slope()(hm)
-    for name, a, b in zip(("slope_x", "slope_y", "roughness"), got, want):
+    for name, a, b in zip(("slope_x", "slope_y", "roughness"), (slope_x, slope_y, rough), want):
         assert a.dtype == torch.float32 and tuple(a.shape) == (X, X)
         _assert_bitwise(f"{pattern} {name}", a.numpy(), np.asarray(b))
 
@@ -83,7 +81,7 @@ def test_slope_and_roughness_bitwise_the_jax_package(pattern):
 def test_guess_height_delta_bitwise_the_jax_package(pattern, R):
     cfg, jcfg = _cfgs(R)
     hm, ihm = stencil_maps(pattern, X, seed=2)
-    got = maps2d.guess_height_delta(cfg, torch.from_numpy(hm), torch.from_numpy(ihm))
+    got = maps2d.guess_height_plain(cfg, torch.from_numpy(hm), torch.from_numpy(ihm))
     assert got.dtype == torch.float32 and tuple(got.shape) == (X, X)
     if R in JIT_RADII:
         want = np.asarray(_jax_guess(R)(hm, ihm))
@@ -115,24 +113,37 @@ def test_the_patterns_reach_the_cases_they_are_for():
     assert (three["collinear_triples"] & ok["collinear_triples"]).any()
     assert (three["count_three"] & ok["count_three"]).any() and ok["near_1e4"].any()
     hm, ihm = (torch.from_numpy(a) for a in stencil_maps("sparse", X, seed=2))
-    assert int((maps2d.guess_height_delta(cfg, hm, ihm) > 0).sum()) > X * X // 2
-    assert int((maps2d.guess_height_delta(_cfgs(0)[0], hm, ihm) > 0).sum()) == 0
+    assert int((maps2d.guess_height_plain(cfg, hm, ihm) > 0).sum()) > X * X // 2
+    assert int((maps2d.guess_height_plain(_cfgs(0)[0], hm, ihm) > 0).sum()) == 0
 
 
 def test_cpu_wrappers_are_the_plain_twins():
-    """On CPU tensors the kernel wrappers run the plain twins: the whole
-    fit, its tail on the fit's inputs, and the guess search; a wrong shape
-    or a negative radius is refused."""
+    """On CPU tensors the kernel wrappers run the plain twins: the whole fit
+    from the torus-layout maps (the window layout, then the fit), its tail
+    on the fit's inputs, and the guess search with the maps after it; a
+    wrong shape or a negative radius is refused."""
     cfg, _ = _cfgs()
     hm, ihm = (torch.from_numpy(a) for a in stencil_maps("terrain_holes", X, seed=3))
+    o = torch.tensor([7, -3, 0], dtype=torch.int32)
+    hm_t, ihm_t = (torch.roll(a, (7, -3), (0, 1)) for a in (hm, ihm))     # window[r] = torus[r + o]
+    got = kernels.plane_fit(cfg, hm_t, ihm_t, o)
+    _assert_bitwise("window height", got[0].numpy(), hm.numpy())
+    _assert_bitwise("window inferred height", got[1].numpy(), ihm.numpy())
     fit = maps2d.plane_fit_inputs(cfg, hm)
-    for a, b, c in zip(kernels.plane_fit(cfg, hm), maps2d.plane_fit_plain(cfg, hm), kernels.plane_fit_tail(*fit)):
+    for a, b, c in zip(got[2:], maps2d.plane_fit_plain(cfg, hm), kernels.plane_fit_tail(*fit)):
         _assert_bitwise("plane fit", a.numpy(), b.numpy())
         _assert_bitwise("plane fit tail", c.numpy(), b.numpy())
-    _assert_bitwise("guess", kernels.guess_height(cfg, hm, ihm).numpy(), maps2d.guess_height_plain(cfg, hm, ihm).numpy())
+    rng = np.random.default_rng(4)
+    bands = [torch.from_numpy(rng.integers(0, 50, (X, X)).astype(np.int32)) for _ in range(2)]
+    band_ok = torch.from_numpy((rng.random((X, X)) < 0.8).astype(np.int32))
+    args = (hm, ihm, got[3], got[4], bands[0], torch.maximum(bands[0], bands[1]), band_ok, o)
+    guess = kernels.guess_height(cfg, *args)
+    _assert_bitwise("guess", guess[0].numpy(), maps2d.guess_height_plain(cfg, hm, ihm).numpy())
+    for a, b in zip(guess[1:], maps2d.map_products_plain(cfg, *args[4:7], got[3], got[4], guess[0], hm, o)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     with pytest.raises(ValueError, match="shape"):
-        kernels.plane_fit(cfg, hm[:-1])
+        kernels.plane_fit(cfg, hm_t[:-1], ihm_t, o)
     with pytest.raises(ValueError, match="shape"):
-        kernels.guess_height(cfg, hm, ihm[:, :-1])
+        kernels.guess_height(cfg, hm, ihm[:, :-1], *args[2:])
     with pytest.raises(ValueError, match=">= 0"):
-        kernels.guess_height(_cfgs(-1)[0], hm, ihm)
+        kernels.guess_height(_cfgs(-1)[0], *args)

@@ -10,9 +10,10 @@ nonzero around their hits; its height, inferred height and band sums meet
 `gvom_tpu/ops/maps2d.py`'s height_map, inferred_height_map and
 positive_obstacle_map, jitted, fed the twin's occ2 and merged channels
 through `pack_yz`; a slab (y0 = 16, Ys = 16) meets the rows of the full
-result. `kernels.maps_to_window` and `map_products` (csrc/maptail.cu) have
-the twins `ops/maps2d.py::maps_to_window_plain` and `map_products_plain`,
-held against the JAX package's own maps' tail (`gvom_tpu/models/pipeline.py::
+result. The maps' tail, which the plane-fit kernel takes as its load and
+the guess-height kernel as its epilogue (`kernels.plane_fit`,
+`kernels.guess_height`), has the twins `ops/maps2d.py::maps_to_window_plain`
+and `map_products_plain`, held against the JAX package's own maps' tail (`gvom_tpu/models/pipeline.py::
 _combine_fused` from its kernel's column products on) on
 `io.synthetic.map_tail_inputs` (cells at the slope and negative thresholds,
 den = 0, UNKNOWN_HEIGHT, band cells on the window's edges). Every JAX input is a jit argument. On the card,
@@ -283,8 +284,9 @@ def test_map_tail_inputs_reach_their_cases():
 
 def test_cpu_wrappers_are_the_twins():
     """On CPU tensors the kernel wrappers run the plain twins: merge_batch
-    (its slab too), maps_to_window and map_products; wrong shapes, dtypes
-    and slab rows outside the torus are refused."""
+    (its slab too), and the plane fit and the guess height with the maps'
+    tail folded into them (plane_fit_window_plain, guess_products_plain);
+    wrong shapes, dtypes and slab rows outside the torus are refused."""
     world, contrib, ego = _merge_inputs("moved")
     w, c = _torch_state(world, contrib)
     e = torch.from_numpy(ego)
@@ -305,16 +307,22 @@ def test_cpu_wrappers_are_the_twins():
 
     d, tt = _tail_inputs(2)
     o = torch.tensor([5, -7, 2], dtype=torch.int32)
-    hm = kernels.maps_to_window(tt["hm_t"], tt["ihm_t"], o)
-    for a, b in zip(hm, maps2d.maps_to_window_plain(tt["hm_t"], tt["ihm_t"], o)):
+    fitted = kernels.plane_fit(CFG, tt["hm_t"], tt["ihm_t"], o)
+    for a, b in zip(fitted, maps2d.plane_fit_window_plain(CFG, tt["hm_t"], tt["ihm_t"], o)):
+        _same("plane fit", a, b)
+    for a, b in zip(fitted[:2], maps2d.maps_to_window_plain(tt["hm_t"], tt["ihm_t"], o)):
         _same("window", a, b)
-    args = (tt["pnum"], tt["pden"], tt["band_ok"], tt["slope_x"], tt["slope_y"], tt["ghd"], hm[0], o)
-    for a, b in zip(kernels.map_products(CFG, *args), maps2d.map_products_plain(CFG, *args)):
+    args = (fitted[0], fitted[1], tt["slope_x"], tt["slope_y"], tt["pnum"], tt["pden"], tt["band_ok"], o)
+    got = kernels.guess_height(CFG, *args)
+    for a, b in zip(got, maps2d.guess_products_plain(CFG, *args)):
+        _same("guess and products", a, b)
+    for a, b in zip(got[1:], maps2d.map_products_plain(CFG, tt["pnum"], tt["pden"], tt["band_ok"], tt["slope_x"],
+                                                       tt["slope_y"], got[0], fitted[0], o)):
         _same("products", a, b)
     with pytest.raises(ValueError, match="band_ok: dtype"):
-        kernels.map_products(CFG, *args[:2], tt["band_ok"].bool(), *args[3:])
+        kernels.guess_height(CFG, *args[:6], tt["band_ok"].bool(), o)
     with pytest.raises(ValueError, match="ihm_t: shape"):
-        kernels.maps_to_window(tt["hm_t"], tt["ihm_t"][:-1], o)
+        kernels.plane_fit(CFG, tt["hm_t"], tt["ihm_t"][:-1], o)
 
 
 def test_library_name_hashes_the_included_headers(tmp_path):

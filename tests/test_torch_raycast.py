@@ -40,7 +40,7 @@ def both_raycasts(cfg, pad, mask, ego, origin=None):
     tp, tk = tbinning.prepare_points(c, torch.from_numpy(pad), torch.from_numpy(mask), te)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(pw))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(keep))
-    to = tgrid.compute_origin(c, te) if origin is None else torch.from_numpy(np.asarray(origin, np.int32))
+    to = tgrid.compute_origin(c, te) if origin is None else torch.from_numpy(np.array(origin, np.int32))
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
     out = traycast.ray_pass_counts(c, tp, tk, te, to)
     return ref, out.numpy(), to.numpy()
@@ -108,23 +108,57 @@ def test_raycast_knife_edge_dominant_row_exact():
     assert out[4 + 27].sum() == 1 and out[4 + 28].sum() == 1
 
 
-def test_raycast_knife_edge_follows_the_oracle():
-    """Fault C4 (ROADMAP §C): on a 16×16×32 grid with the ego at (1.2, 0.4,
-    1.52) two diagonal rays (step_y = 1 − 2⁻²³) reach y = 13 − 5·2⁻²³ at
-    step 5. The JAX package's rule, start_rel + fl(k·step) with the product
-    rounded (an optimization_barrier), gives 13.0; the jitted XLA:CPU path
-    contracts it into an FMA anyway and gives 13 − 2⁻²⁰, one row lower. The
-    port and the NumPy oracle follow the rule: they agree bit for bit, and
-    the JAX path differs from both at those four voxels."""
+C4_CFG = GvomConfig(xy_size=16, z_size=32, max_points=1024, buffer_size=4)
+
+
+def c4_scan(s):
+    """(padded points, mask, ego, the jitted JAX origin) of scan s of the
+    16×16×32 drive: ego (0.3, −0.2, 1.5) + s·(0.9, 0.6, 0.02). The origin is
+    compute_origin jitted, as the JAX package's pipelines run it (the eager
+    function rounds differently and gives another origin at s = 5)."""
     from torch_helpers import scan
 
-    cfg = GvomConfig(xy_size=16, z_size=32, max_points=1024, buffer_size=4)
-    ego = np.array([0.3, -0.2, 1.5]) + np.array([0.9, 0.6, 0.02])
-    pad, mask = scan(cfg, 1, ego)
-    ref, out, origin = both_raycasts(cfg, pad, mask, ego)
-    orc = NumpyOracle(cfg).process_pointcloud(pad[mask], ego)
-    np.testing.assert_array_equal(canonical(out, origin), orc.passes)
-    assert (out != ref).sum() == 4 and out.sum() == ref.sum()
+    ego = np.array([0.3, -0.2, 1.5]) + s * np.array([0.9, 0.6, 0.02])
+    pad, mask = scan(C4_CFG, s, ego)
+    jo = np.asarray(jax.jit(lambda e: jgrid.compute_origin(C4_CFG, e))(jnp.asarray(np.float32(ego))))
+    return pad, mask, ego, jo
+
+
+def test_raycast_knife_edge_follows_the_oracle():
+    """Fault C4's pin (ROADMAP §C, closed; the name is from when the port
+    followed the oracle here). On the 16×16×32 grid, scan 1 (ego at
+    (1.2, 0.4, 1.52)) has two diagonal rays (step_y = 1 − 2⁻²³) that reach
+    y = 13 − 5·2⁻²³ at step 5. The JAX package barriers the product
+    (start_rel + optimization_barrier(k·step)), but the jitted XLA:CPU path
+    contracts it into one FMA anyway and gives 13 − 2⁻²⁰; so does the Pallas
+    K1 in interpret mode. The port computes the same FMA and equals the JAX
+    path bit for bit; the NumPy oracle rounds the product first, gives 13.0,
+    and differs from both at those four voxels."""
+    pad, mask, ego, jo = c4_scan(1)
+    ref, out, origin = both_raycasts(C4_CFG, pad, mask, ego, origin=jo)
+    np.testing.assert_array_equal(out, ref)
+    orc = NumpyOracle(C4_CFG).process_pointcloud(pad[mask], ego)
+    np.testing.assert_array_equal(orc.origin, origin)
+    assert (canonical(out, origin) != orc.passes).sum() == 4
+    assert canonical(out, origin).sum() == orc.passes.sum()
+
+
+@pytest.mark.parametrize("s", range(1, 16))
+def test_raycast_c4_sweep_equals_jax(s):
+    """Scans 1..15 of the 16×16×32 drive: the port's raycast equals the
+    jitted ray_pass_counts_xla bit for bit. Before fault C4 was closed the
+    port rounded k·step before the add and differed on the odd scans
+    (s = 1, 3, ..., 15, by 2 to 8 voxels). The Pallas K1 in interpret mode
+    (ray_pass_counts_matmul(..., interpret=True)) gave exactly the XLA
+    path's counts at s = 1 and s = 5 when checked once (0 voxels apart;
+    7,487 and 7,462 passes); it is not run here, since interpret mode is
+    slow."""
+    pad, mask, ego, jo = c4_scan(s)
+    te = torch.from_numpy(np.float32(ego).copy())
+    np.testing.assert_array_equal(tgrid.compute_origin(tcfg(C4_CFG), te).numpy(), jo)
+    ref, out, _ = both_raycasts(C4_CFG, pad, mask, ego, origin=jo)
+    np.testing.assert_array_equal(out, ref)
+    assert ref.sum() > 1000
 
 
 @pytest.mark.parametrize("egoi", [0, 1, 2])
