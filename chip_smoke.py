@@ -68,7 +68,23 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      and the batched step at Z = 320 against its plain versions; and the
      JAX record's larger grid, 512×512×64 at B = 4: the kernels against
      their plain versions over two scans and the facade against its
-     plain versions, with the peak device memory of its drive;
+     plain versions, with the peak device memory of its drive. Then the
+     configuration sweep (SWEEP_CONFIGS: F1-F4, the CPU tests' configurations
+     on the JAX package's fuzz drives, and F5, the upstream grid at the
+     reference node's z_resolution = 0.2; between them every field that the
+     kernels take as a constant off its default: inexact reciprocal
+     resolutions, eigen distances 0 and 2, ring buffers of 2 to 5, decay
+     limits 2 and 4, the occupancy gate at 3, the ego disk, the obstacle
+     thresholds, the guess radius 6, the sensor-relative distance filter):
+     for each, the facade, two batched steps and ingest_scan(y_window=) on
+     the quarter slab that holds the seam, each against the same entry on
+     its plain versions, every kernel of each path launched (the launch
+     counts set to 0 before and read after); and beside it the installed
+     port: the wheel that pyproject.toml defines, built offline and
+     unpacked into a temporary directory, alone on the path, builds the
+     preparation and K1 from its own sources into its own _build, launches
+     each once (bitwise their plain versions), imports no jax, and runs
+     its CLI;
   2. drives the port's Gvom facade (process_pointcloud, then combine_maps
      after each scan) with every kernel's launch count set to 0 just before
      and read just after (the preparation, K1-K4, the plane fit and the
@@ -176,6 +192,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
 from pathlib import Path
@@ -217,6 +234,31 @@ EIGEN_DISTS = ((1, 9), (8, 1), (5, 8))   # phase 1's epilogue (xy_eigen_dist, z_
 WIDE_CONFIGS = (dict(buffer_size=17), dict(z_size=320), dict(z_eigen_dist=9), dict(xy_eigen_dist=8))
 LARGE_GRID = 512             # phase 1d's grid, the JAX record's larger one (512×512×64)
 WIDE_SCANS = 2               # scans of each of those drives: the second combines into a live world
+# phase 1e's configuration sweep: (seed of the drive, the fields off GvomConfig()'s). F1-F4 are the CPU
+# tests' (tests/torch_helpers.py, SWEEP), on the JAX package's fuzz drives (tests/test_fuzz_parity.py);
+# F5 is the upstream deployment at the reference node's z_resolution with F4's thresholds, guess radius
+# and distance filter, on the upstream scans
+SWEEP_THRESHOLDS = dict(hit_count_threshold=3, decay_miss_limit=2, robot_height=1.2, robot_radius=2.5,
+                        ground_to_lidar_height=1.7, positive_obstacle_threshold=0.3, negative_obstacle_threshold=0.8,
+                        slope_obstacle_threshold=0.15, density_threshold=7, guess_search_radius=6, min_distance=2.5,
+                        ego_relative_min_distance=True)
+SWEEP_CONFIGS = {
+    "F1": (11, dict(xy_size=40, z_size=24, xy_resolution=0.35, z_resolution=0.25, buffer_size=3,
+                    xy_eigen_dist=1, z_eigen_dist=0)),
+    "F2": (23, dict(xy_size=48, z_size=16, xy_resolution=0.5, z_resolution=0.5, buffer_size=2,
+                    xy_eigen_dist=2, z_eigen_dist=1, decay_miss_limit=4)),
+    "F3": (37, dict(xy_size=32, z_size=32, xy_resolution=0.4, z_resolution=0.2, buffer_size=5,
+                    xy_eigen_dist=0, z_eigen_dist=0, robot_radius=0.8)),
+    "F4": (5, dict(xy_size=48, z_size=24, xy_resolution=0.3, z_resolution=0.15, buffer_size=4,
+                   xy_eigen_dist=2, z_eigen_dist=2, **SWEEP_THRESHOLDS)),
+    "F5": (None, dict(z_resolution=0.2, **SWEEP_THRESHOLDS)),
+}
+SWEEP_MAX_POINTS, SWEEP_BATCH_MAX_POINTS = 16384, 4096   # F1-F4's point capacities (facade, batched step)
+SWEEP_SCANS, SWEEP_STEPS, SWEEP_BATCH = 4, 2, 8          # F1-F4's facade scans, batched steps and their scans
+# the kernels that the batched step launches once a step, and the slab ingest once a call
+BATCHED_KERNELS = ("prepare_points", "ray_pass_counts", "bin_points", "moments_epilogue", "merge_batch",
+                   "plane_fit", "guess_height")
+SLAB_KERNELS = ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab")
 MESH_SHAPES = (("(1, 4) slab", 4, "slab"), ("(2, 2) slab", 2, "slab"), ("(2, 2) scatter", 2, "scatter"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
@@ -1283,11 +1325,17 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         routes[f"({xye}, {ze})"] = "tiled" if epilogue_tiled(X, Y, rx, ry, rz, True) else "direct"
         everywhere = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
         nbytes, terms, _, _ = epilogue_bound(c, kb.sums[0], everywhere, X * Y * Z, False)
-        timings[f"moments_epilogue mask off, eigen ({xye}, {ze})"] = form_timing(
+        # the yardstick of phase 4: conv3d of the padded sums is the ±r box (the mask off)
+        wconv, conv_in = box_conv_weights(c, dev), clean_sums(kb.sums)[None]
+        conv_err = float((torch.nn.functional.conv3d(conv_in, wconv)[0]
+                          - moments.box_aggregate_moments(c, kb.sums)).abs().max())
+        log(f"library yardstick check at eigen ({xye}, {ze}): conv3d box vs plain box max abs err {conv_err}")
+        timings[f"moments_epilogue mask off, eigen ({xye}, {ze})"] = dict(form_timing(
             f"moments_epilogue mask off at eigen ({xye}, {ze})",
             lambda: kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=False), nbytes,
-            52 * terms / F32_OPS_PER_S, log)
-        del kb, sb, everywhere
+            52 * terms / F32_OPS_PER_S, log, lib=lambda: torch.nn.functional.conv3d(conv_in, wconv)),
+            library_max_abs_err=conv_err)
+        del kb, sb, everywhere, wconv, conv_in
     rx, ry, rz = binning.moment_pad(cfg)
     routes[f"({cfg.xy_eigen_dist}, {cfg.z_eigen_dist})"] = ("tiled" if epilogue_tiled(X, Y, rx, ry, rz, True)
                                                             else "direct")
@@ -1423,6 +1471,323 @@ def phase1_large(dev, log, err):
     return dict(grid=LARGE_GRID, peak_bytes=peak)
 
 
+def random_terrain(rng):
+    """A random mix of bumps, a wall segment and a trench, drawn from rng in
+    the order of the JAX package's fuzz suite (tests/test_fuzz_parity.py)."""
+    import numpy as np
+
+    from gvom_tpu_torch.io import synthetic
+
+    amp, wl, xw, wh = rng.uniform(0.1, 0.5), rng.uniform(3.0, 8.0), rng.uniform(5.0, 9.0), rng.uniform(1.0, 3.0)
+    xc, wd, tw = rng.uniform(-9.0, -5.0), rng.uniform(1.0, 3.0), rng.uniform(1.5, 4.0)
+    gx, gy = rng.uniform(-0.15, 0.15), rng.uniform(-0.15, 0.15)
+
+    def h(x, y):
+        base = gx * x + gy * y + amp * np.sin(2 * np.pi * x / wl) * np.cos(2 * np.pi * y / wl)
+        wall = np.where((x > xw) & (x < xw + 0.8) & (np.abs(y) < 6.0), wh, 0.0)
+        trench = np.where(np.abs(x - xc) < tw / 2, -wd, 0.0)
+        return base + wall + trench
+
+    return synthetic.Terrain(h, "fuzz")
+
+
+def sweep_drive(cfg, seed):
+    """[(padded points, mask, ego)] of a sweep configuration's facade drive
+    (tests/torch_helpers.py, sweep_drive): SWEEP_SCANS scans of a random
+    terrain with a moving ego."""
+    import numpy as np
+
+    from gvom_tpu_torch.io import synthetic
+
+    rng = np.random.default_rng(seed)
+    terrain = random_terrain(rng)
+    ego = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1), 1.4 + rng.uniform(0, 0.4)])
+    out = []
+    for step in range(SWEEP_SCANS):
+        ego = ego + np.array([rng.uniform(0.1, 1.2), rng.uniform(-0.6, 0.6), rng.uniform(-0.05, 0.05)])
+        pts = synthetic.simulate_lidar_scan(terrain, ego, channels=24, azimuth_steps=96,
+                                            max_range=0.5 * cfg.xy_size * cfg.xy_resolution, seed=seed * 10 + step)
+        pts = synthetic.nudge_off_grid(pts, cfg.xy_resolution, cfg.z_resolution)
+        out.append(synthetic.pad_scan(pts, cfg.max_points) + (ego.copy(),))
+    return out
+
+
+def sweep_batches(cfg, seed, dev):
+    """[(scans [S,N,3], valid [S,N], egos [S,3] f32)] on dev of a sweep
+    configuration's batched drive (tests/torch_helpers.py, sweep_batches):
+    SWEEP_STEPS steps of SWEEP_BATCH scans, the second step's origin moved."""
+    import numpy as np
+    import torch
+
+    from gvom_tpu_torch.io import synthetic
+
+    rng = np.random.default_rng(seed + 1000)
+    terrain = random_terrain(rng)
+    ego = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1), 1.5])
+    batches = []
+    for b in range(SWEEP_STEPS):
+        scans, masks, egos = [], [], []
+        for i in range(SWEEP_BATCH):
+            ego = ego + np.array([rng.uniform(0.3, 0.9), rng.uniform(-0.4, 0.4), 0.0])
+            pts = synthetic.simulate_lidar_scan(terrain, ego, channels=8, azimuth_steps=32,
+                                                max_range=0.4 * cfg.xy_size * cfg.xy_resolution,
+                                                seed=seed * 100 + b * 10 + i)
+            pad, mask = synthetic.pad_scan(synthetic.nudge_off_grid(pts, cfg.xy_resolution, cfg.z_resolution),
+                                           cfg.max_points)
+            scans.append(pad)
+            masks.append(mask)
+            egos.append(ego.astype(np.float32))
+        batches.append(tuple(torch.from_numpy(np.stack(a)).to(dev) for a in (scans, masks, egos)))
+    return batches
+
+
+def launched(names, n, what):
+    """Fail unless each kernel in names was launched n times since the last
+    kernels.reset_launches(). Returns the launches of every kernel that ran."""
+    from gvom_tpu_torch.ops import kernels
+
+    got = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    for name in names:
+        check(got.get(name, 0) == n, f"{what}: {name} launched {got.get(name, 0)} times, not {n}")
+    return got
+
+
+def phase1_config_sweep(cfg, scans, dev, log, err):
+    """Every configuration field that the kernels take as a constant, off its
+    default (SWEEP_CONFIGS): for each of F1-F5, the Gvom facade over its
+    drive against the same facade with every wrapper on its plain version
+    on the card (facade_pair: the 5-tuple, the slopes, the occupancy and the
+    ring buffer bitwise, its moments within MOM_RTOL / MOM_ATOL); the
+    batched step, two steps, against the same step under plain_kernels()
+    (the world bitwise but its moments, within MOM_ATOL_BATCH, and every
+    product bitwise); ingest_scan(y_window=) on the quarter slab that holds
+    the window seam against its plain version. The launch counts, set to 0
+    before each and read after, show that each kernel of the path ran: the
+    facade's FACADE_KERNELS once a scan, the step's BATCHED_KERNELS once a
+    step, the three slab entries once. Meanwhile the installed-wheel check
+    (installed_wheel_start) runs beside it. Returns each configuration's
+    launches and largest differences, and the wheel check's report."""
+    import torch
+
+    from gvom_tpu_torch import Gvom, GvomConfig, make_batched_step
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.ops import grid as gridops
+    from gvom_tpu_torch.types import empty_world_state
+
+    wheel = installed_wheel_start()
+    report = {}
+    try:
+        for name, (seed, fields) in SWEEP_CONFIGS.items():
+            t0 = time.perf_counter()
+            if seed is None:        # F5: the upstream grid and scans
+                c = GvomConfig(**fields)
+                drive = scans[:WIDE_SCANS]
+                scans_dev = scans_on_device(scans, dev)
+                batches = [make_batch(scans_dev, BATCH_CHECK, i) for i in range(SWEEP_STEPS)]
+                cb = batched_cfg(c, batches[0])
+            else:
+                c = GvomConfig(max_points=SWEEP_MAX_POINTS, **fields)
+                drive = sweep_drive(c, seed)
+                cb = dataclasses.replace(c, max_points=SWEEP_BATCH_MAX_POINTS)
+                batches = sweep_batches(cb, seed, dev)
+            r = dict(facade_scans=len(drive), batched_steps=len(batches), batch=int(batches[0][0].shape[0]))
+
+            kernels.reset_launches()
+            r["facade_buffer_mom"] = facade_pair(f"{name} Gvom", c, Gvom(config=c), Gvom(config=c), drive,
+                                                 [None] * len(drive), b_plain=True)
+            r["facade_launches"] = launched(FACADE_KERNELS, len(drive), f"{name} Gvom")
+            err["ingest_epilogue"] = max(err["ingest_epilogue"], r["facade_buffer_mom"])
+
+            step = make_batched_step(cb)
+            wk = wp = empty_world_state(cb, dev)
+            e = 0.0
+            kernels.reset_launches()
+            for i, b in enumerate(batches):
+                wk, pk = step(wk, *b)
+                with plain_kernels():
+                    wp, pp = step(wp, *b)
+                e = max(e, same_world(f"{name} batched step {i}", wk, wp, MOM_ATOL_BATCH))
+                for field in PRODUCT_FIELDS:
+                    exact(f"{name} batched step {i} product {field}", getattr(pk, field), getattr(pp, field))
+            r["batched_launches"] = launched(BATCHED_KERNELS, len(batches), f"{name} batched step")
+            check(bool(wk.valid) and int((wk.grid.hit > 0).sum()) > 0, f"{name} batched step: no live world")
+            r["batched_world_mom"] = e
+            err["moments_epilogue"] = max(err["moments_epilogue"], e)
+            del wk, wp, pk, pp
+
+            pad, mask, ego_np = drive[-1]
+            pts, valid, ego = scan_tensors((pad, mask, ego_np), dev)
+            Y = c.xy_size
+            Ys = Y // 4
+            yw = (int(gridops.compute_origin(c, ego.cpu())[1]) % Y // Ys * Ys, Ys)
+            kernels.reset_launches()
+            gk, okk = pipeline.ingest_scan(c, pts, valid, ego, y_window=yw)
+            what = f"{name} ingest_scan(y_window={yw})"
+            r["slab_launches"] = launched(SLAB_KERNELS + ("prepare_points",), 1, what)
+            with all_plain():
+                gp, okp = pipeline.ingest_scan(c, pts, valid, ego, y_window=yw)
+            check(bool(okk) == bool(okp) and bool(okk), f"{what}: scan_ok {okk} and {okp}")
+            for field in ("hit", "miss", "min_height", "origin"):
+                exact(f"{what} {field}", getattr(gk, field), getattr(gp, field))
+            r["slab_mom"] = moments_close(what, gk.mom, gp.mom)
+            err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], r["slab_mom"])
+            r["seconds"] = time.perf_counter() - t0
+            report[name] = r
+            del gk, gp, step, batches
+            torch.cuda.empty_cache()
+            ran = sorted(set(r["facade_launches"]) | set(r["batched_launches"]) | set(r["slab_launches"]))
+            fields_s = ", ".join(f"{k}={v}" for k, v in fields.items())
+            log(f"phase 1 sweep {name} ({fields_s}): kernels launched {ran}; the facade over {len(drive)} scans, "
+                f"the batched step over {r['batched_steps']} steps of {r['batch']} scans and the slab {yw} equal "
+                f"their plain versions: the maps, products, hit, miss, min_height, evidence and n with no "
+                f"difference, the moments' largest differences {r['facade_buffer_mom']} (facade buffer), "
+                f"{r['batched_world_mom']} (batched world), {r['slab_mom']} (slab); {r['seconds']:.1f} s")
+    except BaseException:
+        installed_wheel_stop(wheel)
+        raise
+    log(f"phase 1 sweep: no kernel differs from its plain version on {list(SWEEP_CONFIGS)} beyond the moments' "
+        f"stated tolerances (no fault found); each listed kernel launched in each configuration; "
+        f"{sum(r['seconds'] for r in report.values()):.1f} s")
+    report["installed_wheel"] = installed_wheel_finish(wheel, log)
+    return report
+
+
+# run in a copy of the port unpacked from its wheel, with only that copy on
+# the path: build the preparation and K1 from the copy's sources into its
+# _build, launch each once on a small drive's scan and hold it against its
+# plain version; prints one JSON object
+INSTALLED_PROBE = r"""
+import json, sys
+import numpy as np
+import torch
+import gvom_tpu_torch
+from gvom_tpu_torch import GvomConfig
+from gvom_tpu_torch.io import synthetic
+from gvom_tpu_torch.ops import binning, kernels, raycast
+
+cfg = GvomConfig(xy_size=64, z_size=32, max_points=4096)
+ego_np = np.array([0.3, -0.2, 1.5])
+pts = synthetic.simulate_lidar_scan(synthetic.composite_terrain(), ego_np, channels=32, azimuth_steps=128, seed=0)
+pad, mask = synthetic.pad_scan(pts, cfg.max_points)
+dev = torch.device("cuda")
+pts, valid = torch.from_numpy(pad)[None].to(dev), torch.from_numpy(mask)[None].to(dev)
+egos = torch.tensor(ego_np, dtype=torch.float32, device=dev)[None]
+procs = [(k, k.start_build()) for k in (kernels.PREP, kernels.RAY)]
+for k, proc in procs:
+    k.finish_build(proc)
+kernels.reset_launches()
+got = kernels.prepare_points(cfg, pts, valid, egos, frame_ego=egos[0])
+ref = binning.prepare_plain(cfg, pts, valid, egos, frame_ego=egos[0])
+p, keep, origin, ok = got
+k1 = kernels.ray_pass_counts(cfg, p, keep, egos, origin)
+k1_plain = raycast.pass_counts_plain(cfg, p, keep, egos, origin)
+torch.cuda.synchronize()
+nan = torch.isnan(ref[0])
+print(json.dumps(dict(
+    package=gvom_tpu_torch.__file__, build_dir=str(kernels.BUILD_DIR),
+    sources=[str(k.source) for k in kernels.KERNELS],
+    libraries=[str(k.library()) for k in (kernels.PREP, kernels.RAY)],
+    built=[k.library().exists() for k in (kernels.PREP, kernels.RAY)],
+    launches={k.name: k.launches for k in (kernels.PREP, kernels.RAY)},
+    prepare_equal=bool(torch.equal(nan, torch.isnan(got[0])) and torch.equal(got[0][~nan], ref[0][~nan])
+                       and all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))),
+    k1_equal=bool(torch.equal(k1, k1_plain)), points_kept=int(keep.sum()), passes=int(k1.sum()),
+    jax="jax" in sys.modules)))
+"""
+
+
+def installed_wheel_start():
+    """Build the wheel that pyproject.toml defines, offline, from a copy of
+    the package sources in a temporary directory, unpack it, and start
+    INSTALLED_PROBE and the installed CLI's --help there, with only the
+    unpacked copy on PYTHONPATH. Returns what installed_wheel_finish reads."""
+    tmp = Path(tempfile.mkdtemp(prefix="gvom_wheel_"))
+    try:
+        return _installed_wheel_start(tmp)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def _installed_wheel_start(tmp):
+    src, out, site = tmp / "src", tmp / "wheel", tmp / "site"
+    src.mkdir()
+    shutil.copy(ROOT / "pyproject.toml", src)
+    for pkg in ("gvom_tpu", "gvom_tpu_torch"):
+        shutil.copytree(ROOT / pkg, src / pkg, ignore=shutil.ignore_patterns("__pycache__", "_build", "*.pyc"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-build-isolation", "--no-index",
+                           "--no-cache-dir", "-w", str(out), str(src)], capture_output=True, text=True, timeout=120,
+                          cwd=src)
+    check(proc.returncode == 0, f"installed wheel: pip wheel failed:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    (whl,) = out.glob("gvom_tpu-*.whl")
+    with zipfile.ZipFile(whl) as z:
+        names = set(z.namelist())
+        entry_points = "".join(z.read(n).decode() for n in names if n.endswith(".dist-info/entry_points.txt"))
+        z.extractall(site)
+    csrc = sorted(p.name for p in (ROOT / "gvom_tpu_torch" / "csrc").iterdir() if p.is_file())
+    missing = [n for n in csrc if f"gvom_tpu_torch/csrc/{n}" not in names]
+    check(not missing, f"installed wheel: the wheel lacks the sources {missing}")
+    check("gvom-tpu-torch = gvom_tpu_torch.cli:main" in entry_points,
+          f"installed wheel: no gvom-tpu-torch script in {entry_points!r}")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(site)
+    procs = {name: subprocess.Popen([sys.executable, *args], cwd=site, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, args in (("probe", ["-c", INSTALLED_PROBE]), ("cli", ["-m", "gvom_tpu_torch.cli", "--help"]))}
+    return dict(tmp=tmp, site=site, procs=procs, wheel_s=time.perf_counter() - t0, files=len(names),
+                sources=len(csrc))
+
+
+def installed_wheel_stop(w):
+    """Kill what installed_wheel_start started, if it still runs, and delete
+    its directory."""
+    for proc in w["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(w["tmp"], ignore_errors=True)
+
+
+def installed_wheel_finish(w, log):
+    """Wait for the installed-wheel check and hold its report: the port and
+    its kernel sources resolve inside the unpacked copy, importing it loaded
+    no JAX, the preparation and K1 were built into the copy's _build,
+    launched once each and equal their plain versions, the CLI ran."""
+    try:
+        outs = {}
+        for name, proc in w["procs"].items():
+            try:
+                out, errs = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, errs = proc.communicate()
+            check(proc.returncode == 0, f"installed wheel: {name} exited {proc.returncode}:\n{errs[-3000:]}")
+            outs[name] = out
+        check("selftest" in outs["cli"], "installed wheel: the CLI's --help lists no selftest")
+        got = json.loads(outs["probe"].strip().splitlines()[-1])
+        pkg = w["site"] / "gvom_tpu_torch"
+        check(Path(got["package"]).parent == pkg, f"installed wheel: the port imported from {got['package']}")
+        check(Path(got["build_dir"]) == pkg / "_build", f"installed wheel: build directory {got['build_dir']}")
+        check(all(Path(s).parent == pkg / "csrc" for s in got["sources"]),
+              f"installed wheel: kernel sources outside the copy: {got['sources']}")
+        check(all(Path(s).parent == pkg / "_build" for s in got["libraries"]) and all(got["built"]),
+              f"installed wheel: libraries {got['libraries']} built {got['built']}")
+        check(got["launches"] == {"prepare_points": 1, "ray_pass_counts": 1},
+              f"installed wheel: launches {got['launches']}")
+        check(got["prepare_equal"] and got["k1_equal"], "installed wheel: a kernel differs from its plain version")
+        check(not got["jax"], "installed wheel: importing the port loaded jax")
+        check(got["passes"] > 0, "installed wheel: K1 counted no pass")
+    finally:
+        installed_wheel_stop(w)
+    log(f"phase 1 installed wheel: the wheel ({w['files']} files, every one of the {w['sources']} csrc sources, "
+        f"the gvom-tpu-torch script; built in {w['wheel_s']:.1f} s) unpacked alone on the path: the CLI runs, "
+        f"no jax imported, the preparation and K1 built from its sources into its _build and launched once each "
+        f"({got['points_kept']} points kept, {got['passes']} passes), both bitwise their plain versions")
+    return dict(got, wheel_s=w["wheel_s"], files=w["files"])
+
+
 def phase2_facade(cfg, scans, log):
     """The main path through the user's entry points, with the launch counts
     set to 0 just before and read just after."""
@@ -1521,7 +1886,8 @@ def facade_pair(what, cfg, a, b, scans, transforms, degenerate=(), b_plain=False
     every wrapper on its plain version. Without box_sums the buffer's nine
     moment sums are not compared (its n is): at an eigen box larger than
     the upstream one they are held against float64 within the f32
-    summation bound by box_close instead (phase1_epilogue_radii)."""
+    summation bound by box_close instead (phase1_epilogue_radii). Returns
+    the largest difference of the buffer's moments."""
     import numpy as np
 
     from gvom_tpu_torch.utils import convert
@@ -1550,6 +1916,7 @@ def facade_pair(what, cfg, a, b, scans, transforms, degenerate=(), b_plain=False
                   f"{what} buffer: moments")
         else:
             check(bool(np.array_equal(ba[k], bb[k])), f"{what} buffer: {k} differs")
+    return float(np.abs(ba["mom"] - bb["mom"]).max())
 
 
 def phase3_small_reference(cfg_full, scans_full, log):
@@ -1629,14 +1996,17 @@ def kernel_row(k, fn, plain, reps, plain_reps, lib, bytes_moved, ops_s, log):
     return r
 
 
-def form_timing(what, fn, bytes_moved, ops_s, log):
+def form_timing(what, fn, bytes_moved, ops_s, log, lib=None):
     """A kernel form off the upstream path (a deeper ring buffer, a taller
     grid, a larger eigen box): its launch alone (graph_ms) beside its
-    bound, for the --out report."""
+    bound, and lib's time, a PyTorch call of the same function, where there
+    is one (cuda_ms, as kernel_row times it), for the --out report."""
     ms, _ = graph_ms(fn, 20)
     bytes_s = bytes_moved / HBM_BYTES_PER_S
-    r = dict(ms=ms, bound_ms=1e3 * max(bytes_s, ops_s), bound_by="bytes" if bytes_s >= ops_s else "operations")
-    log(f"timing {what}: launch alone {ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    r = dict(ms=ms, bound_ms=1e3 * max(bytes_s, ops_s), bound_by="bytes" if bytes_s >= ops_s else "operations",
+             library_ms=None if lib is None else cuda_ms(lib, 5))
+    lib_ms = "n/a" if lib is None else f"{r['library_ms']:.4f} ms"
+    log(f"timing {what}: launch alone {ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib_ms}")
     return r
 
 
@@ -2203,10 +2573,8 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
             first_origin = world.grid.origin
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    want = dict(prepare_points=2, ray_pass_counts=2, bin_points=2, moments_epilogue=2, plane_fit=2, guess_height=2,
-                merge_batch=2)
-    for name, n in want.items():
-        check(launches[name] == n, f"batched path: {name} launched {launches[name]} times, expected {n}")
+    for name in BATCHED_KERNELS:
+        check(launches[name] == 2, f"batched path: {name} launched {launches[name]} times, expected 2")
     for name in PRODUCT_FIELDS[1:]:
         a = getattr(products, name)
         check(tuple(a.shape) == cfg.map_shape and bool(torch.isfinite(a.float()).all()), f"batched product {name}")
@@ -3234,9 +3602,11 @@ def run(args, torch) -> int:
                                [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
                                "not a TPU kernel: a probe of the card's atomic rate")
     probe_build = probe.start_build()
-    # K4 for the ring buffers of entry() (2) and of the bench's async mode (8),
-    # so that no timed or checked call waits for nvcc
-    depths = [kernels.CMB.start_build((f"-DGVOM_COMBINE_B={b}",)) for b in (2, 8)]
+    # K4 for the ring buffers of entry() (2), of the bench's async mode (8) and
+    # of the configuration sweep, so that no timed or checked call waits for nvcc
+    b0 = GvomConfig().buffer_size
+    depths = [kernels.CMB.start_build((f"-DGVOM_COMBINE_B={b}",)) for b in sorted(
+        {2, 8} | {f.get("buffer_size", b0) for _, f in SWEEP_CONFIGS.values()} - {b0})]
     reports = kernels.build_all()
     reports[probe.name] = probe.finish_build(probe_build)
     for proc in depths:
@@ -3264,6 +3634,7 @@ def run(args, torch) -> int:
     report["epilogue_radii"] = phase1_epilogue_radii(cfg, scans[0], dev, log, err)
     report["wide_forms"] = dict(phase1_merge_tall(cfg, dev, log), **phase1_wide_configs(cfg, scans, dev, log))
     report["large_grid"] = phase1_large(dev, log, err)
+    report["config_sweep"] = phase1_config_sweep(cfg, scans, dev, log, err)
     launches, report["facade"], _ = phase2_facade(cfg, scans, log)
     phase3_small_reference(cfg, scans, log)
     rates = atomic_rates(probe, dev, log)

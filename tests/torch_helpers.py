@@ -125,3 +125,94 @@ def jax_facade(cfg):
     g, done = gvom_tpu.Gvom(config=cfg), _jax_facade_compiled(cfg)
     g._ingest_tf, g._ingest_no_tf, g._combine = done._ingest_tf, done._ingest_no_tf, done._combine
     return g
+
+
+# ----------------------------------------------------------------------
+# The configuration sweep: F1-F3 are the JAX package's fuzz configurations
+# (tests/test_fuzz_parity.py, CASES), F4 moves every threshold, the guess
+# radius and the distance filter off their defaults. Each is (seed of its
+# drive, the fields that differ from GvomConfig()). chip_smoke.py holds the
+# same table (SWEEP_CONFIGS) for the card, with F5, the upstream grid at F4's
+# thresholds.
+SWEEP = {
+    "F1": (11, dict(xy_size=40, z_size=24, xy_resolution=0.35, z_resolution=0.25, buffer_size=3,
+                    xy_eigen_dist=1, z_eigen_dist=0)),
+    "F2": (23, dict(xy_size=48, z_size=16, xy_resolution=0.5, z_resolution=0.5, buffer_size=2,
+                    xy_eigen_dist=2, z_eigen_dist=1, decay_miss_limit=4)),
+    "F3": (37, dict(xy_size=32, z_size=32, xy_resolution=0.4, z_resolution=0.2, buffer_size=5,
+                    xy_eigen_dist=0, z_eigen_dist=0, robot_radius=0.8)),
+    "F4": (5, dict(xy_size=48, z_size=24, xy_resolution=0.3, z_resolution=0.15, buffer_size=4,
+                   xy_eigen_dist=2, z_eigen_dist=2, hit_count_threshold=3, decay_miss_limit=2, robot_height=1.2,
+                   robot_radius=2.5, ground_to_lidar_height=1.7, positive_obstacle_threshold=0.3,
+                   negative_obstacle_threshold=0.8, slope_obstacle_threshold=0.15, density_threshold=7,
+                   guess_search_radius=6, min_distance=2.5, ego_relative_min_distance=True)),
+}
+SWEEP_MAX_POINTS = 16384     # the facade drive's point capacity (the JAX fuzz suite's)
+SWEEP_BATCH_MAX_POINTS = 4096
+SWEEP_SCANS = 4              # scans of the facade drive
+SWEEP_STEPS, SWEEP_BATCH = 2, 8
+
+
+def sweep_cfg(name: str, max_points: int = SWEEP_MAX_POINTS) -> GvomConfig:
+    return GvomConfig(max_points=max_points, **SWEEP[name][1])
+
+
+def random_terrain(rng):
+    """A random mix of bumps, a wall segment and a trench (the JAX fuzz
+    suite's terrain, drawn from rng in the same order)."""
+    amp = rng.uniform(0.1, 0.5)
+    wl = rng.uniform(3.0, 8.0)
+    xw = rng.uniform(5.0, 9.0)
+    wh = rng.uniform(1.0, 3.0)
+    xc = rng.uniform(-9.0, -5.0)
+    wd = rng.uniform(1.0, 3.0)
+    tw = rng.uniform(1.5, 4.0)
+    gx = rng.uniform(-0.15, 0.15)
+    gy = rng.uniform(-0.15, 0.15)
+
+    def h(x, y):
+        base = gx * x + gy * y + amp * np.sin(2 * np.pi * x / wl) * np.cos(2 * np.pi * y / wl)
+        wall = np.where((x > xw) & (x < xw + 0.8) & (np.abs(y) < 6.0), wh, 0.0)
+        trench = np.where(np.abs(x - xc) < tw / 2, -wd, 0.0)
+        return base + wall + trench
+
+    return synthetic.Terrain(h, "fuzz")
+
+
+def sweep_drive(cfg: GvomConfig, seed: int):
+    """[(points [n,3] f32, ego [3] f64)] of the facade drive: SWEEP_SCANS
+    scans of a random terrain with a moving ego."""
+    rng = np.random.default_rng(seed)
+    terrain = random_terrain(rng)
+    ego = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1), 1.4 + rng.uniform(0, 0.4)])
+    out = []
+    for step in range(SWEEP_SCANS):
+        ego = ego + np.array([rng.uniform(0.1, 1.2), rng.uniform(-0.6, 0.6), rng.uniform(-0.05, 0.05)])
+        pts = synthetic.simulate_lidar_scan(terrain, ego, channels=24, azimuth_steps=96,
+                                            max_range=0.5 * cfg.xy_size * cfg.xy_resolution, seed=seed * 10 + step)
+        out.append((synthetic.nudge_off_grid(pts, cfg.xy_resolution, cfg.z_resolution), ego.copy()))
+    return out
+
+
+def sweep_batches(cfg: GvomConfig, seed: int):
+    """[(scans [S,N,3], masks [S,N], egos [S,3] f32)] of the batched drive:
+    SWEEP_STEPS steps of SWEEP_BATCH scans, strides long enough that the
+    second step's origin moves several voxels."""
+    rng = np.random.default_rng(seed + 1000)
+    terrain = random_terrain(rng)
+    batches = []
+    ego = np.array([rng.uniform(-1, 1), rng.uniform(-1, 1), 1.5])
+    for b in range(SWEEP_STEPS):
+        scans, masks, egos = [], [], []
+        for i in range(SWEEP_BATCH):
+            ego = ego + np.array([rng.uniform(0.3, 0.9), rng.uniform(-0.4, 0.4), 0.0])
+            pts = synthetic.simulate_lidar_scan(terrain, ego, channels=8, azimuth_steps=32,
+                                                max_range=0.4 * cfg.xy_size * cfg.xy_resolution,
+                                                seed=seed * 100 + b * 10 + i)
+            pts = synthetic.nudge_off_grid(pts, cfg.xy_resolution, cfg.z_resolution)
+            pad, mask = synthetic.pad_scan(pts, cfg.max_points)
+            scans.append(pad)
+            masks.append(mask)
+            egos.append(ego.astype(np.float32))
+        batches.append((np.stack(scans), np.stack(masks), np.stack(egos)))
+    return batches
