@@ -25,9 +25,9 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      scratch defines them. Every epilogue form (K3, K5 with the mask on and
      off, the slab form) gives bitwise the same output on sums whose
      channels 1-9 are NaN where n == 0: it never reads them. K4 also at
-     B = 2 (Z = 96) and B = 7 (Z = 31) on a small grid, each B a library of
-     its own, and at B = 17 (Z = 64) and Z = 320, past the unrolled kernel's
-     16 slots and 256 z (its runtime slot loop, two passes a column). K5
+     B = 2 (Z = 96), B = 7 (Z = 31) and B = 16 on a small grid, each B a
+     library of its own, and past the unrolled kernel's 16 slots and 256 z
+     (its grouped kernel) at B = 17 and 33 and Z = 257, 320 and 800. K5
      (the epilogue into a fresh tensor) with the occupancy mask
      on and off. The slab forms of
      K1, K2 and K5 for the four quarter slabs of a scan whose window seam
@@ -60,9 +60,10 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      z shift) and on their quarter slab y0 = 64 against the full rows.
      Then every configuration that the JAX package takes: K2, K3, K5 (mask
      on, off) and the slab epilogue at the eigen distances (1, 9), (8, 1)
-     and (5, 8), which take the epilogue's direct kernel (n bitwise, the
-     nine sums within the f32 summation bound of a float64 reference,
-     box_close); the merge at 256×256×320; the Gvom facade with
+     and (5, 8), which take the epilogue's separable passes (bitwise the
+     plain version on all ten channels) or, with the mask on at (1, 9), its
+     direct kernel (n bitwise, the nine sums within the f32 summation bound
+     of a float64 reference, box_close); the merge at 256×256×320; the Gvom facade with
      buffer_size=17, z_size=320, z_eigen_dist=9 and xy_eigen_dist=8 on
      two upstream scans against the same facade on its plain versions,
      and the batched step at Z = 320 against its plain versions; and the
@@ -228,7 +229,9 @@ TAIL_HOSTS = dict(plane_fit="maps_to_window", guess_height="map_products")
 MERGE_OPS = 40               # f32 and int operations of the merge a voxel (masks, sums, ten moment adds)
 MAP_TAIL_ORIGINS = ((5, -7, 2), (0, 0, 0), (-300, 1000, 0), (255, 1, -5))   # phase 1's crafted map-tail origins
 MESH_RANKS = 4               # phase 9's gloo ranks on the one card
-OTHER_B_Z = ((2, 96), (7, 31), (17, 64), (4, 320))   # phase 1's K4 depths and z sizes on a 64×64 grid
+# phase 1's K4 depths and z sizes on a 64×64 grid: the unrolled kernel's own (2, 7, 16) and the grouped
+# kernel's boundaries (17 slots, 33: two ballots of slots; 257 z, odd; 320; 800: past the shared column)
+OTHER_B_Z = ((2, 96), (7, 31), (16, 64), (17, 64), (33, 64), (4, 257), (4, 320), (4, 800))
 EIGEN_DISTS = ((1, 9), (8, 1), (5, 8))   # phase 1's epilogue (xy_eigen_dist, z_eigen_dist) past the tiled box
 # the configurations of phase 1c: every one the JAX package takes, past the kernels' fast forms
 WIDE_CONFIGS = (dict(buffer_size=17), dict(z_size=320), dict(z_eigen_dist=9), dict(xy_eigen_dist=8))
@@ -889,14 +892,39 @@ def combine_vs_plain(cfg, buf, world, ego, what):
     return ko
 
 
+def live_slots(cfg, buf):
+    """[B, X, Y] bool: the ring buffer's slots that K4 reads at each column,
+    those valid with the column inside both the slot's window and the
+    newest slot's (columns.cuh, axis_ok)."""
+    import torch
+
+    X, Y, _ = cfg.grid_shape
+    org = buf.grids.origin[:cfg.buffer_size].long()
+    target = org[int(buf.last_slot)]
+
+    def axis_ok(axis, size):
+        rel = (torch.arange(size, device=org.device)[None] - target[axis]) % size
+        d = (target[axis] - org[:, axis])[:, None]
+        return (rel >= -d.clamp(max=0)) & (rel < size - d.clamp(min=0))
+
+    return buf.slot_valid[:, None, None] & axis_ok(0, X)[:, :, None] & axis_ok(1, Y)[:, None, :]
+
+
 def phase1_combine_other_b(dev, log):
-    """K4 at other ring-buffer depths and z sizes on a small grid, over a
-    drive of 4 scans, held against fuse_plain after each ingest: B = 2 at
-    Z = 96 and B = 7 at Z = 31, each a library of its own (both the
-    four-chunk path with 4-byte accesses, where the upstream Z = 64 takes
-    the 8-byte one); B = 17 at Z = 64 and B = 4 at Z = 320, past the
-    unrolled kernel's 16 slots and 256 z, which take its runtime slot loop
-    and two passes over each column (the up-front library)."""
+    """K4 at other ring-buffer depths and z sizes on a small grid, held
+    against fuse_plain after each ingest, every output bitwise, over a drive
+    that fills the ring buffer and wraps its cursor (B + 1 scans, at least
+    4; the 4 scans taken in turn, so that every slot's window holds most
+    columns): B = 2 at Z = 96, B = 7 at Z = 31 and B = 16 at Z = 64, each a
+    library of its own (the four-chunk path with 4-byte accesses, and the
+    deepest unrolled kernel with 8-byte ones); past 16 slots or 256 z the
+    grouped kernel (the up-front library): B = 17 and 33 (one and two
+    ballots of 32 slots; every group of four live slots of each), Z = 257
+    (odd: 4-byte accesses) and 320 (8-byte), and Z = 800, whose column's
+    band inputs are past the 48 KB of shared memory that eight columns have
+    (Z > 768), so its band sums read the column's scalar channels again.
+    Fails unless the full ring of B = 17 and 33 has a column with every slot
+    live, and B = 33 one with slot 32 (the second ballot) live."""
     from gvom_tpu_torch import GvomConfig
     from gvom_tpu_torch.models import pipeline
     from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
@@ -905,14 +933,23 @@ def phase1_combine_other_b(dev, log):
     for B, Z in OTHER_B_Z:
         cfg = GvomConfig(xy_size=64, z_size=Z, max_points=4096, buffer_size=B)
         buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
-        for i, scan in enumerate(scans):
-            pts, valid, ego = scan_tensors(scan, dev)
+        n = max(len(scans), B + 1)
+        for i in range(n):
+            pts, valid, ego = scan_tensors(scans[i % len(scans)], dev)
             buf, _ = pipeline.ingest_and_insert(cfg, buf, pts, valid, ego)
-            combine_vs_plain(cfg, buf, world, ego, f"K4 B={B} Z={Z}")
+            combine_vs_plain(cfg, buf, world, ego, f"K4 B={B} Z={Z} scan {i}")
             world, _, ok = pipeline.combine(cfg, buf, world, ego)
             check(bool(ok), f"K4 B={B}: combine after scan {i} reports an empty buffer")
+        live = live_slots(cfg, buf)
+        most, past31 = int(live.sum(0).max()), int(live[32:].any(0).sum())
+        if B > 16:
+            check(most == B, f"K4 B={B}: after {n} scans no column has all {B} slots live (at most {most})")
+        if B > 32:
+            check(past31 > 0, f"K4 B={B}: after {n} scans no column has a slot past 31 live")
         top = int((world.grid.hit[:, :, 256:] > 0).sum()) if Z > 256 else None
-        log(f"phase 1 K4 at B = {B}, 64×64×{Z}: every output bitwise against fuse_plain over 4 scans, world "
+        log(f"phase 1 K4 at B = {B}, 64×64×{Z}: every output bitwise against fuse_plain over {n} scans (the ring "
+            f"wrapped; at most {most} live slots at a column" + (f", {past31} columns with a slot past 31 live"
+                                                                 if B > 32 else "") + "), world "
             f"occupied {int((world.grid.hit > 0).sum())}" + (f" ({top} at torus z >= 256)" if Z > 256 else ""))
 
 
@@ -1214,18 +1251,6 @@ def phase1_near_tier(cfg, scan, dev, log):
         "agrees with its plain version")
 
 
-def epilogue_tiled(X, Ys, rx, ry, rz, mask):
-    """Whether the epilogue launcher takes its tiled kernel for this shape
-    (else the direct one): csrc/epilogue.cu's own rule."""
-    from gvom_tpu_torch.ops import kernels
-
-    fn = ctypes.CDLL(str(kernels.XBOX.library())).gvom_moments_epilogue_tiled
-    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
-    rc = fn(X, Ys, rx, ry, rz, int(mask))
-    check(rc >= 0, f"the epilogue's route query failed: cudaError {-rc}")
-    return bool(rc)
-
-
 def box_reference(cfg, sums, hit, origin, y_window, mask):
     """(ref, bound) of an epilogue's moments on these sums: ref the plain
     version in float64, and bound the float32 summation bound of each
@@ -1264,24 +1289,44 @@ def box_close(name, got, plain, ref, bound):
     return float((got - plain).abs().max())
 
 
+def epilogue_vs_plain(name, route, got, plain, ref):
+    """An epilogue's [10, ...] moments against its plain version: the plain
+    version within the f32 summation bound of the float64 reference ref =
+    (ref, bound) (box_reference); the separable passes bitwise on all ten
+    channels, since they add in the plain version's order; the direct kernel
+    (box_close) with n bitwise and the nine sums within that bound. Returns
+    the largest |got - plain|."""
+    over = int(((plain.double() - ref[0]).abs() > ref[1]).sum())
+    check(over == 0, f"{name}: the plain version is off the float64 reference by more than the f32 bound at "
+                     f"{over} elements")
+    if route == "direct":
+        return box_close(name, got, plain, *ref)
+    bitwise(f"{name} ({route}, all ten channels)", got, plain)
+    return 0.0
+
+
 def phase1_epilogue_radii(cfg, scan, dev, log, err):
     """The epilogue at eigen distances past its tiled box (EIGEN_DISTS): on
     one upstream scan, K2 and then K3 into a slot, K5 with the mask on and
     off, and the slab form on the quarter slab that holds the window seam,
-    each against its plain version (n bitwise, the nine sums of both within
-    the f32 summation bound of a float64 reference: box_close) and bitwise the same
-    on NaN-poisoned sums; K5's masked output bitwise K3's slot. The
-    upstream radii take the tiled kernel, these the direct."""
+    each against its plain version (epilogue_vs_plain: the separable passes
+    bitwise, the direct kernel that the mask on keeps at a small box within
+    the f32 summation bound) and bitwise the same on NaN-poisoned sums; K5's
+    masked output bitwise K3's slot. Records each (radius, grid, mask)'s
+    kernel and each radius's launches, and times K5 on the full grid with
+    the mask off (beside the conv3d yardstick) and on. The parent tree's
+    forms are timed beside these by scripts/time_wide_forms.py."""
     import torch
 
     from gvom_tpu_torch.ops import binning, kernels, moments
+    from gvom_tpu_torch.ops import grid as gridops
 
     pts, valid, ego = scan_tensors(scan, dev)
-    routes, timings = {}, {}
+    routes, timings, launches = {}, {}, {}
     for xye, ze in EIGEN_DISTS:
         c = dataclasses.replace(cfg, xy_eigen_dist=xye, z_eigen_dist=ze)
         X, Y, Z = c.grid_shape
-        rx, ry, rz = binning.moment_pad(c)
+        kernels.reset_launches()
         p, keep, origin, _ = kernels.prepare_points(c, pts[None], valid[None], ego[None], frame_ego=ego)
         p, keep = p[0], keep[0]
         kb, pb = kernels.bin_points(c, p, keep, origin), binning.bin_points(c, p, keep, origin)
@@ -1294,15 +1339,17 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         moments.ingest_epilogue_plain(c, kb.sums, kb.hit, origin, po, slot)
         exact(f"K3 at eigen ({xye}, {ze}) untouched slot", ko[0], po[0])
         for mask in (True, False):
+            route = routes[f"({xye}, {ze}) full mask {'on' if mask else 'off'}"] = kernels.epilogue_route(
+                c, None, mask)
             km = kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask)
             pm = moments.moments_epilogue_plain(c, kb.sums, kb.hit, origin, occupancy_mask=mask)
             ref = box_reference(c, kb.sums, kb.hit, origin, None, mask)
-            e = box_close(f"K5 at eigen ({xye}, {ze}) mask={mask}", km, pm, *ref)
+            e = epilogue_vs_plain(f"K5 at eigen ({xye}, {ze}) mask={mask}", route, km, pm, ref)
             err["moments_epilogue"] = max(err["moments_epilogue"], e)
             if mask:
                 exact(f"K5 masked vs K3's slot at eigen ({xye}, {ze})", km, ko[1])
-                err["ingest_epilogue"] = max(err["ingest_epilogue"], box_close(
-                    f"K3 at eigen ({xye}, {ze})", ko[1], po[1], *ref))
+                err["ingest_epilogue"] = max(err["ingest_epilogue"], epilogue_vs_plain(
+                    f"K3 at eigen ({xye}, {ze})", route, ko[1], po[1], ref))
             nan_blind(f"K5 at eigen ({xye}, {ze}) mask={mask}",
                       lambda s: kernels.moments_epilogue(c, s, kb.hit, origin, occupancy_mask=mask), kb.sums)
             del km, pm, ref
@@ -1314,36 +1361,56 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         yw = ((int(origin[1]) % Y) // Ys * Ys, Ys)
         sb = kernels.bin_points(c, p, keep, origin, yw)
         for mask in (True, False):
+            route = routes[f"({xye}, {ze}) slab mask {'on' if mask else 'off'}"] = kernels.epilogue_route(
+                c, yw, mask)
             km = kernels.moments_epilogue(c, sb.sums, sb.hit, origin, yw, mask)
             pm = moments.moments_epilogue_plain(c, sb.sums, sb.hit, origin, yw, mask)
             ref = box_reference(c, sb.sums, sb.hit, origin, yw, mask)
-            err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], box_close(
-                f"K5 slab {yw} at eigen ({xye}, {ze}) mask={mask}", km, pm, *ref))
+            err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], epilogue_vs_plain(
+                f"K5 slab {yw} at eigen ({xye}, {ze}) mask={mask}", route, km, pm, ref))
             del km, pm, ref
             nan_blind(f"K5 slab at eigen ({xye}, {ze}) mask={mask}",
                       lambda s: kernels.moments_epilogue(c, s, sb.hit, origin, yw, mask), sb.sums)
-        routes[f"({xye}, {ze})"] = "tiled" if epilogue_tiled(X, Y, rx, ry, rz, True) else "direct"
+        launches[f"({xye}, {ze})"] = {k.name: k.launches for k in (kernels.EPI, kernels.XBOX, kernels.XBOX_SLAB)}
+        for name, n in launches[f"({xye}, {ze})"].items():
+            check(n > 0, f"eigen ({xye}, {ze}): {name} was launched no time")
         everywhere = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
-        nbytes, terms, _, _ = epilogue_bound(c, kb.sums[0], everywhere, X * Y * Z, False)
         # the yardstick of phase 4: conv3d of the padded sums is the ±r box (the mask off)
         wconv, conv_in = box_conv_weights(c, dev), clean_sums(kb.sums)[None]
         conv_err = float((torch.nn.functional.conv3d(conv_in, wconv)[0]
                           - moments.box_aggregate_moments(c, kb.sums)).abs().max())
         log(f"library yardstick check at eigen ({xye}, {ze}): conv3d box vs plain box max abs err {conv_err}")
-        timings[f"moments_epilogue mask off, eigen ({xye}, {ze})"] = dict(form_timing(
-            f"moments_epilogue mask off at eigen ({xye}, {ze})",
-            lambda: kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=False), nbytes,
-            52 * terms / F32_OPS_PER_S, log, lib=lambda: torch.nn.functional.conv3d(conv_in, wconv)),
-            library_max_abs_err=conv_err)
+        for mask in (False, True):
+            targets = kb.hit > 0 if mask else everywhere
+            nbytes, terms, _, _ = epilogue_bound(c, kb.sums[0], gridops.torus_to_window(targets, origin),
+                                                 X * Y * Z, mask)
+            what = f"moments_epilogue mask {'on' if mask else 'off'}, eigen ({xye}, {ze})"
+            timings[what] = dict(form_timing(
+                what, lambda: kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask), nbytes,
+                52 * terms / F32_OPS_PER_S, log,
+                lib=None if mask else lambda: torch.nn.functional.conv3d(conv_in, wconv),
+                plain=lambda: moments.moments_epilogue_plain(c, kb.sums, kb.hit, origin, occupancy_mask=mask)),
+                route=routes[f"({xye}, {ze}) full mask {'on' if mask else 'off'}"])
+            if not mask:
+                timings[what]["library_max_abs_err"] = conv_err
         del kb, sb, everywhere, wconv, conv_in
-    rx, ry, rz = binning.moment_pad(cfg)
-    routes[f"({cfg.xy_eigen_dist}, {cfg.z_eigen_dist})"] = ("tiled" if epilogue_tiled(X, Y, rx, ry, rz, True)
-                                                            else "direct")
-    check(set(routes.values()) == {"tiled", "direct"}, f"the epilogue's two kernels were not both chosen: {routes}")
+    routes[f"({cfg.xy_eigen_dist}, {cfg.z_eigen_dist}) full mask on"] = kernels.epilogue_route(cfg, None, True)
+    check(set(routes.values()) == set(kernels.EPILOGUE_ROUTES),
+          f"the epilogue's three kernels were not all chosen: {routes}")
+    # past the separable passes' smallest tile, one line of 2·xy_eigen_dist + 1 voxels by one z of ten channels
+    # (80 B a voxel), the direct kernel takes the box with the mask on or off: no radius is refused (asked, not
+    # launched: its scratch alone would be gigabytes)
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 227 * 1024)
+    r_max = (optin // 80 - 1) // 2
+    for xye, mask, want in ((r_max, False, "separable"), (r_max + 1, False, "direct"), (r_max + 1, True, "direct")):
+        got = routes[f"({xye}, 1) full mask {'on' if mask else 'off'}"] = kernels.epilogue_route(
+            dataclasses.replace(cfg, xy_eigen_dist=xye, z_eigen_dist=1), None, mask)
+        check(got == want, f"the epilogue at eigen ({xye}, 1), mask {mask}: the route query answers {got}, not "
+                           f"{want} ({optin} B of shared memory a block)")
     log(f"phase 1 epilogue radii: K2, K3, K5 (mask on, off) and the slab epilogue at eigen distances "
-        f"{list(EIGEN_DISTS)} agree with their plain versions and are bitwise the same on NaN-poisoned sums; "
-        f"kernel by (xy, z) eigen distance: {routes}")
-    return dict(routes=routes, timings=timings)
+        f"{list(EIGEN_DISTS)} agree with their plain versions (the separable passes bitwise on all ten channels) "
+        f"and are bitwise the same on NaN-poisoned sums; kernel by (xy, z) eigen distance, grid and mask: {routes}")
+    return dict(routes=routes, timings=timings, launches=launches)
 
 
 def phase1_merge_tall(cfg, dev, log):
@@ -1351,6 +1418,7 @@ def phase1_merge_tall(cfg, dev, log):
     against its twin on seeded worlds (origin moved, z shift), and its
     quarter slab y0 = 64 against the full result's rows."""
     from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain
 
     c = dataclasses.replace(cfg, z_size=320)
     Ys = c.xy_size // 4
@@ -1366,7 +1434,8 @@ def phase1_merge_tall(cfg, dev, log):
             timed = copy_grid(contrib)
             timing = form_timing(f"merge_batch at {c.xy_size}×{c.xy_size}×{c.z_size}",
                                  lambda: kernels.merge_batch(c, world, timed, ego),
-                                 nbytes, MERGE_OPS * c.voxel_count / F32_OPS_PER_S, log)
+                                 nbytes, MERGE_OPS * c.voxel_count / F32_OPS_PER_S, log,
+                                 plain=lambda: merge_and_columns_plain(c, world, contrib, ego))
             del timed
         del world, contrib, full
     log(f"phase 1 merge at {c.xy_size}×{c.xy_size}×{c.z_size}: bitwise its plain version on seeded worlds and "
@@ -1374,15 +1443,38 @@ def phase1_merge_tall(cfg, dev, log):
     return {"merge_batch at Z = 320": timing}
 
 
+def wide_combine(c, g, ego, what, log):
+    """K4 on the state of the Gvom facade g: every output bitwise against
+    fuse_plain (combine_vs_plain), then its launch alone timed beside its
+    bound and fuse_plain (form_timing)."""
+    import torch
+
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.ops import kernels
+
+    buf, world = g._buffer, g._world
+    ego = torch.tensor(ego, dtype=torch.float32, device=world.grid.hit.device)
+    combine_vs_plain(c, buf, world, ego, f"K4 at {what}")
+    target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
+    launch, outs = kernels.combine_launch(c, buf, world, target, ego)
+    launch()
+    nbytes, _ = combine_bound(c, buf, world, target, outs[0])
+    return form_timing(f"combine at {what}", launch, nbytes, 40 * c.voxel_count / F32_OPS_PER_S, log,
+                       plain=lambda: pipeline.fuse_plain(c, buf, world, target, ego))
+
+
 def phase1_wide_configs(cfg, scans, dev, log):
     """Every configuration that the JAX package takes runs on the card: for
     each of WIDE_CONFIGS, the Gvom facade on WIDE_SCANS upstream scans
     (process_pointcloud, then combine_maps) against the same facade with
     every wrapper on its plain version on the card, bitwise (facade_pair;
-    at a larger eigen box the buffer's nine moment sums are held against
-    float64 by phase1_epilogue_radii), with K1-K4 launched once a scan; then the batched step at Z = 320, two
-    steps of BATCH_CHECK scans, against the same step on the plain
-    versions."""
+    where the epilogue's direct kernel takes the box the buffer's nine
+    moment sums are held against float64 by phase1_epilogue_radii), with
+    K1-K4 launched once a scan; at buffer_size 17 and z_size 320, K4
+    bitwise fuse_plain and timed (wide_combine) there and again once the
+    facade has taken B + 1 scans (the scans in turn), its ring buffer full
+    and its cursor wrapped; then the batched step at Z = 320, two steps of
+    BATCH_CHECK scans, against the same step on the plain versions."""
     import torch
 
     from gvom_tpu_torch import Gvom, make_batched_step
@@ -1397,21 +1489,19 @@ def phase1_wide_configs(cfg, scans, dev, log):
         a, b = Gvom(config=c), Gvom(config=c)
         kernels.reset_launches()
         facade_pair(f"Gvom({what})", c, a, b, full, [None] * len(full), b_plain=True,
-                    box_sums=(c.xy_eigen_dist, c.z_eigen_dist) == (cfg.xy_eigen_dist, cfg.z_eigen_dist))
+                    box_sums=kernels.epilogue_route(c, None, True) != "direct")
         for k in (kernels.RAY, kernels.BIN, kernels.EPI, kernels.CMB):
             check(k.launches == len(full), f"Gvom({what}): {k.name} launched {k.launches} times, not {len(full)}")
         drives[what] = int(a.products.visibility.sum())
         check(drives[what] > 0, f"Gvom({what}): no visible cell")
         if "buffer_size" in fields or "z_size" in fields:
-            buf, world = a._buffer, a._world
-            target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
-            ego = torch.tensor(full[-1][2], dtype=torch.float32, device=dev)
-            launch, outs = kernels.combine_launch(c, buf, world, target, ego)
-            launch()
-            nbytes, _ = combine_bound(c, buf, world, target, outs[0])
-            timings[f"combine, {what}"] = form_timing(f"combine at {what}", launch, nbytes,
-                                                      40 * c.voxel_count / F32_OPS_PER_S, log)
-            del buf, world, launch, outs
+            timings[f"combine, {what}"] = wide_combine(c, a, full[-1][2], what, log)
+            ring = [scans[i % len(scans)] for i in range(len(full), c.buffer_size + 1)]
+            for pad, m, e in ring:
+                a.process_pointcloud(pad[m], e)
+                a.combine_maps()
+            timings[f"combine, {what}, full ring"] = wide_combine(
+                c, a, ring[-1][2], f"{what}, full ring ({c.buffer_size + 1} scans)", log)
         del a, b
         torch.cuda.empty_cache()
     c = dataclasses.replace(cfg, z_size=320)
@@ -1884,8 +1974,8 @@ def facade_pair(what, cfg, a, b, scans, transforms, degenerate=(), b_plain=False
     MOM_ATOL): scan_ok (False exactly for the scans in `degenerate`), the
     combine's 5-tuple, the slopes, the occupancy. b_plain runs facade b with
     every wrapper on its plain version. Without box_sums the buffer's nine
-    moment sums are not compared (its n is): at an eigen box larger than
-    the upstream one they are held against float64 within the f32
+    moment sums are not compared (its n is): where the epilogue's direct
+    kernel takes the box they are held against float64 within the f32
     summation bound by box_close instead (phase1_epilogue_radii). Returns
     the largest difference of the buffer's moments."""
     import numpy as np
@@ -1996,17 +2086,20 @@ def kernel_row(k, fn, plain, reps, plain_reps, lib, bytes_moved, ops_s, log):
     return r
 
 
-def form_timing(what, fn, bytes_moved, ops_s, log, lib=None):
+def form_timing(what, fn, bytes_moved, ops_s, log, lib=None, plain=None):
     """A kernel form off the upstream path (a deeper ring buffer, a taller
     grid, a larger eigen box): its launch alone (graph_ms) beside its
-    bound, and lib's time, a PyTorch call of the same function, where there
-    is one (cuda_ms, as kernel_row times it), for the --out report."""
+    bound, its plain version's time (cuda_ms) and lib's time, a PyTorch call
+    of the same function, where there is one (cuda_ms, as kernel_row times
+    it), for the --out report."""
     ms, _ = graph_ms(fn, 20)
     bytes_s = bytes_moved / HBM_BYTES_PER_S
     r = dict(ms=ms, bound_ms=1e3 * max(bytes_s, ops_s), bound_by="bytes" if bytes_s >= ops_s else "operations",
-             library_ms=None if lib is None else cuda_ms(lib, 5))
+             library_ms=None if lib is None else cuda_ms(lib, 5), plain_ms=None if plain is None else cuda_ms(plain, 2))
     lib_ms = "n/a" if lib is None else f"{r['library_ms']:.4f} ms"
-    log(f"timing {what}: launch alone {ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib_ms}")
+    plain_ms = "n/a" if plain is None else f"{r['plain_ms']:.4f} ms"
+    log(f"timing {what}: launch alone {ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {plain_ms}, "
+        f"library {lib_ms}")
     return r
 
 
@@ -3602,11 +3695,12 @@ def run(args, torch) -> int:
                                [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
                                "not a TPU kernel: a probe of the card's atomic rate")
     probe_build = probe.start_build()
-    # K4 for the ring buffers of entry() (2), of the bench's async mode (8) and
-    # of the configuration sweep, so that no timed or checked call waits for nvcc
+    # K4 for the ring buffers of entry() (2), of the bench's async mode (8), of
+    # phase 1's other depths (7, 16) and of the configuration sweep, so that no
+    # timed or checked call waits for nvcc
     b0 = GvomConfig().buffer_size
     depths = [kernels.CMB.start_build((f"-DGVOM_COMBINE_B={b}",)) for b in sorted(
-        {2, 8} | {f.get("buffer_size", b0) for _, f in SWEEP_CONFIGS.values()} - {b0})]
+        {2, 7, 8, 16} | {f.get("buffer_size", b0) for _, f in SWEEP_CONFIGS.values()} - {b0})]
     reports = kernels.build_all()
     reports[probe.name] = probe.finish_build(probe_build)
     for proc in depths:

@@ -63,15 +63,34 @@
 // Every depth and every Z the JAX package takes: past 16 slots or 256 z the
 // unrolled kernel does not apply (its slot masks are bits of one word, its
 // column lives in registers), and combine_any_kernel takes the combine. B
-// is a runtime argument there and the slot loop is not unrolled; one lane
-// holds one z of each 32-z chunk, the chunks a runtime loop. A column no
-// longer fits in registers, so it is taken in two passes: the first reads
-// the scalar channels and finds the column's heights (columns.cuh), the
-// second computes every output, stores it and adds the band sums (the
-// column's bytes are in L2 by then). The arithmetic is the unrolled
-// kernel's, in the same order, so its outputs are bitwise fuse_plain's too.
+// is a runtime argument there; its first form looped over the slots
+// one at a time, each slot's loads waiting on the previous slot's add chain,
+// with 4-byte accesses and a second pass that read every scalar channel
+// again: 30 % of its bound at B = 17, 42 % at Z = 320. Its design now:
+//   * the slots in groups of ANY_GROUP, unrolled, a runtime loop over the
+//     groups: a group's hit and miss, then its min_height, then each moment
+//     channel's values issue together before the group's adds (in slot
+//     order, as fuse_plain adds them);
+//   * a warp takes its column's active slots (valid, the column inside
+//     their window) 32 at a time, a ballot each, so any depth, and each
+//     slot's z window from the lane that tested it (a shuffle). A slot left
+//     out adds nothing: the unrolled kernel adds +0.0f for it, and a sum
+//     that starts at +0.0f never holds -0.0f, so +0.0f added to it changes
+//     no bit;
+//   * a lane holds two adjacent z of each 64-z chunk (a runtime loop over
+//     the chunks), with 8-byte accesses where Z is even and the pointers
+//     aligned;
+//   * one pass computes and stores every voxel output; what the band sums
+//     read of a voxel (hit where occupied, hit + miss) stays in shared
+//     memory for the column's second loop, which reads nothing else. Past
+//     what 48 KB of shared memory holds for its eight columns (Z > 768) the
+//     second loop computes them again from the column's scalar channels.
+// The arithmetic is the unrolled kernel's, in the same order, so its
+// outputs are bitwise fuse_plain's too.
 
 #include "columns.cuh"
+
+#include <climits>
 
 #define MAX_B 16      // the unrolled kernel's depths; combine_any_kernel takes any other
 #define MAX_ZC 4      // the unrolled kernel's 64-z chunks a column
@@ -284,25 +303,6 @@ __global__ void __launch_bounds__(256, 4) combine_kernel(
                     ot0, ot1, ot2, ego, k, lane, col, hm_o, ihm_o, pnum_o, pden_o, bok_o);
 }
 
-// Whether source s (a slot, or the old world at s = B) is valid and its
-// window holds the voxel at window-relative (relx, rely, pz) of the target
-// window: the overlap test of axis_ok on each axis.
-__device__ __forceinline__ bool source_ok(const int* __restrict__ org, const int* __restrict__ ival, int s,
-                                          int relx, int rely, int pz, int ot0, int ot1, int ot2, int X, int Y, int Z)
-{
-    if (ival[s] <= 0) return false;
-    const int dx = ot0 - org[3 * s], dy = ot1 - org[3 * s + 1], dz = ot2 - org[3 * s + 2];
-    return relx >= -min(dx, 0) && relx < X - max(dx, 0) && rely >= -min(dy, 0) && rely < Y - max(dy, 0) &&
-           pz >= -min(dz, 0) && pz < Z - max(dz, 0);
-}
-
-// what the column tail reads of one voxel
-struct Voxel {
-    int hs, ms, ev;
-    float mh;
-    bool occ2;
-};
-
 struct AnyArgs {
     const int* org; const int* ival; const float* ego;
     const int* bhit; const int* bmiss; const float* bminh; const float* bmom;
@@ -313,109 +313,292 @@ struct AnyArgs {
     float* hm_o; float* ihm_o; int* pnum_o; int* pden_o; int* bok_o;
 };
 
-// One voxel of combine_kernel's function, its slots in a runtime loop.
-// FULL: also the moments, and every output stored.
-template <bool FULL>
-__device__ __forceinline__ Voxel combine_voxel(const AnyArgs& a, bool anyv, int relx, int rely, int pz,
-                                               int ot0, int ot1, int ot2, int64_t v)
+constexpr int ANY_WARPS = 8;        // columns a block of combine_any_kernel
+constexpr int ANY_GROUP = 4;        // slots whose loads issue together
+constexpr int ANY_SMEM = 48 * 1024; // its shared memory, without opting in
+
+// A warp's column: its torus x and y, the target window's origin, and
+// whether the old world is valid with the column inside its window and, if
+// so, its z window (window-relative z)
+struct Column {
+    int x, y, ot0, ot1, ot2;
+    bool old_xy;
+    int old_lo, old_hi;
+};
+
+// 32 slots from s0: those valid with the column inside their window (bits
+// of a ballot), and the z window of this lane's slot
+struct SlotChunk {
+    unsigned live;
+    int lo, hi;
+};
+
+__device__ __forceinline__ SlotChunk slot_chunk(const AnyArgs& a, const Column& c, int s0, int lane)
 {
-    const int64_t V = (int64_t)a.X * a.Y * a.Z;
-    int evv = 0, hh = 0, mm = 0;
-    bool occ = false;
-    float mhh = 1.0f;
-    float acc[10];
-#pragma unroll
-    for (int ch = 0; ch < 10; ++ch) acc[ch] = 0.0f;
-    // ---- phase A in slot order, and the slots' share of phase B ----
-    for (int s = 0; s < a.B; ++s) {
-        const bool al = source_ok(a.org, a.ival, s, relx, rely, pz, ot0, ot1, ot2, a.X, a.Y, a.Z);
-        const int h = al ? a.bhit[s * V + v] : 0;
-        const int m = al ? a.bmiss[s * V + v] : 0;
-        const bool s_occ = al && h > 0;
-        const int s_ev = (al && !s_occ) ? m : 0;
-        if (s_ev > 0 && !occ) evv += s_ev;
-        occ = occ || s_occ;
-        if (s_occ) {
-            hh += h;
-            mm += m;
-            mhh = fminf(mhh, a.bminh[s * V + v]);
-        }
-        if (FULL) {
-#pragma unroll
-            for (int ch = 0; ch < 10; ++ch)
-                acc[ch] = __fadd_rn(acc[ch], al ? a.bmom[((int64_t)s * 10 + ch) * V + v] : 0.0f);
-        }
-    }
-    // ---- the old world: with no valid slot every channel passes through ----
-    const bool oam = source_ok(a.org, a.ival, a.B, relx, rely, pz, ot0, ot1, ot2, a.X, a.Y, a.Z);
-    const bool ol = anyv ? oam : true;
-    const int oh = ol ? a.ohit[v] : 0, oe = ol ? a.oev[v] : 0;
-    const bool old_occ = oam && oh > 0;
-    const bool revive = old_occ && !occ && evv <= a.k.decay;
-    const bool o2 = occ || revive;
-    const int old_ev = oam ? oe : 0;
-    if (!old_occ && old_ev > 0 && !o2) evv += old_ev;
-    if (o2) evv = 0;
-    const bool mold = old_occ && o2;
-    const bool l = anyv ? mold : true;
-    const int om = l ? a.omiss[v] : 0;
-    const float omh = l ? a.ominh[v] : 0.0f;
-    if (mold) {
-        hh += oh;
-        mm += om;
-        mhh = fminf(mhh, omh);
-    }
-    if (FULL) {
-        const bool oo = oam && o2;
-#pragma unroll
-        for (int ch = 0; ch < 10; ++ch) {
-            const float ov = (anyv ? oo : true) ? a.omom[(int64_t)ch * V + v] : 0.0f;
-            const float sum = __fadd_rn(acc[ch], oo ? ov : 0.0f);
-            __stcs(a.mom_o + (int64_t)ch * V + v, anyv ? sum : ov);
-        }
-        __stcs(a.hit_o + v, anyv ? hh : oh);
-        __stcs(a.miss_o + v, anyv ? mm : om);
-        __stcs(a.minh_o + v, anyv ? mhh : omh);
-        __stcs(a.ev_o + v, anyv ? evv : oe);
-    }
-    return Voxel{hh, mm, evv, mhh, o2};
+    const int s = s0 + lane;
+    const bool ok = s < a.B && a.ival[s] > 0 && axis_ok(c.x, c.ot0, a.org[3 * s], a.X) &&
+                    axis_ok(c.y, c.ot1, a.org[3 * s + 1], a.Y);
+    const int d = ok ? c.ot2 - a.org[3 * s + 2] : 0;
+    return SlotChunk{__ballot_sync(0xffffffffu, ok), -min(d, 0), a.Z - max(d, 0)};
 }
 
-// K4 for any B and Z: one warp a column, two passes over it (the header)
-__global__ void __launch_bounds__(256) combine_any_kernel(AnyArgs a)
+// What a lane's two voxels of a chunk need besides their moments: phase A,
+// the hit/miss sums and min of min_height, and the old world's scalars.
+struct ChunkScalars {
+    int hs[2], ms[2], ev[2], oh[2], om[2], oe[2];
+    float mh[2], omh[2];
+    bool occ2[2], oam[2];
+};
+
+// The next group of a chunk's live slots, ascending (sl[j] = -1 past the
+// last), taken off ch.live, and their aligned-and-valid bits at each of the
+// lane's voxels (bit j). The warp takes it together: ch.live is the same on
+// every lane.
+__device__ __forceinline__ void next_group(SlotChunk& ch, int s0, const bool (&in)[2], const int (&pz)[2],
+                                           int (&sl)[ANY_GROUP], unsigned (&am)[2])
 {
-    const int lane = threadIdx.x & 31;
-    const int64_t col = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-    if (col >= (int64_t)a.X * a.Y) return;
-    const int x = (int)(col / a.Y), y = (int)(col % a.Y), Z = a.Z;
+    am[0] = am[1] = 0u;
+#pragma unroll
+    for (int j = 0; j < ANY_GROUP; ++j) {
+        sl[j] = -1;
+        if (ch.live) {
+            const int q = __ffs(ch.live) - 1;
+            ch.live &= ch.live - 1;
+            sl[j] = s0 + q;
+            const int lo = __shfl_sync(0xffffffffu, ch.lo, q), hi = __shfl_sync(0xffffffffu, ch.hi, q);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) am[e] |= (in[e] && pz[e] >= lo && pz[e] < hi) ? 1u << j : 0u;
+        }
+    }
+}
+
+// combine_kernel's phase A and B for one lane's two voxels, the slots in
+// groups of ANY_GROUP whose loads issue together, then the old world
+template <bool PAIR>
+__device__ __forceinline__ void chunk_scalars(const AnyArgs& a, const Column& col, int lane, bool anyv,
+                                              const bool (&in)[2], const int (&pz)[2], int64_t v, ChunkScalars& r)
+{
+    const int64_t V = (int64_t)a.X * a.Y * a.Z;
+    bool occ[2] = {false, false};
+    int evv[2] = {0, 0}, hh[2] = {0, 0}, mm[2] = {0, 0};
+    float mhh[2] = {1.0f, 1.0f};
+    for (int s0 = 0; s0 < a.B; s0 += 32) {
+        for (SlotChunk sc = slot_chunk(a, col, s0, lane); sc.live;) {
+            int sl[ANY_GROUP];
+            unsigned am[2];
+            next_group(sc, s0, in, pz, sl, am);
+            int h[ANY_GROUP][2], m[ANY_GROUP][2];
+#pragma unroll
+            for (int j = 0; j < ANY_GROUP; ++j) {
+                const bool r0 = (am[0] >> j) & 1u, r1 = (am[1] >> j) & 1u;
+                ld2<PAIR>(a.bhit + sl[j] * V, v, r0, r1, h[j][0], h[j][1]);
+                ld2<PAIR>(a.bmiss + sl[j] * V, v, r0, r1, m[j][0], m[j][1]);
+            }
+            unsigned so[2] = {0u, 0u};   // occupied slots of the group
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+#pragma unroll
+                for (int j = 0; j < ANY_GROUP; ++j) {
+                    const bool al = (am[e] >> j) & 1u;
+                    const bool s_occ = al && h[j][e] > 0;
+                    const int s_ev = (al && !s_occ) ? m[j][e] : 0;
+                    if (s_ev > 0 && !occ[e]) evv[e] += s_ev;
+                    occ[e] = occ[e] || s_occ;
+                    if (s_occ) {
+                        so[e] |= 1u << j;
+                        hh[e] += h[j][e];
+                        mm[e] += m[j][e];
+                    }
+                }
+            }
+            float mhs[ANY_GROUP][2];
+#pragma unroll
+            for (int j = 0; j < ANY_GROUP; ++j)
+                ld2<PAIR>(a.bminh + sl[j] * V, v, (so[0] >> j) & 1u, (so[1] >> j) & 1u, mhs[j][0], mhs[j][1]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+#pragma unroll
+                for (int j = 0; j < ANY_GROUP; ++j)
+                    if ((so[e] >> j) & 1u) mhh[e] = fminf(mhh[e], mhs[j][e]);
+            }
+        }
+    }
+    // the old world: with no valid slot every channel passes through
+    bool ol[2], mold[2], l[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+        r.oam[e] = in[e] && col.old_xy && pz[e] >= col.old_lo && pz[e] < col.old_hi;
+        ol[e] = anyv ? r.oam[e] : in[e];
+    }
+    ld2<PAIR>(a.ohit, v, ol[0], ol[1], r.oh[0], r.oh[1]);
+    ld2<PAIR>(a.oev, v, ol[0], ol[1], r.oe[0], r.oe[1]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+        const bool old_occ = r.oam[e] && r.oh[e] > 0;
+        const bool revive = old_occ && !occ[e] && evv[e] <= a.k.decay;
+        const bool o2 = occ[e] || revive;
+        const int old_ev = r.oam[e] ? r.oe[e] : 0;
+        if (!old_occ && old_ev > 0 && !o2) evv[e] += old_ev;
+        if (o2) evv[e] = 0;
+        mold[e] = old_occ && o2;
+        l[e] = anyv ? mold[e] : in[e];
+        r.occ2[e] = o2;
+    }
+    ld2<PAIR>(a.omiss, v, l[0], l[1], r.om[0], r.om[1]);
+    ld2<PAIR>(a.ominh, v, l[0], l[1], r.omh[0], r.omh[1]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+        if (mold[e]) {
+            hh[e] += r.oh[e];
+            mm[e] += r.om[e];
+            mhh[e] = fminf(mhh[e], r.omh[e]);
+        }
+        r.hs[e] = hh[e];
+        r.ms[e] = mm[e];
+        r.mh[e] = mhh[e];
+        r.ev[e] = evv[e];
+    }
+}
+
+// K4 for any B and Z (the header): one warp a column, lane l holding z =
+// 64c + 2l and 64c + 2l + 1 of each 64-z chunk c. FITS: each voxel's band
+// inputs stay in shared memory for the band sums; else they are computed
+// again from the column's scalar channels.
+template <bool PAIR, bool FITS>
+__global__ void __launch_bounds__(ANY_WARPS * 32, 3) combine_any_kernel(AnyArgs a)
+{
+    extern __shared__ int sh_any[];
+    const int Z = a.Z, ZR = (Z + 63) / 64 * 64;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int* band = sh_any + warp * 2 * ZR;   // [occ2 ? hs : INT_MIN, hs + ms] a voxel
+    const int64_t cix = (int64_t)blockIdx.x * ANY_WARPS + warp;
+    if (cix >= (int64_t)a.X * a.Y) return;
     const int* tgt = a.org + 3 * (a.B + 1);
-    const int ot0 = tgt[0], ot1 = tgt[1], ot2 = tgt[2];
-    const int relx = pmod(x - ot0, a.X), rely = pmod(y - ot1, a.Y), ot2m = pmod(ot2, Z);
+    Column col{(int)(cix / a.Y), (int)(cix % a.Y), tgt[0], tgt[1], tgt[2], false, 0, 0};
+    col.old_xy = a.ival[a.B] > 0 && axis_ok(col.x, col.ot0, a.org[3 * a.B], a.X) &&
+                 axis_ok(col.y, col.ot1, a.org[3 * a.B + 1], a.Y);
+    const int dold = col.ot2 - a.org[3 * a.B + 2];
+    col.old_lo = -min(dold, 0);
+    col.old_hi = Z - max(dold, 0);
+    const int ot0 = col.ot0, ot1 = col.ot1, ot2 = col.ot2;
+    const int relx = pmod(col.x - ot0, a.X), rely = pmod(col.y - ot1, a.Y), ot2m = pmod(ot2, Z);
     const bool anyv = a.ival[a.B + 1] > 0;
+    const int64_t V = (int64_t)a.X * a.Y * Z;
 
     int best_sc = Z, best_sc2 = Z;
     float best_mh = 0.0f;
-    for (int z0 = 0; z0 < Z; z0 += 32) {
-        const int z = z0 + lane;
-        if (z >= Z) continue;
-        const int pz = z >= ot2m ? z - ot2m : z - ot2m + Z;
-        const Voxel r = combine_voxel<false>(a, anyv, relx, rely, pz, ot0, ot1, ot2, col * Z + z);
-        if (r.occ2 && pz < best_sc) { best_sc = pz; best_mh = r.mh; }
-        if (!r.occ2 && r.ev > 0 && pz < best_sc2) best_sc2 = pz;
-    }
-    const ColumnHeights c = column_heights(best_sc, best_mh, best_sc2, Z, relx, rely, ot0, ot1, ot2, a.ego, a.k);
-    int num = 0, den = 0;
-    for (int z0 = 0; z0 < Z; z0 += 32) {
-        const int z = z0 + lane;
-        if (z >= Z) continue;
-        const int pz = z >= ot2m ? z - ot2m : z - ot2m + Z;
-        const Voxel r = combine_voxel<true>(a, anyv, relx, rely, pz, ot0, ot1, ot2, col * Z + z);
-        if (in_band(c, a.k, r.occ2, r.hs, pz)) {
-            num += r.hs;
-            den += r.hs + r.ms;
+    for (int z0 = 2 * lane; z0 < ZR; z0 += 64) {
+        const bool in[2] = {z0 < Z, z0 + 1 < Z};
+        int pz[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) pz[e] = pmod(z0 + e - ot2m, Z);
+        const int64_t v = cix * Z + z0;
+        ChunkScalars r;
+        chunk_scalars<PAIR>(a, col, lane, anyv, in, pz, v, r);
+
+        // ---- moments: slots 0..B-1 then the old world, the XLA add order ----
+        float acc[10][2];
+#pragma unroll
+        for (int ch = 0; ch < 10; ++ch) acc[ch][0] = acc[ch][1] = 0.0f;
+        for (int s0 = 0; s0 < a.B; s0 += 32) {
+            for (SlotChunk sc = slot_chunk(a, col, s0, lane); sc.live;) {
+                int sl[ANY_GROUP];
+                unsigned am[2];
+                next_group(sc, s0, in, pz, sl, am);
+#pragma unroll
+                for (int ch = 0; ch < 10; ++ch) {
+                    float mv[ANY_GROUP][2];
+#pragma unroll
+                    for (int j = 0; j < ANY_GROUP; ++j)
+                        ld2<PAIR>(a.bmom + ((int64_t)sl[j] * 10 + ch) * V, v, (am[0] >> j) & 1u, (am[1] >> j) & 1u,
+                                  mv[j][0], mv[j][1]);
+#pragma unroll
+                    for (int j = 0; j < ANY_GROUP; ++j) {
+                        if (sl[j] >= 0) {
+#pragma unroll
+                            for (int e = 0; e < 2; ++e)
+                                acc[ch][e] = __fadd_rn(acc[ch][e], ((am[e] >> j) & 1u) ? mv[j][e] : 0.0f);
+                        }
+                    }
+                }
+            }
+        }
+        const bool oo[2] = {r.oam[0] && r.occ2[0], r.oam[1] && r.occ2[1]};
+#pragma unroll
+        for (int ch = 0; ch < 10; ++ch) {
+            float ov[2], out[2];
+            ld2<PAIR>(a.omom + (int64_t)ch * V, v, anyv ? oo[0] : in[0], anyv ? oo[1] : in[1], ov[0], ov[1]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) out[e] = anyv ? __fadd_rn(acc[ch][e], oo[e] ? ov[e] : 0.0f) : ov[e];
+            st2<PAIR>(a.mom_o + (int64_t)ch * V, v, in[0], in[1], out[0], out[1]);
+        }
+
+        // ---- world outputs (any_valid latch) ----
+        st2<PAIR>(a.hit_o, v, in[0], in[1], anyv ? r.hs[0] : r.oh[0], anyv ? r.hs[1] : r.oh[1]);
+        st2<PAIR>(a.miss_o, v, in[0], in[1], anyv ? r.ms[0] : r.om[0], anyv ? r.ms[1] : r.om[1]);
+        st2<PAIR>(a.minh_o, v, in[0], in[1], anyv ? r.mh[0] : r.omh[0], anyv ? r.mh[1] : r.omh[1]);
+        st2<PAIR>(a.ev_o, v, in[0], in[1], anyv ? r.ev[0] : r.oe[0], anyv ? r.ev[1] : r.oe[1]);
+
+        // ---- column candidates, and what the band sums read ----
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            if (!in[e]) continue;
+            if (r.occ2[e] && pz[e] < best_sc) { best_sc = pz[e]; best_mh = r.mh[e]; }
+            if (!r.occ2[e] && r.ev[e] > 0 && pz[e] < best_sc2) best_sc2 = pz[e];
+            if (FITS) {
+                band[z0 + e] = r.occ2[e] ? r.hs[e] : INT_MIN;
+                band[ZR + z0 + e] = r.hs[e] + r.ms[e];
+            }
         }
     }
-    column_write(c, num, den, lane, col, a.hm_o, a.ihm_o, a.pnum_o, a.pden_o, a.bok_o);
+    const ColumnHeights c = column_heights(best_sc, best_mh, best_sc2, Z, relx, rely, ot0, ot1, ot2, a.ego, a.k);
+    // the band sums: each lane reads back its own voxels
+    int num = 0, den = 0;
+    for (int z0 = 2 * lane; z0 < ZR; z0 += 64) {
+        const bool in[2] = {z0 < Z, z0 + 1 < Z};
+        int pz[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) pz[e] = pmod(z0 + e - ot2m, Z);
+        int hb[2], tot[2];
+        if (FITS) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                hb[e] = in[e] ? band[z0 + e] : INT_MIN;
+                tot[e] = in[e] ? band[ZR + z0 + e] : 0;
+            }
+        } else {
+            ChunkScalars r;
+            chunk_scalars<PAIR>(a, col, lane, anyv, in, pz, cix * Z + z0, r);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                hb[e] = in[e] && r.occ2[e] ? r.hs[e] : INT_MIN;
+                tot[e] = r.hs[e] + r.ms[e];
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            if (in_band(c, a.k, true, hb[e], pz[e])) {
+                num += hb[e];
+                den += tot[e];
+            }
+        }
+    }
+    column_write(c, num, den, lane, cix, a.hm_o, a.ihm_o, a.pnum_o, a.pden_o, a.bok_o);
+}
+
+// the launch of combine_any_kernel: its shared memory, the band inputs of
+// its columns where they fit
+int launch_any(const AnyArgs& a, bool pair, cudaStream_t stream)
+{
+    const size_t full = sizeof(int) * (size_t)ANY_WARPS * 2 * ((a.Z + 63) / 64 * 64);
+    const bool fits = full <= ANY_SMEM;
+    const size_t smem = fits ? full : 0;
+    const unsigned blocks = (unsigned)(((int64_t)a.X * a.Y + ANY_WARPS - 1) / ANY_WARPS);
+    if (pair && fits) combine_any_kernel<true, true><<<blocks, ANY_WARPS * 32, smem, stream>>>(a);
+    else if (pair) combine_any_kernel<true, false><<<blocks, ANY_WARPS * 32, smem, stream>>>(a);
+    else if (fits) combine_any_kernel<false, true><<<blocks, ANY_WARPS * 32, smem, stream>>>(a);
+    else combine_any_kernel<false, false><<<blocks, ANY_WARPS * 32, smem, stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 struct Args {
@@ -453,6 +636,9 @@ extern "C" int gvom_combine(
     static_assert(GVOM_COMBINE_B >= 1 && GVOM_COMBINE_B <= MAX_B, "GVOM_COMBINE_B is 1..16");
     if (B < 1 || X < 1 || Y < 1 || Z < 1) return (int)cudaErrorInvalidValue;
     const CombineConsts k{{zres, xyres, inv_z, pot, rh, rr2, g2l, unknown, hct}, decay};
+    const bool aligned = aligned8(bhit) && aligned8(bmiss) && aligned8(bminh) && aligned8(bmom) &&
+                         aligned8(ohit) && aligned8(omiss) && aligned8(ominh) && aligned8(oev) && aligned8(omom) &&
+                         aligned8(hit_o) && aligned8(miss_o) && aligned8(minh_o) && aligned8(ev_o) && aligned8(mom_o);
     if (B > MAX_B || Z > 64 * MAX_ZC) {
         // the meta vector: origins [(B + 2) * 3], then valid flags [B + 2]
         const AnyArgs a{(const int*)meta, (const int*)meta + (B + 2) * 3, (const float*)ego,
@@ -460,10 +646,7 @@ extern "C" int gvom_combine(
                         (const int*)ohit, (const int*)omiss, (const float*)ominh, (const int*)oev, (const float*)omom,
                         B, X, Y, Z, k, (int*)hit_o, (int*)miss_o, (float*)minh_o, (int*)ev_o, (float*)mom_o,
                         (float*)hm_o, (float*)ihm_o, (int*)pnum_o, (int*)pden_o, (int*)bok_o};
-        const int warps = 8;
-        const int64_t blocks = ((int64_t)X * Y + warps - 1) / warps;
-        combine_any_kernel<<<(unsigned)blocks, warps * 32, 0, (cudaStream_t)stream>>>(a);
-        return (int)cudaGetLastError();
+        return launch_any(a, Z % 2 == 0 && aligned, (cudaStream_t)stream);
     }
     if (B != GVOM_COMBINE_B) return (int)cudaErrorInvalidValue;
     Args a{(const int*)meta, (const float*)ego,
@@ -472,10 +655,7 @@ extern "C" int gvom_combine(
            X, Y, Z, k,
            (int*)hit_o, (int*)miss_o, (float*)minh_o, (int*)ev_o, (float*)mom_o,
            (float*)hm_o, (float*)ihm_o, (int*)pnum_o, (int*)pden_o, (int*)bok_o};
-    const bool pair = Z % 2 == 0 && Z <= 64 &&
-                      aligned8(bhit) && aligned8(bmiss) && aligned8(bminh) && aligned8(bmom) &&
-                      aligned8(ohit) && aligned8(omiss) && aligned8(ominh) && aligned8(oev) && aligned8(omom) &&
-                      aligned8(hit_o) && aligned8(miss_o) && aligned8(minh_o) && aligned8(ev_o) && aligned8(mom_o);
+    const bool pair = Z % 2 == 0 && Z <= 64 && aligned;
     if (pair) launch<GVOM_COMBINE_B, 1, true>(a, (cudaStream_t)stream);
     else launch<GVOM_COMBINE_B, MAX_ZC, false>(a, (cudaStream_t)stream);
     return (int)cudaGetLastError();

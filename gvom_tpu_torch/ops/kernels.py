@@ -91,6 +91,7 @@ __all__ = [
     "combine",
     "combine_launch",
     "moments_epilogue",
+    "epilogue_route",
     "point_moments",
     "plane_fit",
     "plane_fit_tail",
@@ -193,7 +194,7 @@ class CudaKernel:
 _PK = "gvom_tpu/ops/pallas_kernels.py"
 _RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 4 + [_F] * 2 + [_I] * 8 + [_P, _P])
 _BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_F] * 2 + [_I] * 9 + [_P] * 4)
-_EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P, _P])
+_EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P] * 3)
 
 # the point preparation: no TPU kernel, the JAX package computes it in XLA
 PREP = CudaKernel("prepare_points", "prepare.cu", "gvom_prepare_points",
@@ -208,8 +209,8 @@ EPI = CudaKernel("ingest_epilogue", *_EPI_ARGS, f"{_PK}:1459 (_xbox_epilogue_int
 # K4 unrolls its slot loops: one library per ring-buffer depth B up to
 # CMB_MAX_B, the upstream B = 4 built by build_all(), another by
 # build_all(cfg) (the Gvom facade calls it when it is made on the card) or at
-# first use. Every library also holds the form with a runtime slot loop,
-# which takes any deeper buffer, and any z_size past 256
+# first use. Every library also holds the grouped form (slots in groups a
+# runtime loop takes), which takes any deeper buffer, and any z_size past 256
 CMB_MAX_B = 16
 CMB = CudaKernel(
     "combine", "combine.cu", "gvom_combine",
@@ -494,9 +495,53 @@ def ingest_epilogue(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, orig
     _check("origin", origin, torch.int32, (3,), dev)
     _check("out", out, torch.float32, (out.shape[0], 10, X, Y, Z), dev)
     _check("slot", slot.reshape(1), torch.int32, (1,), dev)
+    work = _epilogue_workspace(EPI, X, Y, Z, rx, ry, rz, 0, Y, True, dev)
     EPI.launch(_ptr(sums), _ptr(hit), _ptr(origin), _ptr(slot), X, Y, Z, rx, ry, rz, 0, Y, 1,
-               _ptr(out), _stream())
+               _ptr(out), work if work is None else _ptr(work), _stream())
     return out
+
+
+_EPI_WORK: Dict[tuple, int] = {}
+
+
+def _epilogue_workspace(k: CudaKernel, X: int, Y: int, Z: int, rx: int, ry: int, rz: int, ys0: int, Ys: int,
+                        mask: bool, dev):
+    """The workspace of an epilogue launch: None where epilogue.cu takes its
+    tiled kernel, else a fresh float32 tensor for its separable passes (the
+    library answers which, once a shape). The caller holds it until the
+    launch is enqueued; the allocator reuses it only in this stream's order."""
+    key = (id(k), X, Y, Z, rx, ry, rz, ys0, Ys, mask)
+    if key not in _EPI_WORK:
+        fn = getattr(ctypes.CDLL(str(k.library())), "gvom_moments_epilogue_workspace")
+        fn.argtypes, fn.restype = [_I] * 9, ctypes.c_int64
+        n = fn(*key[1:9], int(mask))
+        if n < 0:
+            raise RuntimeError(f"CUDA kernel {k.name}: the route query failed: cudaError {-n}")
+        _EPI_WORK[key] = n
+    n = _EPI_WORK[key]
+    return torch.empty((n,), dtype=torch.float32, device=dev) if n else None
+
+
+# the kernels of epilogue.cu, by the number its route query answers
+EPILOGUE_ROUTES = ("tiled", "separable", "direct")
+
+
+def epilogue_route(cfg: GvomConfig, y_window=None, occupancy_mask: bool = True) -> str:
+    """Which kernel of epilogue.cu takes this shape on the current card: its
+    tiled kernel (the upstream box), the separable passes (any other box,
+    bitwise the plain twin) or the direct kernel (within the f32 summation
+    bound of the twin): with the mask on at a box of at most 297 voxels,
+    and wherever the passes' smallest tile or grid does not fit the card
+    (max(xy_eigen_dist) past 1452 on an H100)."""
+    X, Y, Z = cfg.grid_shape
+    rx, ry, rz = binning.moment_pad(cfg)
+    ys0, Ys = binning.check_y_window(cfg, y_window)
+    fn = getattr(ctypes.CDLL(str(XBOX.library())), "gvom_moments_epilogue_route")
+    fn.argtypes, fn.restype = [_I] * 9, _I
+    rc = fn(X, Y, Z, rx, ry, rz, ys0, Ys, int(occupancy_mask))
+    if rc < 0:
+        raise RuntimeError(f"CUDA kernel {XBOX.name}: the route query failed: cudaError {-rc}")
+    return EPILOGUE_ROUTES[rc]
 
 
 # ----------------------------------------------------------------------
@@ -519,9 +564,10 @@ def moments_epilogue(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, ori
     _check("hit", hit, torch.int32, (X, Ys, Z), dev)
     _check("origin", origin, torch.int32, (3,), dev)
     out = torch.empty((10, X, Ys, Z), dtype=torch.float32, device=dev)
-    (XBOX_SLAB if binning.is_slab(cfg, y_window) else XBOX).launch(
-        _ptr(sums), _ptr(hit), _ptr(origin), None, X, Y, Z, rx, ry, rz, ys0, Ys,
-        int(occupancy_mask), _ptr(out), _stream())
+    k = XBOX_SLAB if binning.is_slab(cfg, y_window) else XBOX
+    work = _epilogue_workspace(k, X, Y, Z, rx, ry, rz, ys0, Ys, occupancy_mask, dev)
+    k.launch(_ptr(sums), _ptr(hit), _ptr(origin), None, X, Y, Z, rx, ry, rz, ys0, Ys,
+             int(occupancy_mask), _ptr(out), work if work is None else _ptr(work), _stream())
     return out
 
 
@@ -543,7 +589,7 @@ def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ori
 
 def _combine_defines(cfg: GvomConfig) -> tuple:
     """K4's library for cfg: its unrolled depth, or past CMB_MAX_B the
-    up-front library, whose runtime slot loop takes any depth."""
+    up-front library, whose grouped form takes any depth."""
     B = cfg.buffer_size
     return (f"-DGVOM_COMBINE_B={B}",) if B <= CMB_MAX_B else CMB.defines
 

@@ -91,7 +91,7 @@ def main() -> int:
 
         def call(f, masked):
             rc = f(kernels._ptr(sums), kernels._ptr(bins.hit), kernels._ptr(origin), None,
-                   X, Y, Z, rx, ry, rz, 0, Y, masked, kernels._ptr(out), kernels._stream())
+                   X, Y, Z, rx, ry, rz, 0, Y, masked, kernels._ptr(out), None, kernels._stream())
             assert rc == 0, rc
 
         for masked in (1, 0):

@@ -29,12 +29,13 @@ It prints one JSON line and the card's name and power limit.
 import argparse
 import ctypes
 import json
-import subprocess
+import re
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
 
 
 def main() -> int:
@@ -54,22 +55,13 @@ def main() -> int:
     from gvom_tpu_torch.ops.maps2d import f32_value
     from gvom_tpu_torch.types import UNKNOWN_HEIGHT
 
-    src = kernels.GUESS.source.read_text()
+    from tree_timing import card, parent_build, turns, variant_build
+
     limit = "constexpr int SHARED_MAX = 48 * 1024 - TILE * TILE * (4 * 8 + 2) - TILE * TILE / 32 * 4;"
-    if limit not in src:
-        raise SystemExit(f"time_guess_routes: {limit!r} is not in {kernels.GUESS.source}")
-    walk_src = ROOT / "gvom_tpu_torch" / "_build" / "guess_walk_global.cu"
-    walk_src.parent.mkdir(parents=True, exist_ok=True)
-    walk_src.write_text(src.replace(limit, "constexpr int SHARED_MAX = 0;"))
-    walk = kernels.CudaKernel("guess_walk_global", "guess.cu", kernels.GUESS.entry, kernels.GUESS.argtypes,
-                              "the committed kernel with every launch on the global-memory walk")
-    walk.source = walk_src
-    builds = {"committed": None, "walk": walk}
+    builds = {"committed": None, "walk": variant_build(kernels, kernels.GUESS, "guess_walk_global",
+                                                       [(re.escape(limit), "constexpr int SHARED_MAX = 0;")])}
     if args.parent:
-        parent = kernels.CudaKernel("guess_parent", "guess.cu", kernels.GUESS.entry, kernels.GUESS.argtypes,
-                                    "the parent tree's kernel")
-        parent.source = Path(args.parent).resolve() / "gvom_tpu_torch" / "csrc" / "guess.cu"
-        builds["parent"] = parent
+        builds["parent"] = parent_build(kernels, kernels.GUESS, args.parent)
 
     cfg = GvomConfig()
     g = Gvom(config=cfg)
@@ -119,14 +111,11 @@ def main() -> int:
         for b, fn in fns.items():
             if not torch.equal(fn().view(torch.int32), ref.view(torch.int32)):
                 raise SystemExit(f"time_guess_routes: {b} differs from the committed kernel on {name}")
-        t = {b: [] for b in builds}
-        for b in order:
-            t[b].append(chip_smoke.graph_ms(fns[b], 200)[0])
+        t = turns(fns, order, 200)
         res[name] = dict(t, cells_that_search=int(((hm <= UNKNOWN_HEIGHT) & (ihm != UNKNOWN_HEIGHT)).sum()))
         print(f"{name}: " + ", ".join(f"{b} {v} ms" for b, v in t.items())
               + f" ({res[name]['cells_that_search']} cells search)", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = card()
     print(json.dumps({"guess_routes_ms": res, "R": cfg.guess_search_radius, "X": cfg.xy_size}))
     print(smi)
     return 0

@@ -21,8 +21,8 @@ from gvom_tpu.types import empty_world_state as jempty_world
 from gvom_tpu_torch.models import pipeline as tpipeline
 from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
 
-from torch_helpers import (EGOS, PRODUCTS_BITWISE as BITWISE, assert_products_equal, assert_state_equal, convert,
-                           jax_combine, jax_ingest, jax_numpy, products_numpy, scan, t, tcfg)
+from torch_helpers import (EGOS, PRODUCTS_BITWISE as BITWISE, assert_products_equal, assert_state_equal,
+                           combine_drive, convert, jax_combine, jax_ingest, jax_numpy, products_numpy, scan, t, tcfg)
 
 
 @pytest.fixture(scope="module")
@@ -153,67 +153,28 @@ def test_column_products_random(small_cfg, seed):
 @pytest.mark.parametrize("buffer_size", [1, 5, 17])
 def test_fuse_plain_at_other_buffer_depths(buffer_size):
     """fuse_plain (the plain twin of K4, which the kernel instantiates once per
-    ring-buffer depth B up to 16 and takes in a runtime slot loop past it)
-    against gvom_tpu's combine(impl="xla") at B = 1, 5 and 17 on a small
-    grid, over a drive of 3 scans with a moving ego: B = 1 replaces its one
-    slot every scan, B = 5 and 17 never wrap. The world channels are held
-    as torch_helpers states, the products bitwise but for the slopes and
-    roughness."""
+    ring-buffer depth B up to 16 and takes in slot groups past it) against
+    gvom_tpu's combine(impl="xla") at B = 1, 5 and 17 on a small grid, over
+    a drive of 3 scans with a moving ego (torch_helpers.combine_drive): B =
+    1 replaces its one slot every scan, B = 5 and 17 never wrap. The world
+    channels are held as torch_helpers states, the products bitwise but for
+    the slopes and roughness."""
     from gvom_tpu.config import GvomConfig
 
-    cfg = GvomConfig(xy_size=32, z_size=16, max_points=1024, buffer_size=buffer_size)
-    c = tcfg(cfg)
-    ingest, combine = jax_ingest(cfg), jax_combine(cfg)
-    jbuf, jworld = jempty_buffer(cfg), jempty_world(cfg)
-    tbuf, tworld = empty_buffer_state(c, "cpu"), empty_world_state(c, "cpu")
-    for i in range(3):
-        ego = np.array([0.3, -0.2, 1.5]) + i * np.array([0.9, 0.6, 0.02])
-        pad, mask = scan(cfg, i, ego)
-        e = np.float32(ego)
-        jbuf, _ = ingest(jbuf, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
-        jworld, jprod, _ = combine(jbuf, jworld, jnp.asarray(e))
-        tpipeline.ingest_and_insert(c, tbuf, t(pad), t(mask), t(e))
-        target = tbuf.grids.origin[int(tbuf.last_slot)]
-        fused = tpipeline.fuse_plain(c, tbuf, tworld, target, t(e))
-        tworld, tprod, _ = tpipeline.combine(c, tbuf, tworld, t(e))
-        ref = convert.logical_from_jax_numpy(jax_numpy(jworld))
-        assert_state_equal(convert.to_numpy(tworld), ref, f"B={buffer_size}, world after scan {i}")
-        for name, a in zip(("hit", "miss", "min_height", "evidence", "mom"), fused[:5]):
-            np.testing.assert_array_equal(a.numpy(), convert.to_numpy(tworld)[name], err_msg=name)
-        assert_products_equal(products_numpy(tprod), products_numpy(jprod), f"B={buffer_size}, scan {i}")
-    assert (ref["hit"] > 0).sum() > 50
+    combine_drive(GvomConfig(xy_size=32, z_size=16, max_points=1024, buffer_size=buffer_size))
 
 
 def test_fuse_plain_past_256_z():
-    """fuse_plain and the combine at 16×16×320 (the kernel's two-pass form
-    past 256 z) against gvom_tpu's combine(impl="xla"), over a drive of 3
-    scans, each ingested by both packages. The raycast rounds its positions
+    """fuse_plain and the combine at 16×16×320 (past 256 z the kernel takes
+    its grouped form, 8-byte accesses) against gvom_tpu's
+    combine(impl="xla"), over a drive of 3 scans, each ingested by both
+    packages (torch_helpers.combine_drive). The raycast rounds its positions
     as one FMA, as the JAX path does (fault C4, closed:
-    test_torch_raycast.py::test_raycast_c4_sweep_equals_jax), so the
-    port's own ingest fills the ring buffer."""
+    test_torch_raycast.py::test_raycast_c4_sweep_equals_jax), so the port's
+    own ingest fills the ring buffer."""
     from gvom_tpu.config import GvomConfig
 
-    cfg = GvomConfig(xy_size=16, z_size=320, max_points=1024, buffer_size=4)
-    c = tcfg(cfg)
-    ingest, combine = jax_ingest(cfg), jax_combine(cfg)
-    jbuf, jworld = jempty_buffer(cfg), jempty_world(cfg)
-    tbuf, tworld = empty_buffer_state(c, "cpu"), empty_world_state(c, "cpu")
-    for i in range(3):
-        ego = np.array([0.3, -0.2, 1.5]) + i * np.array([0.9, 0.6, 0.02])
-        pad, mask = scan(cfg, i, ego)
-        e = np.float32(ego)
-        jbuf, _ = ingest(jbuf, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
-        jworld, jprod, _ = combine(jbuf, jworld, jnp.asarray(e))
-        tpipeline.ingest_and_insert(c, tbuf, t(pad), t(mask), t(e))
-        target = tbuf.grids.origin[int(tbuf.last_slot)]
-        fused = tpipeline.fuse_plain(c, tbuf, tworld, target, t(e))
-        tworld, tprod, _ = tpipeline.combine(c, tbuf, tworld, t(e))
-        ref = convert.logical_from_jax_numpy(jax_numpy(jworld))
-        assert_state_equal(convert.to_numpy(tworld), ref, f"world after scan {i}")
-        for name, a in zip(("hit", "miss", "min_height", "evidence", "mom"), fused[:5]):
-            np.testing.assert_array_equal(a.numpy(), convert.to_numpy(tworld)[name], err_msg=name)
-        assert_products_equal(products_numpy(tprod), products_numpy(jprod), f"scan {i}")
-    assert (ref["hit"] > 0).sum() > 50
+    ref, tprod = combine_drive(GvomConfig(xy_size=16, z_size=320, max_points=1024, buffer_size=4))
     # the window's occupied voxels reach past z = 256
     assert (ref["hit"][:, :, 256:] > 0).any() or (ref["miss"][:, :, 256:] > 0).any()
     assert (tprod.height.numpy() > -1000).any() and (tprod.inferred_height.numpy() > -1000).any()

@@ -164,3 +164,85 @@ def test_epilogue_twins_read_the_sums_only_where_n_is_positive(form):
     assert bool(torch.isfinite(got).all())
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
     assert bool((ref[..., 1:4, :, :, :] != 0).any() if form == "ingest" else (ref[1:4] != 0).any())
+
+
+# per axis: (diagonal R2 index, ((cross R2 index, S1 component), ...)), R2 order (xx, xy, xz, yy, yz, zz)
+_AX_TERMS = {0: (0, ((1, 1), (2, 2))), 1: (3, ((1, 0), (4, 2))), 2: (5, ((2, 0), (4, 1)))}
+
+
+def _axis_term(v, axis, off):
+    """One neighbour's moments [10, ...] translated by off along axis, as
+    csrc/epilogue.cu's add_axis_term computes them in float32."""
+    t, t2, tt = np.float32(off), np.float32(2 * off), np.float32(off * off)
+    n = v[0]
+    out = v.copy()
+    out[1 + axis] = v[1 + axis] + t * n
+    diag, cross = _AX_TERMS[axis]
+    out[4 + diag] = (v[4 + diag] + t2 * v[1 + axis]) + tt * n
+    for pair, comp in cross:
+        out[4 + pair] = v[4 + pair] + t * v[1 + comp]
+    return out
+
+
+def _line_pass(src, axis, r, count, last):
+    """One separable pass as the kernel's box_pass (x, y) and box_pass_z
+    take it, step by step in float32: the targets centred at [r, r + count)
+    along array axis 1 + axis start from their centre (zero where its n is
+    not > 0) and add each neighbour whose n > 0 in offset order (-r .. -1,
+    +1 .. +r), its channels read only there; a target that skipped a
+    neighbour adds +0 once. Unless last, channels 1-9 are left NaN where the
+    result's n is not > 0: the kernel writes them only where it is."""
+    def take(off):
+        return np.take(src, np.arange(r + off, r + off + count), axis=1 + axis)
+
+    c = take(0)
+    acc = np.where(c[:1] > 0, c, np.float32(0))
+    skipped = np.zeros(acc.shape[1:], bool)
+    with np.errstate(invalid="ignore"):
+        for off in [*range(-r, 0), *range(1, r + 1)]:
+            v = take(off)
+            live = v[0] > 0
+            acc = np.where(live, acc + _axis_term(v, axis, off), acc)
+            skipped |= ~live
+    acc = np.where(skipped, acc + np.float32(0), acc)
+    if not last:
+        acc[1:, ~(acc[0] > 0)] = np.nan
+    return acc
+
+
+@pytest.mark.parametrize("grid", ["full", "slab"])
+@pytest.mark.parametrize("xye,ze", [(1, 9), (8, 1), (5, 8)])
+def test_separable_recurrence_is_the_twin_bitwise(xye, ze, grid):
+    """The recurrence of the epilogue's separable passes (csrc/epilogue.cu:
+    pass x into W1, pass y into W2, pass z into the output), emulated in
+    NumPy float32 on sums whose channels 1-9 are NaN where n == 0, is
+    bitwise box_aggregate_moments at the eigen distances that take it, on
+    the full grid and on a slab scratch whose window seam falls inside the
+    slab: the order the card's bitwise check of those passes relies on."""
+    c = tcfg(GvomConfig(xy_size=32, z_size=16, max_points=2048, xy_eigen_dist=xye, z_eigen_dist=ze))
+    rng = np.random.default_rng(11)
+    pn = rng.uniform(-1.5, 33.5, (3000, 3)) * np.array([1.0, 1.0, 0.5])     # map-local voxel coordinates
+    keep = t(rng.uniform(size=3000) > 0.2)
+    o = np.array([5, 27, -3], np.int32)                 # the window seam at torus row 27, inside the slab
+    res = np.array([c.xy_resolution, c.xy_resolution, c.z_resolution])
+    points, origin = t(((pn + o) * res).astype(np.float32)), t(o)
+    y_window = (16, 16) if grid == "slab" else None
+    bins = tbinning.bin_points(c, points, keep, origin, y_window)
+    rx, ry, rz = tbinning.moment_pad(c)
+    X, Y, Z = c.grid_shape
+    if y_window is None:
+        y_rows = torch.arange(Y) + ry
+    else:
+        _, len_a, _ = tbinning.slab_rows(c, origin, y_window)
+        j = torch.arange(y_window[1])
+        y_rows = j + ry + torch.where(j >= len_a, 2 * ry, 0)
+    twin = tmoments.box_aggregate_moments(c, bins.sums, y_rows=None if y_window is None else y_rows).numpy()
+
+    sums = bins.sums.numpy().copy()
+    sums[1:, sums[0] == 0] = np.nan
+    w1 = _line_pass(sums, 0, rx, X, False)
+    w2 = _line_pass(w1, 1, ry, w1.shape[2] - 2 * ry, False)
+    emulated = _line_pass(w2, 2, rz, Z, True)[:, :, y_rows.numpy() - ry]
+    assert emulated.dtype == twin.dtype == np.float32
+    np.testing.assert_array_equal(emulated.view(np.int32), twin.view(np.int32))
+    assert (twin[0] > 0).any() and (twin[1:4] != 0).any()

@@ -109,6 +109,44 @@ def assert_products_equal(port: dict, ref: dict, what: str = "products"):
         np.testing.assert_allclose(port[k], ref[k], rtol=0, atol=atol, err_msg=f"{what}: {k}")
 
 
+def combine_drive(cfg: GvomConfig):
+    """A drive of 3 scans at cfg with a moving ego, each ingested by both
+    packages: after each, the port's combine against gvom_tpu's
+    combine(impl="xla") (the world as assert_state_equal holds it, the
+    products bitwise) and fuse_plain's world channels bitwise the
+    combine's. Returns the JAX world's last state (logical numpy) and the
+    port's last MapProducts."""
+    import jax.numpy as jnp
+
+    from gvom_tpu.types import empty_buffer_state as jempty_buffer
+    from gvom_tpu.types import empty_world_state as jempty_world
+    from gvom_tpu_torch.models import pipeline as tpipeline
+    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
+
+    c = tcfg(cfg)
+    what = f"B={cfg.buffer_size}, {cfg.xy_size}x{cfg.xy_size}x{cfg.z_size}"
+    ingest, combine = jax_ingest(cfg), jax_combine(cfg)
+    jbuf, jworld = jempty_buffer(cfg), jempty_world(cfg)
+    tbuf, tworld = empty_buffer_state(c, "cpu"), empty_world_state(c, "cpu")
+    for i in range(3):
+        ego = np.array([0.3, -0.2, 1.5]) + i * np.array([0.9, 0.6, 0.02])
+        pad, mask = scan(cfg, i, ego)
+        e = np.float32(ego)
+        jbuf, _ = ingest(jbuf, jnp.asarray(pad), jnp.asarray(mask), jnp.asarray(e))
+        jworld, jprod, _ = combine(jbuf, jworld, jnp.asarray(e))
+        tpipeline.ingest_and_insert(c, tbuf, t(pad), t(mask), t(e))
+        target = tbuf.grids.origin[int(tbuf.last_slot)]
+        fused = tpipeline.fuse_plain(c, tbuf, tworld, target, t(e))
+        tworld, tprod, _ = tpipeline.combine(c, tbuf, tworld, t(e))
+        ref = convert.logical_from_jax_numpy(jax_numpy(jworld))
+        assert_state_equal(convert.to_numpy(tworld), ref, f"{what}, world after scan {i}")
+        for name, a in zip(("hit", "miss", "min_height", "evidence", "mom"), fused[:5]):
+            np.testing.assert_array_equal(a.numpy(), convert.to_numpy(tworld)[name], err_msg=name)
+        assert_products_equal(products_numpy(tprod), products_numpy(jprod), f"{what}, scan {i}")
+    assert (ref["hit"] > 0).sum() > 50
+    return ref, tprod
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_facade_compiled(cfg):
     import gvom_tpu
