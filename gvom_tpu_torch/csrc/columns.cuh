@@ -1,7 +1,8 @@
 // What K4 (combine.cu) and the batched merge (merge.cu) share: the overlap
-// test, the paired loads and stores of one lane's two adjacent z, and the
+// test, the paired loads and stores of one lane's two adjacent z, the
 // column tail, which turns a warp's per-lane candidates into the five
-// column maps of one (x, y) column.
+// column maps of one (x, y) column, and, for their forms past 256 z, the
+// band sums over a column whose band inputs wait in shared memory.
 //
 // The column tail is the arithmetic of ops/maps2d.py's height_map,
 // inferred_height_map and positive_band_sums (gvom_tpu/ops/maps2d.py:76-116,
@@ -11,6 +12,7 @@
 
 #pragma once
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -165,6 +167,62 @@ __device__ __forceinline__ void column_tail(
         }
     }
     column_write(c, num, den, lane, col, hm_o, ihm_o, pnum_o, pden_o, bok_o);
+}
+
+// The forms past 256 z (combine_any_kernel, merge_any_kernel) take a column
+// a warp, lane l holding z = 64c + 2l and 64c + 2l + 1 of each 64-z chunk c,
+// ANY_WARPS columns a block. What the band sums read of a voxel waits in
+// shared memory between the column's merge loop and its band-sum loop: a
+// warp's 2·ZR ints (ZR = Z rounded up to 64), band_put's encoding. Past
+// what ANY_SMEM holds for a block's columns (Z > 768) the band-sum loop
+// computes the inputs again instead (band_sums' `again`).
+constexpr int ANY_WARPS = 8;
+constexpr int ANY_SMEM = 48 * 1024;   // without opting in
+
+__host__ __device__ __forceinline__ int any_zr(int Z) { return (Z + 63) / 64 * 64; }
+
+// the shared memory of a block whose band inputs fit, else 0
+inline size_t any_band_smem(int Z) {
+    const size_t full = sizeof(int) * (size_t)ANY_WARPS * 2 * any_zr(Z);
+    return full <= (size_t)ANY_SMEM ? full : 0;
+}
+
+// a voxel's band inputs at band[z] and band[ZR + z]: its hit where it is
+// occupied (INT_MIN, below any threshold, where not) and hit + miss
+__device__ __forceinline__ void band_put(int* band, int ZR, int z, bool occ2, int hs, int ms) {
+    band[z] = occ2 ? hs : INT_MIN;
+    band[ZR + z] = hs + ms;
+}
+
+// The column's band sums over this lane's voxels: their inputs read back
+// from band (FITS), or again(z0, in, hb, tot) gives them in band_put's
+// encoding for the lane's two voxels from z0.
+template <bool FITS, typename Again>
+__device__ __forceinline__ void band_sums(const ColumnHeights& c, const ColumnConsts& k, const int* band, int Z,
+                                          int lane, int ot2m, Again again, int& num, int& den)
+{
+    const int ZR = any_zr(Z);
+    num = den = 0;
+    for (int z0 = 2 * lane; z0 < ZR; z0 += 64) {
+        const bool in[2] = {z0 < Z, z0 + 1 < Z};
+        int hb[2], tot[2];
+        if (FITS) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                hb[e] = in[e] ? band[z0 + e] : INT_MIN;
+                tot[e] = in[e] ? band[ZR + z0 + e] : 0;
+            }
+        } else {
+            again(z0, in, hb, tot);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            if (in_band(c, k, true, hb[e], pmod(z0 + e - ot2m, Z))) {
+                num += hb[e];
+                den += tot[e];
+            }
+        }
+    }
 }
 
 bool aligned8(const void* p) { return ((uintptr_t)p & 7u) == 0; }

@@ -84,13 +84,12 @@
 //     read of a voxel (hit where occupied, hit + miss) stays in shared
 //     memory for the column's second loop, which reads nothing else. Past
 //     what 48 KB of shared memory holds for its eight columns (Z > 768) the
-//     second loop computes them again from the column's scalar channels.
+//     second loop computes them again from the column's scalar channels
+//     (columns.cuh's band_sums, which the merge's form past 256 z shares).
 // The arithmetic is the unrolled kernel's, in the same order, so its
 // outputs are bitwise fuse_plain's too.
 
 #include "columns.cuh"
-
-#include <climits>
 
 #define MAX_B 16      // the unrolled kernel's depths; combine_any_kernel takes any other
 #define MAX_ZC 4      // the unrolled kernel's 64-z chunks a column
@@ -313,9 +312,7 @@ struct AnyArgs {
     float* hm_o; float* ihm_o; int* pnum_o; int* pden_o; int* bok_o;
 };
 
-constexpr int ANY_WARPS = 8;        // columns a block of combine_any_kernel
 constexpr int ANY_GROUP = 4;        // slots whose loads issue together
-constexpr int ANY_SMEM = 48 * 1024; // its shared memory, without opting in
 
 // A warp's column: its torus x and y, the target window's origin, and
 // whether the old world is valid with the column inside its window and, if
@@ -468,9 +465,9 @@ template <bool PAIR, bool FITS>
 __global__ void __launch_bounds__(ANY_WARPS * 32, 3) combine_any_kernel(AnyArgs a)
 {
     extern __shared__ int sh_any[];
-    const int Z = a.Z, ZR = (Z + 63) / 64 * 64;
+    const int Z = a.Z, ZR = any_zr(Z);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    int* band = sh_any + warp * 2 * ZR;   // [occ2 ? hs : INT_MIN, hs + ms] a voxel
+    int* band = sh_any + warp * 2 * ZR;   // band_put's encoding
     const int64_t cix = (int64_t)blockIdx.x * ANY_WARPS + warp;
     if (cix >= (int64_t)a.X * a.Y) return;
     const int* tgt = a.org + 3 * (a.B + 1);
@@ -545,44 +542,26 @@ __global__ void __launch_bounds__(ANY_WARPS * 32, 3) combine_any_kernel(AnyArgs 
             if (!in[e]) continue;
             if (r.occ2[e] && pz[e] < best_sc) { best_sc = pz[e]; best_mh = r.mh[e]; }
             if (!r.occ2[e] && r.ev[e] > 0 && pz[e] < best_sc2) best_sc2 = pz[e];
-            if (FITS) {
-                band[z0 + e] = r.occ2[e] ? r.hs[e] : INT_MIN;
-                band[ZR + z0 + e] = r.hs[e] + r.ms[e];
-            }
+            if (FITS) band_put(band, ZR, z0 + e, r.occ2[e], r.hs[e], r.ms[e]);
         }
     }
     const ColumnHeights c = column_heights(best_sc, best_mh, best_sc2, Z, relx, rely, ot0, ot1, ot2, a.ego, a.k);
     // the band sums: each lane reads back its own voxels
-    int num = 0, den = 0;
-    for (int z0 = 2 * lane; z0 < ZR; z0 += 64) {
-        const bool in[2] = {z0 < Z, z0 + 1 < Z};
-        int pz[2];
+    int num, den;
+    band_sums<FITS>(c, a.k, band, Z, lane, ot2m,
+                    [&](int z0, const bool (&in)[2], int (&hb)[2], int (&tot)[2]) {
+                        int pz[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) pz[e] = pmod(z0 + e - ot2m, Z);
-        int hb[2], tot[2];
-        if (FITS) {
+                        for (int e = 0; e < 2; ++e) pz[e] = pmod(z0 + e - ot2m, Z);
+                        ChunkScalars r;
+                        chunk_scalars<PAIR>(a, col, lane, anyv, in, pz, cix * Z + z0, r);
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                hb[e] = in[e] ? band[z0 + e] : INT_MIN;
-                tot[e] = in[e] ? band[ZR + z0 + e] : 0;
-            }
-        } else {
-            ChunkScalars r;
-            chunk_scalars<PAIR>(a, col, lane, anyv, in, pz, cix * Z + z0, r);
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                hb[e] = in[e] && r.occ2[e] ? r.hs[e] : INT_MIN;
-                tot[e] = r.hs[e] + r.ms[e];
-            }
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            if (in_band(c, a.k, true, hb[e], pz[e])) {
-                num += hb[e];
-                den += tot[e];
-            }
-        }
-    }
+                        for (int e = 0; e < 2; ++e) {
+                            hb[e] = in[e] && r.occ2[e] ? r.hs[e] : INT_MIN;
+                            tot[e] = r.hs[e] + r.ms[e];
+                        }
+                    },
+                    num, den);
     column_write(c, num, den, lane, cix, a.hm_o, a.ihm_o, a.pnum_o, a.pden_o, a.bok_o);
 }
 
@@ -590,9 +569,8 @@ __global__ void __launch_bounds__(ANY_WARPS * 32, 3) combine_any_kernel(AnyArgs 
 // its columns where they fit
 int launch_any(const AnyArgs& a, bool pair, cudaStream_t stream)
 {
-    const size_t full = sizeof(int) * (size_t)ANY_WARPS * 2 * ((a.Z + 63) / 64 * 64);
-    const bool fits = full <= ANY_SMEM;
-    const size_t smem = fits ? full : 0;
+    const size_t smem = any_band_smem(a.Z);
+    const bool fits = smem > 0;
     const unsigned blocks = (unsigned)(((int64_t)a.X * a.Y + ANY_WARPS - 1) / ANY_WARPS);
     if (pair && fits) combine_any_kernel<true, true><<<blocks, ANY_WARPS * 32, smem, stream>>>(a);
     else if (pair) combine_any_kernel<true, false><<<blocks, ANY_WARPS * 32, smem, stream>>>(a);

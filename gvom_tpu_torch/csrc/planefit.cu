@@ -34,10 +34,27 @@
 // rate. Design: a block stages its 16×16 tile and a one-cell halo of the
 // height map in shared memory, each cell read at its torus index (outside
 // the window: unknown, so k = z = 0 as the twin's zero fill), writes its
-// cells' window heights and inferred heights, then each thread runs the
-// whole chain in registers. The window layout is this load rather than a
-// launch of its own: the fit reads the window map's halo anyway, and a torus
-// index costs it an add and a compare.
+// cells' window heights and inferred heights (the inferred height's load
+// issued before the tile's barrier), then each thread runs the chain in
+// registers. The window layout is this load rather than a launch of its
+// own: the fit reads the window map's halo anyway, and a torus index costs
+// it an add and a compare.
+//
+// At the upstream 256×256 map the kernel is not bound by its bytes but by
+// its launch and its instructions: an empty kernel of the same grid takes
+// about 1.25 µs in a graph of ten launches, the load and the window stores
+// alone about 2.3 µs, and the rest is the fit and its tail, issued by 16
+// warps an SM (one wave; scripts/time_wide_forms.py times each part). So
+// the design cuts instructions: a cell with fewer than three known cells
+// in its window, or whose moments are singular, stops after its sums (its
+// outputs are the tail's fixed ones), and the tail is straight-line code
+// (log32's special inputs and atan2_32's special cases chosen by selects
+// after the main path, atanf's range reduction one division whose operands
+// a select picks), so that a warp whose cells take different ranges does
+// not run each range's path. Tried on the card and dropped, each slower:
+// two lanes a cell (the fit computed by both, a slope each), the three
+// tails in three warps after the fit (a barrier and shared memory between),
+// and two cells a thread.
 //
 // A second entry, gvom_plane_fit_tail, is the tail alone on given fit
 // outputs (the twin plane_fit_tail_plain): it is off the map path and lets a
@@ -54,12 +71,11 @@ constexpr float FLT_MIN_ = 1.17549435e-38f;   // 2^-126
 
 __device__ __forceinline__ float bits(uint32_t b) { return __uint_as_float(b); }
 
-// XLA:CPU's log, op for op (see grid.py::log32)
-__device__ float log32(float x)
+// XLA:CPU's log, op for op (see grid.py::log32); the special inputs are
+// chosen after the polynomial, as the twin chooses them, so that a warp
+// runs one straight path
+__device__ __forceinline__ float log32(float x)
 {
-    if (fabsf(x) < FLT_MIN_) return -CUDART_INF_F;           // ±0 or subnormal (denormals are zero)
-    if (!(x >= 0.0f)) return bits(0xFFFFFFFFu);              // negative or NaN: all-ones NaN
-    if (x == CUDART_INF_F) return CUDART_INF_F;
     const uint32_t b = __float_as_uint(x);
     float e = __fadd_rn((float)((int)(b >> 23) - 127), 1.0f);
     const float m = __uint_as_float((b & 0x807FFFFFu) | 0x3F000000u);
@@ -77,43 +93,37 @@ __device__ float log32(float x)
     float y = __fmaf_rn(__fmaf_rn(a, t3, p), t3, c);
     const float r = __fmaf_rn(y, t3, __fmul_rn(e, bits(0xB95E8083u)));    // ln2 lo
     const float u = __fmaf_rn(t2, -0.5f, t);
-    return __fmaf_rn(e, bits(0x3F318000u), __fadd_rn(u, r));             // ln2 hi
+    float out = __fmaf_rn(e, bits(0x3F318000u), __fadd_rn(u, r));         // ln2 hi
+    if (x == CUDART_INF_F) out = CUDART_INF_F;
+    if (!(x >= 0.0f)) out = bits(0xFFFFFFFFu);              // negative or NaN: all-ones NaN
+    if (fabsf(x) < FLT_MIN_) out = -CUDART_INF_F;           // ±0 or subnormal (denormals are zero)
+    return out;
 }
 
 __device__ __forceinline__ float flush(float v) { return fabsf(v) < FLT_MIN_ ? __fmul_rn(v, 0.0f) : v; }
 
-__constant__ float ATAN_HI[4] = {4.6364760399e-01f, 7.8539812565e-01f, 9.8279368877e-01f, 1.5707962513e+00f};
-__constant__ float ATAN_LO[4] = {5.0121582440e-09f, 3.7748947079e-08f, 3.4473217170e-08f, 7.5497894159e-08f};
-
-// glibc's atanf (see grid.py::_atanf)
-__device__ float atanf32(float t)
+// glibc's atanf (see grid.py::_atanf): the range reduction's quotient is
+// one division whose operands a select picks, the reduction's constants
+// are selects too (no divergent constant-bank read), and the special
+// inputs are chosen at the end, as the twin chooses them
+__device__ __forceinline__ float atanf32(float t)
 {
     const int32_t hx = __float_as_int(t);
     const int32_t ix = hx & 0x7FFFFFFF;
-    if (ix > 0x7F800000) return __fadd_rn(t, t);
-    if (ix >= 0x4C000000) {
-        const float v = __fadd_rn(ATAN_HI[3], ATAN_LO[3]);
-        return hx < 0 ? -v : v;
+    const float a = fabsf(t);
+    const int id = ix < 0x3EE00000 ? -1 : ix < 0x3F300000 ? 0 : ix < 0x3F980000 ? 1 : ix < 0x401C0000 ? 2 : 3;
+    float num = -1.0f, den = a;                             // id 3: -1/a
+    if (id == 0) {
+        num = __fsub_rn(__fadd_rn(a, a), 1.0f);
+        den = __fadd_rn(a, 2.0f);
+    } else if (id == 1) {
+        num = __fsub_rn(a, 1.0f);
+        den = __fadd_rn(a, 1.0f);
+    } else if (id == 2) {
+        num = __fsub_rn(a, 1.5f);
+        den = __fadd_rn(__fmul_rn(a, 1.5f), 1.0f);
     }
-    if (ix < 0x31000000) return t;
-    int id = -1;
-    float r = t;
-    if (ix >= 0x3EE00000) {
-        const float a = fabsf(t);
-        if (ix < 0x3F300000) {
-            id = 0;
-            r = __fdiv_rn(__fsub_rn(__fadd_rn(a, a), 1.0f), __fadd_rn(a, 2.0f));
-        } else if (ix < 0x3F980000) {
-            id = 1;
-            r = __fdiv_rn(__fsub_rn(a, 1.0f), __fadd_rn(a, 1.0f));
-        } else if (ix < 0x401C0000) {
-            id = 2;
-            r = __fdiv_rn(__fsub_rn(a, 1.5f), __fadd_rn(__fmul_rn(a, 1.5f), 1.0f));
-        } else {
-            id = 3;
-            r = __fdiv_rn(-1.0f, a);
-        }
-    }
+    const float r = id < 0 ? t : __fdiv_rn(num, den);
     const float z = __fmul_rn(r, r);
     const float w = __fmul_rn(z, z);
     float s1 = bits(0x3C8569D7u);
@@ -130,38 +140,50 @@ __device__ float atanf32(float t)
     s2 = __fadd_rn(__fmul_rn(s2, w), bits(0xBE4CCCCDu));
     s2 = __fmul_rn(s2, w);
     const float q = __fmul_rn(__fadd_rn(s1, s2), r);
-    if (id < 0) return __fsub_rn(r, q);
-    const float v = __fsub_rn(ATAN_HI[id], __fsub_rn(__fsub_rn(q, ATAN_LO[id]), r));
-    return hx < 0 ? -v : v;
+    // atan(1/2), atan(1), atan(3/2), atan(inf), each as hi + lo
+    const float hi = id == 0 ? bits(0x3EED6338u) : id == 1 ? bits(0x3F490FDAu) : id == 2 ? bits(0x3F7B985Eu)
+                                                                                          : bits(0x3FC90FDAu);
+    const float lo = id == 0 ? bits(0x31AC3769u) : id == 1 ? bits(0x33222168u) : id == 2 ? bits(0x33140FB4u)
+                                                                                          : bits(0x33A22168u);
+    const float v = __fsub_rn(hi, __fsub_rn(__fsub_rn(q, lo), r));
+    float out = id < 0 ? __fsub_rn(r, q) : (hx < 0 ? -v : v);
+    if (ix < 0x31000000) out = t;
+    if (ix >= 0x4C000000) {
+        const float inf = __fadd_rn(bits(0x3FC90FDAu), bits(0x33A22168u));
+        out = hx < 0 ? -inf : inf;
+    }
+    if (ix > 0x7F800000) out = __fadd_rn(t, t);
+    return out;
 }
 
-// glibc's atan2f (see grid.py::atan2_32)
-__device__ float atan2_32(float y, float x)
+// glibc's atan2f (see grid.py::atan2_32): atan(|y/x|) computed for every
+// input, then the special cases chosen over it in the twin's order
+__device__ __forceinline__ float atan2_32(float y, float x)
 {
     const float PI = bits(0x40490FDBu), PI_O_2 = bits(0x3FC90FDBu), PI_O_4 = bits(0x3F490FDBu);
     const float PI_LO = bits(0xB3BBBD2Eu);
     const int32_t hx = __float_as_int(x), hy = __float_as_int(y);
     const int32_t ix = hx & 0x7FFFFFFF, iy = hy & 0x7FFFFFFF;
-    if (ix > 0x7F800000 || iy > 0x7F800000) return __fadd_rn(x, y);
-    if (hx == 0x3F800000) return atanf32(y);
-    const bool nx = hx < 0, ny = hy < 0;
-    if (iy == 0) return nx ? (ny ? -PI : PI) : y;
-    if (ix == 0) return ny ? -PI_O_2 : PI_O_2;
-    if (ix == 0x7F800000) {
-        if (iy == 0x7F800000) {
-            const float three = __fmul_rn(3.0f, PI_O_4);
-            return nx ? (ny ? -three : three) : (ny ? -PI_O_4 : PI_O_4);
-        }
-        return nx ? (ny ? -PI : PI) : (ny ? -0.0f : 0.0f);
-    }
-    if (iy == 0x7F800000) return ny ? -PI_O_2 : PI_O_2;
+    const bool nx = hx < 0, ny = hy < 0, one = hx == 0x3F800000;
+    const float za = atanf32(one ? y : fabsf(flush(__fdiv_rn(flush(y), flush(x)))));
     const int32_t d = iy - ix;
-    float z;
+    float z = za;
     if (d > 0x1E7FFFFF) z = __fsub_rn(PI_O_2, bits(0x333BBD2Eu));      // pi/2 + pi_lo/2
     else if (nx && (d >> 23) < -60) z = 0.0f;
-    else z = atanf32(fabsf(flush(__fdiv_rn(flush(y), flush(x)))));
-    if (!nx) return ny ? -z : z;
-    return ny ? __fsub_rn(__fsub_rn(z, PI_LO), PI) : __fsub_rn(PI, __fsub_rn(z, PI_LO));
+    float out = nx ? (ny ? __fsub_rn(__fsub_rn(z, PI_LO), PI) : __fsub_rn(PI, __fsub_rn(z, PI_LO)))
+                   : (ny ? -z : z);
+    const float half_pi = ny ? -PI_O_2 : PI_O_2, pi = ny ? -PI : PI;
+    if (iy == 0x7F800000) out = half_pi;
+    if (ix == 0x7F800000) {
+        const float three = __fmul_rn(3.0f, PI_O_4);
+        const float corner = nx ? (ny ? -three : three) : (ny ? -PI_O_4 : PI_O_4);
+        out = iy == 0x7F800000 ? corner : nx ? pi : (ny ? -0.0f : 0.0f);
+    }
+    if (ix == 0) out = half_pi;
+    if (iy == 0) out = nx ? pi : y;
+    if (one) out = za;
+    if (ix > 0x7F800000 || iy > 0x7F800000) out = __fadd_rn(x, y);
+    return out;
 }
 
 constexpr int TILE = 16;   // a block's cells per side, one thread each
@@ -194,28 +216,15 @@ __device__ __forceinline__ int pmod(int a, int n)
     return r < 0 ? r + n : r;
 }
 
-__global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
-    const float* __restrict__ hm_t, const float* __restrict__ ihm_t, const int* __restrict__ origin,
-    int X, int Y, float res, float unknown,
-    float* __restrict__ hm, float* __restrict__ ihm,
-    float* __restrict__ rough, float* __restrict__ slope_x, float* __restrict__ slope_y)
+// The fit of the cell at tile[r][c], plane_fit_inputs op for op: whether it
+// is ok, and then the tail's inputs, the residual over the count, a0n, a1n
+// and 1/m. A cell with fewer than three known cells in its window, or whose
+// moments are singular, is not ok and skips the rest, so that a warp whose
+// cells are unknown does no fit (the twin computes the fit there too, but no
+// output depends on it).
+__device__ __forceinline__ bool fit_values(const float (&tile)[TILE + 2][TILE + 2], int r, int c, float res,
+                                           float unknown, float& err, float& a0n, float& a1n, float& im)
 {
-    __shared__ float tile[TILE + 2][TILE + 2];
-    const int x0 = blockIdx.y * TILE, y0 = blockIdx.x * TILE;
-    const int ox = pmod(origin[0], X), oy = pmod(origin[1], Y);
-    for (int t = threadIdx.y * TILE + threadIdx.x; t < (TILE + 2) * (TILE + 2); t += TILE * TILE) {
-        const int r = t / (TILE + 2), c = t % (TILE + 2);
-        const int x = x0 + r - 1, y = y0 + c - 1;
-        tile[r][c] = (x >= 0 && x < X && y >= 0 && y < Y) ? hm_t[(size_t)torus(x, ox, X) * Y + torus(y, oy, Y)]
-                                                          : unknown;
-    }
-    __syncthreads();
-    const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
-    if (x >= X || y >= Y) return;
-    const size_t i = (size_t)x * Y + y;
-    hm[i] = tile[threadIdx.y + 1][threadIdx.x + 1];
-    ihm[i] = ihm_t[(size_t)torus(x, ox, X) * Y + torus(y, oy, Y)];
-
     // the nine offsets in the twin's order: di = -1..1, then dj = -1..1
     float cnt = 0.0f, sz = 0.0f, sx = 0.0f, sy = 0.0f, sxx = 0.0f, sxy = 0.0f, syy = 0.0f;
     float sxz = 0.0f, syz = 0.0f, szz = 0.0f;
@@ -223,7 +232,7 @@ __global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
 #pragma unroll
     for (int t = 0; t < 9; ++t) {
         const int di = t / 3 - 1, dj = t % 3 - 1;
-        const float h = tile[threadIdx.y + 1 + di][threadIdx.x + 1 + dj];
+        const float h = tile[r + di][c + dj];
         const bool known = h > unknown;
         const float k = known ? 1.0f : 0.0f;
         const float z = known ? h : 0.0f;
@@ -263,11 +272,9 @@ __global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
         }
     }
 
-    // maps2d.plane_fit_inputs, op for op
-    const bool enough = cnt >= 3.0f;
-    const float c = enough ? cnt : 1.0f;
-    const float mx = __fdiv_rn(sx, c), my = __fdiv_rn(sy, c), mz = __fdiv_rn(sz, c);
-    const float cmx = __fmul_rn(c, mx), cmy = __fmul_rn(c, my), cmz = __fmul_rn(c, mz);
+    if (!(cnt >= 3.0f)) return false;
+    const float mx = __fdiv_rn(sx, cnt), my = __fdiv_rn(sy, cnt), mz = __fdiv_rn(sz, cnt);
+    const float cmx = __fmul_rn(cnt, mx), cmy = __fmul_rn(cnt, my), cmz = __fmul_rn(cnt, mz);
     const float xx = __fmaf_rn(-cmx, mx, sxx);
     const float xy = __fmaf_rn(-cmx, my, sxy);
     const float xz = __fmaf_rn(-cmx, mz, sxz);
@@ -275,19 +282,61 @@ __global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
     const float yz = __fmaf_rn(-cmy, mz, syz);
     const float zz = __fmaf_rn(-cmz, mz, szz);
     const float det = __fmaf_rn(xx, yy, -__fmul_rn(xy, xy));
-    const bool ok = enough && det != 0.0f;
-    const float dets = det != 0.0f ? det : 1.0f;
+    if (det == 0.0f) return false;
     const float n0 = __fmaf_rn(yy, xz, -__fmul_rn(xy, yz));
     const float n1 = __fmaf_rn(xx, yz, -__fmul_rn(xy, xz));
-    const float a0 = __fdiv_rn(n0, dets), a1 = __fdiv_rn(n1, dets);
+    const float a0 = __fdiv_rn(n0, det), a1 = __fdiv_rn(n1, det);
     const float m = __fsqrt_rn(__fadd_rn(__fmaf_rn(a0, a0, __fmul_rn(a1, a1)), 1.0f));
-    const float dm = __fmul_rn(dets, m);
-    const float a0n = __fdiv_rn(n0, dm), a1n = __fdiv_rn(n1, dm);
+    const float dm = __fmul_rn(det, m);
+    a0n = __fdiv_rn(n0, dm);
+    a1n = __fdiv_rn(n1, dm);
     float e = __fsub_rn(zz, __fmul_rn(2.0f, __fmaf_rn(a0n, xz, __fmul_rn(a1n, yz))));
     e = __fmaf_rn(__fmul_rn(a0n, a0n), xx, e);
     e = __fmaf_rn(__fmul_rn(__fmul_rn(a0n, 2.0f), a1n), xy, e);
     e = __fmaf_rn(__fmul_rn(a1n, a1n), yy, e);
-    fit_tail(ok, __fdiv_rn(e, c), a0n, a1n, __fdiv_rn(1.0f, m), rough + i, slope_x + i, slope_y + i);
+    err = __fdiv_rn(e, cnt);
+    im = __fdiv_rn(1.0f, m);
+    return true;
+}
+
+__global__ void __launch_bounds__(TILE * TILE) plane_fit_kernel(
+    const float* __restrict__ hm_t, const float* __restrict__ ihm_t, const int* __restrict__ origin,
+    int X, int Y, float res, float unknown,
+    float* __restrict__ hm, float* __restrict__ ihm,
+    float* __restrict__ rough, float* __restrict__ slope_x, float* __restrict__ slope_y)
+{
+    __shared__ float tile[TILE + 2][TILE + 2];
+    const int x0 = blockIdx.y * TILE, y0 = blockIdx.x * TILE;
+    const int ox = pmod(origin[0], X), oy = pmod(origin[1], Y);
+    // the tile with its halo, (TILE + 2)² cells, at most two a thread: both
+    // loads and the inferred height's issued before the first store
+    constexpr int HALO = (TILE + 2) * (TILE + 2);
+    static_assert(HALO <= 2 * TILE * TILE, "the tile's load takes two cells a thread");
+    const int t = threadIdx.y * TILE + threadIdx.x;
+    float v[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        const int q = t + j * TILE * TILE, r = q / (TILE + 2), c = q % (TILE + 2);
+        const int x = x0 + r - 1, y = y0 + c - 1;
+        v[j] = q < HALO && x >= 0 && x < X && y >= 0 && y < Y ? hm_t[(size_t)torus(x, ox, X) * Y + torus(y, oy, Y)]
+                                                              : unknown;
+    }
+    const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
+    const bool in = x < X && y < Y;
+    const size_t i = (size_t)x * Y + y;
+    const float ih = in ? ihm_t[(size_t)torus(x, ox, X) * Y + torus(y, oy, Y)] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        const int q = t + j * TILE * TILE;
+        if (q < HALO) tile[q / (TILE + 2)][q % (TILE + 2)] = v[j];
+    }
+    __syncthreads();
+    if (!in) return;
+    hm[i] = tile[threadIdx.y + 1][threadIdx.x + 1];
+    ihm[i] = ih;
+    float err = 0.0f, a0n = 0.0f, a1n = 0.0f, im = 0.0f;
+    const bool ok = fit_values(tile, threadIdx.y + 1, threadIdx.x + 1, res, unknown, err, a0n, a1n, im);
+    fit_tail(ok, err, a0n, a1n, im, rough + i, slope_x + i, slope_y + i);
 }
 
 __global__ void plane_fit_tail_kernel(const float* __restrict__ err, const uint8_t* __restrict__ ok,

@@ -44,9 +44,21 @@ def variant_build(kernels, k, name, subs):
 
 
 def build(*ks):
-    """Build every k's library, one nvcc each, all started together."""
-    for k, proc in [(k, k.start_build()) for k in ks]:
-        k.finish_build(proc)
+    """Build every k's library, one nvcc each, all started together; returns
+    each one's compiler report ("" where the library existed)."""
+    return [k.finish_build(proc) for k, proc in [(k, k.start_build()) for k in ks]]
+
+
+def ptxas(report, entries):
+    """The lines of a compiler report that give the registers and spills of
+    the kernels whose (mangled) names hold one of entries."""
+    out, cur = [], None
+    for line in report.splitlines():
+        if "entry function" in line:
+            cur = line.split("'")[1] if "'" in line else line
+        elif cur and any(e in cur for e in entries) and ("registers" in line or "spill" in line):
+            out.append(f"{next(e for e in entries if e in cur)}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def turns(fns, order, reps):

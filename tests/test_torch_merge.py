@@ -125,14 +125,25 @@ def test_merge_twin_column_maps_against_jax(case):
 
 
 def test_merge_twin_past_256_z():
-    """The same at 16×16×320, where the merge kernel takes its two-pass
-    form, with hits only at torus z >= 270: the heights and the band sums
+    """The same at 16×16×320, where the merge kernel takes its form past
+    256 z, with hits only at torus z >= 270: the heights and the band sums
     come from voxels past z = 256 of the window."""
     n, nz = 16, 320
     cols = _merge_twin_against_jax("moved", GvomConfig(xy_size=n, z_size=nz, max_points=4096, buffer_size=3),
                                    JaxConfig(xy_size=n, z_size=nz, max_points=4096, buffer_size=3), zlo=270)
     lowest = (cols[0].numpy() / np.float32(0.4)).max() - (OLD_ORIGIN[2] + MERGE_CASES["moved"][0][2])
     assert lowest > 256
+
+
+def test_merge_twin_past_768_z():
+    """The same at 16×16×800, past the z size (768) beyond which the merge
+    kernel's band inputs no longer fit in shared memory and its band sums
+    read back the merged column, with hits only at torus z >= 780."""
+    n, nz = 16, 800
+    cols = _merge_twin_against_jax("moved", GvomConfig(xy_size=n, z_size=nz, max_points=4096, buffer_size=3),
+                                   JaxConfig(xy_size=n, z_size=nz, max_points=4096, buffer_size=3), zlo=780)
+    lowest = (cols[0].numpy() / np.float32(0.4)).max() - (OLD_ORIGIN[2] + MERGE_CASES["moved"][0][2])
+    assert lowest > 768
 
 
 def _merge_twin_against_jax(case, cfg, jcfg, zlo=0):
