@@ -63,7 +63,12 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      and (5, 8), which take the epilogue's separable passes (bitwise the
      plain version on all ten channels) or, with the mask on at (1, 9), its
      direct kernel (n bitwise, the nine sums within the f32 summation bound
-     of a float64 reference, box_close); the merge at 256×256×320; the Gvom facade with
+     of a float64 reference, box_close); the direct kernel with the mask
+     off and on, and K3 into a slot, at eigen (1453, 1) on an H100 (past
+     the separable passes' smallest tile) on an 8×8×4 grid, whose padded
+     scratch is 2.0 GB, from sums of seeded sparse points, against the
+     plain version's function summed over those sources (box_sparse) and
+     within the f32 bound of it in float64, timed; the merge at 256×256×320; the Gvom facade with
      buffer_size=17, z_size=320, z_eigen_dist=9 and xy_eigen_dist=8 on
      two upstream scans against the same facade on its plain versions,
      and the batched step at Z = 320 against its plain versions; and the
@@ -234,6 +239,10 @@ MESH_RANKS = 4               # phase 9's gloo ranks on the one card
 OTHER_B_Z = ((2, 96), (7, 31), (16, 64), (17, 64), (33, 64), (4, 257), (4, 320), (4, 800))
 MERGE_TALL = ((256, 320), (64, 257), (64, 800))   # phase 1's merge past 256 z: (X, Z)
 EIGEN_DISTS = ((1, 9), (8, 1), (5, 8))   # phase 1's epilogue (xy_eigen_dist, z_eigen_dist) past the tiled box
+# phase 1's direct epilogue past the separable passes' tile: its grid (X = Y, Z), an origin, seeded points over
+# the padded box and inside the window, and its timed launches a mask (3.4 s each on an H100, PERF.md §6)
+DIRECT_GRID, DIRECT_ORIGIN, DIRECT_POINTS, DIRECT_HITS = (8, 4), (5, -3, 1), 4096, 96
+DIRECT_REPS = 2
 # the configurations of phase 1c: every one the JAX package takes, past the kernels' fast forms
 WIDE_CONFIGS = (dict(buffer_size=17), dict(z_size=320), dict(z_eigen_dist=9), dict(xy_eigen_dist=8))
 LARGE_GRID = 512             # phase 1d's grid, the JAX record's larger one (512×512×64)
@@ -1453,8 +1462,8 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
     check(set(routes.values()) == set(kernels.EPILOGUE_ROUTES),
           f"the epilogue's three kernels were not all chosen: {routes}")
     # past the separable passes' smallest tile, one line of 2·xy_eigen_dist + 1 voxels by one z of ten channels
-    # (80 B a voxel), the direct kernel takes the box with the mask on or off: no radius is refused (asked, not
-    # launched: its scratch alone would be gigabytes)
+    # (80 B a voxel), the direct kernel takes the box with the mask on or off: no radius is refused (asked here at
+    # the upstream grid; launched by phase1_epilogue_direct_wide on a small one)
     optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 227 * 1024)
     r_max = (optin // 80 - 1) // 2
     for xye, mask, want in ((r_max, False, "separable"), (r_max + 1, False, "direct"), (r_max + 1, True, "direct")):
@@ -1466,6 +1475,143 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         f"{list(EIGEN_DISTS)} agree with their plain versions (the separable passes bitwise on all ten channels) "
         f"and are bitwise the same on NaN-poisoned sums; kernel by (xy, z) eigen distance, grid and mask: {routes}")
     return dict(routes=routes, timings=timings, launches=launches)
+
+
+def box_sparse(cfg, sums, hit, origin, mask, dtype, absolute=False):
+    """The epilogue (K5's function) on sums with few non-empty voxels, as a
+    sum over sources: each window voxel's box takes every voxel of the padded
+    scratch with n > 0 within ±r of it, translated into its frame as the
+    plain version translates it (translate_raw along x, then y, then z, by
+    the source's offset), in dtype. Returns ([10, X, Y, Z] torus layout, the
+    mask applied when mask; the most sources in one box). With absolute: the
+    same on |sums| and |offsets|, the scale of a summation bound. At a large
+    box this costs what the sources cost; the plain version sweeps the whole
+    box of every voxel."""
+    import torch
+
+    from gvom_tpu_torch.ops import binning, moments
+    from gvom_tpu_torch.ops import grid as gridops
+
+    r = torch.tensor(binning.moment_pad(cfg), device=sums.device)
+    X, Y, Z = cfg.grid_shape
+    s = clean_sums(sums).to(dtype)
+    src = torch.nonzero(s[0] > 0)                                   # [K, 3] padded scratch indices
+    v = s[:, src[:, 0], src[:, 1], src[:, 2]]                       # [10, K]
+    if absolute:
+        v = v.abs()
+    axes = [torch.arange(q, device=sums.device) for q in (X, Y, Z)]
+    tgt = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3) + r       # [T, 3]
+    off = src[None] - tgt[:, None]                                  # [T, K, 3]
+    inbox = (off.abs() <= r).all(-1)
+    T, K = inbox.shape
+    n, s1, s2 = v[0].expand(T, K), v[1:4, None].expand(3, T, K), v[4:10, None].expand(6, T, K)
+    for ax in range(3):
+        t = off[..., ax].to(dtype)
+        s1, s2 = moments.translate_raw(n, s1, s2, ax, t.abs() if absolute else t)
+    terms = torch.where(inbox, torch.cat([n[None], s1, s2]), torch.zeros((), dtype=dtype, device=sums.device))
+    out = gridops.window_to_torus(terms.sum(-1).reshape(10, X, Y, Z), origin)
+    if mask:
+        out = torch.where(hit[None] > 0, out, torch.zeros((), dtype=dtype, device=sums.device))
+    return out, int(inbox.sum(-1).max())
+
+
+def phase1_epilogue_direct_wide(cfg, dev, log):
+    """The direct epilogue kernel with the mask off, which takes every box
+    whose separable passes' smallest tile does not fit in a block's shared
+    memory (xy_eigen_dist past (optin / 80 − 1) / 2, 1452 on an H100), and
+    with the mask on at that radius, launched on DIRECT_GRID at eigen
+    (r_max + 1, 1): K2's padded scratch is then (2·r + X)² · (Z + 2) voxels of
+    ten channels (2.0 GB). The sums come from DIRECT_POINTS seeded points
+    over the padded box and DIRECT_HITS inside the window, so that the mask
+    keeps voxels. K2 against its plain version; K5 (mask off, on) and K3
+    into a slot against box_sparse in float32, the plain version's function
+    on these sparse sums (the plain version's sweep of 2906 shifted copies
+    of the scratch an axis would take minutes), with n bitwise and the nine
+    sums, kernel and plain, within the f32 summation bound of box_sparse in
+    float64: (m + 12)·2^-24 times the box's sum of |terms|, m the most
+    sources in a box (adding a zero is exact) and 12 the roundings of a
+    term's three translations. box_sparse is first held against
+    moments_epilogue_plain at a small radius in float64. The route query
+    must answer "direct" for both masks; K5 is timed with CUDA events over
+    DIRECT_REPS launches after the checked one."""
+    import torch
+
+    from gvom_tpu_torch.ops import binning, kernels, moments
+    from gvom_tpu_torch.ops import grid as gridops
+
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 227 * 1024)
+    r_max = (optin // 80 - 1) // 2
+    X, Z = DIRECT_GRID
+    origin = torch.tensor(DIRECT_ORIGIN, dtype=torch.int32, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(16)
+
+    def bins(c):
+        rx, _, rz = binning.moment_pad(c)
+        lo = torch.tensor([-rx, -rx, -rz], dtype=torch.float64)
+        span = torch.tensor([X + 2 * rx, X + 2 * rx, Z + 2 * rz], dtype=torch.float64)
+        local = torch.cat([lo + torch.rand((DIRECT_POINTS, 3), generator=g, dtype=torch.float64) * span,
+                           torch.rand((DIRECT_HITS, 3), generator=g, dtype=torch.float64)
+                           * torch.tensor([X, X, Z], dtype=torch.float64)])
+        res = torch.tensor([c.xy_resolution, c.xy_resolution, c.z_resolution], dtype=torch.float64)
+        pts = ((local + origin.cpu().double()) * res).float().to(dev)
+        keep = torch.ones(len(pts), dtype=torch.bool, device=dev)
+        kb, pb = kernels.bin_points(c, pts, keep, origin), binning.bin_points(c, pts, keep, origin)
+        exact(f"K2 at eigen {binning.moment_pad(c)[1:]} hit", kb.hit, pb.hit)
+        sums_close(f"K2 at eigen {binning.moment_pad(c)[1:]}", kb.sums, pb.sums)
+        return kb
+
+    # box_sparse is the plain version's function: held in float64 at a radius that the plain version sweeps fast
+    c = dataclasses.replace(cfg, xy_size=X, z_size=Z, xy_eigen_dist=5, z_eigen_dist=1)
+    kb = bins(c)
+    for mask in (False, True):
+        want = moments.moments_epilogue_plain(c, clean_sums(kb.sums).double(), kb.hit, origin, occupancy_mask=mask)
+        got, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64)
+        scale, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64, absolute=True)
+        check(bool(((got - want).abs() <= 1e-12 * scale).all()), f"box_sparse off the plain version, mask {mask}")
+
+    c = dataclasses.replace(cfg, xy_size=X, z_size=Z, xy_eigen_dist=r_max + 1, z_eigen_dist=1)
+    kb = bins(c)
+    n_hit = int((kb.hit > 0).sum())
+    check(0 < n_hit < X * X * Z, f"the mask keeps {n_hit} of {X * X * Z} voxels: it must keep some, not all")
+    out = dict(eigen=[r_max + 1, 1], grid=[X, X, Z], points=DIRECT_POINTS + DIRECT_HITS, occupied=n_hit,
+               scratch_bytes=kb.sums.numel() * 4, K5={}, K3={})
+    kernels.reset_launches()
+    slot = torch.ones((1,), dtype=torch.int32, device=dev)
+    for mask in (False, True):
+        what = f"mask {'on' if mask else 'off'}"
+        route = kernels.epilogue_route(c, None, mask)
+        check(route == "direct", f"the epilogue at eigen ({r_max + 1}, 1), {what}: the route query answers {route}")
+        plain, m = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float32)
+        ref, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64)
+        scale, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64, absolute=True)
+        bound = (m + 12) * 2.0 ** -24 * scale
+        km = kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask)
+        e = box_close(f"K5 direct at eigen ({r_max + 1}, 1), {what}", km, plain, ref, bound)
+        targets = kb.hit > 0 if mask else torch.ones_like(kb.hit, dtype=torch.bool)
+        nbytes, terms, _, _ = epilogue_bound(c, kb.sums[0], gridops.torus_to_window(targets, origin), X * X * Z, mask)
+        ms = cuda_ms(lambda: kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask), DIRECT_REPS,
+                     warm=0)
+        bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 52 * terms / F32_OPS_PER_S
+        out["K5"][what] = dict(route=route, ms=ms, max_abs_err=e,
+                         max_rel_err=float(((km.double() - ref).abs() / scale.clamp(min=1e-30)).max()),
+                         most_sources_in_a_box=m, bound_ms=1e3 * max(bytes_s, ops_s),
+                         bound_by="bytes" if bytes_s >= ops_s else "operations")
+        log(f"phase 1 direct epilogue at eigen ({r_max + 1}, 1), {what}: route {route}, {ms:.1f} ms a launch "
+            f"(mean of {DIRECT_REPS}), bound {out['K5'][what]['bound_ms']:.4f} ms, max abs err {e:.4g} "
+            f"against the plain version, at most {m} sources a box")
+        if mask:
+            ko = torch.zeros((2, 10, X, X, Z), dtype=torch.float32, device=dev)
+            kernels.ingest_epilogue(c, kb.sums, kb.hit, origin, ko, slot)
+            exact("K3 direct: the untouched slot", ko[0], torch.zeros_like(ko[0]))
+            exact("K3 direct into its slot vs K5 masked", ko[1], km)
+            out["K3"][what] = dict(route=route, max_abs_err=box_close(
+                f"K3 direct at eigen ({r_max + 1}, 1)", ko[1], plain, ref, bound),
+                max_rel_err=float(((ko[1].double() - ref).abs() / scale.clamp(min=1e-30)).max()))
+        del km, plain, ref, scale
+    out["launches"] = {k.name: k.launches for k in (kernels.EPI, kernels.XBOX)}
+    for name, n in out["launches"].items():
+        check(n > 0, f"the direct epilogue at eigen ({r_max + 1}, 1): {name} was launched no time")
+    return out
 
 
 def full_column(world, contrib, x=1, y=2):
@@ -2251,6 +2397,21 @@ def k1_bound(n_points, n_scans, n_rays, n_pass, n_out):
     return n_points * 13 + n_scans * 12 + n_out * 4, (40 * n_rays + 8 * n_pass) / F32_OPS_PER_S
 
 
+def box_counts(t, r):
+    """Sums of the integer tensor t [A, B, C] over every (2r + 1) box that
+    lies inside it ("valid": [A − 2r0, B − 2r1, C − 2r2]), separable by
+    prefix sums in int64, so exact and linear in t's size at any radius."""
+    import torch
+
+    t = t.to(torch.int64)
+    for ax, q in enumerate(r):
+        c = t.cumsum(ax)
+        c = torch.cat([torch.zeros_like(c.narrow(ax, 0, 1)), c], ax)
+        n = t.shape[ax] - 2 * q
+        t = c.narrow(ax, 2 * q + 1, n) - c.narrow(ax, 0, n)
+    return t
+
+
 def epilogue_bound(cfg, n_w, targets_w, n_out, mask):
     """What the moments epilogue (K3, K5) must move and compute on this data.
     n_w: the own-voxel count n on the padded window [Xp, Yp, Zp]; targets_w:
@@ -2266,13 +2427,11 @@ def epilogue_bound(cfg, n_w, targets_w, n_out, mask):
     from gvom_tpu_torch.ops import binning
 
     r = binning.moment_pad(cfg)
-    box = tuple(2 * q + 1 for q in r)
-    tp = torch.nn.functional.pad(targets_w.float(), (r[2], r[2], r[1], r[1], r[0], r[0]))
-    reach = torch.nn.functional.max_pool3d(tp[None], box, stride=1, padding=r)[0] > 0
+    pad = lambda t: torch.nn.functional.pad(t, (r[2], r[2], r[1], r[1], r[0], r[0]))
+    reach = box_counts(pad(pad(targets_w.to(torch.int32))), r) > 0
     nz = n_w > 0
     n_reach, n_reach_nz = int(reach.sum()), int((reach & nz).sum())
-    counts = torch.nn.functional.avg_pool3d(nz[None].float(), box, stride=1)[0] * (box[0] * box[1] * box[2])
-    terms = int(counts.round()[targets_w].sum())
+    terms = int(box_counts(nz, r)[targets_w].sum())
     f32 = 4
     return ((n_out * f32 if mask else 0) + 10 * n_out * f32 + n_reach * f32 + 9 * n_reach_nz * f32, terms,
             n_reach, n_reach_nz)
@@ -3805,6 +3964,7 @@ def run(args, torch) -> int:
     slab_launches, slab = phase1_slabs(cfg, scans[0], dev, log, err)
     phase1_near_tier(cfg, scans[1], dev, log)
     report["epilogue_radii"] = phase1_epilogue_radii(cfg, scans[0], dev, log, err)
+    report["epilogue_radii"]["direct_past_passes"] = direct = phase1_epilogue_direct_wide(cfg, dev, log)
     report["wide_forms"] = dict(phase1_merge_tall(cfg, dev, log), **phase1_wide_configs(cfg, scans, dev, log))
     report["large_grid"] = phase1_large(dev, log, err)
     report["config_sweep"] = phase1_config_sweep(cfg, scans, dev, log, err)
@@ -3842,6 +4002,13 @@ def run(args, torch) -> int:
         if r["name"] in mesh_kernels:
             r["launches_mesh_path"] = [x["launches"].get(r["name"], 0) for x in report["mesh"]["gloo_4_ranks"]["(1, 4) slab"]]
         r["max_abs_err"] = err[r["name"]]
+        if r["name"] in direct["launches"]:
+            # the direct form past the passes' tile (phase 1): its own launches, times and errors
+            forms = direct["K5" if r["name"] == "moments_epilogue" else "K3"]
+            keep = ("ms", "bound_ms", "max_abs_err", "max_rel_err")
+            r["direct_past_passes"] = dict(eigen=direct["eigen"], grid=direct["grid"],
+                                           launches=direct["launches"][r["name"]],
+                                           **{k: {q: v[q] for q in keep if q in v} for k, v in forms.items()})
         check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")
         if r["name"] in FACADE_KERNELS:
             check(r["launches_node_path"] > 0, f"kernel {r['name']} was launched no time on the node's path")
@@ -3850,7 +4017,7 @@ def run(args, torch) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     line = {"kernels": [{k: r[k] for k in keys + ("includes", "atomic_floor_ms", "wrapper_ms", "launches_node_path",
-                                                 "launches_mesh_path") if k in r}
+                                                 "launches_mesh_path", "direct_past_passes") if k in r}
                         for r in rows]}
     smi = []
     if shutil.which("nvidia-smi"):

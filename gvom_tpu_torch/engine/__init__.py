@@ -1,1 +1,3 @@
+from gvom_tpu_torch.engine.gvom import Gvom
 
+__all__ = ["Gvom"]

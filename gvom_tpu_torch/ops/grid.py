@@ -28,7 +28,9 @@ __all__ = [
     "floor_i32",
     "compute_origin",
     "map_local",
+    "voxel_indices",
     "in_bounds",
+    "rel_coords",
     "overlap_axis_masks",
     "overlap_mask",
     "window_to_torus",
@@ -242,9 +244,32 @@ def map_local(cfg: GvomConfig, points: torch.Tensor, origin: torch.Tensor) -> to
     return fma32(points, inv, -origin.float().expand_as(points))
 
 
+def voxel_indices(cfg: GvomConfig, points: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
+    """[N,3] int32 voxel coordinates of world points (may be out of bounds),
+    floor(points/res − origin), the points first cast to float32.
+
+    Bitwise jax.jit(gvom_tpu.ops.grid.voxel_indices): XLA compiles the
+    division as a multiply by f32(1/res) fused with the subtract, one FMA
+    (map_local). The JAX function run eagerly divides instead and differs
+    at voxel boundaries. Out-of-range values saturate and NaN gives 0, as
+    XLA's float-to-int32 convert does (floor_i32)."""
+    return floor_i32(map_local(cfg, points.float(), origin))
+
+
 def in_bounds(cfg: GvomConfig, vox: torch.Tensor) -> torch.Tensor:
     size = size_vector(cfg, vox.device)
     return torch.all((vox >= 0) & (vox < size), dim=-1)
+
+
+def rel_coords(cfg: GvomConfig, origin: torch.Tensor):
+    """Per-axis window-relative coordinate of each torus index, (i − origin)
+    mod size (floor mod): three int32 tensors [X], [Y], [Z] on origin's
+    device."""
+    out = []
+    for ax, size in enumerate(cfg.grid_shape):
+        i = torch.arange(size, dtype=torch.int32, device=origin.device)
+        out.append(torch.remainder(i - origin[ax].to(torch.int32), size))
+    return tuple(out)
 
 
 def overlap_axis_masks(cfg: GvomConfig, o_target: torch.Tensor, o_source: torch.Tensor, coords=None):

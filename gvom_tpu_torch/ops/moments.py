@@ -29,7 +29,7 @@ from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops import binning
 from gvom_tpu_torch.ops.binning import moment_pad
 
-__all__ = ["translate_raw", "box_aggregate_moments", "ingest_epilogue_plain", "moments_epilogue_plain",
+__all__ = ["raw_merge", "translate_raw", "box_aggregate_moments", "ingest_epilogue_plain", "moments_epilogue_plain",
            "point_moments", "slab_point_moments", "mean_local", "covariance", "eigenvalues"]
 
 # per axis: (diagonal s2 index, [(cross s2 index, S1 component)]), s2 order (xx,xy,xz,yy,yz,zz)
@@ -38,6 +38,11 @@ _AX_TERMS = {
     1: (3, ((1, 0), (4, 2))),  # yy; xy += t·S1_x, yz += t·S1_z
     2: (5, ((2, 0), (4, 1))),  # zz; xz += t·S1_x, yz += t·S1_y
 }
+
+
+def raw_merge(a, b):
+    """Merge two same-frame raw-moment sets (n, s1, s2): a plain add."""
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
 
 
 def translate_raw(n, s1, s2, axis: int, t: float):

@@ -276,5 +276,7 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
     return step
 
 
-def batched_step(cfg: GvomConfig, world, scans, valid, egos, device="cuda"):
-    return make_batched_step(cfg, device)(world, scans, valid, egos)
+def batched_step(cfg: GvomConfig, world, scans, valid, egos, device="cuda", mesh: Mesh = None,
+                 ingest: str = "auto"):
+    """One step of make_batched_step(cfg, device, mesh, ingest)."""
+    return make_batched_step(cfg, device, mesh, ingest)(world, scans, valid, egos)

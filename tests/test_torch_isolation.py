@@ -52,6 +52,34 @@ def test_port_imports_no_jax_and_nothing_of_gvom_tpu():
     assert set(_modules()) <= imported       # every module was imported
 
 
+_BUILD_PROBE = """
+import ctypes, subprocess, sys
+import torch
+calls = []
+popen, cdll = subprocess.Popen.__init__, ctypes.CDLL.__init__
+def record_popen(self, *a, **k):
+    calls.append(repr(a[0] if a else k.get("args")))
+    return popen(self, *a, **k)
+def record_cdll(self, name, *a, **k):
+    calls.append(str(name))
+    return cdll(self, name, *a, **k)
+subprocess.Popen.__init__, ctypes.CDLL.__init__ = record_popen, record_cdll
+import gvom_tpu_torch.ops
+import gvom_tpu_torch.pipelines
+from gvom_tpu_torch.ops import kernels
+sys.exit("started or loaded: " + "; ".join(calls) if calls else 0)
+"""
+
+
+def test_importing_the_port_builds_and_loads_no_kernel():
+    """Importing the package, its ops and its pipelines starts no process
+    (no nvcc) and loads no library: a kernel is built at its first launch."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", _BUILD_PROBE], cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr + r.stdout
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "gvom_tpu_torch").rglob("*.py")))
 def test_no_jax_import_statement(path):
