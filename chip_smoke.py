@@ -3825,7 +3825,8 @@ def profile_node(cfg, scans, log):
     """torch.profiler over one warm tick of the node on the card (ingest a
     scan, publish the maps, publish the debug clouds, the card synchronized
     after each): the device time of each region that
-    utils.profiling.annotate marks (gvom/ingest, gvom/combine, gvom/export)
+    utils.profiling.annotate marks (gvom/ingest, gvom/combine, gvom/export;
+    not the combine's sync and copy inside it)
     and of the whole tick. A kernel belongs to the region whose host range
     began last before it started: the synchronizations keep each region's
     kernels after its start and before the next's. (The profiler ties the
@@ -3854,7 +3855,8 @@ def profile_node(cfg, scans, log):
         wall_us = 1e6 * (time.perf_counter() - t0)
     events = prof.events()
     marks = sorted((ev.time_range.start, ev.name) for ev in events
-                   if ev.name.startswith("gvom/") and ev.device_type == torch.autograd.DeviceType.CPU)
+                   if ev.name.startswith("gvom/") and ev.name.count("/") == 1
+                   and ev.device_type == torch.autograd.DeviceType.CPU)
     starts = [t for t, _ in marks]
     regions, dev_us = {}, 0.0
     for ev in events:

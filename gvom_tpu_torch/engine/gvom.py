@@ -29,6 +29,7 @@ next ingest.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 from typing import Optional, Tuple
 
@@ -42,6 +43,7 @@ from gvom_tpu_torch.types import (BufferState, MapProducts, WorldState, empty_bu
                                   resolve_device)
 from gvom_tpu_torch.utils.checkpoint import load_world, save_world
 from gvom_tpu_torch.utils.metrics import StepMetrics
+from gvom_tpu_torch.utils.profiling import annotate
 
 __all__ = ["Gvom"]
 
@@ -102,6 +104,7 @@ class Gvom:
         self._world: WorldState = empty_world_state(self.config, self.device)
         self._products = None
         self._scan_count = 0
+        self._calls = itertools.count()        # the ids of the ingest and combine spans
         self.ego_position = np.zeros(3)
         self.metrics = StepMetrics()
 
@@ -131,29 +134,30 @@ class Gvom:
         """Voxelize one scan into the ring buffer (gvom.py:99-175). Returns
         scan_ok as a device tensor (no host sync), or None for an empty
         cloud."""
-        pc = np.asarray(pointcloud)
-        if pc.shape[0] == 0:
-            print("[WARNING] Processing an empty pointcloud, nothing will happen!")
-            return None
-        pts, mask = self._pad(pc)
-        dev = self.device
-        with self._on_stream():
-            pts_t = torch.from_numpy(pts).to(dev)
-            mask_t = torch.from_numpy(mask).to(dev)
-            ego = torch.from_numpy(np.asarray(ego_position, np.float32).copy()).to(dev)
-            tf = None if transform is None else torch.from_numpy(np.asarray(transform, np.float32).copy()).to(dev)
-            with self._lock:
-                self.ego_position = np.asarray(ego_position, np.float64)
-                _, scan_ok = pipeline.ingest_and_insert(self.config, self._buffer, pts_t, mask_t, ego, tf)
-                self._scan_count += 1
-        self.metrics.bump("scans_ingested")
-        return scan_ok
+        with annotate("gvom/ingest", next(self._calls)):
+            pc = np.asarray(pointcloud)
+            if pc.shape[0] == 0:
+                print("[WARNING] Processing an empty pointcloud, nothing will happen!")
+                return None
+            pts, mask = self._pad(pc)
+            dev = self.device
+            with self._on_stream():
+                pts_t = torch.from_numpy(pts).to(dev)
+                mask_t = torch.from_numpy(mask).to(dev)
+                ego = torch.from_numpy(np.asarray(ego_position, np.float32).copy()).to(dev)
+                tf = None if transform is None else torch.from_numpy(np.asarray(transform, np.float32).copy()).to(dev)
+                with self._lock:
+                    self.ego_position = np.asarray(ego_position, np.float64)
+                    _, scan_ok = pipeline.ingest_and_insert(self.config, self._buffer, pts_t, mask_t, ego, tf)
+                    self._scan_count += 1
+            self.metrics.bump("scans_ingested")
+            return scan_ok
 
     def combine_maps(self):
         """Fuse the buffer and the previous map and return the five outputs
         (gvom.py:177-354): (origin_world, positive, negative, roughness,
         visibility) as numpy arrays, or None when the buffer is empty."""
-        with self._on_stream():
+        with annotate("gvom/combine", next(self._calls)), self._on_stream():
             with self._combine_lock:
                 with self._lock:
                     if self._scan_count == 0:
@@ -161,16 +165,20 @@ class Gvom:
                         return None
                     ego = torch.from_numpy(self.ego_position.astype(np.float32)).to(self.device)
                     world, products, ok = pipeline.combine(self.config, self._buffer, self._world, ego)
-                if not bool(ok):  # the one host sync, outside the state lock
+                with annotate("gvom/combine/sync"):
+                    ok = bool(ok)  # the one host sync, outside the state lock
+                if not ok:
                     print("[WARNING] The map buffer is empty, nothing will happen!")
                     return None
                 with self._lock:
                     self._world = world
                     self._products = products
                 self.metrics.bump("combines")
-            origin_world = products.origin_world(self.config)
-            pos, neg, rough, vis = (t.cpu().numpy() for t in (
-                products.positive_obstacle, products.negative_obstacle, products.roughness, products.visibility))
+            with annotate("gvom/combine/to_host"):
+                origin_world = products.origin_world(self.config)
+                pos, neg, rough, vis = (t.cpu().numpy() for t in (
+                    products.positive_obstacle, products.negative_obstacle, products.roughness,
+                    products.visibility))
         return (origin_world, pos, neg, rough, vis)
 
     def _on_stream(self):

@@ -86,8 +86,7 @@ class VoxelMapperNode:
             print("no odom")
             return False
         t0 = time.perf_counter()
-        with annotate("gvom/ingest"):
-            self.engine.process_pointcloud(points, self.odom_data, transform)
+        self.engine.process_pointcloud(points, self.odom_data, transform)
         self.metrics.record("ingest_s", time.perf_counter() - t0)
         self.metrics.bump("scans")
         return True
@@ -95,8 +94,7 @@ class VoxelMapperNode:
     # --- combine + publish (reference cb_timer, gvom_ros.py:113-189) ---
     def publish_maps(self) -> Optional[MapLayers]:
         t0 = time.perf_counter()
-        with annotate("gvom/combine"):
-            out = self.engine.combine_maps()
+        out = self.engine.combine_maps()
         if out is None:
             return None
         self.metrics.record("combine_s", time.perf_counter() - t0)

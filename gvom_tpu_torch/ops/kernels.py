@@ -66,6 +66,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -76,6 +77,7 @@ from gvom_tpu_torch.ops import binning, maps2d, moments, raycast
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops.maps2d import f32_square, f32_value
 from gvom_tpu_torch.types import UNKNOWN_HEIGHT, VoxelGrid
+from gvom_tpu_torch.utils import profiling
 
 __all__ = [
     "CudaKernel",
@@ -122,7 +124,9 @@ def _nvcc() -> str:
 class CudaKernel:
     """One kernel: its source, its C entry, its builds and its launch count.
     A build is the source compiled with a set of -D flags, in a library of
-    its own; `defines` is the set that build_all builds up front."""
+    its own; `defines` is the set that build_all builds up front. While
+    spans record (utils/profiling.py), each launch's ctypes call is the
+    span `kernel/<name>`."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes: list, replaces: str,
                  defines: Sequence[str] = ()):
@@ -133,6 +137,7 @@ class CudaKernel:
         self.replaces = replaces
         self.defines = tuple(defines)
         self.launches = 0
+        self.span = "kernel/" + name
         self._fns = {}
 
     def _defines(self, defines: Optional[Sequence[str]]) -> tuple:
@@ -185,7 +190,13 @@ class CudaKernel:
         return self._fns[d]
 
     def launch(self, *args, defines: Optional[Sequence[str]] = None) -> None:
-        rc = self.fn(defines)(*args)
+        fn = self.fn(defines)
+        if profiling.recording():
+            t0 = time.perf_counter_ns()
+            rc = fn(*args)
+            profiling.record(self.span, t0, time.perf_counter_ns())
+        else:
+            rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: cudaError {rc}")
         self.launches += 1

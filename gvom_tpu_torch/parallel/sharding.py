@@ -42,7 +42,9 @@ JAX package computes in XLA outside any Pallas kernel.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 from typing import Callable, Tuple
 
 import torch
@@ -52,6 +54,7 @@ from gvom_tpu_torch.ops import kernels, maps2d
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, Mesh
 from gvom_tpu_torch.types import MapProducts, VoxelGrid, WorldState
+from gvom_tpu_torch.utils.profiling import annotate
 
 __all__ = ["batched_step", "make_batched_step", "prepare_batch", "merge_batch_plain", "merge_and_columns_plain",
            "shard_batch", "shard_world", "gather_world"]
@@ -223,8 +226,15 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
     if cfg.ray_steps_override is None:
         cfg = dataclasses.replace(cfg, ray_steps_override=max(cfg.xy_size, cfg.z_size) + 4)
 
+    seq = itertools.count()
+    multi = mesh.size > 1
+
     def step(world: WorldState, scans: torch.Tensor, valid: torch.Tensor,
              egos: torch.Tensor) -> Tuple[WorldState, MapProducts]:
+        with annotate("step", next(seq)):
+            return _step(world, scans, valid, egos)
+
+    def _step(world, scans, valid, egos):
         for name, t in (("scans", scans), ("valid", valid), ("egos", egos), ("world", world.grid.hit)):
             if t.device.type != dev.type or (dev.index is not None and t.device.index != dev.index):
                 raise ValueError(f"{name} is on {t.device}; this step was made for {dev}")
@@ -233,39 +243,46 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
         S, N = valid.shape
         if dev.type == "cuda":
             kernels.check_batch(S, N)
-        egos = egos.float().contiguous()
-        # ---- the common frame: the origin of the batch's globally last scan ----
-        ego_last = mesh.all_gather(egos, scan_axis, 0)[-1]
-        origin, pw, keep = prepare_batch(cfg, scans, valid, egos, ego_last)
+        with annotate("step/prepare"):
+            egos = egos.float().contiguous()
+            # ---- the common frame: the origin of the batch's globally last scan ----
+            ego_last = mesh.all_gather(egos, scan_axis, 0)[-1]
+            origin, pw, keep = prepare_batch(cfg, scans, valid, egos, ego_last)
 
         # ---- the raycast: one launch, each scan's rays from ITS ego, all
         # adding into one miss grid (this rank's slab under slab ingest) ----
-        miss = torch.zeros((X, Ys if ywin else Y, Z), dtype=torch.int32, device=dev)
-        kernels.ray_pass_counts(cfg, pw.view(S, N, 3), keep.view(S, N), egos, origin, y_window=ywin, out=miss)
+        with annotate("step/raycast"):
+            miss = torch.zeros((X, Ys if ywin else Y, Z), dtype=torch.int32, device=dev)
+            kernels.ray_pass_counts(cfg, pw.view(S, N, 3), keep.view(S, N), egos, origin, y_window=ywin, out=miss)
 
         # ---- merged endpoint metrics: ONE pass over the rank's points
         # (binning and moments are ego-free and additive over points). The
         # moments come back raw; the batch's occupancy masks them in the merge ----
-        hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, y_window=ywin, occupancy_mask=False)
+        with annotate("step/moments"):
+            hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, y_window=ywin, occupancy_mask=False)
 
         # ---- the rank's contributions reduced into its slab ----
-        if slab:
-            hit, miss, mom = (mesh.all_reduce(t, "sum", DATA_AXIS) for t in (hit, miss, mom))
-            minh = mesh.all_reduce(minh, "min", DATA_AXIS)
-        else:
-            hit, miss = (mesh.all_reduce(mesh.reduce_scatter(t, SPACE_AXIS, 1), "sum", DATA_AXIS) for t in (hit, miss))
-            mom = mesh.all_reduce(mesh.reduce_scatter(mom, SPACE_AXIS, 2), "sum", DATA_AXIS)
-            minh = mesh.all_reduce(minh, "min")[:, rows].contiguous()
+        with annotate("step/reduce") if multi else contextlib.nullcontext():
+            if slab:
+                hit, miss, mom = (mesh.all_reduce(t, "sum", DATA_AXIS) for t in (hit, miss, mom))
+                minh = mesh.all_reduce(minh, "min", DATA_AXIS)
+            else:
+                hit, miss = (mesh.all_reduce(mesh.reduce_scatter(t, SPACE_AXIS, 1), "sum", DATA_AXIS)
+                             for t in (hit, miss))
+                mom = mesh.all_reduce(mesh.reduce_scatter(mom, SPACE_AXIS, 2), "sum", DATA_AXIS)
+                minh = mesh.all_reduce(minh, "min")[:, rows].contiguous()
         contrib = VoxelGrid(hit=hit, miss=miss, min_height=minh, mom=mom, origin=origin)
 
         # ---- merge with the world slab and the column maps (one kernel, in
         # place over the contribution), then the 2D maps on the gathered
         # [X, X] maps: the plane fit, then the guess height with the maps after it ----
-        merged, evidence, cols, bands = kernels.merge_batch(cfg, world, contrib, ego_last, rows.start)
-        cols = mesh.all_gather(cols, SPACE_AXIS, 2)
-        bands = mesh.all_gather(bands, SPACE_AXIS, 2)
-        hm, ihm, rough, sx, sy = kernels.plane_fit(cfg, cols[0], cols[1], origin)
-        ghd, pos, neg, vis = kernels.guess_height(cfg, hm, ihm, sx, sy, bands[0], bands[1], bands[2], origin)
+        with annotate("step/merge"):
+            merged, evidence, cols, bands = kernels.merge_batch(cfg, world, contrib, ego_last, rows.start)
+        with annotate("step/maps"):
+            cols = mesh.all_gather(cols, SPACE_AXIS, 2)
+            bands = mesh.all_gather(bands, SPACE_AXIS, 2)
+            hm, ihm, rough, sx, sy = kernels.plane_fit(cfg, cols[0], cols[1], origin)
+            ghd, pos, neg, vis = kernels.guess_height(cfg, hm, ihm, sx, sy, bands[0], bands[1], bands[2], origin)
         products = MapProducts(
             origin=origin, height=hm, inferred_height=ihm, slope_x=sx, slope_y=sy, roughness=rough,
             guessed_height_delta=ghd, positive_obstacle=pos, negative_obstacle=neg, visibility=vis)
