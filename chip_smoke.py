@@ -133,9 +133,14 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      on the second step's 32-scan contribution into the first step's live
      world (the origin moved), and on its quarter slab y0 = 64 against the
      full rows, timed against its bound; then K1 on a
-     whole 32-scan batch, timed and held bitwise against the sum of its
-     one-scan launches over the same scans, and K2 and K5 on its merged
-     points against their plain versions, timed;
+     whole 32-scan batch, timed and held bitwise against the plain twin and
+     the sum of its one-scan launches over the same scans, and K2 and K5 on its merged
+     points against their plain versions, timed; then K1 on a 64-scan
+     batch of the benchmark's lap (benchmark/scangen.py), the same way, with
+     its march's lane utilisation and atomics after the warp merge in
+     launch order and sorted by live steps (kernels.ray_march_stats), and
+     its one-scan, slab and 64-scan times beside their bounds, and the
+     times of one of its scans, that scan's slab and the batch's slab;
   6. runs batched_replay over a synthesized log of 8 scans on a small grid,
      batch 4, against the same replay on the CPU, with a checkpoint written,
      loaded, and the resumed run's world equal to the straight run's;
@@ -3050,12 +3055,13 @@ def phase5_merge(cfg, step, batches, dev, log):
 
 def phase5_raycast_batch(cfg, pw, keep, egos, origin, rates, log):
     """K1 on a whole batch of S scans in one launch: timed, with its bound,
-    and held bitwise against the sum of its S one-scan launches over the
-    same scans (those are held against the plain twin in phase 1 and in the
-    4-scan step; the plain twin would take about a second a scan here)."""
+    and held bitwise against the plain twin (about a second a scan) and
+    the sum of its S one-scan launches over the same scans. From 9 scans
+    of 131,072 rays on an H100 the launch sorts 1,024 rays a block and a
+    one-scan launch 256 (kernels.ray_window): the two forms differ."""
     import torch
 
-    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.ops import kernels, raycast
 
     S = egos.shape[0]
     pts, kp = pw.view(S, -1, 3), keep.view(S, -1)
@@ -3066,6 +3072,8 @@ def phase5_raycast_batch(cfg, pw, keep, egos, origin, rates, log):
     for s in range(S):
         kernels.ray_pass_counts(cfg, pts[s:s + 1], kp[s:s + 1], egos[s:s + 1], origin, out=summed)
     exact(f"K1 on {S} scans in one launch vs the sum of {S} one-scan launches", whole, summed)
+    exact(f"K1 on {S} scans in one launch vs the plain twin", whole,
+          raycast.pass_counts_plain(cfg, pts, kp, egos, origin))
     n_pass, n_rays = int(whole.sum()), int(kp.sum())
     ms = cuda_ms(lambda: kernels.ray_pass_counts(cfg, pts, kp, egos, origin), 10)
     ms_per_scan = cuda_ms(lambda: [kernels.ray_pass_counts(cfg, pts[s:s + 1], kp[s:s + 1], egos[s:s + 1], origin,
@@ -3078,8 +3086,97 @@ def phase5_raycast_batch(cfg, pw, keep, egos, origin, rates, log):
     log(f"timing ray_pass_counts on {S} scans ({n_rays} rays, {n_pass} passes, ray_steps {cfg.ray_steps}): one "
         f"launch {ms:.4f} ms, {S} one-scan launches {ms_per_scan:.4f} ms, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}; bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms), one atomic a pass at the "
-        f"probe's rate {r['atomic_floor_ms']:.4f} ms; bitwise equal to the sum of the one-scan launches")
+        f"probe's rate {r['atomic_floor_ms']:.4f} ms; bitwise equal to the plain twin and the sum of the one-scan "
+        f"launches")
     return r
+
+
+LAP_BATCH = (64, 128)    # phase5_raycast_lap: the benchmark lap's second batch of 64 scans
+LAP_SEED = 3_000_000_019  # the lap's run seed: its range noise
+LAP_SCAN = 100            # one scan of the batch, timed alone
+LAP_SLAB = (64, 64)       # the quarter slab the lap's times take
+
+
+def phase5_raycast_lap(rows, rates, dev, log):
+    """K1 on the benchmark's drive (benchmark/scangen.make_lap at the
+    OS1-128 deployment of benchmark/configs/os1_128.json): its 64-scan
+    batch LAP_BATCH, sliced as the replay slices it and prepared as the
+    batched step prepares it, in one launch (the window the main path
+    takes), bitwise the plain twin and the sum of its 64 one-scan
+    launches, timed against its bound;
+    the march's schedule (kernels.ray_march_stats) in launch order and
+    sorted by live steps, at the launch's window and at 256 rays a block:
+    lane utilisation and atomics after the warp merge; the one-scan and
+    slab rows of phase 4 beside it; and the times of the lap's scan
+    LAP_SCAN, of its slab LAP_SLAB and of the batch's slab."""
+    import torch
+
+    from benchmark import scangen
+    from gvom_tpu_torch import GvomConfig
+    from gvom_tpu_torch.engine.replay import batched_ray_steps
+    from gvom_tpu_torch.ops import kernels, raycast
+
+    root = Path(__file__).resolve().parent
+    conf = json.loads((root / "benchmark/configs/os1_128.json").read_text())
+    drive = json.loads((root / "benchmark/drives/lap.json").read_text())
+    made = scangen.make_lap(conf["sensor"], drive, conf["gvom"]["ground_to_lidar_height"], LAP_SEED, dev)
+    S = LAP_BATCH[1] - LAP_BATCH[0]
+    cfg = GvomConfig.from_dict(conf["gvom"])
+    cfg = cfg.replace(ray_steps_override=batched_ray_steps(cfg, made["egos"].cpu().numpy(), S))
+    b = slice(*LAP_BATCH)
+    be = made["egos"][b].contiguous()
+    p, keep, origin, _ = kernels.prepare_points(cfg, made["points"][b].contiguous(), made["valid"][b].contiguous(),
+                                                be, frame_ego=be[-1].contiguous(), drop_dead=True)
+    del made
+    N, V = p.shape[1], cfg.voxel_count
+    whole = kernels.ray_pass_counts(cfg, p, keep, be, origin)
+    summed = torch.zeros_like(whole)
+    for s in range(S):
+        kernels.ray_pass_counts(cfg, p[s:s + 1], keep[s:s + 1], be[s:s + 1], origin, out=summed)
+    exact(f"K1 on the lap's {S} scans in one launch vs the sum of {S} one-scan launches", whole, summed)
+    exact(f"K1 on the lap's {S} scans in one launch vs the plain twin", whole,
+          raycast.pass_counts_plain(cfg, p, keep, be, origin))
+    n_pass, n_rays = int(whole.sum()), int(keep.sum())
+    ms, _ = graph_ms(lambda: kernels.ray_pass_counts(cfg, p, keep, be, origin), 40)
+    nbytes, ops_s = k1_bound(S * N, S, n_rays, n_pass, V)
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops_s)
+    window = kernels.ray_window(S, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    one_scan = slice(LAP_SCAN - LAP_BATCH[0], LAP_SCAN - LAP_BATCH[0] + 1)
+    lap_ms = {}
+    for label, sl, yw in (("scan", one_scan, None), ("scan_slab", one_scan, LAP_SLAB),
+                          ("batch_slab", slice(None), LAP_SLAB)):
+        args = (p[sl].contiguous(), keep[sl].contiguous(), be[sl].contiguous(), origin)
+        lap_ms[label], _ = graph_ms(lambda args=args, yw=yw: kernels.ray_pass_counts(cfg, *args, y_window=yw),
+                                    400 if args[0].shape[0] == 1 else 40)
+    schedule = {}
+    for w in sorted({window, 256}):
+        for sort in (False, True):
+            passes, c = kernels.ray_march_stats(cfg, p, keep, be, origin, sort=sort, window=w)
+            exact(f"K1's stats entry on the lap's batch ({w} rays a block, sorted {sort})", passes, whole)
+            live, issued, atoms = c.tolist()
+            schedule[f"{w}_{'sorted' if sort else 'launch_order'}"] = dict(
+                live_lane_steps=live, issued_lane_steps=issued, lane_utilisation=live / issued, atomics=atoms)
+    srt, old = schedule[f"{window}_sorted"], schedule[f"{window}_launch_order"]
+    at256 = "" if window == 256 else (f"; at 256 rays a block {schedule['256_sorted']['lane_utilisation']:.3f} and "
+                                      f"{schedule['256_sorted']['atomics']} sorted")
+    check(srt["lane_utilisation"] > 0.6, f"K1 sorted: lane utilisation {srt['lane_utilisation']:.3f} on the lap")
+    one = {r["name"]: r for r in rows if r["name"] in ("ray_pass_counts", "ray_pass_counts_slab")}
+    res = dict(scans=S, rays=n_rays, passes=n_pass, ray_steps=cfg.ray_steps, window=window, ms=ms, bound_ms=bound,
+               atomic_floor_ms=1e3 * n_pass / rates["int32"], schedule=schedule, lap_ms=lap_ms,
+               one_scan=dict(ms=one["ray_pass_counts"]["ms"], bound_ms=one["ray_pass_counts"]["bound_ms"]),
+               slab=dict(ms=one["ray_pass_counts_slab"]["ms"], bound_ms=one["ray_pass_counts_slab"]["bound_ms"]))
+    log(f"phase 5 K1 on the lap ({S} scans {LAP_BATCH[0]}-{LAP_BATCH[1] - 1}, {n_rays} rays, {n_pass} passes, "
+        f"ray_steps {cfg.ray_steps}, {window} rays a block): lane utilisation {old['lane_utilisation']:.3f} in "
+        f"launch order, {srt['lane_utilisation']:.3f} sorted; atomics after the warp merge {old['atomics']} in "
+        f"launch order, {srt['atomics']} sorted{at256}; bitwise the plain twin and the sum of its one-scan "
+        f"launches")
+    log(f"K1 times (launch alone) beside their bounds: one scan {res['one_scan']['ms']:.4f} ms (bound "
+        f"{res['one_scan']['bound_ms']:.4f}), the slab {res['slab']['ms']:.4f} ms "
+        f"(bound {res['slab']['bound_ms']:.4f}), "
+        f"the lap's {S} scans {ms:.4f} ms (bound {bound:.4f}, {100 * bound / ms:.1f} %; one atomic a pass at the "
+        f"probe's rate {res['atomic_floor_ms']:.4f} ms); on the lap, scan {LAP_SCAN} {lap_ms['scan']:.4f} ms, its "
+        f"slab {LAP_SLAB} {lap_ms['scan_slab']:.4f} ms, the batch's slab {lap_ms['batch_slab']:.4f} ms")
+    return res
 
 
 def phase6_replay(log):
@@ -3977,6 +4074,7 @@ def run(args, torch) -> int:
     del buf, world, last, slab, prep
     report["end_to_end"] = phase_end_to_end(cfg, scans, dev, log)
     batched_launches, (k5_row, merge_row), report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err)
+    report["batched"]["ray_pass_counts_lap"] = phase5_raycast_lap(rows, rates, dev, log)
     phase6_replay(log)
     node_launches, report["host_path"] = phase7_host_path(cfg, scans, log)
     report["bench"] = phase8_bench_and_entry(log)

@@ -20,6 +20,8 @@ tensors (there is no fallback), and counts its launches in `launches`.
 | ray_pass_counts    | raycast.cu   | _run_hist and _run_hist_steppair, via     | raycast.pass_counts_plain (per     |
 |                    |              | ray_pass_counts_matmul                    | scan: march_inputs, then           |
 |                    |              |                                           | ray_pass_counts_plain)             |
+| ray_march_stats    | raycast.cu   | none: K1 with its march schedule counted  | raycast.march_stats_plain          |
+|                    |              | (lane utilisation, atomics), off the path |                                    |
 | bin_points         | binning.cu   | fused_point_moments                       | binning.bin_points                 |
 | ingest_epilogue    | epilogue.cu  | _xbox_epilogue_into                       | moments.ingest_epilogue_plain      |
 | combine            | combine.cu   | fused_combine (+ the XLA mom merge)       | models.pipeline.fuse_plain         |
@@ -88,6 +90,8 @@ __all__ = [
     "reset_launches",
     "prepare_points",
     "ray_pass_counts",
+    "ray_window",
+    "ray_march_stats",
     "bin_points",
     "ingest_epilogue",
     "combine",
@@ -203,7 +207,7 @@ class CudaKernel:
 
 
 _PK = "gvom_tpu/ops/pallas_kernels.py"
-_RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 4 + [_F] * 2 + [_I] * 8 + [_P, _P])
+_RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 4 + [_F] * 2 + [_I] * 9 + [_P, _P])
 _BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_F] * 2 + [_I] * 9 + [_P] * 4)
 _EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P] * 3)
 
@@ -230,6 +234,11 @@ CMB = CudaKernel(
 XBOX = CudaKernel("moments_epilogue", *_EPI_ARGS, f"{_PK}:1310 (_xbox_epilogue)")
 RAY_SLAB = CudaKernel("ray_pass_counts_slab", *_RAY_ARGS,
                       f"{_PK}:725 (ray_pass_counts_matmul(y_window=), the slab form of _run_hist)")
+# K1's body with its schedule counted: off every path, so not in KERNELS
+# (its library is K1's)
+MARCH_STATS = CudaKernel("ray_march_stats", "raycast.cu", "gvom_ray_march_stats",
+                         [_P] * 4 + [_F] * 2 + [_I] * 10 + [_P] * 3,
+                         "none: K1's march with its schedule counted (raycast.march_stats_plain), off every path")
 BIN_SLAB = CudaKernel("bin_points_slab", *_BIN_ARGS,
                       f"{_PK}:1559 (fused_point_moments(y_window=), the slab prefilter)")
 XBOX_SLAB = CudaKernel("moments_epilogue_slab", *_EPI_ARGS,
@@ -424,14 +433,8 @@ def _prep_workspace(dev, stream: int, S: int) -> torch.Tensor:
 # K1
 
 
-def ray_pass_counts(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, egos: torch.Tensor,
-                    origin: torch.Tensor, y_window=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[X,Ys,Z] int32 pass counts in the torus layout of S scans: world-frame
-    points [S,N,3] f32 (binning.prepare_points), keep [S,N] bool, each scan's
-    ego [S,3] f32, one origin [3] int32. The kernel builds each ray's
-    geometry itself. y_window = (ys0, Ys) gives only the torus rows
-    [ys0, ys0+Ys) (the slab form); `out` is a grid to add the counts into,
-    returned. Shapes, dtypes and contiguity are checked before the device."""
+def _ray_inputs(cfg: GvomConfig, points, keep, egos, origin, y_window, out):
+    """K1's inputs checked, before the device: (S, n, ys0, Ys)."""
     if points.ndim != 3:
         raise ValueError(f"points: shape {tuple(points.shape)}, expected [S, N, 3]")
     S, n = points.shape[:2]
@@ -444,15 +447,84 @@ def ray_pass_counts(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, e
     _check("origin", origin, torch.int32, (3,), dev)
     if out is not None:
         _check("out", out, torch.int32, (X, Ys, Z), dev)
+    return S, n, ys0, Ys
+
+
+# K1's sort window: 1,024 rays a block (four a thread) where a launch of
+# such blocks still gives every SM this many, else 256
+WIDE_BLOCKS_PER_SM = 8
+
+
+def ray_window(S: int, n: int, sms: int) -> int:
+    """The rays a block of K1 sorts by length and marches, from the launch's
+    shape: 1,024 where S scans of n rays make at least WIDE_BLOCKS_PER_SM
+    such blocks for each of the card's `sms` SMs, else 256, so that a small
+    launch (one scan: 512 blocks of 256) leaves no SM idle."""
+    return 1024 if S * -(-n // 1024) >= WIDE_BLOCKS_PER_SM * sms else 256
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(dev: torch.device) -> int:
+    return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def _ray_launch(k: CudaKernel, cfg: GvomConfig, points, keep, egos, origin, ys0: int, Ys: int, window: int,
+                *tail) -> None:
+    S, n = points.shape[:2]
+    X, Y, Z = cfg.grid_shape
+    inv = gridops.inv_resolution_vector(cfg, "cpu")
+    k.launch(_ptr(points), _ptr(keep), _ptr(egos), _ptr(origin), float(inv[0]), float(inv[2]),
+             S, n, cfg.ray_steps, X, Y, Z, ys0, Ys, window, *tail, _stream())
+
+
+def ray_pass_counts(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, egos: torch.Tensor,
+                    origin: torch.Tensor, y_window=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[X,Ys,Z] int32 pass counts in the torus layout of S scans: world-frame
+    points [S,N,3] f32 (binning.prepare_points), keep [S,N] bool, each scan's
+    ego [S,3] f32, one origin [3] int32. The kernel builds each ray's
+    geometry itself and marches each block's rays sorted by length, in the
+    window of ray_window. y_window = (ys0, Ys) gives only the torus rows
+    [ys0, ys0+Ys) (the slab form); `out` is a grid to add the counts into,
+    returned. Shapes, dtypes and contiguity are checked before the device."""
+    S, n, ys0, Ys = _ray_inputs(cfg, points, keep, egos, origin, y_window, out)
     if _is_cpu(points):
         return raycast.pass_counts_plain(cfg, points, keep, egos, origin, y_window, out)
     if out is None:
-        out = torch.zeros((X, Ys, Z), dtype=torch.int32, device=dev)
-    inv = gridops.inv_resolution_vector(cfg, "cpu")
-    (RAY_SLAB if binning.is_slab(cfg, y_window) else RAY).launch(
-        _ptr(points), _ptr(keep), _ptr(egos), _ptr(origin), float(inv[0]), float(inv[2]),
-        S, n, cfg.ray_steps, X, Y, Z, ys0, Ys, _ptr(out), _stream())
+        out = torch.zeros((cfg.xy_size, Ys, cfg.z_size), dtype=torch.int32, device=points.device)
+    _ray_launch(RAY_SLAB if binning.is_slab(cfg, y_window) else RAY, cfg, points, keep, egos, origin, ys0, Ys,
+                ray_window(S, n, _sms(points.device)), _ptr(out))
     return out
+
+
+def ray_march_stats(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, egos: torch.Tensor,
+                    origin: torch.Tensor, y_window=None, sort: bool = True, window: Optional[int] = None):
+    """(passes [X,Ys,Z] int32, stats [3] int64): K1's march of
+    ray_pass_counts' inputs, with its schedule counted: the live lane-steps
+    (the march's iterations over all rays), the issued lane-steps (32 × each
+    warp's iterations) and the atomics after the warp merge. The lane
+    utilisation is stats[0] / stats[1]. sort=False marches each block's rays
+    in launch order, as K1 did before it sorted them. `window` is the rays a
+    block (256 or 1,024): on the card by default ray_window's; the CPU's plain
+    twin (raycast.march_stats_plain) needs it given. Off every path."""
+    S, n, ys0, Ys = _ray_inputs(cfg, points, keep, egos, origin, y_window, None)
+    if window not in (None, 256, 1024):
+        raise ValueError(f"window {window}: K1 takes 256 or 1024 rays a block")
+    if _is_cpu(points):
+        if window is None:
+            raise ValueError("ray_march_stats on the CPU: give the window (256 or 1024 rays a block)")
+        return (raycast.pass_counts_plain(cfg, points, keep, egos, origin, y_window),
+                raycast.march_stats_plain(cfg, points, keep, egos, origin, y_window, window, sort))
+    dev = points.device
+    if window is None:
+        window = ray_window(S, n, _sms(dev))
+    out = torch.zeros((cfg.xy_size, Ys, cfg.z_size), dtype=torch.int32, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    _ray_launch(MARCH_STATS, cfg, points, keep, egos, origin, ys0, Ys, window, int(sort), _ptr(out), _ptr(stats))
+    return out, stats
 
 
 # ----------------------------------------------------------------------

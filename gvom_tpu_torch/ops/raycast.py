@@ -9,7 +9,9 @@ affine function of k, so out-of-grid steps are simply not counted.
 On the GPU the geometry and the march are kernel K1 (ops/kernels.py,
 csrc/raycast.cu), one launch for S scans. Its plain twin, `pass_counts_plain`,
 runs `ray_geometry` and `march_inputs` and then `ray_pass_counts_plain` for
-each scan. Both follow three exactness rules of the JAX package
+each scan; `march_stats_plain` counts K1's schedule (each block's rays
+sorted by their live steps) as kernels.ray_march_stats does. K1 and its
+twin follow three exactness rules of the JAX package
 (gvom_tpu/ops/raycast.py), so the counts agree bit for bit:
   * the dominant step is exactly ±1;
   * the dominant row is the integer floor(start_rel) ± k, never floor(start + k);
@@ -30,7 +32,7 @@ from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops.binning import check_y_window, sum_sq3
 
 __all__ = ["RayMarch", "ray_geometry", "march_inputs", "ray_pass_counts_plain", "pass_counts_plain",
-           "ray_pass_counts"]
+           "ray_pass_counts", "SORT_KEY_MAX", "live_steps", "sort_key", "march_order", "march_stats_plain"]
 
 
 def ray_geometry(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ego_position: torch.Tensor):
@@ -118,6 +120,37 @@ def ray_pass_counts_plain(cfg: GvomConfig, m: RayMarch, origin: torch.Tensor, y_
     return out
 
 
+class _Walk:
+    """The march's voxels for march_stats_plain, as K1 and
+    ray_pass_counts_plain take them: step k's voxel of each ray
+    (the dominant row the integer floor(start_rel) ± k, the other two the
+    floor of fma(k, step, start_rel)), whether it lies in the grid, and its
+    index in the torus grid's slab [X, Ys, Z] with whether its row is
+    there."""
+
+    def __init__(self, cfg: GvomConfig, m: RayMarch, origin: torch.Tensor, ys0: int, Ys: int):
+        dev = m.step.device
+        self.m, self.origin, self.ys0, self.Ys, self.Z = m, origin, ys0, Ys, cfg.z_size
+        self.size = gridops.size_vector(cfg, dev)
+        self.is_dom = torch.arange(3, device=dev)[None, :] == m.dom[:, None].long()
+        s_dom = m.step.gather(1, m.dom[:, None].long())[:, 0]
+        self.sgn = torch.where(s_dom < 0, -1, 1).to(torch.int32)
+        self.x0_dom = m.start_i[m.dom.long()]
+
+    def voxels(self, k: int):
+        """(voxels [N,3] int32 at step k, in the grid [N] bool)."""
+        m = self.m
+        pos = gridops.fma32(m.step, float(k), m.start_rel[None, :].expand_as(m.step))
+        vox = torch.where(self.is_dom, (self.x0_dom + k * self.sgn)[:, None], torch.floor(pos).to(torch.int32))
+        return vox, torch.all((vox >= 0) & (vox < self.size[None, :]), dim=1)
+
+    def flat(self, vox: torch.Tensor):
+        """(row in the slab [N] bool, index in the slab [N] int64)."""
+        vt = torch.remainder(vox + self.origin[None, :], self.size[None, :]).long()
+        ty = vt[:, 1] - self.ys0
+        return (ty >= 0) & (ty < self.Ys), (vt[:, 0] * self.Ys + ty) * self.Z + vt[:, 2]
+
+
 def pass_counts_plain(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, egos: torch.Tensor,
                       origin: torch.Tensor, y_window=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain twin of kernel K1's signature: S scans (points [S,N,3],
@@ -130,6 +163,83 @@ def pass_counts_plain(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor,
         m = march_inputs(cfg, points[s], keep[s], egos[s], origin)
         ray_pass_counts_plain(cfg, m, origin, y_window, out)
     return out
+
+
+def live_steps(m: RayMarch, ray_steps: int) -> torch.Tensor:
+    """[N] int32: each ray's live steps, the k of 1..ray_steps with
+    fl((k−1)·delta) < budget. Liveness is monotone in k, so they are the
+    steps 1..L; an unkept ray has none (its budget is −1)."""
+    L = torch.zeros(m.delta.shape, dtype=torch.int32, device=m.delta.device)
+    for k in range(1, ray_steps + 1):
+        L += ((float(k) - 1.0) * m.delta < m.budget).to(torch.int32)
+    return L
+
+
+SORT_KEY_MAX = 511   # nine bits: KEY_MAX of csrc/raycast.cu, which a test holds equal
+
+
+def sort_key(L: torch.Tensor) -> torch.Tensor:
+    """K1's sort key of each ray: its live steps, capped at SORT_KEY_MAX."""
+    return torch.clamp(L, max=SORT_KEY_MAX)
+
+
+def march_order(key: torch.Tensor, window: int, sort: bool = True) -> torch.Tensor:
+    """[N] int64: each ray's slot in K1's schedule: block b holds the slots
+    [b·window, (b+1)·window) of rays [b·window, (b+1)·window), and slot p is
+    marched by warp p // 32. Sorted, a block's slots are in ascending key,
+    ties in the order of the rays (the block's radix sort is stable), and
+    the slots past the last ray of a ragged last block sort as dead rays
+    (key 0, after the block's own); unsorted, the launch order."""
+    n = key.shape[0]
+    i = torch.arange(n, device=key.device)
+    if not sort:
+        return i
+    blocks = -(-n // window)
+    padded = torch.zeros(blocks * window, dtype=torch.int64, device=key.device)
+    padded[:n] = key
+    j = torch.arange(blocks * window, device=key.device)
+    # one stable sort of (block, key) is each block's stable sort by key
+    order = torch.sort((j // window) * (SORT_KEY_MAX + 1) + padded, stable=True).indices
+    slot = torch.empty_like(j)
+    slot[order] = j
+    return slot[:n]
+
+
+def march_stats_plain(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, egos: torch.Tensor,
+                      origin: torch.Tensor, y_window=None, window: int = 256, sort: bool = True) -> torch.Tensor:
+    """[3] int64: K1's march schedule over S scans, counted as its stats
+    entry counts it (kernels.ray_march_stats): live lane-steps (the march
+    loop's iterations over all rays), issued lane-steps (32 × each warp's
+    iterations, the most of its lanes') and the atomics after the warp
+    merge (at each iteration of a warp, one a distinct voxel among the
+    lanes that add). A ray's iterations are K1's: steps 1..L, ending early
+    at the first step out of the grid after one inside it."""
+    X, _, Z = cfg.grid_shape
+    ys0, Ys = check_y_window(cfg, y_window)
+    n = points.shape[1]
+    stats = torch.zeros(3, dtype=torch.int64)
+    for s in range(points.shape[0]):
+        m = march_inputs(cfg, points[s], keep[s], egos[s], origin)
+        walk = _Walk(cfg, m, origin, ys0, Ys)
+        L = live_steps(m, cfg.ray_steps)
+        warp = march_order(sort_key(L), window, sort) // 32
+        walking = L > 0
+        entered = torch.zeros_like(walking)
+        iters = torch.zeros(n, dtype=torch.int64, device=points.device)
+        for k in range(1, int(L.max()) + 1 if n else 1):
+            walking &= k <= L
+            iters += walking
+            vox, inb = walk.voxels(k)
+            walking &= inb | ~entered          # the in-grid steps are one run
+            adds = walking & inb
+            entered |= adds
+            in_slab, flat = walk.flat(vox)
+            adds &= in_slab
+            stats[2] += int(torch.unique(warp[adds] * (X * Ys * Z) + flat[adds]).numel())
+        stats[0] += int(iters.sum())
+        per_warp = torch.zeros(-(-n // window) * (window // 32), dtype=torch.int64, device=points.device)
+        stats[1] += 32 * int(per_warp.scatter_reduce_(0, warp, iters, reduce="amax").sum())
+    return stats
 
 
 def ray_pass_counts(cfg: GvomConfig, points, keep, ego_position, origin, y_window=None,

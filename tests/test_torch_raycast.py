@@ -23,6 +23,7 @@ from gvom_tpu_torch.ops import grid as tgrid
 from gvom_tpu_torch.ops import kernels as tkernels
 from gvom_tpu_torch.ops import raycast as traycast
 
+import raycast_cases
 from conftest import make_scan
 from helpers import canonical
 from torch_helpers import tcfg
@@ -226,3 +227,23 @@ def test_many_scan_wrapper_equals_sum_of_jax_scans(three_scans, y_window):
     assert out.shape == (cfg.xy_size, cfg.xy_size if y_window is None else y_window[1], cfg.z_size)
     assert ref.sum() > 1000
     assert (tkernels.RAY.launches, tkernels.RAY_SLAB.launches) == launches
+
+
+@pytest.mark.parametrize("y_window", [None, raycast_cases.SLAB])
+@pytest.mark.parametrize("case", sorted(raycast_cases.CASES))
+def test_raycast_sort_cases_equal_jax(case, y_window):
+    """The inputs that K1's block sort adds (tests/raycast_cases.py: blocks
+    of unkept or one-step rays, ties, counts at the ray budget and past the
+    sort key's cap, a ragged last block): the port's many-scan raycast on
+    the CPU (the plain twin that tests/test_torch_raycast_card.py holds the
+    kernel to) equals the JAX package's ray_pass_counts_xla summed over the
+    scans, bit for bit, in the full grid and the slab form."""
+    c = raycast_cases.make(case)
+    cfg = GvomConfig(**raycast_cases.config(c))
+    jitted = jax.jit(lambda p, k, e, o: jraycast.ray_pass_counts_xla(cfg, p, k, e, o, y_window=y_window))
+    ref = sum(np.asarray(jitted(jnp.asarray(p), jnp.asarray(k), jnp.asarray(e), jnp.asarray(c["origin"])))
+              for p, k, e in zip(c["points"], c["keep"], c["egos"]))
+    out = tkernels.ray_pass_counts(tcfg(cfg), *(torch.from_numpy(c[k].copy()) for k in ("points", "keep", "egos")),
+                                   torch.from_numpy(c["origin"].copy()), y_window=y_window)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert ref.sum() > 0
