@@ -311,15 +311,14 @@ def make_scans(cfg, n, lidar):
         return list(ex.map(_scan, jobs))
 
 
-def nan_blind(name, fn, sums):
-    """fn (an epilogue) on sums whose channels 1-9 are NaN where n == 0 gives
-    bitwise what it gives on the clean sums: it never reads them."""
+def nan_blind(name, fn, n, rest):
+    """fn(n, rest) (an epilogue) on channels 1-9 that are NaN where n == 0
+    gives bitwise what it gives on clean ones: it never reads them."""
     import torch
 
-    bad = sums.clone()
-    bad[1:] = torch.where(sums[:1] > 0, sums[1:], torch.full((), float("nan"), device=sums.device))
-    ref = fn(clean_sums(sums)).clone()
-    got = fn(bad)
+    bad = torch.where(n > 0, rest, torch.full((), float("nan"), device=rest.device))
+    ref = fn(n, torch.where(n > 0, rest, torch.zeros((), device=rest.device))).clone()
+    got = fn(n, bad)
     check(bool(torch.isfinite(got).all()), f"{name}: not finite on NaN-poisoned sums")
     exact(f"{name} on NaN-poisoned sums vs clean sums", got, ref)
 
@@ -868,15 +867,15 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
         slot = torch.ones((1,), dtype=torch.int32, device=dev)
         ko = torch.zeros((2, 10, X, Y, Z), dtype=torch.float32, device=dev)
         po = torch.zeros_like(ko)
-        kernels.ingest_epilogue(cfg, kb.sums, kb.hit, origin, ko, slot)
-        moments.ingest_epilogue_plain(cfg, kb.sums, kb.hit, origin, po, slot)
+        kernels.ingest_epilogue(cfg, kb.n, kb.rest, kb.hit, origin, ko, slot)
+        moments.ingest_epilogue_plain(cfg, kb.n, kb.rest, kb.hit, origin, po, slot)
         exact("K3 untouched slot", ko[0], po[0])
         exact("K3 n", ko[1, 0], po[1, 0])
         err["ingest_epilogue"] = max(err["ingest_epilogue"], close("K3 moments", ko[1], po[1]))
         # K5: the same box into a fresh tensor, the occupancy mask on and off
         for mask in (True, False):
-            km = kernels.moments_epilogue(cfg, kb.sums, kb.hit, origin, occupancy_mask=mask)
-            pm = moments.moments_epilogue_plain(cfg, kb.sums, kb.hit, origin, occupancy_mask=mask)
+            km = kernels.moments_epilogue(cfg, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)
+            pm = moments.moments_epilogue_plain(cfg, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)
             err["moments_epilogue"] = max(err["moments_epilogue"], moments_close(f"K5 mask={mask}", km, pm))
             if mask:
                 exact("K5 masked vs K3's slot", km, ko[1])
@@ -884,10 +883,10 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
                 check(bool((km[:, kb.hit == 0] != 0).any()), "K5 mask off: no moments at voxels without a hit")
             del km, pm
         if i == 0:
-            nan_blind("K3", lambda s: kernels.ingest_epilogue(cfg, s, kb.hit, origin, ko, slot), kb.sums)
+            nan_blind("K3", lambda n, r: kernels.ingest_epilogue(cfg, n, r, kb.hit, origin, ko, slot), kb.n, kb.rest)
             for mask in (True, False):
-                nan_blind(f"K5 mask={mask}", lambda s: kernels.moments_epilogue(cfg, s, kb.hit, origin,
-                                                                               occupancy_mask=mask), kb.sums)
+                nan_blind(f"K5 mask={mask}", lambda n, r: kernels.moments_epilogue(cfg, n, r, kb.hit, origin,
+                                                                               occupancy_mask=mask), kb.n, kb.rest)
         del ko, po, pb
 
         buf, scan_ok = pipeline.ingest_and_insert(cfg, buf, pts, valid, ego)
@@ -1238,7 +1237,8 @@ def phase1_slabs(cfg, scan, dev, log, err):
     check(seam % Ys != 0, f"the window seam (torus row {seam}) lies on a slab boundary, not inside a slab")
     full_pass = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
     full_bins = kernels.bin_points(cfg, p, keep, origin)
-    full_mom = {mask: kernels.moments_epilogue(cfg, full_bins.sums, full_bins.hit, origin, occupancy_mask=mask)
+    full_mom = {mask: kernels.moments_epilogue(cfg, full_bins.n, full_bins.rest, full_bins.hit, origin,
+                                               occupancy_mask=mask)
                 for mask in (True, False)}
     for k in range(4):
         yw = (k * Ys, Ys)
@@ -1254,18 +1254,18 @@ def phase1_slabs(cfg, scan, dev, log, err):
         err["bin_points_slab"] = max(err["bin_points_slab"], sums_close(f"K2 slab {k}", kb.sums, pb.sums))
         has_seam = k * Ys <= seam < (k + 1) * Ys
         for mask in (True, False):
-            km = kernels.moments_epilogue(cfg, kb.sums, kb.hit, origin, yw, mask)
-            pm = moments.moments_epilogue_plain(cfg, kb.sums, kb.hit, origin, yw, mask)
+            km = kernels.moments_epilogue(cfg, kb.n, kb.rest, kb.hit, origin, yw, mask)
+            pm = moments.moments_epilogue_plain(cfg, kb.n, kb.rest, kb.hit, origin, yw, mask)
             e1 = moments_close(f"K5 slab {k} mask={mask} vs plain", km, pm)
             e2 = moments_close(f"K5 slab {k} mask={mask} vs the full grid's rows", km,
                                full_mom[mask][:, :, rows].contiguous())
             err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], e1, e2)
             if has_seam:
                 nan_blind(f"K5 slab {k} mask={mask}",
-                          lambda s: kernels.moments_epilogue(cfg, s, kb.hit, origin, yw, mask), kb.sums)
+                          lambda n, r: kernels.moments_epilogue(cfg, n, r, kb.hit, origin, yw, mask), kb.n, kb.rest)
         if has_seam:
             last = dict(p=p, ego=ego, origin=origin, keep=keep, bins=kb, y_window=yw,
-                        full_n=full_bins.sums[0], full_hit=full_bins.hit)
+                        full_n=full_bins.n[0], full_hit=full_bins.hit)
     del full_mom, full_pass
 
     kernels.reset_launches()
@@ -1332,11 +1332,11 @@ def box_reference(cfg, sums, hit, origin, y_window, mask):
     rx, ry, rz = binning.moment_pad(cfg)
     m = (2 * rx + 1) * (2 * ry + 1) * (2 * rz + 1)
     s64 = clean_sums(sums).double()
-    ref = moments.moments_epilogue_plain(cfg, s64, hit, origin, y_window, mask)
+    ref = moments.moments_epilogue_plain(cfg, s64[:1], s64[1:], hit, origin, y_window, mask)
     translate = moments.translate_raw
     moments.translate_raw = lambda n, s1, s2, axis, t: translate(n, s1, s2, axis, abs(t))
     try:
-        size = moments.moments_epilogue_plain(cfg, s64.abs(), hit, origin, y_window, mask)
+        size = moments.moments_epilogue_plain(cfg, s64[:1], s64[1:].abs(), hit, origin, y_window, mask)
     finally:
         moments.translate_raw = translate
     return ref, (m + 8) * 2.0 ** -24 * size
@@ -1404,14 +1404,14 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         slot = torch.ones((1,), dtype=torch.int32, device=dev)
         ko = torch.zeros((2, 10, X, Y, Z), dtype=torch.float32, device=dev)
         po = torch.zeros_like(ko)
-        kernels.ingest_epilogue(c, kb.sums, kb.hit, origin, ko, slot)
-        moments.ingest_epilogue_plain(c, kb.sums, kb.hit, origin, po, slot)
+        kernels.ingest_epilogue(c, kb.n, kb.rest, kb.hit, origin, ko, slot)
+        moments.ingest_epilogue_plain(c, kb.n, kb.rest, kb.hit, origin, po, slot)
         exact(f"K3 at eigen ({xye}, {ze}) untouched slot", ko[0], po[0])
         for mask in (True, False):
             route = routes[f"({xye}, {ze}) full mask {'on' if mask else 'off'}"] = kernels.epilogue_route(
                 c, None, mask)
-            km = kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask)
-            pm = moments.moments_epilogue_plain(c, kb.sums, kb.hit, origin, occupancy_mask=mask)
+            km = kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)
+            pm = moments.moments_epilogue_plain(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)
             ref = box_reference(c, kb.sums, kb.hit, origin, None, mask)
             e = epilogue_vs_plain(f"K5 at eigen ({xye}, {ze}) mask={mask}", route, km, pm, ref)
             err["moments_epilogue"] = max(err["moments_epilogue"], e)
@@ -1420,10 +1420,11 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
                 err["ingest_epilogue"] = max(err["ingest_epilogue"], epilogue_vs_plain(
                     f"K3 at eigen ({xye}, {ze})", route, ko[1], po[1], ref))
             nan_blind(f"K5 at eigen ({xye}, {ze}) mask={mask}",
-                      lambda s: kernels.moments_epilogue(c, s, kb.hit, origin, occupancy_mask=mask), kb.sums)
+                      lambda n, r: kernels.moments_epilogue(c, n, r, kb.hit, origin, occupancy_mask=mask),
+                      kb.n, kb.rest)
             del km, pm, ref
-        nan_blind(f"K3 at eigen ({xye}, {ze})", lambda s: kernels.ingest_epilogue(c, s, kb.hit, origin, ko, slot),
-                  kb.sums)
+        nan_blind(f"K3 at eigen ({xye}, {ze})", lambda n, r: kernels.ingest_epilogue(c, n, r, kb.hit, origin, ko, slot),
+                  kb.n, kb.rest)
         del ko, po, pb
         # the slab form on the quarter slab that holds the window seam
         Ys = Y // 4
@@ -1432,14 +1433,14 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         for mask in (True, False):
             route = routes[f"({xye}, {ze}) slab mask {'on' if mask else 'off'}"] = kernels.epilogue_route(
                 c, yw, mask)
-            km = kernels.moments_epilogue(c, sb.sums, sb.hit, origin, yw, mask)
-            pm = moments.moments_epilogue_plain(c, sb.sums, sb.hit, origin, yw, mask)
+            km = kernels.moments_epilogue(c, sb.n, sb.rest, sb.hit, origin, yw, mask)
+            pm = moments.moments_epilogue_plain(c, sb.n, sb.rest, sb.hit, origin, yw, mask)
             ref = box_reference(c, sb.sums, sb.hit, origin, yw, mask)
             err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], epilogue_vs_plain(
                 f"K5 slab {yw} at eigen ({xye}, {ze}) mask={mask}", route, km, pm, ref))
             del km, pm, ref
             nan_blind(f"K5 slab at eigen ({xye}, {ze}) mask={mask}",
-                      lambda s: kernels.moments_epilogue(c, s, sb.hit, origin, yw, mask), sb.sums)
+                      lambda n, r: kernels.moments_epilogue(c, n, r, sb.hit, origin, yw, mask), sb.n, sb.rest)
         launches[f"({xye}, {ze})"] = {k.name: k.launches for k in (kernels.EPI, kernels.XBOX, kernels.XBOX_SLAB)}
         for name, n in launches[f"({xye}, {ze})"].items():
             check(n > 0, f"eigen ({xye}, {ze}): {name} was launched no time")
@@ -1451,14 +1452,14 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         log(f"library yardstick check at eigen ({xye}, {ze}): conv3d box vs plain box max abs err {conv_err}")
         for mask in (False, True):
             targets = kb.hit > 0 if mask else everywhere
-            nbytes, terms, _, _ = epilogue_bound(c, kb.sums[0], gridops.torus_to_window(targets, origin),
+            nbytes, terms, _, _ = epilogue_bound(c, kb.n[0], gridops.torus_to_window(targets, origin),
                                                  X * Y * Z, mask)
             what = f"moments_epilogue mask {'on' if mask else 'off'}, eigen ({xye}, {ze})"
             timings[what] = dict(form_timing(
-                what, lambda: kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask), nbytes,
+                what, lambda: kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask), nbytes,
                 52 * terms / F32_OPS_PER_S, log,
                 lib=None if mask else lambda: torch.nn.functional.conv3d(conv_in, wconv),
-                plain=lambda: moments.moments_epilogue_plain(c, kb.sums, kb.hit, origin, occupancy_mask=mask)),
+                plain=lambda: moments.moments_epilogue_plain(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)),
                 route=routes[f"({xye}, {ze}) full mask {'on' if mask else 'off'}"])
             if not mask:
                 timings[what]["library_max_abs_err"] = conv_err
@@ -1568,34 +1569,37 @@ def phase1_epilogue_direct_wide(cfg, dev, log):
     # box_sparse is the plain version's function: held in float64 at a radius that the plain version sweeps fast
     c = dataclasses.replace(cfg, xy_size=X, z_size=Z, xy_eigen_dist=5, z_eigen_dist=1)
     kb = bins(c)
+    sums = kb.sums
     for mask in (False, True):
-        want = moments.moments_epilogue_plain(c, clean_sums(kb.sums).double(), kb.hit, origin, occupancy_mask=mask)
-        got, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64)
-        scale, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64, absolute=True)
+        s64 = clean_sums(sums).double()
+        want = moments.moments_epilogue_plain(c, s64[:1], s64[1:], kb.hit, origin, occupancy_mask=mask)
+        got, _ = box_sparse(c, sums, kb.hit, origin, mask, torch.float64)
+        scale, _ = box_sparse(c, sums, kb.hit, origin, mask, torch.float64, absolute=True)
         check(bool(((got - want).abs() <= 1e-12 * scale).all()), f"box_sparse off the plain version, mask {mask}")
 
     c = dataclasses.replace(cfg, xy_size=X, z_size=Z, xy_eigen_dist=r_max + 1, z_eigen_dist=1)
     kb = bins(c)
+    sums = kb.sums
     n_hit = int((kb.hit > 0).sum())
     check(0 < n_hit < X * X * Z, f"the mask keeps {n_hit} of {X * X * Z} voxels: it must keep some, not all")
     out = dict(eigen=[r_max + 1, 1], grid=[X, X, Z], points=DIRECT_POINTS + DIRECT_HITS, occupied=n_hit,
-               scratch_bytes=kb.sums.numel() * 4, K5={}, K3={})
+               scratch_bytes=sums.numel() * 4, K5={}, K3={})
     kernels.reset_launches()
     slot = torch.ones((1,), dtype=torch.int32, device=dev)
     for mask in (False, True):
         what = f"mask {'on' if mask else 'off'}"
         route = kernels.epilogue_route(c, None, mask)
         check(route == "direct", f"the epilogue at eigen ({r_max + 1}, 1), {what}: the route query answers {route}")
-        plain, m = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float32)
-        ref, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64)
-        scale, _ = box_sparse(c, kb.sums, kb.hit, origin, mask, torch.float64, absolute=True)
+        plain, m = box_sparse(c, sums, kb.hit, origin, mask, torch.float32)
+        ref, _ = box_sparse(c, sums, kb.hit, origin, mask, torch.float64)
+        scale, _ = box_sparse(c, sums, kb.hit, origin, mask, torch.float64, absolute=True)
         bound = (m + 12) * 2.0 ** -24 * scale
-        km = kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask)
+        km = kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)
         e = box_close(f"K5 direct at eigen ({r_max + 1}, 1), {what}", km, plain, ref, bound)
         targets = kb.hit > 0 if mask else torch.ones_like(kb.hit, dtype=torch.bool)
-        nbytes, terms, _, _ = epilogue_bound(c, kb.sums[0], gridops.torus_to_window(targets, origin), X * X * Z, mask)
-        ms = cuda_ms(lambda: kernels.moments_epilogue(c, kb.sums, kb.hit, origin, occupancy_mask=mask), DIRECT_REPS,
-                     warm=0)
+        nbytes, terms, _, _ = epilogue_bound(c, kb.n[0], gridops.torus_to_window(targets, origin), X * X * Z, mask)
+        ms = cuda_ms(lambda: kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask),
+                     DIRECT_REPS, warm=0)
         bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 52 * terms / F32_OPS_PER_S
         out["K5"][what] = dict(route=route, ms=ms, max_abs_err=e,
                          max_rel_err=float(((km.double() - ref).abs() / scale.clamp(min=1e-30)).max()),
@@ -1606,7 +1610,7 @@ def phase1_epilogue_direct_wide(cfg, dev, log):
             f"against the plain version, at most {m} sources a box")
         if mask:
             ko = torch.zeros((2, 10, X, X, Z), dtype=torch.float32, device=dev)
-            kernels.ingest_epilogue(c, kb.sums, kb.hit, origin, ko, slot)
+            kernels.ingest_epilogue(c, kb.n, kb.rest, kb.hit, origin, ko, slot)
             exact("K3 direct: the untouched slot", ko[0], torch.zeros_like(ko[0]))
             exact("K3 direct into its slot vs K5 masked", ko[1], km)
             out["K3"][what] = dict(route=route, max_abs_err=box_close(
@@ -2332,12 +2336,12 @@ def form_timing(what, fn, bytes_moved, ops_s, log, lib=None, plain=None):
     return r
 
 
-def binned(cfg, pn, keep, origin):
-    """(sums, hit) of K2 on a point set, for an epilogue."""
+def binned(cfg, pn, keep, origin, scratch):
+    """(n, rest, hit) of K2 on a point set on a kept scratch, for an epilogue."""
     from gvom_tpu_torch.ops import kernels
 
-    b = kernels.bin_points(cfg, pn, keep, origin)
-    return b.sums, b.hit
+    b = kernels.bin_points(cfg, pn, keep, origin, scratch=scratch)
+    return b.n, b.rest, b.hit
 
 
 def index_add_inputs(cfg, pn, keep, origin, y_window=None):
@@ -2357,12 +2361,13 @@ def index_add_inputs(cfg, pn, keep, origin, y_window=None):
 
 
 def k2_bound(n_points, n_kept, n_out, n_scratch, n_scratch_nz):
-    """(bytes, seconds of operations) of K2 on this data, under the contract
-    of its scratch (binning.PointBins): it reads the points (12 bytes) and
-    keep (1 byte), writes hit and min_height over the n_out voxels of the
-    grid, n over the n_scratch voxels of the scratch and the nine other
-    channels where n > 0 (n_scratch_nz); about 30 f32 operations a kept
-    point."""
+    """(bytes, seconds of operations) of K2 on this data: it reads the points
+    (12 bytes) and keep (1 byte), writes hit and min_height over the n_out
+    voxels of the grid, n over the n_scratch voxels of the scratch and the
+    nine other channels where n > 0 (n_scratch_nz); about 30 f32 operations
+    a kept point. What its kept scratch adds (binning.MomentScratch: the
+    touched bytes, the clear of the last call's nine channels) is left out,
+    so the bound is the same for any contract of the scratch."""
     return n_points * 13 + 2 * n_out * 4 + n_scratch * 4 + 9 * n_scratch_nz * 4, 30 * n_kept / F32_OPS_PER_S
 
 
@@ -2527,7 +2532,7 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
     p, origin, keep, bins, target, ego = (last[k] for k in ("p", "origin", "keep", "bins", "target", "ego"))
     pn = gridops.map_local(cfg, p, origin)     # K2's map-local coordinates, for its library call
     N = p.shape[0]
-    P = bins.sums[0].numel()
+    P = bins.n.numel()
     passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
     n_pass = int(passes.sum())
     n_kept = int(keep.sum())
@@ -2559,30 +2564,34 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
         *k1_bound(N, 1, n_kept, n_pass, V))
     rows[-1]["atomic_floor_ms"] = 1e3 * n_pass / rates["int32"]
     # K2: reads points and keep, writes hit, min_height, n and the nine
-    # other channels where n > 0 (k2_bound); its library call is the
+    # other channels where n > 0 (k2_bound), on a scratch kept across its
+    # calls, as the facade's ring buffer keeps one; its library call is the
     # index_add_ of the ten sums into a buffer zeroed outside the timing: it
     # leaves out hit, min_height and every fill
     n_grid = int(bins.hit.sum())
-    n_win = int(bins.sums[0].sum())
-    n_nz = int((bins.sums[0] > 0).sum())
-    row(kernels.BIN, lambda: kernels.bin_points(cfg, p, keep, origin),
-        lambda: binning.bin_points(cfg, p, keep, origin), 20, 5,
+    n_win = int(bins.n.sum())
+    n_nz = int((bins.n > 0).sum())
+    ks, ps = binning.moment_scratch(cfg, dev), binning.moment_scratch(cfg, dev)
+    row(kernels.BIN, lambda: kernels.bin_points(cfg, p, keep, origin, scratch=ks),
+        lambda: binning.bin_points(cfg, p, keep, origin, scratch=ps), 20, 5,
         lambda: sums_lib.index_add_(1, pflat, vals), *k2_bound(N, n_kept, V, P, n_nz))
     rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid, n_win, rates)
-    # the timed launches computed what the wrapper computes
-    _, timed = graph_ms(lambda: kernels.bin_points(cfg, p, keep, origin), 10)
+    # the timed launches, each on the scratch the one before it left,
+    # computed what the wrapper computes on a fresh one
+    _, timed = graph_ms(lambda: kernels.bin_points(cfg, p, keep, origin, scratch=ks), 10)
     exact("K2 timed launch vs the wrapper: hit", timed.hit, bins.hit)
-    exact("K2 timed launch vs the wrapper: n", timed.sums[0], bins.sums[0])
-    del timed
+    sums_close("K2 timed launch vs the wrapper", timed.sums, bins.sums)
+    check(not timed.rest[:, timed.n[0] == 0].any(), "K2 timed launches: channels 1-9 not zero where n is 0")
+    del timed, ps
     # K3: reads hit and writes the slot's ten channels everywhere; reads the
     # sums only inside the ±r box of an occupied voxel (epilogue_bound)
     occ_w = gridops.torus_to_window(bins.hit > 0, origin)
-    k3_bytes, terms, n_reach, n_reach_nz = epilogue_bound(cfg, bins.sums[0], occ_w, V, True)
-    row(kernels.EPI, lambda: kernels.ingest_epilogue(cfg, bins.sums, bins.hit, origin, out, slot),
-        lambda: moments.ingest_epilogue_plain(cfg, bins.sums, bins.hit, origin, out, slot), 20, 5,
+    k3_bytes, terms, n_reach, n_reach_nz = epilogue_bound(cfg, bins.n[0], occ_w, V, True)
+    row(kernels.EPI, lambda: kernels.ingest_epilogue(cfg, bins.n, bins.rest, bins.hit, origin, out, slot),
+        lambda: moments.ingest_epilogue_plain(cfg, bins.n, bins.rest, bins.hit, origin, out, slot), 20, 5,
         lambda: torch.nn.functional.conv3d(conv_in, wconv), k3_bytes, 52 * terms / F32_OPS_PER_S)
     # K2 then K3, one scan into the slot, against a bound that no design moves
-    pair = pair_row("K2 then K3", lambda: kernels.ingest_epilogue(cfg, *binned(cfg, p, keep, origin), origin, out,
+    pair = pair_row("K2 then K3", lambda: kernels.ingest_epilogue(cfg, *binned(cfg, p, keep, origin, ks), origin, out,
                                                                   slot),
                     20, N, n_kept, V, terms, log)
     # K4: the kernel alone (its meta vector and outputs made once, outside
@@ -2606,7 +2615,7 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
     spn = gridops.map_local(cfg, sp, so)
     ys0, Ys = yw
     Vs = X * Ys * Z
-    Ps = sbins.sums[0].numel()
+    Ps = sbins.n.numel()
     # K1 slab: the same rays, the slab's grid; its passes are the steps that
     # land in the slab (the march itself walks every step of every ray)
     sp1, sk1, se1 = sp[None], skeep[None], sego.reshape(1, 3)
@@ -2618,11 +2627,13 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
     # K2 slab: the same points, the slab's hit, min_height and scratch
     sflat, svals = index_add_inputs(cfg, spn, skeep, so, yw)
     s_lib = torch.zeros((10, Ps), dtype=torch.float32, device=dev)
-    n_grid_s, n_win_s = int(sbins.hit.sum()), int(sbins.sums[0].sum())
-    row(kernels.BIN_SLAB, lambda: kernels.bin_points(cfg, sp, skeep, so, yw),
-        lambda: binning.bin_points(cfg, sp, skeep, so, yw), 20, 5,
+    n_grid_s, n_win_s = int(sbins.hit.sum()), int(sbins.n.sum())
+    kss, pss = binning.moment_scratch(cfg, dev, yw), binning.moment_scratch(cfg, dev, yw)
+    row(kernels.BIN_SLAB, lambda: kernels.bin_points(cfg, sp, skeep, so, yw, kss),
+        lambda: binning.bin_points(cfg, sp, skeep, so, yw, pss), 20, 5,
         lambda: s_lib.index_add_(1, sflat, svals),
-        *k2_bound(N, int(skeep.sum()), Vs, Ps, int((sbins.sums[0] > 0).sum())))
+        *k2_bound(N, int(skeep.sum()), Vs, Ps, int((sbins.n > 0).sum())))
+    del kss, pss
     rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid_s, n_win_s, rates)
     # K5 slab, mask on (as ingest_scan calls it): K3's count on the slab's rows
     in_slab = torch.zeros((Y,), dtype=torch.bool, device=dev)
@@ -2630,8 +2641,8 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
     targets = gridops.torus_to_window((slab["full_hit"] > 0) & in_slab[None, :, None], so)
     s_bytes, s_terms, _, _ = epilogue_bound(cfg, slab["full_n"], targets, Vs, True)
     s_conv_in = clean_sums(sbins.sums)[None]
-    row(kernels.XBOX_SLAB, lambda: kernels.moments_epilogue(cfg, sbins.sums, sbins.hit, so, yw),
-        lambda: moments.moments_epilogue_plain(cfg, sbins.sums, sbins.hit, so, yw), 20, 5,
+    row(kernels.XBOX_SLAB, lambda: kernels.moments_epilogue(cfg, sbins.n, sbins.rest, sbins.hit, so, yw),
+        lambda: moments.moments_epilogue_plain(cfg, sbins.n, sbins.rest, sbins.hit, so, yw), 20, 5,
         lambda: torch.nn.functional.conv3d(s_conv_in, wconv), s_bytes, 52 * s_terms / F32_OPS_PER_S)
 
     # ---- the 2-D maps, on the last phase-1 combine's column maps ----
@@ -2812,12 +2823,13 @@ def watch_fma32():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside, the batched step's six kernel wrappers run their plain
-    versions on whatever device the tensors are on."""
+    """Inside, the batched step's seven kernel wrappers (and point_moments)
+    run their plain versions on whatever device the tensors are on."""
     from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
     from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain
 
     plain = dict(prepare_points=binning.prepare_plain, ray_pass_counts=raycast.pass_counts_plain,
+                 bin_points=binning.bin_points, moments_epilogue=moments.moments_epilogue_plain,
                  point_moments=moments.point_moments, plane_fit=maps2d.plane_fit_window_plain,
                  guess_height=maps2d.guess_products_plain, merge_batch=merge_and_columns_plain)
     saved = {name: getattr(kernels, name) for name in plain}
@@ -2943,54 +2955,69 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     # contribution into the first step's live world, whose origin it moves ----
     m_row, res["merge"] = phase5_merge(cb, step, batches, dev, log)
 
-    # ---- K5 and K2 on a whole batch's merged points ----
+    # ---- K2 and K5 on a whole batch's merged points: K2 on one scratch kept
+    # across its calls, as the batched step keeps one, over two batches in
+    # turn (the second's bins are the ones timed below) ----
     origin, pw, keep = prepare_batch(cb, *batches[1])
     k1 = phase5_raycast_batch(cb, pw, keep, batches[1][2], origin, rates, log)
-    bins = kernels.bin_points(cb, pw, keep, origin)
-    pb = binning.bin_points(cb, pw, keep, origin)
-    what = f"K2 on {BATCH} scans' merged points"
-    exact(f"{what}: hit", bins.hit, pb.hit)
-    exact(f"{what}: min_height", bins.min_height, pb.min_height)
-    e2 = sums_close(what, bins.sums, pb.sums, MOM_ATOL_BATCH)
-    err["bin_points"] = max(err["bin_points"], e2)
-    nz = pb.sums[0] > 0
-    log(f"{what} vs plain: hit, min_height and n bitwise, sums where n > 0 max abs err {e2}, "
-        f"{100 * tol_share(bins.sums[:, nz], pb.sums[:, nz], MOM_ATOL_BATCH):.1f} % of the tolerance (largest "
-        f"voxel hit count {int(bins.hit.max())})")
-    del pb, nz
-    pm = moments.moments_epilogue_plain(cb, bins.sums, bins.hit, origin, occupancy_mask=False)
-    km = kernels.moments_epilogue(cb, bins.sums, bins.hit, origin, occupancy_mask=False)
+    kept = binning.moment_scratch(cb, dev)
+    for i in range(2):
+        o, q, k = prepare_batch(cb, *batches[i])
+        bins = kernels.bin_points(cb, q, k, o, scratch=kept)
+        pb = binning.bin_points(cb, q, k, o)
+        what = f"K2 on {BATCH} scans' merged points, call {i + 1} on a kept scratch"
+        exact(f"{what}: hit", bins.hit, pb.hit)
+        exact(f"{what}: min_height", bins.min_height, pb.min_height)
+        e2 = sums_close(what, bins.sums, pb.sums, MOM_ATOL_BATCH)
+        check(not bins.rest[:, bins.n[0] == 0].any(), f"{what}: channels 1-9 not zero where n is 0")
+        err["bin_points"] = max(err["bin_points"], e2)
+        nz = pb.n[0] > 0
+        log(f"{what} vs plain on a fresh scratch: hit, min_height and n bitwise, channels 1-9 zero where n is 0, "
+            f"sums where n > 0 max abs err {e2}, "
+            f"{100 * tol_share(bins.sums[:, nz], pb.sums[:, nz], MOM_ATOL_BATCH):.1f} % of the tolerance (largest "
+            f"voxel hit count {int(bins.hit.max())})")
+        del pb, nz, q, k
+    pm = moments.moments_epilogue_plain(cb, bins.n, bins.rest, bins.hit, origin, occupancy_mask=False)
+    km = kernels.moments_epilogue(cb, bins.n, bins.rest, bins.hit, origin, occupancy_mask=False)
     e = moments_close(f"K5 mask off on {BATCH} scans' merged points", km, pm, MOM_ATOL_BATCH)
     err["moments_epilogue"] = max(err["moments_epilogue"], e)
     log(f"K5 mask off on {BATCH} scans' merged points vs plain: max abs err {e}, "
         f"{100 * tol_share(km, pm, MOM_ATOL_BATCH):.1f} % of the tolerance (largest voxel count "
-        f"{int(bins.sums[0].max())})")
+        f"{int(bins.n.max())})")
     del pm, km
     nan_blind(f"K5 mask off on {BATCH} scans' merged points",
-              lambda s: kernels.moments_epilogue(cb, s, bins.hit, origin, occupancy_mask=False), bins.sums)
+              lambda n, r: kernels.moments_epilogue(cb, n, r, bins.hit, origin, occupancy_mask=False),
+              bins.n, bins.rest)
+    # the timed calls below leave the same points' sums in `kept`
     wconv = box_conv_weights(cb, dev)
     conv_in = clean_sums(bins.sums)[None]
     everywhere = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
-    k5_bytes, k5_terms, _, k5_nz = epilogue_bound(cb, bins.sums[0], everywhere, V, False)
+    k5_bytes, k5_terms, _, k5_nz = epilogue_bound(cb, bins.n[0], everywhere, V, False)
     row = kernel_row(kernels.XBOX,
-                     lambda: kernels.moments_epilogue(cb, bins.sums, bins.hit, origin, occupancy_mask=False),
-                     lambda: moments.moments_epilogue_plain(cb, bins.sums, bins.hit, origin, occupancy_mask=False),
+                     lambda: kernels.moments_epilogue(cb, bins.n, bins.rest, bins.hit, origin, occupancy_mask=False),
+                     lambda: moments.moments_epilogue_plain(cb, bins.n, bins.rest, bins.hit, origin,
+                                                            occupancy_mask=False),
                      20, 5, lambda: torch.nn.functional.conv3d(conv_in, wconv), k5_bytes,
                      52 * k5_terms / F32_OPS_PER_S, log)
     # K2 at N = BATCH · max_points (its row in the kernels line is one scan's)
-    N, P = pw.shape[0], bins.sums[0].numel()
-    n_kept, n_grid, n_win = int(keep.sum()), int(bins.hit.sum()), int(bins.sums[0].sum())
-    n_nz = int((bins.sums[0] > 0).sum())
-    k2_ms, _ = graph_ms(lambda: kernels.bin_points(cb, pw, keep, origin), 20)
-    k2_wrapper_ms = cuda_ms(lambda: kernels.bin_points(cb, pw, keep, origin), 10)
-    k2_plain_ms = cuda_ms(lambda: binning.bin_points(cb, pw, keep, origin), 3)
+    N, P = pw.shape[0], bins.n.numel()
+    n_kept, n_grid, n_win = int(keep.sum()), int(bins.hit.sum()), int(bins.n.sum())
+    n_nz = int((bins.n > 0).sum())
+    k2_ms, timed = graph_ms(lambda: kernels.bin_points(cb, pw, keep, origin, scratch=kept), 20)
+    exact("K2 timed launches on the kept scratch vs the checked call: n", timed.n, bins.n)
+    check(not kept.rest[:, timed.n[0] == 0].any(), "K2 timed launches: channels 1-9 not zero where n is 0")
+    del timed
+    k2_wrapper_ms = cuda_ms(lambda: kernels.bin_points(cb, pw, keep, origin, scratch=kept), 10)
+    plain_kept = binning.moment_scratch(cb, dev)
+    k2_plain_ms = cuda_ms(lambda: binning.bin_points(cb, pw, keep, origin, scratch=plain_kept), 3)
+    del plain_kept
     k2_bytes, k2_ops_s = k2_bound(N, n_kept, V, P, n_nz)
     k2_bound_ms = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops_s)
     pflat, vals = index_add_inputs(cb, gridops.map_local(cb, pw, origin), keep, origin)
     sums_lib = torch.zeros((10, P), dtype=torch.float32, device=dev)
     k2_lib_ms = cuda_ms(lambda: sums_lib.index_add_(1, pflat, vals), 10)
     del pflat, vals, sums_lib
-    k5_on_ms, _ = graph_ms(lambda: kernels.moments_epilogue(cb, bins.sums, bins.hit, origin), 20)
+    k5_on_ms, _ = graph_ms(lambda: kernels.moments_epilogue(cb, bins.n, bins.rest, bins.hit, origin), 20)
     log(f"timing bin_points on {N} merged points: launch alone {k2_ms:.4f} ms, wrapper {k2_wrapper_ms:.4f} ms; "
         f"plain {k2_plain_ms:.4f} ms; index_add_ of the ten sums (hit, min_height and the fills left out) "
         f"{k2_lib_ms:.4f} ms; bound {k2_bound_ms:.4f} ms (bytes {1e3 * k2_bytes / HBM_BYTES_PER_S:.4f} ms); one "
@@ -2998,12 +3025,12 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
         f"moments_epilogue with the mask on, same sums: launch alone {k5_on_ms:.4f} ms")
     # K2 then K5, as the batched step launches them, against a bound that no design moves
     pair = pair_row("K2 then K5 (mask off)",
-                    lambda: kernels.moments_epilogue(cb, *binned(cb, pw, keep, origin), origin,
+                    lambda: kernels.moments_epilogue(cb, *binned(cb, pw, keep, origin, kept), origin,
                                                      occupancy_mask=False),
                     20, N, n_kept, V, k5_terms, log)
     res.update(merged=dict(points=N, points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win,
                            scratch_nonempty=n_nz, nonempty_voxels=k5_nz, box_terms=k5_terms,
-                           max_voxel_count=int(bins.sums[0].max()),
+                           max_voxel_count=int(bins.n.max()),
                            bin_points_ms=k2_ms, bin_points_wrapper_ms=k2_wrapper_ms,
                            bin_points_plain_ms=k2_plain_ms, bin_points_bound_ms=k2_bound_ms,
                            bin_points_index_add_ms=k2_lib_ms,

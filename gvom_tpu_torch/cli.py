@@ -161,15 +161,15 @@ def _selftest_checks(cfg, scan, ego_np, Ys, checks):
         exact(f"K2{tag} min_height", kb.min_height, pb.min_height)
         keep_max(f"bin_points{tag}_max_abs_err", sums_close(f"K2{tag}", kb.sums, pb.sums))
         for mask in (True, False):
-            km = kernels.moments_epilogue(cfg, kb.sums, kb.hit, origin, yw, mask)
-            pm = moments.moments_epilogue_plain(cfg, kb.sums, kb.hit, origin, yw, mask)
+            km = kernels.moments_epilogue(cfg, kb.n, kb.rest, kb.hit, origin, yw, mask)
+            pm = moments.moments_epilogue_plain(cfg, kb.n, kb.rest, kb.hit, origin, yw, mask)
             keep_max(f"moments_epilogue{tag}_max_abs_err", moments_close(f"K5{tag} mask={mask}", km, pm))
         if yw is None:
             slot = torch.zeros((1,), dtype=torch.int32, device=dev)
             ko = torch.zeros((1, 10, X, Y, Z), dtype=torch.float32, device=dev)
             po = torch.zeros_like(ko)
-            kernels.ingest_epilogue(cfg, kb.sums, kb.hit, origin, ko, slot)
-            moments.ingest_epilogue_plain(cfg, kb.sums, kb.hit, origin, po, slot)
+            kernels.ingest_epilogue(cfg, kb.n, kb.rest, kb.hit, origin, ko, slot)
+            moments.ingest_epilogue_plain(cfg, kb.n, kb.rest, kb.hit, origin, po, slot)
             keep_max("ingest_epilogue_max_abs_err", moments_close("K3", ko[0], po[0]))
 
 

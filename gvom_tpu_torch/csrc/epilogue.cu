@@ -14,9 +14,10 @@
 // parallel-axis update of gvom_tpu/ops/moments.py::translate_raw):
 //   S1'_a  = S1_a + t_a·n
 //   R2'_ab = R2_ab + t_a·S1_b + t_b·S1_a + t_a·t_b·n
-// The sums follow K2's contract (binning.cu): channels 1–9 of a source are
-// read only where its n > 0, by a branch, never through a multiply by zero,
-// since they may hold anything (NaN included) where n is 0.
+// The sums are K2's (binning.cu): n at `sums` [P], channels 1–9 at `rest`
+// [9, P], the caller's scratch. Channels 1–9 of a source are read only where
+// its n > 0, by a branch, never through a multiply by zero, so whatever they
+// hold where n is 0 (zero in K2's scratch, NaN in a test) reaches no output.
 //
 // What bounds it on the H100: bytes. Every voxel of the output is written
 // (10 f32 channels, 168 MB at 256×256×64, 0.050 ms at 3.35 TB/s); n is read
@@ -165,7 +166,8 @@ __device__ __forceinline__ void add_term(float (&acc)[10], const float (&v)[9], 
 
 template <bool MASK>
 __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
-    const float* __restrict__ sums,    // [10, Xp, Yp | Ys+4ry, Zp] own-voxel sums, padded window layout
+    const float* __restrict__ sums,    // [Xp, Yp | Ys+4ry, Zp] own-voxel n, padded window layout
+    const float* __restrict__ rest,    // [9, ...] channels 1-9 beside it
     const int* __restrict__ hit,       // [X, Ys, Z] torus (read only when MASK)
     const int* __restrict__ origin,    // [3]
     const int* __restrict__ slot,      // [1] or null
@@ -216,7 +218,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
         ey = r - ex * ly_len;
         return ex * SYa + ey;
     };
-    auto source = [&](int ex, int ey) { return sums + ((int64_t)ax.src(ex) * Ysc + ay.src(ey)) * Zp; };
+    auto source = [&](int ex, int ey) { return ((int64_t)ax.src(ex) * Ysc + ay.src(ey)) * Zp; };
 
     bool empty = false;
     if (MASK) {
@@ -241,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
         for (int r = warp; r < lx_len * ly_len; r += WARPS) {
             int ex, ey;
             float* srow = sh + column(r, ex, ey) * SZa;
-            const float* g = source(ex, ey);
+            const float* g = sums + source(ex, ey);
             for (int ez = lane; ez < lz_len; ez += 32) __pipeline_memcpy_async(srow + ez, g + az.src(ez), 4);
         }
         __pipeline_commit();
@@ -354,13 +356,13 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
             const int c = column(r, ex, ey);
             const uint64_t w = colbits[c];
             if (!w) continue;
-            const float* g = source(ex, ey);
+            const float* g = rest + source(ex, ey);
             for (int ez = lane; ez < lz_len; ez += 32) {
                 if (!(w >> ez & 1)) continue;
                 const int rank = colbase[c] + __popcll(w & ((1ull << ez) - 1));
                 const float* gz = g + az.src(ez);
 #pragma unroll
-                for (int ch = 0; ch < 9; ++ch) __pipeline_memcpy_async(chan + ch * CAP + rank, gz + (ch + 1) * P, 4);
+                for (int ch = 0; ch < 9; ++ch) __pipeline_memcpy_async(chan + ch * CAP + rank, gz + ch * P, 4);
             }
         }
         __pipeline_commit();
@@ -387,7 +389,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
                 if (!nz) continue;
                 int rank = colbase[scol] + __popcll(w & ((1ull << (ez - rz)) - 1));
                 const float* nrow = sh + scol * SZa + ez;
-                const float* srow = sums + ((int64_t)(cx + ox) * Ysc + (cy + oy)) * Zp + cz;
+                const float* srow = rest + ((int64_t)(cx + ox) * Ysc + (cy + oy)) * Zp + cz;
                 for (; nz; nz &= nz - 1, ++rank) {
                     const int oz = __ffs(nz) - 1 - rz;
                     const float n = nrow[oz];
@@ -397,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
                         for (int ch = 0; ch < 9; ++ch) v[ch] = chan[ch * CAP + rank];
                     } else {
 #pragma unroll
-                        for (int ch = 0; ch < 9; ++ch) v[ch] = srow[oz + (ch + 1) * P];
+                        for (int ch = 0; ch < 9; ++ch) v[ch] = srow[oz + ch * P];
                     }
                     add_term(acc, v, n, ox, oy, oz);
                 }
@@ -476,9 +478,11 @@ __device__ __forceinline__ void add_axis_term(float (&acc)[10], const float (&v)
 
 // Pass x or y (AXIS 0, 1): targets (a, u, k), a along the axis (A of
 // them), u across it (U), k the padded z (Zp); the input element at in +
-// (a + r)·a_in + u·u_in + k, the output at a·a_out + u·u_out + k.
+// (a + r)·a_in + u·u_in + k (n; channels 1-9 at the same place of in_rest),
+// the output at a·a_out + u·u_out + k.
 struct BoxPass {
     const float* in;
+    const float* in_rest;
     int64_t Pin, a_in, u_in;
     float* out;
     int64_t Pout, a_out, u_out;
@@ -505,6 +509,7 @@ __global__ void __launch_bounds__(THREADS) box_pass(BoxPass g)
     const int a0 = blockIdx.y * TA, k = blockIdx.x * TK + lane, u = blockIdx.z;
     const bool kin = lane < TK && k < g.Zp;
     const float* in = g.in + u * g.u_in + k;
+    const float* in_rest = g.in_rest + u * g.u_in + k;
     float* out = g.out + u * g.u_out + k;
     int any = 0;
     for (int l0 = warp; l0 < LA; l0 += 8 * LOADS) {
@@ -534,7 +539,7 @@ __global__ void __launch_bounds__(THREADS) box_pass(BoxPass g)
             const int l = l0 + 8 * q;
             const bool live = l < LA && lane < TK && sbox[l * SK + lane] > 0.0f;
 #pragma unroll
-            for (int c = 0; c < 9; ++c) v[q][c] = live ? __ldg(in + (a0 + l) * g.a_in + (c + 1) * g.Pin) : 0.0f;
+            for (int c = 0; c < 9; ++c) v[q][c] = live ? __ldg(in_rest + (a0 + l) * g.a_in + c * g.Pin) : 0.0f;
         }
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
@@ -668,9 +673,9 @@ __global__ void __launch_bounds__(THREADS) box_pass_z(
 // twin's: within the f32 summation bound of the twin's, not bitwise.
 template <bool MASK>
 __global__ void __launch_bounds__(THREADS) epilogue_direct_kernel(
-    const float* __restrict__ sums, const int* __restrict__ hit, const int* __restrict__ origin,
-    const int* __restrict__ slot, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys,
-    float* __restrict__ out)
+    const float* __restrict__ sums, const float* __restrict__ rest, const int* __restrict__ hit,
+    const int* __restrict__ origin, const int* __restrict__ slot, int X, int Y, int Z, int rx, int ry, int rz,
+    int ys0, int Ys, float* __restrict__ out)
 {
     const int64_t V = (int64_t)X * Ys * Z;
     const int64_t t = (int64_t)blockIdx.x * THREADS + threadIdx.x;
@@ -697,13 +702,13 @@ __global__ void __launch_bounds__(THREADS) epilogue_direct_kernel(
     if (!MASK || hit[t] > 0) {
         for (int ox = -rx; ox <= rx; ++ox) {
             for (int oy = -ry; oy <= ry; ++oy) {
-                const float* row = sums + ((int64_t)(cx + ox) * Ysc + (cy + oy)) * Zp + cz;
+                const int64_t row = ((int64_t)(cx + ox) * Ysc + (cy + oy)) * Zp + cz;
                 for (int oz = -rz; oz <= rz; ++oz) {
-                    const float n = __ldg(row + oz);
+                    const float n = __ldg(sums + row + oz);
                     if (n == 0.0f) continue;
                     float v[9];
 #pragma unroll
-                    for (int ch = 0; ch < 9; ++ch) v[ch] = __ldg(row + oz + (ch + 1) * P);
+                    for (int ch = 0; ch < 9; ++ch) v[ch] = __ldg(rest + row + oz + ch * P);
                     add_term(acc, v, n, ox, oy, oz);
                 }
             }
@@ -846,7 +851,7 @@ Route route(int X, int Y, int rx, int ry, int rz, int ys0, int Ys, int* rc)
 }
 
 template <bool MASK>
-int launch(const void* sums, const void* hit, const void* origin, const void* slot,
+int launch(const void* sums, const void* rest, const void* hit, const void* origin, const void* slot,
            int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, void* out, void* work, cudaStream_t st)
 {
     int rc = 0;
@@ -854,8 +859,8 @@ int launch(const void* sums, const void* hit, const void* origin, const void* sl
     if (rc) return rc;
     if (r == DIRECT) {
         epilogue_direct_kernel<MASK><<<(unsigned)(((int64_t)X * Ys * Z + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-            (const float*)sums, (const int*)hit, (const int*)origin, (const int*)slot, X, Y, Z, rx, ry, rz, ys0, Ys,
-            (float*)out);
+            (const float*)sums, (const float*)rest, (const int*)hit, (const int*)origin, (const int*)slot,
+            X, Y, Z, rx, ry, rz, ys0, Ys, (float*)out);
         return (int)cudaGetLastError();
     }
     if (r == SEPARABLE) {
@@ -865,9 +870,10 @@ int launch(const void* sums, const void* hit, const void* origin, const void* sl
         float* w2 = w1 + 10 * P1;
         const dim3 targets((unsigned)((Ys * Z + THREADS - 1) / THREADS), (unsigned)X);
         if (!work) return (int)cudaErrorInvalidValue;
-        BoxPass g{(const float*)sums, P0, (int64_t)Ysc * Zp, Zp, w1, P1, (int64_t)Ysc * Zp, Zp, X, Zp, rx, 0, 0};
+        BoxPass g{(const float*)sums, (const float*)rest, P0, (int64_t)Ysc * Zp, Zp, w1, P1, (int64_t)Ysc * Zp, Zp,
+                  X, Zp, rx, 0, 0};
         if ((rc = launch_pass<0>(g, Ysc, st))) return rc;
-        g = BoxPass{w1, P1, Zp, (int64_t)Ysc * Zp, w2, P2, Zp, (int64_t)Yw * Zp, Yw, Zp, ry, 0, 0};
+        g = BoxPass{w1, w1 + P1, P1, Zp, (int64_t)Ysc * Zp, w2, P2, Zp, (int64_t)Yw * Zp, Yw, Zp, ry, 0, 0};
         if ((rc = launch_pass<1>(g, X, st))) return rc;
         box_pass_z<MASK><<<targets, THREADS, 0, st>>>(w2, P2, (const int*)hit, (const int*)origin,
                                                       (const int*)slot, X, Y, Z, ry, rz, ys0, Ys, (float*)out);
@@ -888,21 +894,22 @@ int launch(const void* sums, const void* hit, const void* origin, const void* sl
     }
     const bool vec4 = Z % 4 == 0 && (uintptr_t)out % 16 == 0;
     epilogue_kernel<MASK><<<grid, THREADS, smem, st>>>(
-        (const float*)sums, (const int*)hit, (const int*)origin, (const int*)slot,
+        (const float*)sums, (const float*)rest, (const int*)hit, (const int*)origin, (const int*)slot,
         X, Y, Z, rx, ry, rz, ys0, Ys, vec4, (float*)out);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// n at sums, channels 1-9 at rest (the contract above)
 extern "C" int gvom_moments_epilogue(
-    const void* sums, const void* hit, const void* origin, const void* slot,
+    const void* sums, const void* rest, const void* hit, const void* origin, const void* slot,
     int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int mask,
     void* out, void* work, void* stream)
 {
     cudaStream_t st = (cudaStream_t)stream;
-    return mask ? launch<true>(sums, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st)
-                : launch<false>(sums, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st);
+    return mask ? launch<true>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st)
+                : launch<false>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st);
 }
 
 // The floats of workspace that gvom_moments_epilogue needs for this shape:

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops import kernels, maps2d
+from gvom_tpu_torch.ops import binning, kernels, maps2d
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.ops import raycast
 from gvom_tpu_torch.types import BufferState, MapProducts, VoxelGrid, WorldState
@@ -122,15 +122,18 @@ def ingest_and_insert(
     any channel is written: the cursor, or the write-off slot B. The slot
     index stays on the device; kernel K3 reads it there and writes the
     moments straight into buf.grids.mom[slot], and the other channels are
-    indexed copies into the same slot. Nothing here waits for the host."""
+    indexed copies into the same slot. Nothing here waits for the host.
+    K2's scratch (buf.moments) is made at the first call and kept."""
     ego = ego_position.float()
     p, keep, origin, scan_ok = _prepare(cfg, points, valid, ego, transform)
     slot = _target_slot(cfg, buf, scan_ok)
 
     passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
-    bins = kernels.bin_points(cfg, p, keep, origin)
+    if buf.moments is None:
+        buf.moments = binning.moment_scratch(cfg, p.device)
+    bins = kernels.bin_points(cfg, p, keep, origin, scratch=buf.moments)
     g = buf.grids
-    kernels.ingest_epilogue(cfg, bins.sums, bins.hit, origin, g.mom, slot)
+    kernels.ingest_epilogue(cfg, bins.n, bins.rest, bins.hit, origin, g.mom, slot)
     for stacked, leaf in ((g.hit, bins.hit), (g.miss, passes), (g.min_height, bins.min_height),
                           (g.origin, origin)):
         _write_slot(stacked, slot, leaf)

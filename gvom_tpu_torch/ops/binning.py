@@ -19,6 +19,11 @@ only the torus rows [ys0, ys0+Ys): hit and min_height are [X, Ys, Z], and
 the sums live in a scratch of Ys + 4·ry rows that keeps WINDOW coordinates
 (`slab_rows`), so memory scales with the slab and the box stays a window
 operation across the window seam.
+
+Channels 1-9 of the sums live in a `MomentScratch` that the caller keeps
+across calls (the batched step, the facade's ring buffer), as K2 keeps them
+(csrc/binning.cu); `bin_stats_plain` counts what K2's blocks do on a point
+set (empty blocks, table flushes, global atomics).
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ import torch
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import grid as gridops
 
-__all__ = ["PAIRS", "PointBins", "transform_points", "prepare_points", "prepare_plain", "bin_points", "moment_pad",
-           "padded_shape", "slab_rows", "scratch_pieces", "check_y_window", "is_slab", "sum_sq3"]
+__all__ = ["PAIRS", "PointBins", "MomentScratch", "moment_scratch", "transform_points",
+           "prepare_points", "prepare_plain", "bin_points", "bin_stats_plain", "moment_pad", "padded_shape",
+           "slab_rows", "scratch_pieces", "check_y_window", "is_slab", "sum_sq3"]
 
 # second-moment pairs, in MOMENT_CHANNELS order (xx, xy, xz, yy, yz, zz)
 PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
@@ -107,16 +113,40 @@ def scratch_pieces(cfg: GvomConfig, vox: torch.Tensor, keep: torch.Tensor, origi
 
 
 class PointBins(NamedTuple):
-    """One point set's bins. `sums` holds the own-voxel raw sums (n, S1,
-    R2) in the padded window layout, or a slab's scratch. Its count n
-    (channel 0) is defined everywhere; channels 1-9 are defined only where
-    n > 0, a slab's two pieces each on its own: kernel K2 leaves them unset
-    elsewhere, and every consumer (the epilogue, moments.box_aggregate_moments)
-    reads them only there. The plain twin writes zeros there."""
+    """One point set's bins. The own-voxel raw sums (n, S1, R2) are in the
+    padded window layout, or a slab's scratch: the count `n`, the call's own,
+    and channels 1-9 in `rest`, the caller's MomentScratch, which holds them
+    where n > 0 and zero elsewhere. Every consumer (the epilogue,
+    moments.box_aggregate_moments) reads them only where n > 0."""
 
     hit: torch.Tensor         # [X,Ys,Z] int32, torus layout
     min_height: torch.Tensor  # [X,Ys,Z] f32, torus layout (1.0 where no point)
-    sums: torch.Tensor        # [10, X+2rx, Y+2ry | Ys+4ry, Z+2rz] f32 — own-voxel raw sums, padded window layout
+    n: torch.Tensor           # [1, X+2rx, Y+2ry | Ys+4ry, Z+2rz] f32 — own-voxel point counts, padded window layout
+    rest: torch.Tensor        # [9, ...] f32 — channels 1-9 (S1, R2), the scratch's
+
+    @property
+    def sums(self) -> torch.Tensor:
+        """The ten channels as one [10, ...] tensor (a copy)."""
+        return torch.cat([self.n, self.rest])
+
+
+class MomentScratch(NamedTuple):
+    """Channels 1-9 of a caller's own-voxel sums, kept across its calls of
+    K2 (made once by moment_scratch): `rest` [9, Xp, Yp | Ys+4ry, Zp] f32
+    and `touched` [Xp, Yp | Ys+4ry, Zp] uint8, a byte a voxel of rest. Between calls rest is zero wherever
+    touched is 0. A call puts rest back to zero where the last call set
+    touched, adds its sums where its n > 0 and sets touched to 1 there.
+    Its calls run one after another, on one stream."""
+
+    rest: torch.Tensor
+    touched: torch.Tensor
+
+
+def moment_scratch(cfg: GvomConfig, device, y_window=None) -> MomentScratch:
+    """A zeroed MomentScratch for the sums scratch of this shape (padded_shape)."""
+    shape = padded_shape(cfg, y_window)
+    return MomentScratch(rest=torch.zeros((9,) + shape, dtype=torch.float32, device=device),
+                         touched=torch.zeros(shape, dtype=torch.uint8, device=device))
 
 
 def sum_sq3(v: torch.Tensor) -> torch.Tensor:
@@ -197,12 +227,13 @@ def prepare_plain(
 
 
 def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor,
-               y_window=None) -> PointBins:
+               y_window=None, scratch: Optional[MomentScratch] = None) -> PointBins:
     """Dense binning of a point set [N,3] in the world frame: the plain twin
     of kernel K2. The map-local voxel coordinates pn = points/res − origin
     are grid.map_local's. With y_window = (ys0, Ys) only the torus rows
     [ys0, ys0+Ys): hit and min_height [X, Ys, Z], the sums in the slab
-    scratch (slab_rows)."""
+    scratch (slab_rows). Channels 1-9 go into `scratch` (MomentScratch), a
+    fresh one where the caller keeps none."""
     pn = gridops.map_local(cfg, points, origin)
     dev = pn.device
     X, Y, Z = cfg.grid_shape
@@ -229,4 +260,58 @@ def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin
         vals = torch.stack([torch.ones_like(lk[:, 0]), lk[:, 0], lk[:, 1], lk[:, 2]]
                            + [lk[:, i] * lk[:, j] for i, j in PAIRS], dim=0)     # [10, n]
         sums.index_add_(1, pflat[sel].long(), vals)
-    return PointBins(hit=hit.view(X, Ys, Z), min_height=mh.view(X, Ys, Z), sums=sums.view(10, Xp, Ysc, Zp))
+    if scratch is None:
+        scratch = moment_scratch(cfg, dev, y_window)
+    rest = scratch.rest.view(9, -1)
+    rest[:, scratch.touched.view(-1) != 0] = 0.0
+    live = sums[0] > 0
+    rest[:, live] += sums[1:, live]
+    scratch.touched.view(-1).copy_(live)
+    return PointBins(hit=hit.view(X, Ys, Z), min_height=mh.view(X, Ys, Z), n=sums[:1].view(1, Xp, Ysc, Zp),
+                     rest=scratch.rest)
+
+
+def bin_stats_plain(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor,
+                    block: int = 256, scans: int = 1, n_scans: int = 1, y_window=None) -> dict:
+    """What K2's blocks do on a point set [S·N, 3] of n_scans scans of N
+    slots each (the batched step's, in scan order), when a block takes
+    `block` consecutive slots of `scans` consecutive scans (block 256,
+    scans 1: the kernel's): the slots and kept points; the blocks and the
+    empty ones (no point inside the padded window: they leave first); the
+    flushes (one a distinct voxel a block: torus voxels for hit and
+    min_height, window voxels for n and the nine sums); and the global
+    atomics (10 a window flush, 2 more where its voxel is in the grid; each
+    window flush also stores a byte of touched)."""
+    dev = points.device
+    total = points.shape[0]
+    if total % n_scans:
+        raise ValueError(f"{total} slots are not {n_scans} scans of equal length")
+    N = total // n_scans
+    X, Y, Z = cfg.grid_shape
+    ys0, Ys = check_y_window(cfg, y_window)
+    pn = gridops.map_local(cfg, points, origin)
+    vox = torch.floor(pn).to(torch.int32)
+    size = gridops.size_vector(cfg, dev)
+    vt = torch.remainder(vox + origin[None, :], size[None, :])
+    row = vt[:, 1] - ys0
+    tor = keep & gridops.in_bounds(cfg, vox) & (row >= 0) & (row < Ys)
+    tflat = (vt[:, 0].long() * Ys + row) * Z + vt[:, 2]
+    slot = torch.arange(total, device=dev)
+    per_scan = -(-N // block)
+    blk = (slot // N // scans) * per_scan + (slot % N) // block
+    n_blocks = -(-n_scans // scans) * per_scan
+
+    def flushes(sel, flat):
+        pairs = torch.unique(blk[sel] * (int(flat.max()) + 1 if sel.any() else 1) + flat[sel])
+        return int(pairs.numel())
+
+    tfl = flushes(tor, tflat)
+    wfl, voxels, inside = 0, 0, tor.clone()
+    for sel, pflat in scratch_pieces(cfg, vox, keep, origin, y_window):   # the pieces are apart in the scratch
+        wfl += flushes(sel, pflat.long())
+        voxels += int(torch.unique(pflat[sel]).numel())
+        inside |= sel
+    empty = n_blocks - int(torch.unique(blk[inside]).numel())
+    return dict(slots=total, kept=int(keep.sum()), blocks=n_blocks, empty_blocks=empty,
+                flushes=dict(torus=tfl, window=wfl), window_voxels=voxels,
+                atomics=2 * tfl + 10 * wfl)

@@ -46,7 +46,9 @@ launch (the batched step's dead-scan mask too). ray_pass_counts takes
 what the JAX function takes: world-frame points [S, N, 3], keep [S, N], one
 ego per scan [S, 3] and one origin; it builds the ray geometry itself and
 marches all S scans in one launch (S = 1 is one scan). bin_points takes
-world-frame points too and computes their map-local coordinates itself.
+world-frame points too and computes their map-local coordinates itself; it
+leaves channels 1-9 of the sums in a binning.MomentScratch that the caller
+keeps across calls, and ingest_epilogue and moments_epilogue read them there.
 ray_pass_counts, bin_points and moments_epilogue take y_window = (ys0, Ys),
 the slab forms: the same kernels restricted to the torus rows
 [ys0, ys0+Ys). A slab launch is counted by an entry of its own (RAY_SLAB,
@@ -208,8 +210,8 @@ class CudaKernel:
 
 _PK = "gvom_tpu/ops/pallas_kernels.py"
 _RAY_ARGS = ("raycast.cu", "gvom_ray_pass_counts", [_P] * 4 + [_F] * 2 + [_I] * 9 + [_P, _P])
-_BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_F] * 2 + [_I] * 9 + [_P] * 4)
-_EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 4 + [_I] * 9 + [_P] * 3)
+_BIN_ARGS = ("binning.cu", "gvom_bin_points", [_P] * 3 + [_F] * 2 + [_I] * 9 + [_P] * 6)
+_EPI_ARGS = ("epilogue.cu", "gvom_moments_epilogue", [_P] * 5 + [_I] * 9 + [_P] * 3)
 
 # the point preparation: no TPU kernel, the JAX package computes it in XLA
 PREP = CudaKernel("prepare_points", "prepare.cu", "gvom_prepare_points",
@@ -531,15 +533,18 @@ def ray_march_stats(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, e
 # K2
 
 
-def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor, y_window=None):
+def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor, y_window=None,
+               scratch: Optional[binning.MomentScratch] = None):
     """One point set's binning from its world-frame points [N,3] (the kernel
     computes the map-local coordinates): returns binning.PointBins (hit,
-    min_height torus [X,Ys,Z]; own-voxel sums padded [10, Xp, Yp, Zp], or
-    the slab scratch [10, Xp, Ys+4ry, Zp] with y_window = (ys0, Ys), see
-    binning.slab_rows). The sums' channels 1-9 are defined only where n > 0
-    (PointBins)."""
+    min_height torus [X,Ys,Z]; own-voxel n padded [1, Xp, Yp, Zp], or the
+    slab scratch [1, Xp, Ys+4ry, Zp] with y_window = (ys0, Ys), see
+    binning.slab_rows; channels 1-9 in the scratch's rest, zero where n is
+    0). `scratch` (binning.moment_scratch of this shape) is kept across the
+    caller's calls, which run in order on one stream; without one, a fresh
+    one is made with zeros."""
     if _is_cpu(points):
-        return binning.bin_points(cfg, points, keep, origin, y_window)
+        return binning.bin_points(cfg, points, keep, origin, y_window, scratch)
     dev = points.device
     n = points.shape[0]
     _check("points", points, torch.float32, (n, 3), dev)
@@ -548,38 +553,46 @@ def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
     ys0, Ys = binning.check_y_window(cfg, y_window)
-    # the kernel sets hit, min_height and n; channels 1-9 where n > 0
+    shape = binning.padded_shape(cfg, y_window)
+    if scratch is None:
+        scratch = binning.moment_scratch(cfg, dev, y_window)
+    _check("scratch rest", scratch.rest, torch.float32, (9,) + shape, dev)
+    _check("scratch touched", scratch.touched, torch.uint8, shape, dev)
+    # the kernel sets hit, min_height and n, and channels 1-9 in the scratch
     hit = torch.empty((X, Ys, Z), dtype=torch.int32, device=dev)
     minh = torch.empty((X, Ys, Z), dtype=torch.float32, device=dev)
-    sums = torch.empty((10,) + binning.padded_shape(cfg, y_window), dtype=torch.float32, device=dev)
+    cnt = torch.empty((1,) + shape, dtype=torch.float32, device=dev)
     inv = gridops.inv_resolution_vector(cfg, "cpu")
     (BIN_SLAB if binning.is_slab(cfg, y_window) else BIN).launch(
         _ptr(points), _ptr(keep), _ptr(origin), float(inv[0]), float(inv[2]), n, X, Y, Z, rx, ry, rz, ys0, Ys,
-        _ptr(hit), _ptr(minh), _ptr(sums), _stream())
-    return binning.PointBins(hit=hit, min_height=minh, sums=sums)
+        _ptr(hit), _ptr(minh), _ptr(cnt), _ptr(scratch.rest), _ptr(scratch.touched), _stream())
+    return binning.PointBins(hit=hit, min_height=minh, n=cnt, rest=scratch.rest)
 
 
 # ----------------------------------------------------------------------
 # K3
 
 
-def ingest_epilogue(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
+def ingest_epilogue(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
                     out: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """Box-aggregate, crop and occupancy-mask one scan's moments and write
-    them into out[slot] ([S, 10, X, Y, Z], torus); slot is a device int32
-    tensor of one element. Returns out."""
-    if _is_cpu(sums):
-        return moments.ingest_epilogue_plain(cfg, sums, hit, origin, out, slot)
-    dev = sums.device
+    """Box-aggregate, crop and occupancy-mask one scan's moments (K2's
+    sums: n and channels 1-9, binning.PointBins) and write them into
+    out[slot] ([S, 10, X, Y, Z], torus); slot is a device int32 tensor of
+    one element. Returns out."""
+    if _is_cpu(n):
+        return moments.ingest_epilogue_plain(cfg, n, rest, hit, origin, out, slot)
+    dev = n.device
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
-    _check("sums", sums, torch.float32, (10,) + binning.padded_shape(cfg), dev)
+    shape = binning.padded_shape(cfg)
+    _check("n", n, torch.float32, (1,) + shape, dev)
+    _check("rest", rest, torch.float32, (9,) + shape, dev)
     _check("hit", hit, torch.int32, (X, Y, Z), dev)
     _check("origin", origin, torch.int32, (3,), dev)
     _check("out", out, torch.float32, (out.shape[0], 10, X, Y, Z), dev)
     _check("slot", slot.reshape(1), torch.int32, (1,), dev)
     work = _epilogue_workspace(EPI, X, Y, Z, rx, ry, rz, 0, Y, True, dev)
-    EPI.launch(_ptr(sums), _ptr(hit), _ptr(origin), _ptr(slot), X, Y, Z, rx, ry, rz, 0, Y, 1,
+    EPI.launch(_ptr(n), _ptr(rest), _ptr(hit), _ptr(origin), _ptr(slot), X, Y, Z, rx, ry, rz, 0, Y, 1,
                _ptr(out), work if work is None else _ptr(work), _stream())
     return out
 
@@ -595,6 +608,7 @@ def _epilogue_workspace(k: CudaKernel, X: int, Y: int, Z: int, rx: int, ry: int,
     launch is enqueued; the allocator reuses it only in this stream's order."""
     key = (id(k), X, Y, Z, rx, ry, rz, ys0, Ys, mask)
     if key not in _EPI_WORK:
+        k.fn()   # the library built before it is opened
         fn = getattr(ctypes.CDLL(str(k.library())), "gvom_moments_epilogue_workspace")
         fn.argtypes, fn.restype = [_I] * 9, ctypes.c_int64
         n = fn(*key[1:9], int(mask))
@@ -619,6 +633,7 @@ def epilogue_route(cfg: GvomConfig, y_window=None, occupancy_mask: bool = True) 
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
     ys0, Ys = binning.check_y_window(cfg, y_window)
+    XBOX.fn()   # the library built before it is opened
     fn = getattr(ctypes.CDLL(str(XBOX.library())), "gvom_moments_epilogue_route")
     fn.argtypes, fn.restype = [_I] * 9, _I
     rc = fn(X, Y, Z, rx, ry, rz, ys0, Ys, int(occupancy_mask))
@@ -631,25 +646,28 @@ def epilogue_route(cfg: GvomConfig, y_window=None, occupancy_mask: bool = True) 
 # K5
 
 
-def moments_epilogue(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
+def moments_epilogue(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
                      y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
-    """Box-aggregate and crop a point set's own-voxel sums into a fresh
+    """Box-aggregate and crop a point set's own-voxel sums (K2's: n
+    [1, ...] and channels 1-9 [9, ...], binning.PointBins) into a fresh
     [10, X, Ys, Z] torus tensor. With occupancy_mask the moments are zero
     where `hit` is 0; without it the box is taken at every voxel. With
-    y_window = (ys0, Ys), `sums` is the slab scratch and `hit` the slab."""
-    if _is_cpu(sums):
-        return moments.moments_epilogue_plain(cfg, sums, hit, origin, y_window, occupancy_mask)
-    dev = sums.device
+    y_window = (ys0, Ys), the sums are the slab scratch and `hit` the slab."""
+    if _is_cpu(n):
+        return moments.moments_epilogue_plain(cfg, n, rest, hit, origin, y_window, occupancy_mask)
+    dev = n.device
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
     ys0, Ys = binning.check_y_window(cfg, y_window)
-    _check("sums", sums, torch.float32, (10,) + binning.padded_shape(cfg, y_window), dev)
+    shape = binning.padded_shape(cfg, y_window)
+    _check("n", n, torch.float32, (1,) + shape, dev)
+    _check("rest", rest, torch.float32, (9,) + shape, dev)
     _check("hit", hit, torch.int32, (X, Ys, Z), dev)
     _check("origin", origin, torch.int32, (3,), dev)
     out = torch.empty((10, X, Ys, Z), dtype=torch.float32, device=dev)
     k = XBOX_SLAB if binning.is_slab(cfg, y_window) else XBOX
     work = _epilogue_workspace(k, X, Y, Z, rx, ry, rz, ys0, Ys, occupancy_mask, dev)
-    k.launch(_ptr(sums), _ptr(hit), _ptr(origin), None, X, Y, Z, rx, ry, rz, ys0, Ys,
+    k.launch(_ptr(n), _ptr(rest), _ptr(hit), _ptr(origin), None, X, Y, Z, rx, ry, rz, ys0, Ys,
              int(occupancy_mask), _ptr(out), work if work is None else _ptr(work), _stream())
     return out
 
@@ -662,7 +680,7 @@ def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ori
     if _is_cpu(points):
         return moments.point_moments(cfg, points, keep, origin, y_window, occupancy_mask)
     bins = bin_points(cfg, points, keep, origin, y_window)
-    mom = moments_epilogue(cfg, bins.sums, bins.hit, origin, y_window, occupancy_mask)
+    mom = moments_epilogue(cfg, bins.n, bins.rest, bins.hit, origin, y_window, occupancy_mask)
     return bins.hit, bins.min_height, mom
 
 

@@ -105,12 +105,14 @@ def box_aggregate_moments(cfg: GvomConfig, sums: torch.Tensor, y_rows=None) -> t
     return mom[:, rx:rx + X, ry:ry + Y, rz:rz + Z]
 
 
-def moments_epilogue_plain(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
-                           y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
-    """Plain twin of K5: box-aggregate the padded sums, crop, move them into
-    the torus layout and, with occupancy_mask, zero them where `hit` is 0.
+def moments_epilogue_plain(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor,
+                           origin: torch.Tensor, y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
+    """Plain twin of K5: box-aggregate the padded sums (n [1, ...] and
+    channels 1-9 [9, ...], binning.PointBins), crop, move them into the
+    torus layout and, with occupancy_mask, zero them where `hit` is 0.
     Returns a fresh [10, X, Ys, Z] tensor. With y_window the sums are the
     slab scratch and the result holds the torus rows [ys0, ys0+Ys)."""
+    sums = torch.cat([n, rest])
     if not binning.is_slab(cfg, y_window):
         mom = gridops.window_to_torus(box_aggregate_moments(cfg, sums), origin)
     else:
@@ -126,14 +128,14 @@ def moments_epilogue_plain(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tenso
     return mom
 
 
-def ingest_epilogue_plain(cfg: GvomConfig, sums: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
-                          out: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+def ingest_epilogue_plain(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor,
+                          origin: torch.Tensor, out: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """Plain twin of K3: box-aggregate the padded sums, move them into the
     torus layout, zero them where the scan has no hit (the occupancy
     pre-mask: consumers read moments only under hit > 0), and write the
     result into out[slot] ([S, 10, X, Y, Z]; slot is a device int tensor).
     Returns out."""
-    out.index_copy_(0, slot.reshape(1).long(), moments_epilogue_plain(cfg, sums, hit, origin)[None])
+    out.index_copy_(0, slot.reshape(1).long(), moments_epilogue_plain(cfg, n, rest, hit, origin)[None])
     return out
 
 
@@ -145,7 +147,7 @@ def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, ori
     fused_point_moments. occupancy_mask=False returns the moments raw (the
     batched step masks by the whole batch's occupancy later)."""
     bins = binning.bin_points(cfg, points, keep, origin, y_window)
-    mom = moments_epilogue_plain(cfg, bins.sums, bins.hit, origin, y_window, occupancy_mask)
+    mom = moments_epilogue_plain(cfg, bins.n, bins.rest, bins.hit, origin, y_window, occupancy_mask)
     return bins.hit, bins.min_height, mom
 
 

@@ -32,7 +32,9 @@ Per step and rank: the point preparation once for the rank's scans (the
 transform-free world points, keep with the dead scans masked out, the
 common origin); kernel K1 once for the rank's scans (each scan's rays
 from its own ego, all adding into one miss grid); kernels K2 and K5 once on
-the merged points of the rank's scans, the moments raw (no occupancy mask);
+the merged points of the rank's scans, the moments raw (no occupancy mask),
+channels 1-9 of K2's sums in a scratch that the step keeps across its
+calls (binning.MomentScratch);
 then the merge kernel (the merge with the old world and the column maps,
 csrc/merge.cu), the plane fit (which moves the column maps to the window
 layout as it loads them) and the guess height (which writes the obstacle
@@ -50,7 +52,7 @@ from typing import Callable, Tuple
 import torch
 
 from gvom_tpu_torch.config import GvomConfig
-from gvom_tpu_torch.ops import kernels, maps2d
+from gvom_tpu_torch.ops import binning, kernels, maps2d
 from gvom_tpu_torch.ops import grid as gridops
 from gvom_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, Mesh
 from gvom_tpu_torch.types import MapProducts, VoxelGrid, WorldState
@@ -207,7 +209,11 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
     egos can sit anywhere in the grid, and the centered-ego DDA budget
     (config.ray_steps) would cut their long rays short. The budget is raised
     to the any-in-grid bound unless the caller pinned one; the raycast ends
-    each ray where it dies, so the wider bound admits only live steps."""
+    each ray where it dies, so the wider bound admits only live steps.
+
+    The step keeps K2's moment scratch (binning.MomentScratch, made at its
+    first call) across its calls, so its calls must run one after another
+    on one stream, as the world each returns already orders them."""
     if mesh is None:
         mesh = Mesh.single(device)
     elif torch.device(device).type != mesh.device.type:
@@ -228,6 +234,7 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
 
     seq = itertools.count()
     multi = mesh.size > 1
+    scratch = []
 
     def step(world: WorldState, scans: torch.Tensor, valid: torch.Tensor,
              egos: torch.Tensor) -> Tuple[WorldState, MapProducts]:
@@ -259,7 +266,13 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
         # (binning and moments are ego-free and additive over points). The
         # moments come back raw; the batch's occupancy masks them in the merge ----
         with annotate("step/moments"):
-            hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, y_window=ywin, occupancy_mask=False)
+            if not scratch:
+                scratch.append(binning.moment_scratch(cfg, dev, ywin))
+            bins = kernels.bin_points(cfg, pw, keep, origin, y_window=ywin, scratch=scratch[0])
+            del pw, keep    # dead: keep's bytes are free again before K5 and the merge allocate
+            hit, minh = bins.hit, bins.min_height
+            mom = kernels.moments_epilogue(cfg, bins.n, bins.rest, hit, origin, ywin, occupancy_mask=False)
+            del bins
 
         # ---- the rank's contributions reduced into its slab ----
         with annotate("step/reduce") if multi else contextlib.nullcontext():

@@ -20,6 +20,7 @@ reference metrics[9]), S1 = sum of (p - v), R2 = sum of (p - v)(p - v)^T.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -98,12 +99,15 @@ class BufferState:
 
     `grids` leaves have a leading dim B+1: slot B is the write-off slot that
     absorbs degenerate scans (never read), so the insert is an unconditional
-    write into a slot index computed on the device."""
+    write into a slot index computed on the device. `moments` is kernel
+    K2's scratch of channels 1-9 (ops/binning.MomentScratch), which the
+    ingests keep across scans; the first ingest makes it."""
 
     grids: VoxelGrid
     slot_valid: torch.Tensor  # [B] bool
     cursor: torch.Tensor      # [] int32 — next insertion slot
     last_slot: torch.Tensor   # [] int32 — most recent scan (its origin is the combined origin)
+    moments: Optional[Any] = None   # binning.MomentScratch, or None before the first ingest
 
 
 @dataclasses.dataclass

@@ -90,7 +90,7 @@ def main() -> int:
             fns[name] = f
 
         def call(f, masked):
-            rc = f(kernels._ptr(sums), kernels._ptr(bins.hit), kernels._ptr(origin), None,
+            rc = f(kernels._ptr(sums), kernels._ptr(sums[1]), kernels._ptr(bins.hit), kernels._ptr(origin), None,
                    X, Y, Z, rx, ry, rz, 0, Y, masked, kernels._ptr(out), None, kernels._stream())
             assert rc == 0, rc
 

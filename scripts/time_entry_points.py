@@ -47,9 +47,12 @@ repeated to 32 with moving egos; --batch-cache keeps its points in a file,
 written when it is missing.
 
 These signatures are the same since the slab forms came in, whatever each
-commit builds inside them, but for K2's points: a commit with
+commit builds inside them, but for K2's points and sums: a commit with
 kernels.prepare_points gives K2 world-frame points, an older one the
-map-local coordinates (grid.map_local). Prints one JSON line, then the
+map-local coordinates (grid.map_local); a commit with
+binning.moment_scratch keeps channels 1-9 of K2's sums in a scratch kept
+across the calls of one shape, and its epilogues take n and that scratch's
+channels, an older one's the ten channels in one tensor. Prints one JSON line, then the
 card's name and power limit.
 """
 
@@ -275,31 +278,48 @@ def main(argv=None) -> int:
     # K2's input: world-frame points, or an older commit's map-local coordinates
     pn = p if world_k2 else gridops.map_local(cfg, p, origin)
     bpn = bpw if world_k2 else gridops.map_local(cfg, bpw, borigin)
-    scan_bins = kernels.bin_points(cfg, pn, keep, origin)
-    slab_bins = kernels.bin_points(cfg, pn, keep, origin, yw)
-    batch_bins = kernels.bin_points(cfg, bpn, bkeep, borigin)
+    # a commit whose K2 keeps channels 1-9 in a scratch of the caller's (binning.MomentScratch) gets one
+    # kept scratch a shape, as its batched step and ring buffer keep one; an older one its fresh [10, P] sums
+    kept_scratch = hasattr(binning, "moment_scratch")
+    scratches = {}
+
+    def k2(q, k, o, w=None):
+        if not kept_scratch:
+            return kernels.bin_points(cfg, q, k, o, w)
+        key = (id(q), w)
+        if key not in scratches:
+            scratches[key] = binning.moment_scratch(cfg, dev, w)
+        return kernels.bin_points(cfg, q, k, o, w, scratches[key])
+
+    def sums(b):
+        """An epilogue's sums arguments, by the commit's signature."""
+        return (b.n, b.rest) if kept_scratch else (b.sums,)
+
+    scan_bins = k2(pn, keep, origin)
+    slab_bins = k2(pn, keep, origin, yw)
+    batch_bins = k2(bpn, bkeep, borigin)
     ring = torch.empty((2, 10, X, Y, Z), dtype=torch.float32, device=dev)
     slot = torch.ones((1,), dtype=torch.int32, device=dev)
     p1, k1, e1 = p[None], keep[None], ego.reshape(1, 3)
 
     def k2_k3():
-        b = kernels.bin_points(cfg, pn, keep, origin)
-        kernels.ingest_epilogue(cfg, b.sums, b.hit, origin, ring, slot)
+        b = k2(pn, keep, origin)
+        kernels.ingest_epilogue(cfg, *sums(b), b.hit, origin, ring, slot)
 
     def k2_k5():
-        b = kernels.bin_points(cfg, bpn, bkeep, borigin)
-        return kernels.moments_epilogue(cfg, b.sums, b.hit, borigin, occupancy_mask=False)
+        b = k2(bpn, bkeep, borigin)
+        return kernels.moments_epilogue(cfg, *sums(b), b.hit, borigin, occupancy_mask=False)
 
     launches = {
         "K1_scan": lambda: kernels.ray_pass_counts(cfg, p1, k1, e1, origin),
         "K1_slab": lambda: kernels.ray_pass_counts(cfg, p1, k1, e1, origin, y_window=yw),
-        "K2_scan": lambda: kernels.bin_points(cfg, pn, keep, origin),
-        "K2_slab": lambda: kernels.bin_points(cfg, pn, keep, origin, yw),
-        "K2_batch": lambda: kernels.bin_points(cfg, bpn, bkeep, borigin),
-        "K3_scan": lambda: kernels.ingest_epilogue(cfg, scan_bins.sums, scan_bins.hit, origin, ring, slot),
-        "K5_batch_mask_off": lambda: kernels.moments_epilogue(cfg, batch_bins.sums, batch_bins.hit, borigin,
+        "K2_scan": lambda: k2(pn, keep, origin),
+        "K2_slab": lambda: k2(pn, keep, origin, yw),
+        "K2_batch": lambda: k2(bpn, bkeep, borigin),
+        "K3_scan": lambda: kernels.ingest_epilogue(cfg, *sums(scan_bins), scan_bins.hit, origin, ring, slot),
+        "K5_batch_mask_off": lambda: kernels.moments_epilogue(cfg, *sums(batch_bins), batch_bins.hit, borigin,
                                                               occupancy_mask=False),
-        "K5_slab_mask_on": lambda: kernels.moments_epilogue(cfg, slab_bins.sums, slab_bins.hit, origin, yw),
+        "K5_slab_mask_on": lambda: kernels.moments_epilogue(cfg, *sums(slab_bins), slab_bins.hit, origin, yw),
         "K2_then_K3_scan": k2_k3,
         "K2_then_K5_batch": k2_k5,
         "K4_combine": k4_launch,

@@ -21,7 +21,8 @@ each form, this tree's and the parent's:
     at eigen (xy, z) = (1, 9), (8, 1), (5, 8), mask off and mask on, on the
     full grid and on the quarter slab that holds the window seam, with the
     kernel that takes each (kernels.epilogue_route); a source without the
-    workspace argument is called by its own signature;
+    workspace argument, or without the `rest` pointer of channels 1-9, is
+    called by its own signature;
   * the epilogue with the mask on at the boxes of THRESHOLD_BOXES, full
     grid, built twice: with every such box on the direct kernel and with
     every box on the separable passes (BOX_DIRECT_MAX set to 2^30 and 0),
@@ -180,7 +181,11 @@ def main() -> int:
     parents = {k.name: parent_build(kernels, k, args.parent)
                for k in (kernels.XBOX, kernels.CMB, kernels.MERGE, kernels.PLANEFIT)}
     pepi, pcmb, pmerge, ppf = parents.values()
-    old_signature = "void* work" not in pepi.source.read_text()
+    parent_text = pepi.source.read_text()
+    old_signature = "void* work" not in parent_text
+    rest_apart = "const void* rest" in parent_text
+    if not rest_apart:
+        pepi.argtypes = pepi.argtypes[:1] + pepi.argtypes[2:]
     if old_signature:
         pepi.argtypes = pepi.argtypes[:-2] + pepi.argtypes[-1:]
     forced = {"direct": variant_build(kernels, kernels.XBOX, "epilogue_direct_all",
@@ -224,14 +229,16 @@ def main() -> int:
         yw = ((int(origin[1]) % Y) // Ys * Ys, Ys)
         for where, window in (("full", None), (f"slab {yw}", yw)):
             bins = kernels.bin_points(c, p[0], keep[0], origin, window)
+            ten = None if rest_apart else bins.sums    # a parent's epilogue reads the ten channels in one tensor
             ys0, ys = binning.check_y_window(c, window)
             for mask in (False, True):
                 what = f"eigen ({xye}, {ze}) {where} mask {'on' if mask else 'off'}"
                 route = kernels.epilogue_route(c, window, mask)
 
-                def parent_run(bins=bins, ys0=ys0, ys=ys, mask=mask):
+                def parent_run(bins=bins, ten=ten, ys0=ys0, ys=ys, mask=mask):
                     out = torch.empty((10, X, ys, Z), dtype=torch.float32, device=dev)
-                    a = [kernels._ptr(bins.sums), kernels._ptr(bins.hit), kernels._ptr(origin), None,
+                    a = [*((kernels._ptr(bins.n), kernels._ptr(bins.rest)) if rest_apart else (kernels._ptr(ten),)),
+                         kernels._ptr(bins.hit), kernels._ptr(origin), None,
                          X, Y, Z, rx, ry, rz, ys0, ys, int(mask), kernels._ptr(out)]
                     if not old_signature:
                         work = kernels._epilogue_workspace(pepi, X, Y, Z, rx, ry, rz, ys0, ys, mask, dev)
@@ -240,22 +247,22 @@ def main() -> int:
                     return out
 
                 def this_run(b=bins, w=window, m=mask):
-                    return kernels.moments_epilogue(c, b.sums, b.hit, origin, w, m)
+                    return kernels.moments_epilogue(c, b.n, b.rest, b.hit, origin, w, m)
 
                 diff = float((parent_run() - this_run()).abs().max())
                 t = turns({"parent": parent_run, "this": this_run}, ("parent", "this", "this", "parent"), 20)
                 res["epilogue"][what] = dict(t, route=route, parent_max_abs_diff=diff)
                 print(f"epilogue {what} ({route}): " + ", ".join(f"{b} {v} ms" for b, v in t.items()), flush=True)
-            del bins
+            del bins, ten
         torch.cuda.empty_cache()
 
     for xye, ze in THRESHOLD_BOXES:
         c = dataclasses.replace(cfg, xy_eigen_dist=xye, z_eigen_dist=ze)
         p, keep, origin, _ = kernels.prepare_points(c, pts[None], valid[None], ego[None], frame_ego=ego)
         bins = kernels.bin_points(c, p[0], keep[0], origin)
-        fns = {name: swapped(kernels, "XBOX", k, lambda: kernels.moments_epilogue(c, bins.sums, bins.hit, origin))
+        fns = {name: swapped(kernels, "XBOX", k, lambda: kernels.moments_epilogue(c, bins.n, bins.rest, bins.hit, origin))
                for name, k in forced.items()}
-        plain = moments.moments_epilogue_plain(c, bins.sums, bins.hit, origin)
+        plain = moments.moments_epilogue_plain(c, bins.n, bins.rest, bins.hit, origin)
         bitwise(f"the separable passes at eigen ({xye}, {ze}) mask on", fns["passes"](), plain)
         got = fns["direct"]()
         bitwise(f"the direct kernel's n at eigen ({xye}, {ze}) mask on", got[0], plain[0])

@@ -138,7 +138,7 @@ def test_ingest_scan_with_transform_matches_jax(small_cfg, rotation):
 
 @pytest.mark.parametrize("form", ["ingest", "mask_on", "mask_off", "slab_mask_on", "slab_mask_off"])
 def test_epilogue_twins_read_the_sums_only_where_n_is_positive(form):
-    """Kernel K2 defines channels 1-9 of its sums scratch only where n > 0
+    """The epilogues read channels 1-9 of K2's sums only where n > 0
     (binning.PointBins): the plain epilogue twins (K3's, K5's with the mask on
     and off, the slab's) give the same, finite output when those channels
     hold NaN everywhere else."""
@@ -151,16 +151,17 @@ def test_epilogue_twins_read_the_sums_only_where_n_is_positive(form):
     points, origin = t(((pn + o) * res).astype(np.float32)), t(o)
     y_window = (16, 16) if form.startswith("slab") else None
     bins = tbinning.bin_points(c, points, keep, origin, y_window)
-    poisoned = bins.sums.clone()
-    poisoned[1:, bins.sums[0] == 0] = float("nan")
+    poisoned = bins.rest.clone()
+    poisoned[:, bins.n[0] == 0] = float("nan")
     if form == "ingest":
-        def run(sums):
+        def run(rest):
             out = torch.zeros((2, 10) + c.grid_shape)
-            return tmoments.ingest_epilogue_plain(c, sums, bins.hit, origin, out, t(np.array([1], np.int32)))
+            return tmoments.ingest_epilogue_plain(c, bins.n, rest, bins.hit, origin, out, t(np.array([1], np.int32)))
     else:
-        def run(sums):
-            return tmoments.moments_epilogue_plain(c, sums, bins.hit, origin, y_window, form.endswith("mask_on"))
-    ref, got = run(bins.sums), run(poisoned)
+        def run(rest):
+            return tmoments.moments_epilogue_plain(c, bins.n, rest, bins.hit, origin, y_window,
+                                                   form.endswith("mask_on"))
+    ref, got = run(bins.rest), run(poisoned)
     assert bool(torch.isfinite(got).all())
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
     assert bool((ref[..., 1:4, :, :, :] != 0).any() if form == "ingest" else (ref[1:4] != 0).any())
