@@ -316,8 +316,11 @@ def nan_blind(name, fn, n, rest):
     gives bitwise what it gives on clean ones: it never reads them."""
     import torch
 
-    bad = torch.where(n > 0, rest, torch.full((), float("nan"), device=rest.device))
-    ref = fn(n, torch.where(n > 0, rest, torch.zeros((), device=rest.device))).clone()
+    from gvom_tpu_torch.ops import binning
+
+    chans = binning.rest_channels(rest, n.shape[1:])
+    bad = binning.rest_layout(torch.where(n > 0, chans, torch.full((), float("nan"), device=rest.device)))
+    ref = fn(n, binning.rest_layout(torch.where(n > 0, chans, torch.zeros((), device=rest.device)))).clone()
     got = fn(n, bad)
     check(bool(torch.isfinite(got).all()), f"{name}: not finite on NaN-poisoned sums")
     exact(f"{name} on NaN-poisoned sums vs clean sums", got, ref)
@@ -1332,11 +1335,12 @@ def box_reference(cfg, sums, hit, origin, y_window, mask):
     rx, ry, rz = binning.moment_pad(cfg)
     m = (2 * rx + 1) * (2 * ry + 1) * (2 * rz + 1)
     s64 = clean_sums(sums).double()
-    ref = moments.moments_epilogue_plain(cfg, s64[:1], s64[1:], hit, origin, y_window, mask)
+    ref = moments.moments_epilogue_plain(cfg, s64[:1], binning.rest_layout(s64[1:]), hit, origin, y_window, mask)
     translate = moments.translate_raw
     moments.translate_raw = lambda n, s1, s2, axis, t: translate(n, s1, s2, axis, abs(t))
     try:
-        size = moments.moments_epilogue_plain(cfg, s64[:1], s64[1:].abs(), hit, origin, y_window, mask)
+        size = moments.moments_epilogue_plain(cfg, s64[:1], binning.rest_layout(s64[1:].abs()), hit, origin,
+                                              y_window, mask)
     finally:
         moments.translate_raw = translate
     return ref, (m + 8) * 2.0 ** -24 * size
@@ -1572,7 +1576,8 @@ def phase1_epilogue_direct_wide(cfg, dev, log):
     sums = kb.sums
     for mask in (False, True):
         s64 = clean_sums(sums).double()
-        want = moments.moments_epilogue_plain(c, s64[:1], s64[1:], kb.hit, origin, occupancy_mask=mask)
+        want = moments.moments_epilogue_plain(c, s64[:1], binning.rest_layout(s64[1:]), kb.hit, origin,
+                                              occupancy_mask=mask)
         got, _ = box_sparse(c, sums, kb.hit, origin, mask, torch.float64)
         scale, _ = box_sparse(c, sums, kb.hit, origin, mask, torch.float64, absolute=True)
         check(bool(((got - want).abs() <= 1e-12 * scale).all()), f"box_sparse off the plain version, mask {mask}")
@@ -2279,18 +2284,19 @@ def phase3_small_reference(cfg_full, scans_full, log):
 
 
 def atomic_rates(probe, dev, log):
-    """Scattered, uncontended global atomics per second on this card, int32
-    and float32 (csrc/atomic_rate.cu), into a buffer of ATOMIC_PROBE_WORDS
-    words."""
+    """Scattered, uncontended global atomics per second on this card, int32,
+    float32 and 16-byte float4 adds (csrc/atomic_rate.cu; a float4 op adds
+    to a group of four words), into a buffer of ATOMIC_PROBE_WORDS words."""
     import torch
 
     from gvom_tpu_torch.ops import kernels
 
     rates = {}
-    for name, dtype, is_float in (("int32", torch.int32, False), ("float32", torch.float32, True)):
+    for name, dtype, mode in (("int32", torch.int32, 0), ("float32", torch.float32, 1),
+                              ("float32x4", torch.float32, 2)):
         buf = torch.zeros(ATOMIC_PROBE_WORDS, dtype=dtype, device=dev)
         ms = cuda_ms(lambda: probe.launch(kernels._ptr(buf), ATOMIC_PROBE_WORDS.bit_length() - 1,
-                                          ATOMIC_PROBE_OPS, int(is_float), kernels._stream()), 5)
+                                          ATOMIC_PROBE_OPS, mode, kernels._stream()), 5)
         rates[name] = ATOMIC_PROBE_OPS / (1e-3 * ms)
         log(f"atomic rate probe {name}: {ATOMIC_PROBE_OPS} scattered atomics in {ms:.4f} ms, "
             f"{rates[name] / 1e9:.2f} G/s")
@@ -2372,10 +2378,12 @@ def k2_bound(n_points, n_kept, n_out, n_scratch, n_scratch_nz):
 
 
 def k2_atomic_floor_ms(n_grid, n_win, rates):
-    """One int32 atomic a point for hit and for min_height and ten float32
-    ones a point in the window, at the probe's uncontended rate: the floor of
-    a design that merges no adds (not a bound of the function)."""
-    return 1e3 * (2 * n_grid / rates["int32"] + 10 * n_win / rates["float32"])
+    """One int32 atomic a point for hit and for min_height and, a point in
+    the window, K2's four reductions of a flush (n and channel 9 as float32
+    adds, channels 1-8 as two 16-byte float4 adds), at the probe's
+    uncontended rates: the floor of a design that merges no adds (not a
+    bound of the function)."""
+    return 1e3 * (2 * n_grid / rates["int32"] + 2 * n_win / rates["float32"] + 2 * n_win / rates["float32x4"])
 
 
 def pair_bound(n_points, n_kept, n_out, terms):
@@ -2581,7 +2589,8 @@ def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
     _, timed = graph_ms(lambda: kernels.bin_points(cfg, p, keep, origin, scratch=ks), 10)
     exact("K2 timed launch vs the wrapper: hit", timed.hit, bins.hit)
     sums_close("K2 timed launch vs the wrapper", timed.sums, bins.sums)
-    check(not timed.rest[:, timed.n[0] == 0].any(), "K2 timed launches: channels 1-9 not zero where n is 0")
+    check(not binning.rest_channels(timed.rest, timed.n.shape[1:])[:, timed.n[0] == 0].any(),
+          "K2 timed launches: channels 1-9 not zero where n is 0")
     del timed, ps
     # K3: reads hit and writes the slot's ten channels everywhere; reads the
     # sums only inside the ±r box of an occupied voxel (epilogue_bound)
@@ -2969,7 +2978,8 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
         exact(f"{what}: hit", bins.hit, pb.hit)
         exact(f"{what}: min_height", bins.min_height, pb.min_height)
         e2 = sums_close(what, bins.sums, pb.sums, MOM_ATOL_BATCH)
-        check(not bins.rest[:, bins.n[0] == 0].any(), f"{what}: channels 1-9 not zero where n is 0")
+        check(not binning.rest_channels(bins.rest, bins.n.shape[1:])[:, bins.n[0] == 0].any(),
+              f"{what}: channels 1-9 not zero where n is 0")
         err["bin_points"] = max(err["bin_points"], e2)
         nz = pb.n[0] > 0
         log(f"{what} vs plain on a fresh scratch: hit, min_height and n bitwise, channels 1-9 zero where n is 0, "
@@ -3005,7 +3015,8 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     n_nz = int((bins.n > 0).sum())
     k2_ms, timed = graph_ms(lambda: kernels.bin_points(cb, pw, keep, origin, scratch=kept), 20)
     exact("K2 timed launches on the kept scratch vs the checked call: n", timed.n, bins.n)
-    check(not kept.rest[:, timed.n[0] == 0].any(), "K2 timed launches: channels 1-9 not zero where n is 0")
+    check(not binning.rest_channels(kept.rest, timed.n.shape[1:])[:, timed.n[0] == 0].any(),
+          "K2 timed launches: channels 1-9 not zero where n is 0")
     del timed
     k2_wrapper_ms = cuda_ms(lambda: kernels.bin_points(cb, pw, keep, origin, scratch=kept), 10)
     plain_kept = binning.moment_scratch(cb, dev)
@@ -3021,7 +3032,7 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     log(f"timing bin_points on {N} merged points: launch alone {k2_ms:.4f} ms, wrapper {k2_wrapper_ms:.4f} ms; "
         f"plain {k2_plain_ms:.4f} ms; index_add_ of the ten sums (hit, min_height and the fills left out) "
         f"{k2_lib_ms:.4f} ms; bound {k2_bound_ms:.4f} ms (bytes {1e3 * k2_bytes / HBM_BYTES_PER_S:.4f} ms); one "
-        f"atomic a point and channel at the probe's rate {k2_atomic_floor_ms(n_grid, n_win, rates):.4f} ms; "
+        f"flush's atomics a point at the probe's rates {k2_atomic_floor_ms(n_grid, n_win, rates):.4f} ms; "
         f"moments_epilogue with the mask on, same sums: launch alone {k5_on_ms:.4f} ms")
     # K2 then K5, as the batched step launches them, against a bound that no design moves
     pair = pair_row("K2 then K5 (mask off)",

@@ -20,12 +20,13 @@
 //     K3's and K5's work (epilogue.cu).
 //
 // Contract of the sums: n [P] is the call's own. Channels 1–9 live in
-// `rest` [9, P], which the caller keeps across calls (made once with zeros),
-// beside `touched`, a byte a voxel of rest. Between calls rest is zero
-// wherever touched is 0; a call's fill puts rest back to zero wherever
-// touched is set and clears touched, and the call sets touched at every
-// voxel it adds to, so after the call rest holds the call's sums where n > 0
-// and zero elsewhere. Every consumer (the epilogue, its plain twins) reads
+// `rest`, which the caller keeps across calls (made once with zeros), beside
+// `touched`, a byte a voxel of rest. Its layout: channels 1–8 voxel-major,
+// [P][8], 32 bytes a voxel (one sector), then channel 9 [P]. Between calls
+// rest is zero wherever touched is 0; a call's fill puts rest back to zero
+// wherever touched is set and clears touched, and the call sets touched at
+// every voxel it adds to, so after the call rest holds the call's sums where
+// n > 0 and zero elsewhere. Every consumer (the epilogue, its plain twins) reads
 // channels 1–9 only where n > 0.
 //
 // What bounds it on the H100. Not arithmetic (~30 f32 operations a point).
@@ -43,9 +44,10 @@
 // The design:
 //   * fill only what every consumer reads: one launch sets hit to 0,
 //     min_height to 1.0f and n to 0 (16-byte stores), and clears rest
-//     where touched is set (a read of P bytes, and the 32-byte sectors of
-//     eight voxels at once: the last call's ~43 k voxels, cleared one float
-//     at a time, took 0.033 ms, PERF.md §6);
+//     where touched is set (a read of P bytes, eight at a time; each touched
+//     voxel's row of channels 1–8 with two 16-byte stores, and channel 9's
+//     32-byte sector of the eight voxels: the last call's ~43 k voxels,
+//     cleared one float at a time, took 0.033 ms, PERF.md §6);
 //   * a block whose points all fall outside the padded window (the
 //     padding of a batch's ragged scans: every slot past a scan's returns)
 //     leaves before it sets up a table;
@@ -62,7 +64,9 @@
 //     min by __reduce_min_sync, and the sums of its nine values in lane
 //     order, from the lanes' coordinates in shared memory), then the
 //     block's, in a hash table of window voxels in shared memory, whose
-//     slots are flushed with one global atomic a channel each. A block's
+//     slots are flushed with four global reductions: n, channels 1–8 as two
+//     16-byte vector adds (sm_90's atomicAdd(float4*), RED.E.ADD.F32x4 in
+//     the SASS, at the scalar add's rate, PERF.md §6) and channel 9. A block's
 //     256 points are two azimuth columns of a scan, whose endpoints largely
 //     share voxels; a warp's are 32 beams of one column.
 //     Tried beside it on the card (PERF.md §6): the warp merge alone, a warp
@@ -80,14 +84,15 @@
 // window row 0, although the two torus rows are neighbours. The slab's torus
 // rows are window rows [w0, w0+Ys) mod Y with w0 = (ys0 − origin_y) mod Y:
 // one run of padded window rows, or two when the window seam falls inside the
-// slab. The scratch is [10, Xp, Ys+4ry, Zp]:
+// slab. The scratch is [Xp, Ys+4ry, Zp] voxels:
 //   piece A: padded window rows [w0, w0+lenA+2ry)  at scratch rows [0, lenA+2ry)
 //   piece B: padded window rows [0, lenB+2ry)      at scratch rows [lenA+2ry, Ys+4ry)
 // with lenA = min(Ys, Y−w0) and lenB = Ys−lenA, so every target row has its
 // own ±ry source rows and the two sides of the seam never merge. A point
 // whose ±ry neighbourhood misses the slab lands in neither piece (the TPU
 // form's slab prefilter); a point near both ends may land in both, and each
-// piece's voxel is summed on its own. The scratch scales with Ys.
+// piece's voxel is summed on its own. The scratch scales with Ys (its rest
+// holds channels 1–8 of its P voxels voxel-major, then channel 9, as above).
 //
 // Float adds in atomic order differ from run to run in the last bits; n, hit
 // and min_height are exact.
@@ -170,27 +175,33 @@ __global__ void __launch_bounds__(THREADS) fill_kernel(int* __restrict__ hit, in
     const int stride = gridDim.x * THREADS;
     const int one = __float_as_int(1.0f);
     const int i = blockIdx.x * THREADS + threadIdx.x;
-    if (P % 8 == 0 && (uintptr_t)rest % 32 == 0) {
-        // 8 voxels a load of touched; rest is zero at the untouched ones
-        // already, so each channel's 32-byte sector of them is written whole
-        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4* rows = reinterpret_cast<float4*>(rest);     // channels 1–8: two float4 a voxel
+    float* ninth = rest + 8 * (int64_t)P;
+    if (P % 8 == 0) {
+        // 8 voxels a load of touched (a byte is 0 or 1); rest is zero at the
+        // untouched ones already, so channel 9's 32-byte sector of them is
+        // written whole
         for (int k = i; k < P / 8; k += stride) {
             const uint2 w = reinterpret_cast<const uint2*>(touched)[k];
             if (!(w.x | w.y)) continue;
             reinterpret_cast<uint2*>(touched)[k] = make_uint2(0u, 0u);
-#pragma unroll
-            for (int c = 0; c < 9; ++c) {
-                float4* d = reinterpret_cast<float4*>(rest + (int64_t)c * P + 8 * k);
-                d[0] = zero;
-                d[1] = zero;
+            for (uint64_t b = (uint64_t)w.y << 32 | w.x; b; b &= b - 1) {
+                const int64_t s = 8 * (int64_t)k + ((__ffsll((long long)b) - 1) >> 3);
+                rows[2 * s] = zero;
+                rows[2 * s + 1] = zero;
             }
+            float4* d = reinterpret_cast<float4*>(ninth + 8 * (int64_t)k);
+            d[0] = zero;
+            d[1] = zero;
         }
     } else {
         for (int s = i; s < P; s += stride) {
             if (!touched[s]) continue;
             touched[s] = 0;
-#pragma unroll
-            for (int c = 0; c < 9; ++c) rest[(int64_t)c * P + s] = 0.0f;
+            rows[2 * (int64_t)s] = zero;
+            rows[2 * (int64_t)s + 1] = zero;
+            ninth[s] = 0.0f;
         }
     }
     if (vec4) {
@@ -226,9 +237,9 @@ __device__ __forceinline__ int insert(int* keys, int key) {
     }
 }
 
-// The one pass: n, the nine sums into rest [9, P] and, at the piece's
-// targets (the in-grid points), hit and min_height; it marks each voxel it
-// adds to in touched.
+// The one pass: n, the nine sums into rest (channels 1–8 [P][8], channel 9
+// [P]) and, at the piece's targets (the in-grid points), hit and
+// min_height; it marks each voxel it adds to in touched.
 //
 // The block's table of window voxels holds no sums: each warp group writes
 // its own record (its nine sums in lane order, its count) and pushes it on
@@ -313,16 +324,20 @@ __global__ void __launch_bounds__(THREADS) bin_sums_kernel(
             atomicAdd(hit + stor[i], count);
             atomicMin(minh_bits + stor[i], smin[i]);
         }
-#pragma unroll
-        for (int c = 0; c < 9; ++c) atomicAdd(rest + (int64_t)c * P + s, sum[c]);
+        // channels 1–8 in two 16-byte reductions, then channel 9
+        float4* row = reinterpret_cast<float4*>(rest) + 2 * (int64_t)s;
+        atomicAdd(row, make_float4(sum[0], sum[1], sum[2], sum[3]));
+        atomicAdd(row + 1, make_float4(sum[4], sum[5], sum[6], sum[7]));
+        atomicAdd(rest + 8 * (int64_t)P + s, sum[8]);
     }
 }
 
 }  // namespace
 
 // The fill, then the pass, on `stream`. points are world-frame [n, 3];
-// inv_xy and inv_z are f32(1/res). `cnt` is n [P]; rest [9, P] and touched
-// [P] (bytes) are the caller's, kept across calls (the contract above).
+// inv_xy and inv_z are f32(1/res). `cnt` is n [P]; rest (9·P floats, 16-byte
+// aligned) and touched [P] (bytes) are the caller's, kept across calls (the
+// contract above).
 extern "C" int gvom_bin_points(
     const void* points, const void* keep, const void* origin, float inv_xy, float inv_z,
     int n, int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys,
@@ -332,7 +347,8 @@ extern "C" int gvom_bin_points(
     const int64_t V = (int64_t)X * Ys * Z;
     const int64_t P = (int64_t)(X + 2 * rx) * (slab ? Ys + 4 * ry : Y + 2 * ry) * (Z + 2 * rz);
     if (V >= INT_MAX || P >= INT_MAX) return (int)cudaErrorInvalidValue;
-    if (rest == nullptr || touched == nullptr || (uintptr_t)touched % 16) return (int)cudaErrorInvalidValue;
+    if (rest == nullptr || touched == nullptr || ((uintptr_t)rest | (uintptr_t)touched) % 16)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const bool vec4 = ((uintptr_t)hit | (uintptr_t)minh | (uintptr_t)cnt) % 16 == 0;
     fill_kernel<<<132 * 8, THREADS, 0, st>>>((int*)hit, (int*)minh, (float*)cnt, (int)V, (int)P, vec4, (float*)rest,

@@ -14,10 +14,12 @@
 // parallel-axis update of gvom_tpu/ops/moments.py::translate_raw):
 //   S1'_a  = S1_a + t_a·n
 //   R2'_ab = R2_ab + t_a·S1_b + t_b·S1_a + t_a·t_b·n
-// The sums are K2's (binning.cu): n at `sums` [P], channels 1–9 at `rest`
-// [9, P], the caller's scratch. Channels 1–9 of a source are read only where
-// its n > 0, by a branch, never through a multiply by zero, so whatever they
-// hold where n is 0 (zero in K2's scratch, NaN in a test) reaches no output.
+// The sums are K2's (binning.cu): n at `sums` [P], channels 1–9 at `rest`,
+// the caller's scratch: channels 1–8 voxel-major [P][8] (a voxel's 32 bytes,
+// two 16-byte loads), then channel 9 [P] (load_rest). Channels 1–9 of a
+// source are read only where its n > 0, by a branch, never through a
+// multiply by zero, so whatever they hold where n is 0 (zero in K2's
+// scratch, NaN in a test) reaches no output.
 //
 // What bounds it on the H100: bytes. Every voxel of the output is written
 // (10 f32 channels, 168 MB at 256×256×64, 0.050 ms at 3.35 TB/s); n is read
@@ -44,7 +46,8 @@
 //     nothing but 16-byte zero stores;
 //   * the channels 1-9 of the tile's non-empty voxels, and only those, are
 //     staged too, compacted in rank order (a voxel's rank from its column's
-//     mask), when at most CAP of them; past that a term reads them from the
+//     mask; two 16-byte copies of its channels 1–8 and one of channel 9),
+//     when at most CAP of them; past that a term reads them from the
 //     scratch;
 //   * the box is taken only at the targets that need it (a hit with the mask
 //     on, some n > 0 in the box with it off), listed and taken one a lane, so
@@ -74,8 +77,8 @@
 
 // Slab form ((ys0, Ys) != (0, Y), the same rule as raycast.cu and
 // binning.cu): the output and hit are [.., X, Ys, Z], the torus
-// rows [ys0, ys0+Ys), and the sums are K2's slab scratch
-// [10, Xp, Ys+4ry, Zp] (binning.cu): slab row j is window row (w0+j) mod Y
+// rows [ys0, ys0+Ys), and the sums are K2's slab scratch of
+// [Xp, Ys+4ry, Zp] voxels (binning.cu): slab row j is window row (w0+j) mod Y
 // and sits at scratch row j + ry, or j + 3ry past the window seam
 // (j >= lenA). The full grid is ys0 = 0, Ys = Y with scratch row wy + ry.
 //
@@ -85,6 +88,7 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -144,6 +148,17 @@ __device__ __forceinline__ Axis slab_axis(int j0, int T, int Ys, int lenA, int r
 // the non-empty voxels of a staged tile whose channels 1-9 are staged too
 constexpr int CAP = 640;
 
+// Channels 1–9 of voxel i of K2's scratch (rest: channels 1–8 [P][8], 32
+// bytes a voxel, then channel 9 [P]): two 16-byte loads and one 4-byte one.
+__device__ __forceinline__ void load_rest(float (&v)[9], const float* __restrict__ rest, int64_t P, int64_t i)
+{
+    const float4 a = __ldg(reinterpret_cast<const float4*>(rest) + 2 * i);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(rest) + 2 * i + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    v[8] = __ldg(rest + 8 * P + i);
+}
+
 // A source voxel's term of a target's box: n and its channels 1-9 v,
 // translated by (ox, oy, oz) into the target's frame and added to acc
 // (the plain twin's arithmetic and order; -fmad=false keeps it unfused).
@@ -164,29 +179,36 @@ __device__ __forceinline__ void add_term(float (&acc)[10], const float (&v)[9], 
     }
 }
 
+// Four blocks an SM, in 64 registers: a voxel's index in the scratch is an
+// int (the entry refuses P >= 2^31, as K2 does); with 64-bit indices the
+// voxel-major reads spilled in the mask-on form (PERF.md §6)
 template <bool MASK>
 __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
     const float* __restrict__ sums,    // [Xp, Yp | Ys+4ry, Zp] own-voxel n, padded window layout
-    const float* __restrict__ rest,    // [9, ...] channels 1-9 beside it
+    const float* __restrict__ rest,    // channels 1-9 beside it (load_rest)
     const int* __restrict__ hit,       // [X, Ys, Z] torus (read only when MASK)
     const int* __restrict__ origin,    // [3]
     const int* __restrict__ slot,      // [1] or null
     int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, bool vec4,
     float* __restrict__ out)           // [S, 10, X, Ys, Z] torus
 {
-    // shared: staged n [TX+4rx][TY+4ry][TZ+4rz]; per staged (x, y) column
-    // the bits of n > 0 and the rank of its first one among the tile's;
-    // channels 1-9 of the non-empty voxels in rank order, [9][CAP]
-    extern __shared__ float sh[];
+    // shared: channels 1-9 of the non-empty voxels in rank order, 1–4 and
+    // 5–8 as two [CAP] float4 planes (lanes on consecutive ranks, the usual
+    // case, read consecutive 16-byte words: no bank conflict) and 9 as
+    // [CAP]; staged n [TX+4rx][TY+4ry][TZ+4rz]; per staged (x, y) column the
+    // bits of n > 0 and the rank of its first one among the tile's
+    extern __shared__ __align__(16) float sh[];
     __shared__ int total, nact;
     __shared__ unsigned act[TX * TY];          // per tile column: the targets (z bits) whose box is taken
     __shared__ int actbase[TX * TY];
     __shared__ unsigned short list[TX * TY * TZ];   // those targets, column << 5 | z
     const int SYa = TY + 4 * ry, SZa = TZ + 4 * rz;
     const int ncol = (TX + 4 * rx) * SYa;
-    uint64_t* colbits = reinterpret_cast<uint64_t*>(sh + ncol * SZa);
+    float4* chan = reinterpret_cast<float4*>(sh);     // [2][CAP]
+    float* chan9 = sh + 8 * CAP;
+    float* stage = sh + 9 * CAP;
+    uint64_t* colbits = reinterpret_cast<uint64_t*>(stage + ncol * SZa);
     int* colbase = reinterpret_cast<int*>(colbits + ncol);
-    float* chan = reinterpret_cast<float*>(colbase + ncol);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int tz0 = blockIdx.x * TZ, jy0 = blockIdx.y * TY, tx0 = blockIdx.z * TX;
     const int64_t V = (int64_t)X * Ys * Z;
@@ -242,7 +264,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
         // stage n over the tile and its halo: every copy in flight at once
         for (int r = warp; r < lx_len * ly_len; r += WARPS) {
             int ex, ey;
-            float* srow = sh + column(r, ex, ey) * SZa;
+            float* srow = stage + column(r, ex, ey) * SZa;
             const float* g = sums + source(ex, ey);
             for (int ez = lane; ez < lz_len; ez += 32) __pipeline_memcpy_async(srow + ez, g + az.src(ez), 4);
         }
@@ -255,7 +277,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
         for (int r = warp; r < lx_len * ly_len; r += WARPS) {
             int ex, ey;
             const int c = column(r, ex, ey);
-            const float* srow = sh + c * SZa;
+            const float* srow = stage + c * SZa;
             const unsigned lo = __ballot_sync(0xffffffffu, lane < lz_len && srow[lane] != 0.0f);
             const unsigned hi = __ballot_sync(0xffffffffu, lane + 32 < lz_len && srow[lane + 32] != 0.0f);
             if (lane == 0) colbits[c] = (uint64_t)hi << 32 | lo;
@@ -356,13 +378,15 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
             const int c = column(r, ex, ey);
             const uint64_t w = colbits[c];
             if (!w) continue;
-            const float* g = rest + source(ex, ey);
+            const int g = (int)source(ex, ey);
             for (int ez = lane; ez < lz_len; ez += 32) {
                 if (!(w >> ez & 1)) continue;
                 const int rank = colbase[c] + __popcll(w & ((1ull << ez) - 1));
-                const float* gz = g + az.src(ez);
-#pragma unroll
-                for (int ch = 0; ch < 9; ++ch) __pipeline_memcpy_async(chan + ch * CAP + rank, gz + ch * P, 4);
+                const int i = g + az.src(ez);
+                const float4* row = reinterpret_cast<const float4*>(rest) + 2 * (int64_t)i;
+                __pipeline_memcpy_async(chan + rank, row, 16);
+                __pipeline_memcpy_async(chan + CAP + rank, row + 1, 16);
+                __pipeline_memcpy_async(chan9 + rank, rest + 8 * P + i, 4);
             }
         }
         __pipeline_commit();
@@ -388,18 +412,19 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
                 unsigned nz = (unsigned)(w >> (ez - rz)) & zmask;
                 if (!nz) continue;
                 int rank = colbase[scol] + __popcll(w & ((1ull << (ez - rz)) - 1));
-                const float* nrow = sh + scol * SZa + ez;
-                const float* srow = rest + ((int64_t)(cx + ox) * Ysc + (cy + oy)) * Zp + cz;
+                const float* nrow = stage + scol * SZa + ez;
+                const int srow = ((cx + ox) * Ysc + (cy + oy)) * Zp + cz;
                 for (; nz; nz &= nz - 1, ++rank) {
                     const int oz = __ffs(nz) - 1 - rz;
                     const float n = nrow[oz];
                     float v[9];
                     if (compact) {
-#pragma unroll
-                        for (int ch = 0; ch < 9; ++ch) v[ch] = chan[ch * CAP + rank];
+                        const float4 a = chan[rank], b = chan[CAP + rank];
+                        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+                        v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+                        v[8] = chan9[rank];
                     } else {
-#pragma unroll
-                        for (int ch = 0; ch < 9; ++ch) v[ch] = srow[oz + ch * P];
+                        load_rest(v, rest, P, srow + oz);
                     }
                     add_term(acc, v, n, ox, oy, oz);
                 }
@@ -440,11 +465,12 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
 // §6): one thread a target reading each neighbour's n and waiting for it
 // before the next reached a fifth of the memory rate in passes x and y; a
 // tile for pass z as well was 2.4 times slower with the mask on. Pass x
-// reads the scratch [10, Xp, Ysc, Zp] and writes the workspace W1 [10, X,
-// Ysc, Zp] (x in window order); pass y writes W2 [10, X, Yw, Zp] (Yw = Ysc
-// - 2ry rows: the window rows, or for a slab scratch the slab rows with the
-// 2ry unused rows between its two runs); pass z reads W2 and writes the
-// torus output, masked, into out[slot].
+// reads the scratch (n [Xp, Ysc, Zp], channels 1–9 by load_rest) and writes
+// the workspace W1 [10, X, Ysc, Zp] (x in window order, channel-major); pass
+// y writes W2 [10, X, Yw, Zp] (Yw = Ysc - 2ry rows: the window rows, or for
+// a slab scratch the slab rows with the 2ry unused rows between its two
+// runs); pass z reads W2 and writes the torus output, masked, into
+// out[slot].
 //
 // With the mask on and a small box (box_direct_takes) the direct kernel
 // below stays: it reads the box only at occupied targets, while the passes
@@ -478,8 +504,9 @@ __device__ __forceinline__ void add_axis_term(float (&acc)[10], const float (&v)
 
 // Pass x or y (AXIS 0, 1): targets (a, u, k), a along the axis (A of
 // them), u across it (U), k the padded z (Zp); the input element at in +
-// (a + r)·a_in + u·u_in + k (n; channels 1-9 at the same place of in_rest),
-// the output at a·a_out + u·u_out + k.
+// (a + r)·a_in + u·u_in + k (n; channels 1-9 of that element of in_rest:
+// K2's scratch, load_rest, in pass x, channel-major W1 of channel stride Pin
+// in pass y), the output at a·a_out + u·u_out + k.
 struct BoxPass {
     const float* in;
     const float* in_rest;
@@ -509,7 +536,7 @@ __global__ void __launch_bounds__(THREADS) box_pass(BoxPass g)
     const int a0 = blockIdx.y * TA, k = blockIdx.x * TK + lane, u = blockIdx.z;
     const bool kin = lane < TK && k < g.Zp;
     const float* in = g.in + u * g.u_in + k;
-    const float* in_rest = g.in_rest + u * g.u_in + k;
+    const int64_t e0 = u * g.u_in + k;     // in_rest's element at a = 0
     float* out = g.out + u * g.u_out + k;
     int any = 0;
     for (int l0 = warp; l0 < LA; l0 += 8 * LOADS) {
@@ -538,8 +565,16 @@ __global__ void __launch_bounds__(THREADS) box_pass(BoxPass g)
         for (int q = 0; q < 2; ++q) {
             const int l = l0 + 8 * q;
             const bool live = l < LA && lane < TK && sbox[l * SK + lane] > 0.0f;
+            const int64_t e = e0 + (a0 + l) * g.a_in;
+            if (!live) {
 #pragma unroll
-            for (int c = 0; c < 9; ++c) v[q][c] = live ? __ldg(in_rest + (a0 + l) * g.a_in + c * g.Pin) : 0.0f;
+                for (int c = 0; c < 9; ++c) v[q][c] = 0.0f;
+            } else if (AXIS == 0) {
+                load_rest(v[q], g.in_rest, g.Pin, e);
+            } else {
+#pragma unroll
+                for (int c = 0; c < 9; ++c) v[q][c] = __ldg(g.in_rest + e + c * g.Pin);
+            }
         }
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
@@ -707,8 +742,7 @@ __global__ void __launch_bounds__(THREADS) epilogue_direct_kernel(
                     const float n = __ldg(sums + row + oz);
                     if (n == 0.0f) continue;
                     float v[9];
-#pragma unroll
-                    for (int ch = 0; ch < 9; ++ch) v[ch] = __ldg(rest + row + oz + ch * P);
+                    load_rest(v, rest, P, row + oz);
                     add_term(acc, v, n, ox, oy, oz);
                 }
             }
@@ -718,13 +752,13 @@ __global__ void __launch_bounds__(THREADS) epilogue_direct_kernel(
     for (int c = 0; c < 10; ++c) o[c * V + t] = acc[c];
 }
 
-// the tiled kernel's dynamic shared memory: the staged floats (an even
-// count: TZ + 4rz is even), then the columns' 64-bit words and ranks, then
-// the compacted channels
+// the tiled kernel's dynamic shared memory: the compacted channels (9·CAP,
+// an even count), the staged floats (an even count: TZ + 4rz is even), then
+// the columns' 64-bit words and ranks
 size_t tiled_smem(int rx, int ry, int rz)
 {
     const size_t ncol = (size_t)(TX + 4 * rx) * (TY + 4 * ry);
-    return sizeof(float) * ncol * (TZ + 4 * rz) + (sizeof(uint64_t) + sizeof(int)) * ncol + sizeof(float) * 9 * CAP;
+    return sizeof(float) * 9 * CAP + sizeof(float) * ncol * (TZ + 4 * rz) + (sizeof(uint64_t) + sizeof(int)) * ncol;
 }
 
 // The largest dynamic shared memory a block of this device may opt in to;
@@ -901,12 +935,14 @@ int launch(const void* sums, const void* rest, const void* hit, const void* orig
 
 }  // namespace
 
-// n at sums, channels 1-9 at rest (the contract above)
+// n at sums, channels 1-9 at rest (the contract above; 16-byte aligned)
 extern "C" int gvom_moments_epilogue(
     const void* sums, const void* rest, const void* hit, const void* origin, const void* slot,
     int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int mask,
     void* out, void* work, void* stream)
 {
+    if ((int64_t)(X + 2 * rx) * scratch_rows(Y, ry, ys0, Ys) * (Z + 2 * rz) >= INT_MAX)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     return mask ? launch<true>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st)
                 : launch<false>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st);

@@ -22,12 +22,16 @@ operation across the window seam.
 
 Channels 1-9 of the sums live in a `MomentScratch` that the caller keeps
 across calls (the batched step, the facade's ring buffer), as K2 keeps them
-(csrc/binning.cu); `bin_stats_plain` counts what K2's blocks do on a point
-set (empty blocks, table flushes, global atomics).
+(csrc/binning.cu): channels 1-8 voxel-major, 32 bytes a voxel, and channel 9
+as a plane beside them (`rest_parts`); `rest_channels` gives their logical
+[9, ...] view. `bin_stats_plain` counts what K2's blocks do on a point set
+(empty blocks, table flushes, global reductions by width, the sectors the
+next call's fill clears).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -35,7 +39,8 @@ import torch
 from gvom_tpu_torch.config import GvomConfig
 from gvom_tpu_torch.ops import grid as gridops
 
-__all__ = ["PAIRS", "PointBins", "MomentScratch", "moment_scratch", "transform_points",
+__all__ = ["PAIRS", "PointBins", "MomentScratch", "moment_scratch", "rest_parts", "rest_channels", "rest_layout",
+           "transform_points",
            "prepare_points", "prepare_plain", "bin_points", "bin_stats_plain", "moment_pad", "padded_shape",
            "slab_rows", "scratch_pieces", "check_y_window", "is_slab", "sum_sq3"]
 
@@ -122,21 +127,23 @@ class PointBins(NamedTuple):
     hit: torch.Tensor         # [X,Ys,Z] int32, torus layout
     min_height: torch.Tensor  # [X,Ys,Z] f32, torus layout (1.0 where no point)
     n: torch.Tensor           # [1, X+2rx, Y+2ry | Ys+4ry, Z+2rz] f32 — own-voxel point counts, padded window layout
-    rest: torch.Tensor        # [9, ...] f32 — channels 1-9 (S1, R2), the scratch's
+    rest: torch.Tensor        # [9·P] f32 — channels 1-9 (S1, R2), the scratch's (rest_parts)
 
     @property
     def sums(self) -> torch.Tensor:
         """The ten channels as one [10, ...] tensor (a copy)."""
-        return torch.cat([self.n, self.rest])
+        return torch.cat([self.n, rest_channels(self.rest, self.n.shape[1:])])
 
 
 class MomentScratch(NamedTuple):
     """Channels 1-9 of a caller's own-voxel sums, kept across its calls of
-    K2 (made once by moment_scratch): `rest` [9, Xp, Yp | Ys+4ry, Zp] f32
-    and `touched` [Xp, Yp | Ys+4ry, Zp] uint8, a byte a voxel of rest. Between calls rest is zero wherever
-    touched is 0. A call puts rest back to zero where the last call set
-    touched, adds its sums where its n > 0 and sets touched to 1 there.
-    Its calls run one after another, on one stream."""
+    K2 (made once by moment_scratch): `rest`, 9·P f32 for the P voxels of
+    the sums scratch [Xp, Yp | Ys+4ry, Zp], channels 1-8 voxel-major and
+    then channel 9 (rest_parts), and `touched` [Xp, Yp | Ys+4ry, Zp] uint8,
+    a byte a voxel. Between calls rest is zero wherever touched is 0. A
+    call puts rest back to zero where the last call set touched, adds its
+    sums where its n > 0 and sets touched to 1 there. Its calls run one
+    after another, on one stream."""
 
     rest: torch.Tensor
     touched: torch.Tensor
@@ -145,8 +152,30 @@ class MomentScratch(NamedTuple):
 def moment_scratch(cfg: GvomConfig, device, y_window=None) -> MomentScratch:
     """A zeroed MomentScratch for the sums scratch of this shape (padded_shape)."""
     shape = padded_shape(cfg, y_window)
-    return MomentScratch(rest=torch.zeros((9,) + shape, dtype=torch.float32, device=device),
+    return MomentScratch(rest=torch.zeros(9 * math.prod(shape), dtype=torch.float32, device=device),
                          touched=torch.zeros(shape, dtype=torch.uint8, device=device))
+
+
+def rest_parts(rest: torch.Tensor, shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two parts of a scratch's rest for the sums scratch `shape`, as
+    views: channels 1-8 voxel-major [*shape, 8] (a voxel's eight are one
+    32-byte sector, which K2 adds as two 16-byte vectors), then channel 9
+    [*shape]."""
+    P = math.prod(shape)
+    return rest[:8 * P].view(*shape, 8), rest[8 * P:].view(*shape)
+
+
+def rest_channels(rest: torch.Tensor, shape) -> torch.Tensor:
+    """The logical view of a scratch's rest: channels 1-9 as [9, *shape]
+    (a copy), the order of moments' channels 1-9."""
+    first, ninth = rest_parts(rest, shape)
+    return torch.cat([first.movedim(-1, 0), ninth[None]])
+
+
+def rest_layout(channels: torch.Tensor) -> torch.Tensor:
+    """Channels 1-9 [9, *shape] in a scratch's rest layout (a fresh tensor):
+    the inverse of rest_channels."""
+    return torch.cat([channels[:8].movedim(0, -1).reshape(-1), channels[8].reshape(-1)])
 
 
 def sum_sq3(v: torch.Tensor) -> torch.Tensor:
@@ -262,10 +291,13 @@ def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin
         sums.index_add_(1, pflat[sel].long(), vals)
     if scratch is None:
         scratch = moment_scratch(cfg, dev, y_window)
-    rest = scratch.rest.view(9, -1)
-    rest[:, scratch.touched.view(-1) != 0] = 0.0
+    first, ninth = rest_parts(scratch.rest, (Xp * Ysc * Zp,))
+    was = scratch.touched.view(-1) != 0
+    first[was] = 0.0
+    ninth[was] = 0.0
     live = sums[0] > 0
-    rest[:, live] += sums[1:, live]
+    first[live] += sums[1:9, live].T
+    ninth[live] += sums[9, live]
     scratch.touched.view(-1).copy_(live)
     return PointBins(hit=hit.view(X, Ys, Z), min_height=mh.view(X, Ys, Z), n=sums[:1].view(1, Xp, Ysc, Zp),
                      rest=scratch.rest)
@@ -279,9 +311,13 @@ def bin_stats_plain(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, o
     scans 1: the kernel's): the slots and kept points; the blocks and the
     empty ones (no point inside the padded window: they leave first); the
     flushes (one a distinct voxel a block: torus voxels for hit and
-    min_height, window voxels for n and the nine sums); and the global
-    atomics (10 a window flush, 2 more where its voxel is in the grid; each
-    window flush also stores a byte of touched)."""
+    min_height, window voxels for n and the nine sums); the global
+    reductions by width (a window flush: n and channel 9 scalar, channels
+    1-8 two 16-byte vectors; 2 scalar more where its voxel is in the grid)
+    and their sum, `atomics` (each window flush also stores a byte of
+    touched); and the 32-byte sectors that the next call's fill clears
+    (`fill_sectors`: each touched voxel's row of channels 1-8, and channel
+    9's sector of each group of eight voxels that holds one)."""
     dev = points.device
     total = points.shape[0]
     if total % n_scans:
@@ -306,12 +342,16 @@ def bin_stats_plain(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, o
         return int(pairs.numel())
 
     tfl = flushes(tor, tflat)
-    wfl, voxels, inside = 0, 0, tor.clone()
+    wfl, inside, touched = 0, tor.clone(), []
     for sel, pflat in scratch_pieces(cfg, vox, keep, origin, y_window):   # the pieces are apart in the scratch
         wfl += flushes(sel, pflat.long())
-        voxels += int(torch.unique(pflat[sel]).numel())
+        touched.append(pflat[sel].long())
         inside |= sel
+    touched = torch.unique(torch.cat(touched))
+    voxels = int(touched.numel())
     empty = n_blocks - int(torch.unique(blk[inside]).numel())
+    scalar, vector16 = 2 * tfl + 2 * wfl, 2 * wfl
     return dict(slots=total, kept=int(keep.sum()), blocks=n_blocks, empty_blocks=empty,
                 flushes=dict(torus=tfl, window=wfl), window_voxels=voxels,
-                atomics=2 * tfl + 10 * wfl)
+                reductions=dict(scalar=scalar, vector16=vector16), atomics=scalar + vector16,
+                fill_sectors=voxels + int(torch.unique(touched // 8).numel()))

@@ -66,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -342,6 +343,15 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_rest(name: str, rest: torch.Tensor, shape, device) -> None:
+    """Channels 1-9 of a sums scratch of `shape` in their layout
+    (binning.rest_parts): 9·P floats, 16-byte aligned, as K2's vector adds
+    and the epilogues' vector loads need."""
+    _check(name, rest, torch.float32, (9 * math.prod(shape),), device)
+    if rest.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
 def _stream() -> int:
     """PyTorch's current stream, as the int that ctypes passes as c_void_p."""
     return torch.cuda.current_stream().cuda_stream
@@ -540,7 +550,7 @@ def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin
     min_height torus [X,Ys,Z]; own-voxel n padded [1, Xp, Yp, Zp], or the
     slab scratch [1, Xp, Ys+4ry, Zp] with y_window = (ys0, Ys), see
     binning.slab_rows; channels 1-9 in the scratch's rest, zero where n is
-    0). `scratch` (binning.moment_scratch of this shape) is kept across the
+    0, binning.rest_parts). `scratch` (binning.moment_scratch of this shape) is kept across the
     caller's calls, which run in order on one stream; without one, a fresh
     one is made with zeros."""
     if _is_cpu(points):
@@ -556,7 +566,7 @@ def bin_points(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin
     shape = binning.padded_shape(cfg, y_window)
     if scratch is None:
         scratch = binning.moment_scratch(cfg, dev, y_window)
-    _check("scratch rest", scratch.rest, torch.float32, (9,) + shape, dev)
+    _check_rest("scratch rest", scratch.rest, shape, dev)
     _check("scratch touched", scratch.touched, torch.uint8, shape, dev)
     # the kernel sets hit, min_height and n, and channels 1-9 in the scratch
     hit = torch.empty((X, Ys, Z), dtype=torch.int32, device=dev)
@@ -586,7 +596,7 @@ def ingest_epilogue(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: t
     rx, ry, rz = binning.moment_pad(cfg)
     shape = binning.padded_shape(cfg)
     _check("n", n, torch.float32, (1,) + shape, dev)
-    _check("rest", rest, torch.float32, (9,) + shape, dev)
+    _check_rest("rest", rest, shape, dev)
     _check("hit", hit, torch.int32, (X, Y, Z), dev)
     _check("origin", origin, torch.int32, (3,), dev)
     _check("out", out, torch.float32, (out.shape[0], 10, X, Y, Z), dev)
@@ -649,7 +659,7 @@ def epilogue_route(cfg: GvomConfig, y_window=None, occupancy_mask: bool = True) 
 def moments_epilogue(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
                      y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
     """Box-aggregate and crop a point set's own-voxel sums (K2's: n
-    [1, ...] and channels 1-9 [9, ...], binning.PointBins) into a fresh
+    [1, ...] and channels 1-9 in a scratch's rest, binning.PointBins) into a fresh
     [10, X, Ys, Z] torus tensor. With occupancy_mask the moments are zero
     where `hit` is 0; without it the box is taken at every voxel. With
     y_window = (ys0, Ys), the sums are the slab scratch and `hit` the slab."""
@@ -661,7 +671,7 @@ def moments_epilogue(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: 
     ys0, Ys = binning.check_y_window(cfg, y_window)
     shape = binning.padded_shape(cfg, y_window)
     _check("n", n, torch.float32, (1,) + shape, dev)
-    _check("rest", rest, torch.float32, (9,) + shape, dev)
+    _check_rest("rest", rest, shape, dev)
     _check("hit", hit, torch.int32, (X, Ys, Z), dev)
     _check("origin", origin, torch.int32, (3,), dev)
     out = torch.empty((10, X, Ys, Z), dtype=torch.float32, device=dev)

@@ -108,11 +108,12 @@ def box_aggregate_moments(cfg: GvomConfig, sums: torch.Tensor, y_rows=None) -> t
 def moments_epilogue_plain(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor,
                            origin: torch.Tensor, y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
     """Plain twin of K5: box-aggregate the padded sums (n [1, ...] and
-    channels 1-9 [9, ...], binning.PointBins), crop, move them into the
-    torus layout and, with occupancy_mask, zero them where `hit` is 0.
-    Returns a fresh [10, X, Ys, Z] tensor. With y_window the sums are the
-    slab scratch and the result holds the torus rows [ys0, ys0+Ys)."""
-    sums = torch.cat([n, rest])
+    channels 1-9 in a scratch's rest layout, binning.PointBins), crop, move
+    them into the torus layout and, with occupancy_mask, zero them where
+    `hit` is 0. Returns a fresh [10, X, Ys, Z] tensor. With y_window the
+    sums are the slab scratch and the result holds the torus rows
+    [ys0, ys0+Ys)."""
+    sums = torch.cat([n, binning.rest_channels(rest, n.shape[1:])])
     if not binning.is_slab(cfg, y_window):
         mom = gridops.window_to_torus(box_aggregate_moments(cfg, sums), origin)
     else:

@@ -9,8 +9,8 @@ taken out or set to (THREADS, 2), (THREADS, 3) and (THREADS, 6), prints what
 ptxas reports for each (registers, spills), and times each on one synthetic
 scan at the upstream deployment (256×256×64, 131,072 points) with the
 occupancy mask on (K3's form) and off (K5's form), twice over, with CUDA
-events. The sums are K2's with channels 1-9 set to 0 where n == 0 (outside
-the timing; the kernel reads them only where n > 0). The variants are
+events. The sums are K2's: n and channels 1-9 in its scratch, zero where n
+is 0 (the kernel reads them only where n > 0). The variants are
 checked against the committed build bit for bit (each target sums in a
 fixed order). A block takes about 50 KB of shared memory, so an SM holds at
 most four whatever the bound; the bound sets the registers and the spills.
@@ -51,7 +51,6 @@ def main() -> int:
     pw, keep = binning.prepare_points(cfg, torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev), e)
     origin = gridops.compute_origin(cfg, e)
     bins = kernels.bin_points(cfg, pw, keep, origin)
-    sums = torch.where(bins.sums[:1] > 0, bins.sums, torch.zeros((), device=dev))
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
     out = torch.empty((1, 10, X, Y, Z), dtype=torch.float32, device=dev)
@@ -90,7 +89,7 @@ def main() -> int:
             fns[name] = f
 
         def call(f, masked):
-            rc = f(kernels._ptr(sums), kernels._ptr(sums[1]), kernels._ptr(bins.hit), kernels._ptr(origin), None,
+            rc = f(kernels._ptr(bins.n), kernels._ptr(bins.rest), kernels._ptr(bins.hit), kernels._ptr(origin), None,
                    X, Y, Z, rx, ry, rz, 0, Y, masked, kernels._ptr(out), None, kernels._stream())
             assert rc == 0, rc
 

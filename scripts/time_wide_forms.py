@@ -22,7 +22,8 @@ each form, this tree's and the parent's:
     full grid and on the quarter slab that holds the window seam, with the
     kernel that takes each (kernels.epilogue_route); a source without the
     workspace argument, or without the `rest` pointer of channels 1-9, is
-    called by its own signature;
+    called by its own signature, and one that reads channels 1-9
+    channel-major (no `load_rest`) gets them so (binning.rest_channels);
   * the epilogue with the mask on at the boxes of THRESHOLD_BOXES, full
     grid, built twice: with every such box on the direct kernel and with
     every box on the separable passes (BOX_DIRECT_MAX set to 2^30 and 0),
@@ -75,7 +76,7 @@ PLANE_FIT_TAIL = r"    fit_tail\(ok, err, a0n, a1n, im, rough \+ i, slope_x \+ i
 MERGE_MOMENT_LOADS = (r"            ld2<PAIR>\(a\.mom \+ ch \* V, v, [^;]*;\n"
                       r"            ld2<PAIR>\(a\.omom \+ ch \* V, v, [^;]*;\n")
 MERGE_Z = 320
-PTXAS_ENTRIES = {"moments_epilogue": ("box_pass_z", "box_pass", "epilogue_direct_kernel"),
+PTXAS_ENTRIES = {"moments_epilogue": ("epilogue_kernel", "box_pass_z", "box_pass", "epilogue_direct_kernel"),
                  "combine": ("combine_any_kernel",), "merge_batch": ("merge_any_kernel",),
                  "plane_fit": ("plane_fit_kernel",)}
 
@@ -184,6 +185,7 @@ def main() -> int:
     parent_text = pepi.source.read_text()
     old_signature = "void* work" not in parent_text
     rest_apart = "const void* rest" in parent_text
+    voxel_major = "load_rest(" in parent_text
     if not rest_apart:
         pepi.argtypes = pepi.argtypes[:1] + pepi.argtypes[2:]
     if old_signature:
@@ -230,14 +232,16 @@ def main() -> int:
         for where, window in (("full", None), (f"slab {yw}", yw)):
             bins = kernels.bin_points(c, p[0], keep[0], origin, window)
             ten = None if rest_apart else bins.sums    # a parent's epilogue reads the ten channels in one tensor
+            # a parent's epilogue that reads channels 1-9 channel-major gets them so
+            prest = bins.rest if voxel_major or not rest_apart else binning.rest_channels(bins.rest, bins.n.shape[1:])
             ys0, ys = binning.check_y_window(c, window)
             for mask in (False, True):
                 what = f"eigen ({xye}, {ze}) {where} mask {'on' if mask else 'off'}"
                 route = kernels.epilogue_route(c, window, mask)
 
-                def parent_run(bins=bins, ten=ten, ys0=ys0, ys=ys, mask=mask):
+                def parent_run(bins=bins, ten=ten, prest=prest, ys0=ys0, ys=ys, mask=mask):
                     out = torch.empty((10, X, ys, Z), dtype=torch.float32, device=dev)
-                    a = [*((kernels._ptr(bins.n), kernels._ptr(bins.rest)) if rest_apart else (kernels._ptr(ten),)),
+                    a = [*((kernels._ptr(bins.n), kernels._ptr(prest)) if rest_apart else (kernels._ptr(ten),)),
                          kernels._ptr(bins.hit), kernels._ptr(origin), None,
                          X, Y, Z, rx, ry, rz, ys0, ys, int(mask), kernels._ptr(out)]
                     if not old_signature:
@@ -253,7 +257,7 @@ def main() -> int:
                 t = turns({"parent": parent_run, "this": this_run}, ("parent", "this", "this", "parent"), 20)
                 res["epilogue"][what] = dict(t, route=route, parent_max_abs_diff=diff)
                 print(f"epilogue {what} ({route}): " + ", ".join(f"{b} {v} ms" for b, v in t.items()), flush=True)
-            del bins, ten
+            del bins, ten, prest
         torch.cuda.empty_cache()
 
     for xye, ze in THRESHOLD_BOXES:

@@ -68,7 +68,7 @@ def test_kept_scratch_twin_equals_a_fresh_one(small_cfg, w):
         assert torch.equal(kept.sums, fresh.sums)
         live = fresh.n[0].reshape(-1) > 0
         assert live.any() and not live.all()
-        assert not scratch.rest.reshape(9, -1)[:, ~live].any()
+        assert not binning.rest_channels(scratch.rest, scratch.touched.shape).reshape(9, -1)[:, ~live].any()
         assert torch.equal(scratch.touched.view(-1), live.to(torch.uint8))
 
 
@@ -83,25 +83,32 @@ def test_one_pass_twin_clears_only_the_touched_voxels(small_cfg):
     live = binning.bin_points(cfg, pts, keep, origin).sums[0].reshape(-1) > 0
     dead = int(torch.nonzero(~live)[0])
     scratch = binning.moment_scratch(cfg, "cpu")
-    flat = scratch.rest.view(9, -1)
-    flat[3, dead] = 5.0
+    shape = scratch.touched.shape
+    first, ninth = binning.rest_parts(scratch.rest, (shape.numel(),))
+    first[dead, 3] = 5.0
+    ninth[dead] = 6.0
     binning.bin_points(cfg, pts, keep, origin, scratch=scratch)
-    assert flat[3, dead] == 5.0
+    assert first[dead, 3] == 5.0 and ninth[dead] == 6.0
     scratch.touched.view(-1)[dead] = 1
     binning.bin_points(cfg, pts, keep, origin, scratch=scratch)
-    assert flat[3, dead] == 0.0
-    assert not flat[:, ~live].any()
+    assert first[dead, 3] == 0.0 and ninth[dead] == 0.0
+    assert not binning.rest_channels(scratch.rest, shape).reshape(9, -1)[:, ~live].any()
 
 
 @pytest.mark.parametrize("w", [0, 1, 2])
 def test_moment_scratch_shapes(small_cfg, w):
     """A fresh scratch: channels 1-9 and a touched byte a voxel of the sums
-    scratch's shape (a slab's Ys + 4ry rows), all zero."""
+    scratch's shape (a slab's Ys + 4ry rows), all zero; channels 1-8
+    voxel-major, then channel 9 (rest_parts), read as [9, ...] through
+    rest_channels."""
     cfg = tcfg(small_cfg)
     y_window = windows(cfg)[w]
     scratch = binning.moment_scratch(cfg, "cpu", y_window)
     shape = binning.padded_shape(cfg, y_window)
-    assert scratch.rest.shape == (9,) + shape and scratch.rest.dtype == torch.float32
+    assert scratch.rest.shape == (9 * int(np.prod(shape)),) and scratch.rest.dtype == torch.float32
+    first, ninth = binning.rest_parts(scratch.rest, shape)
+    assert first.shape == shape + (8,) and ninth.shape == shape
+    assert binning.rest_channels(scratch.rest, shape).shape == (9,) + shape
     assert scratch.touched.shape == shape and scratch.touched.dtype == torch.uint8
     assert not scratch.rest.any() and not scratch.touched.any()
 
@@ -201,5 +208,106 @@ def test_bin_stats_counts_blocks_and_flushes(small_cfg):
     assert whole["flushes"] == dict(torus=int((bins.hit > 0).sum()), window=voxels)
     assert whole["window_voxels"] == voxels and whole["blocks"] == 1
     k = binning.bin_stats_plain(cfg, pts, keep, origin, n_scans=S)
-    assert k["atomics"] == 2 * k["flushes"]["torus"] + 10 * k["flushes"]["window"]
+    assert k["atomics"] == 2 * k["flushes"]["torus"] + 4 * k["flushes"]["window"]
     assert whole["flushes"]["window"] <= k["flushes"]["window"] <= one["flushes"]["window"]
+
+
+@pytest.mark.parametrize("w", [0, 1, 2])
+def test_rest_layout_round_trip(small_cfg, w):
+    """rest_layout puts channels 1-9 [9, ...] into a scratch's layout, whose
+    parts hold channels 1-8 voxel-major and channel 9 as a plane, and
+    rest_channels reads them back unchanged."""
+    cfg = tcfg(small_cfg)
+    shape = binning.padded_shape(cfg, windows(cfg)[w])
+    chans = torch.randn((9,) + shape, generator=torch.Generator().manual_seed(w))
+    rest = binning.rest_layout(chans)
+    assert rest.shape == (9 * int(np.prod(shape)),)
+    first, ninth = binning.rest_parts(rest, shape)
+    assert torch.equal(first, chans[:8].movedim(0, -1)) and torch.equal(ninth, chans[8])
+    assert torch.equal(binning.rest_channels(rest, shape), chans)
+
+
+@pytest.mark.parametrize("w", [0, 1, 2])
+def test_twin_scratch_parts_zero_where_untouched(small_cfg, w):
+    """Over two calls on one scratch, each part of rest (channels 1-8 a
+    voxel's row, channel 9 its plane) is zero wherever the touched byte is
+    0, and holds the call's sums where it is 1."""
+    cfg = tcfg(small_cfg)
+    y_window = windows(cfg)[w]
+    scratch = binning.moment_scratch(cfg, "cpu", y_window)
+    shape = scratch.touched.shape
+    for first_scan in (0, 6):
+        pts, keep, egos = scans(cfg, first_scan)
+        bins = binning.bin_points(cfg, pts, keep, gridops.compute_origin(cfg, egos[-1]), y_window, scratch)
+        untouched = scratch.touched == 0
+        first, ninth = binning.rest_parts(scratch.rest, shape)
+        assert untouched.any() and not untouched.all()
+        assert not first[untouched].any() and not ninth[untouched].any()
+        sums = bins.sums
+        assert torch.equal(first[~untouched], sums[1:9].movedim(0, -1)[~untouched])
+        assert torch.equal(ninth[~untouched], sums[9][~untouched])
+
+
+def channel_major(cfg, pts, keep, origin, y_window):
+    """The ten own-voxel sums [10, ...] channel-major, channels 1-9 zero where
+    n is 0: one index_add_ of every point's ten values over the scratch's
+    pieces, as the channel-major scratch held them."""
+    pn = gridops.map_local(cfg, pts, origin)
+    vox = torch.floor(pn).to(torch.int32)
+    local = pn - vox.float()
+    shape = binning.padded_shape(cfg, y_window)
+    sums = torch.zeros(10, int(np.prod(shape)))
+    for sel, flat in binning.scratch_pieces(cfg, vox, keep, origin, y_window):
+        lk = local[sel]
+        vals = torch.stack([torch.ones_like(lk[:, 0]), lk[:, 0], lk[:, 1], lk[:, 2]]
+                           + [lk[:, i] * lk[:, j] for i, j in binning.PAIRS], dim=0)
+        sums.index_add_(1, flat[sel].long(), vals)
+    sums[1:, sums[0] == 0] = 0.0
+    return sums.view((10,) + shape)
+
+
+@pytest.mark.parametrize("w", [0, 1, 2])
+def test_logical_view_equals_channel_major_sums(small_cfg, w):
+    """On a batch of S scans binned on a scratch that binned another batch
+    first (the full grid, a quarter slab, a slab across the window seam),
+    n and the logical view of rest equal the channel-major sums bit for
+    bit."""
+    cfg = tcfg(small_cfg)
+    y_window = windows(cfg)[w]
+    scratch = binning.moment_scratch(cfg, "cpu", y_window)
+    other = scans(cfg, 6)
+    binning.bin_points(cfg, other[0], other[1], gridops.compute_origin(cfg, other[2][-1]), y_window, scratch)
+    pts, keep, egos = scans(cfg, 0)
+    origin = gridops.compute_origin(cfg, egos[-1])
+    bins = binning.bin_points(cfg, pts, keep, origin, y_window, scratch)
+    want = channel_major(cfg, pts, keep, origin, y_window)
+    assert want[0].sum() > 0
+    assert torch.equal(bins.n, want[:1])
+    assert torch.equal(binning.rest_channels(scratch.rest, scratch.touched.shape), want[1:])
+    assert torch.equal(bins.sums, want)
+
+
+@pytest.mark.parametrize("block, flushes", [(2, dict(torus=2, window=3)), (4, dict(torus=1, window=2))])
+def test_bin_stats_counts_reductions_by_width(small_cfg, block, flushes):
+    """A hand-made point set at origin 0: A, B and D in one in-grid voxel, C
+    in the padding outside the grid, E not kept. Each window flush makes 4
+    global reductions (n and channel 9 scalar, channels 1-8 two 16-byte
+    vectors), a torus flush 2 scalar more; the next fill clears each
+    touched voxel's row of channels 1-8 and channel 9's sector of its group
+    of eight voxels."""
+    cfg = tcfg(small_cfg)
+    vox = torch.tensor([[5, 5, 5], [5, 5, 5], [-1, 5, 5], [5, 5, 5], [7, 7, 7]])
+    pts = (vox.float() + 0.5) * cfg.xy_resolution
+    keep = torch.tensor([True, True, True, True, False])
+    origin = torch.zeros(3, dtype=torch.int32)
+    s = binning.bin_stats_plain(cfg, pts, keep, origin, block=block)
+    assert s["flushes"] == flushes and s["window_voxels"] == 2
+    assert (s["slots"], s["kept"], s["empty_blocks"]) == (5, 4, 1)
+    assert s["reductions"] == dict(scalar=2 * flushes["torus"] + 2 * flushes["window"],
+                                   vector16=2 * flushes["window"])
+    assert s["atomics"] == 2 * flushes["torus"] + 4 * flushes["window"]
+    assert s["atomics"] == (16 if block == 2 else 10)
+    rx, ry, rz = binning.moment_pad(cfg)
+    _, Yp, Zp = binning.padded_shape(cfg)
+    groups = {(((x + rx) * Yp + y + ry) * Zp + z + rz) // 8 for x, y, z in ((5, 5, 5), (-1, 5, 5))}
+    assert len(groups) == 2 and s["fill_sectors"] == 2 + len(groups)

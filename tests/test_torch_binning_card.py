@@ -4,9 +4,13 @@ buffer's) against the plain twin, hit, min_height and n bit for bit and the
 nine sums within the batch tolerance; the scratch's contract after each
 call (channels 1-9 zero where n is 0, the touched bytes 1 where n > 0) and
 after calls over other scans (what a fresh scratch gives); the epilogues
-(K3, K5) on its n and channels 1-9 against their plain twins; and two
+(K3, K5) on its n and channels 1-9 against their plain twins; two
 batched steps on one step's scratch, and a ring buffer's ingest after
-others, against fresh ones.
+others, against fresh ones; and, on the scratch's layout (channels 1-8
+voxel-major, channel 9 apart, binning.rest_parts), K2 then K5 on the lap's
+batch, K3 through the ring buffer, a slab across the window seam, and the
+separable passes and the direct kernel of the wide boxes, each against
+the plain twins run from the same points.
 
 Every test needs a CUDA card: it takes the `lap` fixture, which skips
 without one. The file imports no JAX (the card's machine has none); on
@@ -15,6 +19,7 @@ the card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_binning_card.py
 """
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -67,9 +72,14 @@ def prepared(cfg, made, b0):
     return p.view(-1, 3), keep.view(-1), origin
 
 
+def channels(scratch):
+    """Channels 1-9 of a scratch as [9, P] (binning.rest_channels)."""
+    return binning.rest_channels(scratch.rest, scratch.touched.shape).view(9, -1)
+
+
 def check_contract(what, bins, scratch):
     live = bins.n[0].reshape(-1) > 0
-    rest = scratch.rest.view(9, -1)
+    rest = channels(scratch)
     assert bins.rest is scratch.rest
     assert int((rest[:, ~live] != 0).sum()) == 0, f"{what}: channels 1-9 set where n is 0"
     bitwise(f"{what} touched", scratch.touched.view(-1), live.to(torch.uint8))
@@ -113,7 +123,7 @@ def test_scratch_after_other_scans_equals_a_fresh_one(lap):
     bitwise("touched", used.touched, fresh.touched)
     live = check_contract("used", a, used)
     check_contract("fresh", b, fresh)
-    close("sums", used.rest.view(9, -1)[:, live], fresh.rest.view(9, -1)[:, live], ATOL_BATCH)
+    close("sums", channels(used)[:, live], channels(fresh)[:, live], ATOL_BATCH)
 
 
 @pytest.mark.parametrize("mask", [False, True])
@@ -179,3 +189,103 @@ def test_ring_buffer_ingest_after_others_equals_a_fresh_one(lap):
         bitwise(name, getattr(used.grids, name)[a], getattr(fresh.grids, name)[b])
     moments_close("slot moments", used.grids.mom[a], fresh.grids.mom[b], ATOL_BATCH)
     assert int((used.grids.hit[a] > 0).sum()) > 1_000
+
+
+def against_twins(what, cfg, p, keep, origin, y_window=None, masks=(False, True), scratch=None):
+    """K2 on `scratch` (a used one where given), then K5 with each mask, held
+    against the plain twins run from the same points (binning.bin_points,
+    moments.moments_epilogue_plain on the twin's own bins): hit, min_height
+    and n bitwise, the nine sums within the batch tolerance where n > 0;
+    the moments' n bitwise, their nine other channels within it."""
+    got = kernels.bin_points(cfg, p, keep, origin, y_window, scratch=scratch)
+    plain = binning.bin_points(cfg, p, keep, origin, y_window)
+    bitwise(f"{what} hit", got.hit, plain.hit)
+    bitwise(f"{what} min_height", got.min_height, plain.min_height)
+    bitwise(f"{what} n", got.n, plain.n)
+    sums_close(f"{what} sums", got.sums, plain.sums, ATOL_BATCH)
+    for mask in masks:
+        moments_close(f"{what} K5 mask {mask}",
+                      kernels.moments_epilogue(cfg, got.n, got.rest, got.hit, origin, y_window, mask),
+                      moments.moments_epilogue_plain(cfg, plain.n, plain.rest, plain.hit, origin, y_window, mask),
+                      ATOL_BATCH)
+    return got
+
+
+def test_k2_then_k5_lap_batch_against_twins(lap):
+    """The batched step's pair on the lap's batch, K2 on a used scratch then
+    K5 mask off (and on), against the twins from the same points; the
+    scratch's two parts zero wherever its touched byte is 0."""
+    cfg, made = lap
+    scratch = binning.moment_scratch(cfg, "cuda")
+    kernels.bin_points(cfg, *prepared(cfg, made, BATCHES[1]), scratch=scratch)
+    got = against_twins("lap batch", cfg, *prepared(cfg, made, BATCHES[0]), scratch=scratch)
+    first, ninth = binning.rest_parts(scratch.rest, scratch.touched.shape)
+    untouched = scratch.touched == 0
+    assert not first[untouched].any() and not ninth[untouched].any()
+    assert int((got.n[0] > 0).sum()) == int((~untouched).sum()) > 10_000
+
+
+def test_seam_slab_against_twins(lap):
+    """K2's and K5's slab forms on a slab across the window seam (64 torus
+    rows, the seam inside) of the lap's batch, on a kept scratch used by
+    another batch first, against the twins."""
+    cfg, made = lap
+    Y = cfg.xy_size
+
+    def seam_slab(origin):
+        """64 torus rows around the window seam, torus row origin_y."""
+        return min(max(int(origin[1]) % Y - 32, 0), Y - 64), 64
+
+    p, keep, origin = prepared(cfg, made, BATCHES[0])
+    y_window = seam_slab(origin)
+    _, len_a, _ = binning.slab_rows(cfg, origin, y_window)
+    assert 0 < int(len_a) < 64
+    scratch = binning.moment_scratch(cfg, "cuda", y_window)
+    other, okeep, oorigin = prepared(cfg, made, BATCHES[1])
+    kernels.bin_points(cfg, other, okeep, oorigin, seam_slab(oorigin), scratch=scratch)
+    got = against_twins("seam slab", cfg, p, keep, origin, y_window, scratch=scratch)
+    assert int((got.hit > 0).sum()) > 1_000
+
+
+def test_k3_through_ring_buffer_against_twins(lap):
+    """A lap scan ingested into a ring buffer whose scratch binned two other
+    scans first: its slot's moments against the twins (K2's, then K3's
+    with the mask) from the scan's own prepared points, n bitwise."""
+    from gvom_tpu_torch.models import pipeline
+    from gvom_tpu_torch.types import empty_buffer_state
+
+    cfg, made = lap
+    buf = empty_buffer_state(cfg, "cuda")
+    s = BATCHES[0]
+    for k in (BATCHES[1], BATCHES[1] + 1, s):
+        pipeline.ingest_and_insert(cfg, buf, made["points"][k], made["valid"][k], made["egos"][k])
+    p, keep, origin, _ = pipeline._prepare(cfg, made["points"][s], made["valid"][s], made["egos"][s].float(), None)
+    plain = binning.bin_points(cfg, p, keep, origin)
+    out = torch.zeros((2, 10) + cfg.grid_shape, device="cuda")
+    moments.ingest_epilogue_plain(cfg, plain.n, plain.rest, plain.hit, origin, out,
+                                  torch.ones((1,), dtype=torch.int32, device="cuda"))
+    slot = int(buf.last_slot)
+    bitwise("slot hit", buf.grids.hit[slot], plain.hit)
+    moments_close("slot moments (K3)", buf.grids.mom[slot], out[1], ATOL_BATCH)
+    assert int((plain.hit > 0).sum()) > 1_000
+
+
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("eigen", [(1, 9), (8, 1), (5, 8)])
+def test_wide_boxes_against_twins(lap, eigen, mask):
+    """The epilogue past the tiled box on a lap scan: the separable passes
+    (whose first pass reads the scratch's layout) and, with the mask on at
+    (1, 9), the direct kernel, against the twins; K2 at the wider padding
+    too."""
+    from gvom_tpu_torch.models import pipeline
+
+    cfg, made = lap
+    c = dataclasses.replace(cfg, xy_eigen_dist=eigen[0], z_eigen_dist=eigen[1])
+    route = kernels.epilogue_route(c, None, mask)
+    assert route == ("direct" if mask and eigen == (1, 9) else "separable")
+    s = BATCHES[0]
+    p, keep, origin, _ = pipeline._prepare(c, made["points"][s], made["valid"][s], made["egos"][s].float(), None)
+    scratch = binning.moment_scratch(c, "cuda")
+    kernels.bin_points(c, *pipeline._prepare(c, made["points"][s + 9], made["valid"][s + 9],
+                                             made["egos"][s + 9].float(), None)[:3], scratch=scratch)
+    against_twins(f"eigen {eigen} ({route})", c, p, keep, origin, masks=(mask,), scratch=scratch)

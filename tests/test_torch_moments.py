@@ -151,8 +151,9 @@ def test_epilogue_twins_read_the_sums_only_where_n_is_positive(form):
     points, origin = t(((pn + o) * res).astype(np.float32)), t(o)
     y_window = (16, 16) if form.startswith("slab") else None
     bins = tbinning.bin_points(c, points, keep, origin, y_window)
-    poisoned = bins.rest.clone()
-    poisoned[:, bins.n[0] == 0] = float("nan")
+    chans = tbinning.rest_channels(bins.rest, bins.n.shape[1:])
+    chans[:, bins.n[0] == 0] = float("nan")
+    poisoned = tbinning.rest_layout(chans)
     if form == "ingest":
         def run(rest):
             out = torch.zeros((2, 10) + c.grid_shape)
