@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (gvom_tpu_torch) on one NVIDIA GPU.
+"""On-card checks of the PyTorch/CUDA port (gvom_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out FILE.json] [--scans N]
 
 Builds the port's CUDA kernels from gvom_tpu_torch/csrc (one nvcc per source,
-all started together; K4 also for ring buffers of 2 and 8), then, at the
-upstream deployment (a 256×256×64 grid
+all started together; K4 also for the other ring-buffer depths it meets),
+then, at the upstream deployment (a 256×256×64 grid
 at 0.4 m, a ring buffer of 4 scans, 131,072 points per scan from a
-synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
+synthetic OS1-128 sweep of the composite terrain, made from fixed seeds),
+checks every kernel and every path of the port against its plain versions.
+It times nothing: a kernel's time beside its bound is
+scripts/time_entry_points.py's and scripts/time_wide_forms.py's
+(scripts/tree_timing.py), and the benchmark (benchmark/run.py) measures the
+cell.
 
   1. holds each kernel against its plain PyTorch version on the card, on the
      same inputs, over a drive with a moving ego (re-origin, decay veto):
@@ -17,10 +22,12 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      with a dead scan, and on points on voxel faces, at min_distance, at
      ±1e9, ±inf and NaN, valid and not; on scans of n % 4 != 0 points, on a
      scan off the 16-byte grid, on a batch with every scan dead, and on
-     batches back to back on two streams; one launch a call, by the
-     launch count and torch.profiler), K1 pass counts (from points: the
-     kernel builds the ray geometry), K2 hit and min_height and the moment count n, and every K4 output bitwise (its
-     moments too); the other moment channels within MOM_RTOL / MOM_ATOL (f32
+     batches back to back on two streams; one launch a call and nothing
+     else, by the launch count and torch.profiler), K1 pass counts (from
+     points: the kernel builds the ray geometry), K2 hit and min_height and
+     the moment count n, and every K4 output bitwise (its moments too; and
+     its launch alone, kernels.combine_launch, against its wrapper); the
+     other moment channels within MOM_RTOL / MOM_ATOL (f32
      sums in another order), K2's where n > 0, the only voxels where its
      scratch defines them. Every epilogue form (K3, K5 with the mask on and
      off, the slab form) gives bitwise the same output on sums whose
@@ -37,7 +44,8 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      shorter than 30 steps, the tier of the JAX package's step-pair kernel).
      The 2-D stencils bit for bit against their plain versions: the plane
      fit (csrc/planefit.cu, the torus-layout column maps moved to the window
-     layout as its load, then the whole 3×3 fit) and the guess height
+     layout as its load, held against torch.roll too, then the whole 3×3
+     fit) and the guess height
      (csrc/guess.cu, the positive and negative obstacles and the visibility
      as its epilogue) on each combine's column maps, and on the seeded maps of
      io.synthetic.stencil_maps (all known, all unknown, checkerboard, border
@@ -68,7 +76,8 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      the separable passes' smallest tile) on an 8×8×4 grid, whose padded
      scratch is 2.0 GB, from sums of seeded sparse points, against the
      plain version's function summed over those sources (box_sparse) and
-     within the f32 bound of it in float64, timed; the merge at 256×256×320; the Gvom facade with
+     within the f32 bound of it in float64; the merge at 256×256×320; the
+     Gvom facade with
      buffer_size=17, z_size=320, z_eigen_dist=9 and xy_eigen_dist=8 on
      two upstream scans against the same facade on its plain versions,
      and the batched step at Z = 320 against its plain versions; and the
@@ -96,10 +105,9 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      and read just after (the preparation, K1-K4, the plane fit and the
      guess height once a scan), no float64 fma32 or
      sqrt32 on the card (watch_fma32), and checks the 5-tuple it returns;
-     then
-     counts every launch of one warm combine_maps and of one warm
-     process_pointcloud with torch.profiler (the kernels' and PyTorch's) and
-     prints them with the device's busy share and float64 time (none);
+     then counts every launch of one warm combine_maps and of one warm
+     process_pointcloud with torch.profiler (the kernels' and PyTorch's):
+     none is float64;
   3. checks the facade's outputs and ring buffer on a small grid (B = 3,
      whose K4 library the facade builds when it is made), over a
      drive with one degenerate scan, against the same facade on the CPU,
@@ -109,43 +117,32 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      general quaternion transform (the ROS node's path), and that path on
      three upstream scans against the same facade on its plain versions on
      the card;
-  4. times each kernel, its plain version and, where one exists, a PyTorch
-     call that computes the same function, with CUDA events, and computes
-     each kernel's bound from this run's inputs: the bytes it must move
-     over the memory rate, or its operations over their rate, whichever is
-     larger. A kernel's ms is the card's time for what its wrapper launches,
-     alone: the launches (fills included) captured in a CUDA graph and
-     replayed; wrapper_ms beside it is the wrapper called back to back, as
-     the host paces it. K1's and K2's one-atomic-a-pass (a point) floor at
-     the rate of a probe kernel (csrc/atomic_rate.cu) is reported beside the
-     bound as atomic_floor_ms. K4's bytes are counted from what this data
-     makes it read. Two pairs, K2 then K3 on one scan and K2 then K5 on a
-     batch, are timed against a bound that no design moves (pair_bound);
+  4. (no phase: the kernels' times are the timing scripts' above);
   5. drives the batched step (make_batched_step): two steps of 4 scans held
      against the same step with every kernel swapped for its plain version,
      then two steps of 32 scans of 131,072 points (the second merges with a
-     live world at a moved origin), timed, with the launch counts set to 0
+     live world at a moved origin), with the launch counts set to 0
      just before and read just after (the preparation, K1, K2, K5, the
      merge, the plane fit and the guess height: one launch a step each), no
-     float64 fma32 or sqrt32 on the card, and one
-     warm step's launches and float64 time (none) counted with
-     torch.profiler; the merge kernel bit for bit against its plain version
+     float64 fma32 or sqrt32 on the card, the peak device memory, and one
+     warm step's launches counted with torch.profiler (none float64); the
+     merge kernel bit for bit against its plain version
      on the second step's 32-scan contribution into the first step's live
      world (the origin moved), and on its quarter slab y0 = 64 against the
-     full rows, timed against its bound; then K1 on a
-     whole 32-scan batch, timed and held bitwise against the plain twin and
-     the sum of its one-scan launches over the same scans, and K2 and K5 on its merged
-     points against their plain versions, timed; then K1 on a 64-scan
-     batch of the benchmark's lap (benchmark/scangen.py), the same way, with
-     its march's lane utilisation and atomics after the warp merge in
-     launch order and sorted by live steps (kernels.ray_march_stats), and
-     its one-scan, slab and 64-scan times beside their bounds, and the
-     times of one of its scans, that scan's slab and the batch's slab;
+     full rows; then K1 on a
+     whole 32-scan batch, held bitwise against the plain twin and
+     the sum of its one-scan launches over the same scans, and K2 (on a
+     scratch kept across its calls, called again on the same points) and
+     K5 on its merged points against their plain versions; then K1 on a
+     64-scan batch of the benchmark's lap (benchmark/scangen.py), bitwise
+     the sum of its one-scan launches, with its march's lane utilisation
+     and atomics after the warp merge in launch order and sorted by live
+     steps (kernels.ray_march_stats, its passes bitwise the launch's);
   6. runs batched_replay over a synthesized log of 8 scans on a small grid,
      batch 4, against the same replay on the CPU, with a checkpoint written,
      loaded, and the resumed run's world equal to the straight run's;
   7. drives the live mapper's host path at the upstream deployment: the
-     PointCloud2 decode (native and NumPy paths, timed, bitwise the same);
+     PointCloud2 decode (native and NumPy paths bitwise the same);
      VoxelMapperNode for about 3 s under two sensor threads at 10 Hz each,
      which decode serialized PointCloud2 payloads through the native path,
      while a timer thread on rospy.Timer's schedule runs the ROS node's
@@ -154,8 +151,8 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      in a thread fails the run); reset, then the same 8 scans twice (the
      second reset from a thread on another CUDA stream), the layers bitwise
      the same and the products a fresh Gvom's; the
-     three exporters at the full grid, timed, against the same exporters on
-     the world copied to the CPU; a bz2-chunked bag of the 8 scans through
+     three exporters at the full grid against the same exporters on the
+     world copied to the CPU; a bz2-chunked bag of the 8 scans through
      `cli convert-bag` and sequential_replay, bitwise the facade's (an lz4
      chunk on a small bag); `cli replay` (sequential and batched), `cli
      selftest` and `cli parity --scans 3` on the card and on the CPU as
@@ -175,17 +172,17 @@ synthetic OS1-128 sweep of the composite terrain, made from fixed seeds):
      MOM_ATOL_BATCH), the slab kernels launched on every rank of a space
      mesh and the merge, the plane fit and the guess height on every rank;
      dryrun_multichip(4, backend="gloo"); and `bench --mode scaling
-     --devices 1`. It prints each rank's step time, peak device memory,
-     slab launches and the bytes gloo moved through the host. Four ranks
-     on one card measure no scaling.
+     --devices 1`. It prints each rank's peak device memory, slab launches
+     and the bytes gloo moved through the host.
 
-Prints the timings, one JSON line {"kernels": [...]} (every kernel of the
-paths, the maps' tail named under the two kernels that took it over as
-"includes"; the plane fit's tail, which no path launches, is timed in the
---out report), the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}. Exits
-non-zero without that line when there is no CUDA device or a phase fails.
---out also writes every number to a JSON file.
+Prints one JSON line {"kernels": [...]}: a row for each kernel launched on
+a path (the maps' tail named under the two kernels that took it over as
+"includes"; the plane fit's tail, which no path launches, has none), with
+its source, the TPU function it replaces, its launches on its own path and
+on the others, and its largest difference from its plain version; then the
+card's name and power limit, and as its last line {"ok": true, "device":
+{...}}. Exits non-zero without that line when there is no CUDA device or a
+check fails. --out also writes the whole report to a JSON file.
 """
 
 from __future__ import annotations
@@ -198,7 +195,6 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -220,12 +216,7 @@ BATCH = 32                   # scans per batched step, the JAX package's bench d
 BATCH_CHECK = 4              # scans per step of the batched step held against the plain versions
 NEAR_TIER_STEPS = 30         # the step-pair kernel of the JAX package covers steps 1..30
 PLANE_FIT_SWEEP = 1 << 20    # values of the plane-fit tail's seeded sweep over the fit's domain
-PLANE_FIT_TAIL_OPS = 80      # f32 operations of the plane-fit tail at a cell whose fit is ok (a log, two atan2)
-PLANE_FIT_OPS = 150          # f32 operations of the whole plane fit at a cell (the sums, the moments, the tail)
-PREP_OPS = 16                # f32 operations of the preparation a point: d², its test, voxel, bounds
-PREP_TRANSFORM_OPS = 12      # and of the transform a point: three rows of a product, two fmas and an add
 PROFILED_CALLS = 20          # calls of the preparation in its profiled trace
-GUESS_OPS = 13               # f32 operations of the guess and its products a cell: the delta, steepness, density
 DEAD_SCAN = 5                # the scan of phase 1's 32-scan batch that is moved out of the grid
 STENCIL_SMALL = 64           # the small grid of phase 1's stencil radii
 STENCIL_RADII = (0, 1, 15, 300)
@@ -236,7 +227,6 @@ FACADE_KERNELS = ("prepare_points", "ray_pass_counts", "bin_points", "ingest_epi
                   "guess_height")
 # the kernels that took the maps' tail over: its two entries' work is in their launches
 TAIL_HOSTS = dict(plane_fit="maps_to_window", guess_height="map_products")
-MERGE_OPS = 40               # f32 and int operations of the merge a voxel (masks, sums, ten moment adds)
 MAP_TAIL_ORIGINS = ((5, -7, 2), (0, 0, 0), (-300, 1000, 0), (255, 1, -5))   # phase 1's crafted map-tail origins
 MESH_RANKS = 4               # phase 9's gloo ranks on the one card
 # phase 1's K4 depths and z sizes on a 64×64 grid: the unrolled kernel's own (2, 7, 16) and the grouped
@@ -244,10 +234,9 @@ MESH_RANKS = 4               # phase 9's gloo ranks on the one card
 OTHER_B_Z = ((2, 96), (7, 31), (16, 64), (17, 64), (33, 64), (4, 257), (4, 320), (4, 800))
 MERGE_TALL = ((256, 320), (64, 257), (64, 800))   # phase 1's merge past 256 z: (X, Z)
 EIGEN_DISTS = ((1, 9), (8, 1), (5, 8))   # phase 1's epilogue (xy_eigen_dist, z_eigen_dist) past the tiled box
-# phase 1's direct epilogue past the separable passes' tile: its grid (X = Y, Z), an origin, seeded points over
-# the padded box and inside the window, and its timed launches a mask (3.4 s each on an H100, PERF.md §6)
+# phase 1's direct epilogue past the separable passes' tile: its grid (X = Y, Z), an origin, and seeded points
+# over the padded box and inside the window
 DIRECT_GRID, DIRECT_ORIGIN, DIRECT_POINTS, DIRECT_HITS = (8, 4), (5, -3, 1), 4096, 96
-DIRECT_REPS = 2
 # the configurations of phase 1c: every one the JAX package takes, past the kernels' fast forms
 WIDE_CONFIGS = (dict(buffer_size=17), dict(z_size=320), dict(z_eigen_dist=9), dict(xy_eigen_dist=8))
 LARGE_GRID = 512             # phase 1d's grid, the JAX record's larger one (512×512×64)
@@ -278,14 +267,6 @@ BATCHED_KERNELS = ("prepare_points", "ray_pass_counts", "bin_points", "moments_e
                    "plane_fit", "guess_height")
 SLAB_KERNELS = ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab")
 MESH_SHAPES = (("(1, 4) slab", 4, "slab"), ("(2, 2) slab", 2, "slab"), ("(2, 2) scatter", 2, "scatter"))
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
-F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
-# The atomic-rate probe (csrc/atomic_rate.cu): 2^26 scattered atomics into
-# 2^22 words, the size of one 256×256×64 int32 grid (L2-resident, as K1's
-# and K2's targets mostly are). The data sheet gives no atomic rate.
-ATOMIC_PROBE_WORDS = 1 << 22
-ATOMIC_PROBE_OPS = 1 << 26
 
 LIDAR = dict(channels=128, azimuth_steps=2048)   # OS1-128 sweep; its returns are cut to max_points
 DEVICE = "cuda"
@@ -324,87 +305,6 @@ def nan_blind(name, fn, n, rest):
     got = fn(n, bad)
     check(bool(torch.isfinite(got).all()), f"{name}: not finite on NaN-poisoned sums")
     exact(f"{name} on NaN-poisoned sums vs clean sums", got, ref)
-
-
-def cuda_ms(fn, reps, warm=1):
-    """Mean device time of fn() over reps calls, after warm calls, paced by
-    the host: allocations and launch overhead included."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-GRAPH_CALLS = 10    # calls of fn captured in one graph by graph_ms
-
-
-_CAPTURE = []   # graph_ms's capture stream, made at its first call
-
-
-def graph_ms(fn, reps):
-    """The card's time for what fn() launches, alone: GRAPH_CALLS calls
-    captured in one CUDA graph (fills and small launches included, no host in
-    between), replayed until about reps calls ran, timed with CUDA events.
-    fn runs once on the capture stream first, so that what a wrapper keeps
-    a stream (the preparation's workspace) exists before the capture.
-    Returns (ms per call, what the last captured call returned)."""
-    import torch
-
-    if not _CAPTURE:
-        _CAPTURE.append(torch.cuda.Stream())
-    stream = _CAPTURE[0]
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, stream=stream):
-        for _ in range(GRAPH_CALLS):
-            last = fn()
-    g.replay()
-    torch.cuda.synchronize()
-    n = max(2, reps // GRAPH_CALLS)
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        g.replay()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / (n * GRAPH_CALLS), last
-
-
-def box_conv_weights(cfg, dev):
-    """[10, 10, 2rx+1, 2ry+1, 2rz+1] weights under which conv3d of the padded
-    own-voxel sums is the ±r box of moments translated into the target's
-    frame (ops/moments.translate_raw: the translate is linear in the sums)."""
-    import torch
-
-    from gvom_tpu_torch.ops.binning import PAIRS, moment_pad
-
-    r = moment_pad(cfg)
-    w = torch.zeros((10, 10) + tuple(2 * q + 1 for q in r), dtype=torch.float32)
-    for i in range(2 * r[0] + 1):
-        for j in range(2 * r[1] + 1):
-            for k in range(2 * r[2] + 1):
-                t = (i - r[0], j - r[1], k - r[2])
-                w[0, 0, i, j, k] = 1.0
-                for a in range(3):
-                    w[1 + a, 1 + a, i, j, k] = 1.0
-                    w[1 + a, 0, i, j, k] = t[a]
-                for q, (a, b) in enumerate(PAIRS):
-                    w[4 + q, 4 + q, i, j, k] = 1.0
-                    w[4 + q, 1 + b, i, j, k] += t[a]
-                    w[4 + q, 1 + a, i, j, k] += t[b]
-                    w[4 + q, 0, i, j, k] = t[a] * t[b]
-    return w.to(dev)
 
 
 # the plane-fit kernel's outputs and the guess kernel's, by their MapProducts names
@@ -513,7 +413,6 @@ def phase1_stencils(cfg, dev, log):
         f"({positive} positive cells in all); the guess on a map where no cell searches (every block skips) and "
         f"on one with a single searching cell at {idle}, bitwise; the plane fit on a map of unknown cells and on "
         f"one of known cells whose x slopes fill each range of atanf's reduction (cells a range: {ranges}), bitwise")
-    return routes
 
 
 ATAN_RANGES = (0.4375, 0.6875, 1.1875, 2.4375)   # the bounds of |t| in glibc atanf's range reduction
@@ -609,7 +508,6 @@ def plane_fit_sweep(dev, log):
         bitwise(f"plane fit tail sweep: {name}", a, b)
     log(f"phase 1 plane fit tail: {n} seeded cells of the fit's domain bitwise against grid.log32 / "
         f"grid.atan2_32 on the card ({int((got[0] == float('-inf')).sum())} subnormal residuals, whose log is -inf)")
-    return fit
 
 
 def bitwise_nan(name, a, b):
@@ -682,8 +580,9 @@ def phase1_prepare(cfg, scans, dev, log):
     ego_relative_min_distance, and with a pinned origin; the 32-scan batch
     of phase 5 with scan DEAD_SCAN moved out of the grid (dead, its points
     dropped); the edge points with valid on, off and alternating, with and
-    without the transform; non-finite frame egos. Returns the inputs of the
-    timings."""
+    without the transform; non-finite frame egos. Then each call launches
+    the kernel once and nothing else, on one scan and on the batch with the
+    dead-scan mask (prepare_launches)."""
     import torch
 
     from gvom_tpu_torch.io import synthetic
@@ -732,12 +631,79 @@ def phase1_prepare(cfg, scans, dev, log):
         prepare_vs_plain(f"frame ego {k} not finite", cfg, ep[None], patterns["valid"].to(dev)[None], ego[None],
                          frame_ego=fe)
     odd = phase1_prepare_odd_shapes(cfg, pts, valid, ego, sensor, tf, (bpts, bvalid, begos))
+    traced = prepare_launches(cfg, one, ego, (bpts, bvalid, begos))
     log(f"phase 1 prepare: bitwise its plain version on one scan ({int(got[1].sum())} kept; a quaternion "
         f"transform, {moved} points not at their world coordinates after the round trip; ego_relative_min_distance "
         f"{int(got_rel[1].sum())} kept at 4 m; a pinned origin), on the {BATCH}-scan batch (scan {DEAD_SCAN} dead, "
         f"{int(bprep[1].sum())} points kept), on {n_edge} edge points valid, invalid and alternating with and "
-        f"without the transform, from two non-finite frame egos, and {odd}")
-    return dict(one=one, ego=ego, sensor=sensor, tf=tf, batch=(bpts, bvalid, begos), n_dead=len(dead))
+        f"without the transform, from two non-finite frame egos, and {odd}; one launch a call and nothing else "
+        f"(calls of the kernel traced between the markers: {traced})")
+
+
+def traced_launches(fn):
+    """{kernel name: launches} on the card in one call of fn after two warm
+    calls, by torch.profiler: the kernels' and PyTorch's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+    return counts
+
+
+def f64_launches(counts):
+    """The float64 launches among traced_launches' counts: the kernels whose
+    name (PyTorch's templates) names double."""
+    return sum(n for name, n in counts.items() if "double" in name)
+
+
+def prepare_launches(cfg, one, ego, batch):
+    """The preparation launches its kernel once a call and nothing else (no
+    memset, no second kernel), on one scan and on a batch with the
+    dead-scan mask: a trace of PROFILED_CALLS calls, each between two
+    launches of PyTorch's own (the markers), holds nothing but the markers
+    and the kernel, once a call; and the kernel's own count rises by one a
+    call. A profile of one short call comes back empty on this card's
+    profiler, the markers' launches too, and a longer one can lose the
+    start of its first call (its first marker, or that and its kernel, or
+    the whole call). Returns the calls of the kernel traced."""
+    import torch
+
+    from gvom_tpu_torch.ops import kernels
+
+    marker = torch.zeros(1, device=ego.device)
+    bpts, bvalid, begos = batch
+    forms = dict(scan=lambda: kernels.prepare_points(cfg, *one.values(), frame_ego=ego),
+                 batch=lambda: kernels.prepare_points(cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True))
+
+    def between(fn):
+        for _ in range(PROFILED_CALLS):
+            marker.add_(1)
+            fn()
+            marker.add_(1)
+
+    traced = {}
+    for form, fn in forms.items():
+        counts = traced_launches(lambda: between(fn))
+        markers = sum(n for name, n in counts.items() if "CUDAFunctorOnSelf_add" in name)
+        ours = traced[form] = sum(n for name, n in counts.items() if "prepare_kernel" in name)
+        launches = sum(counts.values())
+        check(launches == markers + ours and abs(markers - 2 * ours) <= 1 and ours >= PROFILED_CALLS - 2,
+              f"prepare, {form}: {launches} launches on the card in {PROFILED_CALLS} calls between the markers "
+              f"({markers} markers traced, {ours} of the kernel); each call must launch the kernel once and nothing "
+              f"else")
+        launches0 = kernels.PREP.launches
+        fn()
+        check(kernels.PREP.launches == launches0 + 1, f"prepare, {form}: a call counted other than one launch")
+    return traced
 
 
 def phase1_prepare_odd_shapes(cfg, pts, valid, ego, sensor, tf, batch):
@@ -838,10 +804,13 @@ def phase1_knife_edges(dev, log):
 
 def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
     """Each kernel against its plain version on the same inputs, over a drive
-    with a moving ego. Returns the max abs error per kernel and the last
-    scan's inputs (for the timings). extras: also the sweeps and the
-    crafted inputs of the plane fit's tail, the stencils, the maps' tail and the
-    merge, which do not depend on the drive."""
+    with a moving ego; K4's launch alone (kernels.combine_launch, launched
+    twice into its own outputs) against its wrapper, and the window layout
+    that the plane fit writes against torch.roll of the two torus maps by
+    minus the origin, exactly. Returns the max abs error per kernel.
+    extras: also the sweeps and the crafted inputs of the plane fit's tail,
+    the stencils, the maps' tail and the merge, which do not depend on the
+    drive."""
     import torch
 
     from gvom_tpu_torch.models import pipeline
@@ -851,7 +820,6 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
     err = {k.name: 0.0 for k in kernels.KERNELS}
     buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
     X, Y, Z = cfg.grid_shape
-    last = None
     for i, (pad, mask, ego_np) in enumerate(scans):
         pts, valid = torch.from_numpy(pad).to(dev), torch.from_numpy(mask).to(dev)
         ego = torch.tensor(ego_np, dtype=torch.float32, device=dev)
@@ -896,12 +864,20 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
         check(bool(scan_ok), f"scan {i} has no occupied voxel")
         target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
         ko = combine_vs_plain(cfg, buf, world, ego, "K4")
+        launch, alone = kernels.combine_launch(cfg, buf, world, target, ego)
+        launch()
+        launch()
+        for name, a, b in zip(COMBINE_OUTPUTS, alone, ko):
+            exact(f"K4 after scan {i}, launched alone twice, vs the wrapper: {name}", a, b)
+        del alone
         world, products, ok = pipeline.combine(cfg, buf, world, ego)
         check(bool(ok), f"combine after scan {i} reports an empty buffer")
         hm, ihm = products.height, products.inferred_height
         # the 2-D maps from K4's torus-layout column maps: the plane fit, then the guess
         fit_in = (ko[5], ko[6], target)
         fitted = plane_fit_vs_plain(f"combine {i}", cfg, *fit_in)
+        exact(f"combine {i}: the plane fit's window layout against torch.roll", torch.stack(fitted[:2]),
+              torch.roll(torch.stack(fit_in[:2]), tuple(-int(v) for v in target[:2].cpu()), (1, 2)))
         guess_in = (fitted[0], fitted[1], fitted[3], fitted[4]) + tuple(ko[7:10]) + (target,)
         guessed = guess_vs_plain(f"combine {i}", cfg, *guess_in)
         for name, a in zip(FIT_OUTPUTS + GUESS_OUTPUTS, tuple(fitted) + tuple(guessed)):
@@ -914,16 +890,14 @@ def phase1_kernels_vs_plain(cfg, scans, dev, log, extras=True):
             f"world occupied {int((world.grid.hit > 0).sum())} ({revived} not in the newest scan), "
             f"{searching_cells(hm, ihm)} of {hm.numel()} map cells search in the guess: "
             "the preparation, K1-K5, the plane fit and the guess height (the maps' tail folded into them) agree "
-            "with their plain versions" + (
-                ", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned sums" if i == 0 else ""))
-        last = dict(pts=pts, valid=valid, ego=ego, p=p, origin=origin, keep=keep, bins=kb, target=target,
-                    hm=hm, ihm=ihm, fit_in=fit_in, guess_in=guess_in)
+            "with their plain versions, K4 alone with its wrapper, the plane fit's window layout with torch.roll"
+            + (", K3 and K5 (mask on, off) bitwise the same on NaN-poisoned sums" if i == 0 else ""))
     if extras:
-        last["tail_fit"] = plane_fit_sweep(dev, log)
-        last["guess_routes"] = phase1_stencils(cfg, dev, log)
+        plane_fit_sweep(dev, log)
+        phase1_stencils(cfg, dev, log)
         phase1_maptail(cfg, dev, log)
         phase1_merge(cfg, dev, log)
-    return err, buf, world, last
+    return err
 
 
 COMBINE_OUTPUTS = ("hit", "miss", "min_height", "evidence", "mom", "height", "inferred_height",
@@ -1182,33 +1156,6 @@ def phase1_merge(cfg, dev, log):
         f"slab y0 = {Ys} (occupied, old voxels joined: {counts})")
 
 
-def merge_bound(cfg, world, contrib, y0=0):
-    """(bytes, counts) that the merge must move on this data, as its twin
-    reads its inputs: the batch's hit, miss and min_height everywhere and its
-    moments where it occupies; the old world's hit and evidence where the
-    windows overlap and it is valid, its miss and min_height where its
-    occupied voxel stays occupied, its moments where the windows overlap and
-    the merged voxel is occupied; four scalar channels and ten moment
-    channels written, and five [X, Ys] maps. A slab's rows start at y0."""
-    import torch
-
-    from gvom_tpu_torch.ops import grid as gridops
-    from gvom_tpu_torch.parallel.sharding import merge_batch_plain
-
-    X, Ys, Z = contrib.hit.shape
-    V, f32 = X * Ys * Z, 4
-    dev = contrib.hit.device
-    coords = tuple(torch.arange(a, a + n, dtype=torch.int32, device=dev) for a, n in ((0, X), (y0, Ys), (0, Z)))
-    _, _, occ2 = merge_batch_plain(cfg, world, contrib, coords)
-    om = gridops.overlap_mask(cfg, contrib.origin, world.grid.origin, coords)
-    ow = om & world.valid
-    counts = dict(voxels=V, batch_occupied=int((contrib.hit > 0).sum()), old_read=int(ow.sum()),
-                  old_kept=int((ow & (world.grid.hit > 0) & occ2).sum()), old_moments=int((om & occ2).sum()))
-    words = (3 * V + 10 * counts["batch_occupied"] + 2 * counts["old_read"] + 2 * counts["old_kept"]
-             + 10 * counts["old_moments"] + 14 * V + 5 * X * Ys + 3 + 3 + 3 + 1)
-    return words * f32, counts
-
-
 def scan_tensors(scan, dev):
     import torch
 
@@ -1223,8 +1170,7 @@ def phase1_slabs(cfg, scan, dev, log, err):
     plain version and against the rows of the full-grid kernel's output;
     then ingest_scan(y_window=) side by side against ingest_scan(), with the
     launch counts set to 0 just before and read just after. Returns the
-    launches and the inputs of the slab that holds the seam (for the
-    timings)."""
+    launches."""
     import torch
 
     from gvom_tpu_torch.models import pipeline
@@ -1266,9 +1212,6 @@ def phase1_slabs(cfg, scan, dev, log, err):
             if has_seam:
                 nan_blind(f"K5 slab {k} mask={mask}",
                           lambda n, r: kernels.moments_epilogue(cfg, n, r, kb.hit, origin, yw, mask), kb.n, kb.rest)
-        if has_seam:
-            last = dict(p=p, ego=ego, origin=origin, keep=keep, bins=kb, y_window=yw,
-                        full_n=full_bins.n[0], full_hit=full_bins.hit)
     del full_mom, full_pass
 
     kernels.reset_launches()
@@ -1293,7 +1236,7 @@ def phase1_slabs(cfg, scan, dev, log, err):
         f"agree with their plain versions and with the full grid's rows, the slab epilogue bitwise the same on "
         f"NaN-poisoned sums; ingest_scan(y_window=) side by side "
         f"equals ingest_scan(); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
-    return launches, last
+    return launches
 
 
 def phase1_near_tier(cfg, scan, dev, log):
@@ -1386,16 +1329,14 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
     bitwise, the direct kernel that the mask on keeps at a small box within
     the f32 summation bound) and bitwise the same on NaN-poisoned sums; K5's
     masked output bitwise K3's slot. Records each (radius, grid, mask)'s
-    kernel and each radius's launches, and times K5 on the full grid with
-    the mask off (beside the conv3d yardstick) and on. The parent tree's
-    forms are timed beside these by scripts/time_wide_forms.py."""
+    kernel and each radius's launches (scripts/time_wide_forms.py times
+    these forms)."""
     import torch
 
     from gvom_tpu_torch.ops import binning, kernels, moments
-    from gvom_tpu_torch.ops import grid as gridops
 
     pts, valid, ego = scan_tensors(scan, dev)
-    routes, timings, launches = {}, {}, {}
+    routes, launches = {}, {}
     for xye, ze in EIGEN_DISTS:
         c = dataclasses.replace(cfg, xy_eigen_dist=xye, z_eigen_dist=ze)
         X, Y, Z = c.grid_shape
@@ -1448,26 +1389,7 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
         launches[f"({xye}, {ze})"] = {k.name: k.launches for k in (kernels.EPI, kernels.XBOX, kernels.XBOX_SLAB)}
         for name, n in launches[f"({xye}, {ze})"].items():
             check(n > 0, f"eigen ({xye}, {ze}): {name} was launched no time")
-        everywhere = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
-        # the yardstick of phase 4: conv3d of the padded sums is the ±r box (the mask off)
-        wconv, conv_in = box_conv_weights(c, dev), clean_sums(kb.sums)[None]
-        conv_err = float((torch.nn.functional.conv3d(conv_in, wconv)[0]
-                          - moments.box_aggregate_moments(c, kb.sums)).abs().max())
-        log(f"library yardstick check at eigen ({xye}, {ze}): conv3d box vs plain box max abs err {conv_err}")
-        for mask in (False, True):
-            targets = kb.hit > 0 if mask else everywhere
-            nbytes, terms, _, _ = epilogue_bound(c, kb.n[0], gridops.torus_to_window(targets, origin),
-                                                 X * Y * Z, mask)
-            what = f"moments_epilogue mask {'on' if mask else 'off'}, eigen ({xye}, {ze})"
-            timings[what] = dict(form_timing(
-                what, lambda: kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask), nbytes,
-                52 * terms / F32_OPS_PER_S, log,
-                lib=None if mask else lambda: torch.nn.functional.conv3d(conv_in, wconv),
-                plain=lambda: moments.moments_epilogue_plain(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)),
-                route=routes[f"({xye}, {ze}) full mask {'on' if mask else 'off'}"])
-            if not mask:
-                timings[what]["library_max_abs_err"] = conv_err
-        del kb, sb, everywhere, wconv, conv_in
+        del kb, sb
     routes[f"({cfg.xy_eigen_dist}, {cfg.z_eigen_dist}) full mask on"] = kernels.epilogue_route(cfg, None, True)
     check(set(routes.values()) == set(kernels.EPILOGUE_ROUTES),
           f"the epilogue's three kernels were not all chosen: {routes}")
@@ -1484,7 +1406,7 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
     log(f"phase 1 epilogue radii: K2, K3, K5 (mask on, off) and the slab epilogue at eigen distances "
         f"{list(EIGEN_DISTS)} agree with their plain versions (the separable passes bitwise on all ten channels) "
         f"and are bitwise the same on NaN-poisoned sums; kernel by (xy, z) eigen distance, grid and mask: {routes}")
-    return dict(routes=routes, timings=timings, launches=launches)
+    return dict(routes=routes, launches=launches)
 
 
 def box_sparse(cfg, sums, hit, origin, mask, dtype, absolute=False):
@@ -1542,12 +1464,10 @@ def phase1_epilogue_direct_wide(cfg, dev, log):
     sources in a box (adding a zero is exact) and 12 the roundings of a
     term's three translations. box_sparse is first held against
     moments_epilogue_plain at a small radius in float64. The route query
-    must answer "direct" for both masks; K5 is timed with CUDA events over
-    DIRECT_REPS launches after the checked one."""
+    must answer "direct" for both masks."""
     import torch
 
     from gvom_tpu_torch.ops import binning, kernels, moments
-    from gvom_tpu_torch.ops import grid as gridops
 
     optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 227 * 1024)
     r_max = (optin // 80 - 1) // 2
@@ -1601,17 +1521,10 @@ def phase1_epilogue_direct_wide(cfg, dev, log):
         bound = (m + 12) * 2.0 ** -24 * scale
         km = kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask)
         e = box_close(f"K5 direct at eigen ({r_max + 1}, 1), {what}", km, plain, ref, bound)
-        targets = kb.hit > 0 if mask else torch.ones_like(kb.hit, dtype=torch.bool)
-        nbytes, terms, _, _ = epilogue_bound(c, kb.n[0], gridops.torus_to_window(targets, origin), X * X * Z, mask)
-        ms = cuda_ms(lambda: kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask=mask),
-                     DIRECT_REPS, warm=0)
-        bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 52 * terms / F32_OPS_PER_S
-        out["K5"][what] = dict(route=route, ms=ms, max_abs_err=e,
-                         max_rel_err=float(((km.double() - ref).abs() / scale.clamp(min=1e-30)).max()),
-                         most_sources_in_a_box=m, bound_ms=1e3 * max(bytes_s, ops_s),
-                         bound_by="bytes" if bytes_s >= ops_s else "operations")
-        log(f"phase 1 direct epilogue at eigen ({r_max + 1}, 1), {what}: route {route}, {ms:.1f} ms a launch "
-            f"(mean of {DIRECT_REPS}), bound {out['K5'][what]['bound_ms']:.4f} ms, max abs err {e:.4g} "
+        out["K5"][what] = dict(route=route, max_abs_err=e,
+                               max_rel_err=float(((km.double() - ref).abs() / scale.clamp(min=1e-30)).max()),
+                               most_sources_in_a_box=m)
+        log(f"phase 1 direct epilogue at eigen ({r_max + 1}, 1), {what}: route {route}, max abs err {e:.4g} "
             f"against the plain version, at most {m} sources a box")
         if mask:
             ko = torch.zeros((2, 10, X, X, Z), dtype=torch.float32, device=dev)
@@ -1646,11 +1559,10 @@ def phase1_merge_tall(cfg, dev, log):
     shapes, 256×256×320 (8-byte accesses, the band inputs in shared
     memory), 64×64×257 (4-byte accesses, a part chunk) and 64×64×800 (past
     the 768 z whose band inputs a block's shared memory holds: the band sums
-    read back the merged column). Timed at 256×256×320."""
+    read back the merged column)."""
     from gvom_tpu_torch.ops import kernels
-    from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain
 
-    counts, timing = {}, None
+    counts = {}
     for X, Z in MERGE_TALL:
         c = dataclasses.replace(cfg, xy_size=X, z_size=Z)
         Ys = X // 4
@@ -1666,39 +1578,10 @@ def phase1_merge_tall(cfg, dev, log):
             band = int(full[3][0, 1, 2])
             check(band > 0, f"{what}: the full column's band hit sum is {band}")
             counts[f"{X}×{X}×{Z} {case}"] = [int((full[0].hit > 0).sum()), int((full[3][0] > 0).sum()), band]
-            if timing is None:
-                # as in phase 5: each timed call merges over the previous call's output
-                nbytes, _ = merge_bound(c, world, contrib)
-                timed = copy_grid(contrib)
-                timing = form_timing(f"merge_batch at {X}×{X}×{Z}", lambda: kernels.merge_batch(c, world, timed, ego),
-                                     nbytes, MERGE_OPS * c.voxel_count / F32_OPS_PER_S, log,
-                                     plain=lambda: merge_and_columns_plain(c, world, contrib, ego))
-                del timed
             del world, contrib, full
     log(f"phase 1 merge past 256 z: bitwise its plain version on seeded worlds and their quarter slab, a full "
         f"column in each, two launches a case ([occupied voxels, columns with a band hit sum, the full column's]: "
         f"{counts})")
-    return {"merge_batch at Z = 320": timing}
-
-
-def wide_combine(c, g, ego, what, log):
-    """K4 on the state of the Gvom facade g: every output bitwise against
-    fuse_plain (combine_vs_plain), then its launch alone timed beside its
-    bound and fuse_plain (form_timing)."""
-    import torch
-
-    from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.ops import kernels
-
-    buf, world = g._buffer, g._world
-    ego = torch.tensor(ego, dtype=torch.float32, device=world.grid.hit.device)
-    combine_vs_plain(c, buf, world, ego, f"K4 at {what}")
-    target = buf.grids.origin.index_select(0, buf.last_slot.reshape(1).long())[0]
-    launch, outs = kernels.combine_launch(c, buf, world, target, ego)
-    launch()
-    nbytes, _ = combine_bound(c, buf, world, target, outs[0])
-    return form_timing(f"combine at {what}", launch, nbytes, 40 * c.voxel_count / F32_OPS_PER_S, log,
-                       plain=lambda: pipeline.fuse_plain(c, buf, world, target, ego))
 
 
 def phase1_wide_configs(cfg, scans, dev, log):
@@ -1709,9 +1592,9 @@ def phase1_wide_configs(cfg, scans, dev, log):
     where the epilogue's direct kernel takes the box the buffer's nine
     moment sums are held against float64 by phase1_epilogue_radii), with
     K1-K4 launched once a scan; at buffer_size 17 and z_size 320, K4
-    bitwise fuse_plain and timed (wide_combine) there and again once the
-    facade has taken B + 1 scans (the scans in turn), its ring buffer full
-    and its cursor wrapped; then the batched step at Z = 320, two steps of
+    bitwise fuse_plain (combine_vs_plain) there and again once the facade
+    has taken B + 1 scans (the scans in turn), its ring buffer full and its
+    cursor wrapped; then the batched step at Z = 320, two steps of
     BATCH_CHECK scans, against the same step on the plain versions."""
     import torch
 
@@ -1719,7 +1602,7 @@ def phase1_wide_configs(cfg, scans, dev, log):
     from gvom_tpu_torch.ops import kernels
     from gvom_tpu_torch.types import empty_world_state
 
-    drives, timings = {}, {}
+    drives = {}
     for fields in WIDE_CONFIGS:
         c = dataclasses.replace(cfg, **fields)
         what = ", ".join(f"{k}={v}" for k, v in fields.items())
@@ -1733,13 +1616,14 @@ def phase1_wide_configs(cfg, scans, dev, log):
         drives[what] = int(a.products.visibility.sum())
         check(drives[what] > 0, f"Gvom({what}): no visible cell")
         if "buffer_size" in fields or "z_size" in fields:
-            timings[f"combine, {what}"] = wide_combine(c, a, full[-1][2], what, log)
+            combine_vs_plain(c, a._buffer, a._world, torch.tensor(full[-1][2], dtype=torch.float32, device=dev),
+                             f"K4 at {what}")
             ring = [scans[i % len(scans)] for i in range(len(full), c.buffer_size + 1)]
             for pad, m, e in ring:
                 a.process_pointcloud(pad[m], e)
                 a.combine_maps()
-            timings[f"combine, {what}, full ring"] = wide_combine(
-                c, a, ring[-1][2], f"{what}, full ring ({c.buffer_size + 1} scans)", log)
+            combine_vs_plain(c, a._buffer, a._world, torch.tensor(ring[-1][2], dtype=torch.float32, device=dev),
+                             f"K4 at {what}, full ring ({c.buffer_size + 1} scans)")
         del a, b
         torch.cuda.empty_cache()
     c = dataclasses.replace(cfg, z_size=320)
@@ -1763,7 +1647,6 @@ def phase1_wide_configs(cfg, scans, dev, log):
         f"{int((wk.grid.hit > 0).sum())})")
     del wk, wp, pk, pp
     torch.cuda.empty_cache()
-    return timings
 
 
 def phase1_large(dev, log, err):
@@ -1778,7 +1661,7 @@ def phase1_large(dev, log, err):
 
     cfg = GvomConfig(xy_size=LARGE_GRID)
     scans = make_scans(cfg, WIDE_SCANS, LIDAR)
-    e = phase1_kernels_vs_plain(cfg, scans, dev, log, extras=False)[0]
+    e = phase1_kernels_vs_plain(cfg, scans, dev, log, extras=False)
     for k, v in e.items():
         err[k] = max(err[k], v)
     torch.cuda.empty_cache()
@@ -1907,7 +1790,6 @@ def phase1_config_sweep(cfg, scans, dev, log, err):
     report = {}
     try:
         for name, (seed, fields) in SWEEP_CONFIGS.items():
-            t0 = time.perf_counter()
             if seed is None:        # F5: the upstream grid and scans
                 c = GvomConfig(**fields)
                 drive = scans[:WIDE_SCANS]
@@ -1960,7 +1842,6 @@ def phase1_config_sweep(cfg, scans, dev, log, err):
                 exact(f"{what} {field}", getattr(gk, field), getattr(gp, field))
             r["slab_mom"] = moments_close(what, gk.mom, gp.mom)
             err["moments_epilogue_slab"] = max(err["moments_epilogue_slab"], r["slab_mom"])
-            r["seconds"] = time.perf_counter() - t0
             report[name] = r
             del gk, gp, step, batches
             torch.cuda.empty_cache()
@@ -1970,13 +1851,12 @@ def phase1_config_sweep(cfg, scans, dev, log, err):
                 f"the batched step over {r['batched_steps']} steps of {r['batch']} scans and the slab {yw} equal "
                 f"their plain versions: the maps, products, hit, miss, min_height, evidence and n with no "
                 f"difference, the moments' largest differences {r['facade_buffer_mom']} (facade buffer), "
-                f"{r['batched_world_mom']} (batched world), {r['slab_mom']} (slab); {r['seconds']:.1f} s")
+                f"{r['batched_world_mom']} (batched world), {r['slab_mom']} (slab)")
     except BaseException:
         installed_wheel_stop(wheel)
         raise
     log(f"phase 1 sweep: no kernel differs from its plain version on {list(SWEEP_CONFIGS)} beyond the moments' "
-        f"stated tolerances (no fault found); each listed kernel launched in each configuration; "
-        f"{sum(r['seconds'] for r in report.values()):.1f} s")
+        f"stated tolerances (no fault found); each listed kernel launched in each configuration")
     report["installed_wheel"] = installed_wheel_finish(wheel, log)
     return report
 
@@ -2044,7 +1924,6 @@ def _installed_wheel_start(tmp):
     shutil.copy(ROOT / "pyproject.toml", src)
     for pkg in ("gvom_tpu", "gvom_tpu_torch"):
         shutil.copytree(ROOT / pkg, src / pkg, ignore=shutil.ignore_patterns("__pycache__", "_build", "*.pyc"))
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-build-isolation", "--no-index",
                            "--no-cache-dir", "-w", str(out), str(src)], capture_output=True, text=True, timeout=120,
                           cwd=src)
@@ -2064,8 +1943,7 @@ def _installed_wheel_start(tmp):
     procs = {name: subprocess.Popen([sys.executable, *args], cwd=site, env=env, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
              for name, args in (("probe", ["-c", INSTALLED_PROBE]), ("cli", ["-m", "gvom_tpu_torch.cli", "--help"]))}
-    return dict(tmp=tmp, site=site, procs=procs, wheel_s=time.perf_counter() - t0, files=len(names),
-                sources=len(csrc))
+    return dict(tmp=tmp, site=site, procs=procs, files=len(names), sources=len(csrc))
 
 
 def installed_wheel_stop(w):
@@ -2110,37 +1988,30 @@ def installed_wheel_finish(w, log):
     finally:
         installed_wheel_stop(w)
     log(f"phase 1 installed wheel: the wheel ({w['files']} files, every one of the {w['sources']} csrc sources, "
-        f"the gvom-tpu-torch script; built in {w['wheel_s']:.1f} s) unpacked alone on the path: the CLI runs, "
+        f"the gvom-tpu-torch script) unpacked alone on the path: the CLI runs, "
         f"no jax imported, the preparation and K1 built from its sources into its _build and launched once each "
         f"({got['points_kept']} points kept, {got['passes']} passes), both bitwise their plain versions")
-    return dict(got, wheel_s=w["wheel_s"], files=w["files"])
+    return dict(got, files=w["files"])
 
 
 def phase2_facade(cfg, scans, log):
     """The main path through the user's entry points, with the launch counts
-    set to 0 just before and read just after."""
+    set to 0 just before and read just after; then every launch of one warm
+    combine_maps and of one warm process_pointcloud on the card, by
+    torch.profiler (traced_launches): no float64 launch."""
     import numpy as np
-    import torch
 
     from gvom_tpu_torch import Gvom
     from gvom_tpu_torch.ops import kernels
 
     g = Gvom(config=cfg)
-    torch.cuda.synchronize()
-    ingest_s, combine_s = [], []
     kernels.reset_launches()
     for i, (pad, mask, ego) in enumerate(scans):
         pts = pad[mask]
         with watch_fma32() as per_point:
-            t0 = time.perf_counter()
             scan_ok = g.process_pointcloud(pts, ego)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
             out = g.combine_maps()
-            t2 = time.perf_counter()
         check(not per_point, f"facade scan {i}: float64 fma32 or sqrt32 on the card: {per_point[:3]}")
-        ingest_s.append(t1 - t0)
-        combine_s.append(t2 - t1)
         check(bool(scan_ok), f"facade scan {i}: scan_ok is False")
         check(out is not None and len(out) == 5, f"facade combine {i}: no 5-tuple")
         origin_world, pos, neg, rough, vis = out
@@ -2156,39 +2027,24 @@ def phase2_facade(cfg, scans, log):
               f"not once per scan")
     # every launch of one warm combine_maps on the card, the kernels' and PyTorch's
     kernels.reset_launches()
-    combine_profile = profile_calls(dict(combine_maps=g.combine_maps), log)["combine_maps"]
+    combine_traced = traced_launches(g.combine_maps)
     profiled = {k.name: k.launches for k in kernels.KERNELS}
     for name in ("combine",) + tuple(TAIL_HOSTS):
         check(profiled[name] == 3, f"kernel {name}: {profiled[name]} launches in the profile's three combine_maps")
     # and of one warm process_pointcloud (the scan given again)
     pad, mask, ego = scans[-1]
-    ingest_profile = profile_calls(dict(process_pointcloud=lambda: g.process_pointcloud(pad[mask], ego)),
-                                   log)["process_pointcloud"]
-    for name, prof in (("combine_maps", combine_profile), ("process_pointcloud", ingest_profile)):
-        check(prof["f64_launches"] == 0, f"{name}: {prof['f64_launches']} float64 launches on the card")
+    ingest_traced = traced_launches(lambda: g.process_pointcloud(pad[mask], ego))
+    for name, counts in (("combine_maps", combine_traced), ("process_pointcloud", ingest_traced)):
+        check(f64_launches(counts) == 0, f"{name}: {f64_launches(counts)} float64 launches on the card")
     occ = g.get_map_as_occupancy_grid()
     check(occ.shape == cfg.grid_shape and occ.any(), "occupancy grid")
-    warm = slice(1, None)
-    res = dict(
-        scans=len(scans),
-        ingest_wall_ms=[1e3 * s for s in ingest_s],
-        combine_wall_ms=[1e3 * s for s in combine_s],
-        ingest_wall_ms_median_warm=1e3 * statistics.median(ingest_s[warm]),
-        combine_wall_ms_median_warm=1e3 * statistics.median(combine_s[warm]),
-        visible_cells=int(vis.sum()), positive_cells=int((pos > 0).sum()),
-        negative_cells=int((neg > 0).sum()), combine_maps_profile=combine_profile,
-        process_pointcloud_profile=ingest_profile,
-    )
-    log(f"phase 2 facade: {len(scans)} scans, launches {launches}; per scan (warm median, host clock "
-        f"with sync): process_pointcloud {res['ingest_wall_ms_median_warm']:.3f} ms, combine_maps "
-        f"{res['combine_wall_ms_median_warm']:.3f} ms; one combine_maps launches {combine_profile['launches']} "
-        f"kernels in all, the device busy {combine_profile['device_us']:.1f} us of "
-        f"{combine_profile['wall_us']:.1f} us; "
-        f"float64 {combine_profile['f64_us']:.1f} us in {combine_profile['f64_launches']} launches; "
-        f"one process_pointcloud launches {ingest_profile['launches']}, the device busy "
-        f"{ingest_profile['device_us']:.1f} us of {ingest_profile['wall_us']:.1f} us, float64 "
-        f"{ingest_profile['f64_us']:.1f} us in {ingest_profile['f64_launches']} launches")
-    return launches, res, g
+    res = dict(scans=len(scans), visible_cells=int(vis.sum()), positive_cells=int((pos > 0).sum()),
+               negative_cells=int((neg > 0).sum()), combine_maps_launches=sum(combine_traced.values()),
+               process_pointcloud_launches=sum(ingest_traced.values()))
+    log(f"phase 2 facade: {len(scans)} scans, launches {launches}; one warm combine_maps launches "
+        f"{res['combine_maps_launches']} kernels on the card in all, one warm process_pointcloud "
+        f"{res['process_pointcloud_launches']}, none of them float64")
+    return launches, res
 
 
 @contextlib.contextmanager
@@ -2281,486 +2137,6 @@ def phase3_small_reference(cfg_full, scans_full, log):
         "degenerate (write-off slot), ring buffer included; roughness and the slopes bitwise; again with each "
         "scan in its sensor frame and a general quaternion transform; and with the transform on "
         f"{len(full)} upstream scans against the same facade on the card on its plain versions")
-
-
-def atomic_rates(probe, dev, log):
-    """Scattered, uncontended global atomics per second on this card, int32,
-    float32 and 16-byte float4 adds (csrc/atomic_rate.cu; a float4 op adds
-    to a group of four words), into a buffer of ATOMIC_PROBE_WORDS words."""
-    import torch
-
-    from gvom_tpu_torch.ops import kernels
-
-    rates = {}
-    for name, dtype, mode in (("int32", torch.int32, 0), ("float32", torch.float32, 1),
-                              ("float32x4", torch.float32, 2)):
-        buf = torch.zeros(ATOMIC_PROBE_WORDS, dtype=dtype, device=dev)
-        ms = cuda_ms(lambda: probe.launch(kernels._ptr(buf), ATOMIC_PROBE_WORDS.bit_length() - 1,
-                                          ATOMIC_PROBE_OPS, mode, kernels._stream()), 5)
-        rates[name] = ATOMIC_PROBE_OPS / (1e-3 * ms)
-        log(f"atomic rate probe {name}: {ATOMIC_PROBE_OPS} scattered atomics in {ms:.4f} ms, "
-            f"{rates[name] / 1e9:.2f} G/s")
-    return rates
-
-
-def kernel_row(k, fn, plain, reps, plain_reps, lib, bytes_moved, ops_s, log):
-    """One row of the kernels line: ms, the card's time for what the wrapper
-    fn launches, alone (graph_ms); wrapper_ms, fn called back to back as the
-    host paces it; the plain version's and the library call's ms; and the
-    bound from bytes_moved and ops_s, the least time of the kernel's
-    operations (float32 arithmetic at the published rate)."""
-    ms, _ = graph_ms(fn, reps)
-    wms = cuda_ms(fn, reps, warm=5)
-    pms = cuda_ms(plain, plain_reps)
-    lms = cuda_ms(lib, reps) if lib is not None else None
-    bytes_s = bytes_moved / HBM_BYTES_PER_S
-    b_ms = 1e3 * max(bytes_s, ops_s)
-    r = dict(name=k.name, route="cuda", source=str(k.source.relative_to(ROOT)),
-             replaces=", ".join(re.findall(r"[\w/]+\.py:\d+", k.replaces)), ms=ms, wrapper_ms=wms, plain_ms=pms,
-             bound_ms=b_ms, bound_by="bytes" if bytes_s >= ops_s else "operations",
-             library_ms=lms, bytes=bytes_moved, bytes_ms=1e3 * bytes_s, ops_ms=1e3 * ops_s)
-    log(f"timing {k.name}: launch alone {ms:.4f} ms, wrapper {wms:.4f} ms, plain {pms:.4f} ms, library "
-        f"{'n/a' if lms is None else f'{lms:.4f} ms'}, bound {b_ms:.4f} ms ({r['bound_by']}; "
-        f"bytes {1e3 * bytes_s:.4f} ms, operations {1e3 * ops_s:.4f} ms)")
-    return r
-
-
-def form_timing(what, fn, bytes_moved, ops_s, log, lib=None, plain=None):
-    """A kernel form off the upstream path (a deeper ring buffer, a taller
-    grid, a larger eigen box): its launch alone (graph_ms) beside its
-    bound, its plain version's time (cuda_ms) and lib's time, a PyTorch call
-    of the same function, where there is one (cuda_ms, as kernel_row times
-    it), for the --out report."""
-    ms, _ = graph_ms(fn, 20)
-    bytes_s = bytes_moved / HBM_BYTES_PER_S
-    r = dict(ms=ms, bound_ms=1e3 * max(bytes_s, ops_s), bound_by="bytes" if bytes_s >= ops_s else "operations",
-             library_ms=None if lib is None else cuda_ms(lib, 5), plain_ms=None if plain is None else cuda_ms(plain, 2))
-    lib_ms = "n/a" if lib is None else f"{r['library_ms']:.4f} ms"
-    plain_ms = "n/a" if plain is None else f"{r['plain_ms']:.4f} ms"
-    log(f"timing {what}: launch alone {ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {plain_ms}, "
-        f"library {lib_ms}")
-    return r
-
-
-def binned(cfg, pn, keep, origin, scratch):
-    """(n, rest, hit) of K2 on a point set on a kept scratch, for an epilogue."""
-    from gvom_tpu_torch.ops import kernels
-
-    b = kernels.bin_points(cfg, pn, keep, origin, scratch=scratch)
-    return b.n, b.rest, b.hit
-
-
-def index_add_inputs(cfg, pn, keep, origin, y_window=None):
-    """(flat scratch index [n], values [10, n]) of the points that K2 sums:
-    the inputs of the one index_add_ that computes K2's ten own-voxel sums."""
-    import torch
-
-    from gvom_tpu_torch.ops import binning
-
-    vox = torch.floor(pn).to(torch.int32)
-    pieces = binning.scratch_pieces(cfg, vox, keep, origin, y_window)
-    flat = torch.cat([f[sel].long() for sel, f in pieces])
-    lk = torch.cat([(pn - vox.float())[sel] for sel, _ in pieces])
-    vals = torch.stack([torch.ones_like(lk[:, 0]), lk[:, 0], lk[:, 1], lk[:, 2]]
-                       + [lk[:, a] * lk[:, b] for a, b in binning.PAIRS], dim=0).contiguous()
-    return flat, vals
-
-
-def k2_bound(n_points, n_kept, n_out, n_scratch, n_scratch_nz):
-    """(bytes, seconds of operations) of K2 on this data: it reads the points
-    (12 bytes) and keep (1 byte), writes hit and min_height over the n_out
-    voxels of the grid, n over the n_scratch voxels of the scratch and the
-    nine other channels where n > 0 (n_scratch_nz); about 30 f32 operations
-    a kept point. What its kept scratch adds (binning.MomentScratch: the
-    touched bytes, the clear of the last call's nine channels) is left out,
-    so the bound is the same for any contract of the scratch."""
-    return n_points * 13 + 2 * n_out * 4 + n_scratch * 4 + 9 * n_scratch_nz * 4, 30 * n_kept / F32_OPS_PER_S
-
-
-def k2_atomic_floor_ms(n_grid, n_win, rates):
-    """One int32 atomic a point for hit and for min_height and, a point in
-    the window, K2's four reductions of a flush (n and channel 9 as float32
-    adds, channels 1-8 as two 16-byte float4 adds), at the probe's
-    uncontended rates: the floor of a design that merges no adds (not a
-    bound of the function)."""
-    return 1e3 * (2 * n_grid / rates["int32"] + 2 * n_win / rates["float32"] + 2 * n_win / rates["float32x4"])
-
-
-def pair_bound(n_points, n_kept, n_out, terms):
-    """(bytes, seconds of operations) of K2 then an epilogue, whatever
-    implements them: the points and keep read, hit, min_height and the ten
-    moment channels written; the sums scratch between the two is the
-    implementation's choice. Operations: K2's 30 a kept point and 52 a box
-    term."""
-    return n_points * 13 + 12 * n_out * 4, (30 * n_kept + 52 * terms) / F32_OPS_PER_S
-
-
-def pair_row(name, fn, reps, n_points, n_kept, n_out, terms, log):
-    """K2 then an epilogue, launched alone (graph_ms), against pair_bound."""
-    ms, _ = graph_ms(fn, reps)
-    nbytes, ops_s = pair_bound(n_points, n_kept, n_out, terms)
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops_s
-    r = dict(name=name, ms=ms, bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-             bytes=nbytes, bytes_ms=bytes_ms, ops_ms=ops_ms)
-    log(f"timing the pair {name}: launch alone {ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-        f"{nbytes / 1e6:.1f} MB), {100 * r['bound_ms'] / ms:.0f} % of it")
-    return r
-
-
-def k1_bound(n_points, n_scans, n_rays, n_pass, n_out):
-    """(bytes, seconds of operations) of K1 on this data, the same whatever
-    implements it: it reads the points (12 bytes), keep (1 byte) and each
-    scan's ego, and writes the grid of n_out voxels once; about 40 f32
-    operations a ray for the geometry and 8 a live step, at the f32 rate."""
-    return n_points * 13 + n_scans * 12 + n_out * 4, (40 * n_rays + 8 * n_pass) / F32_OPS_PER_S
-
-
-def box_counts(t, r):
-    """Sums of the integer tensor t [A, B, C] over every (2r + 1) box that
-    lies inside it ("valid": [A − 2r0, B − 2r1, C − 2r2]), separable by
-    prefix sums in int64, so exact and linear in t's size at any radius."""
-    import torch
-
-    t = t.to(torch.int64)
-    for ax, q in enumerate(r):
-        c = t.cumsum(ax)
-        c = torch.cat([torch.zeros_like(c.narrow(ax, 0, 1)), c], ax)
-        n = t.shape[ax] - 2 * q
-        t = c.narrow(ax, 2 * q + 1, n) - c.narrow(ax, 0, n)
-    return t
-
-
-def epilogue_bound(cfg, n_w, targets_w, n_out, mask):
-    """What the moments epilogue (K3, K5) must move and compute on this data.
-    n_w: the own-voxel count n on the padded window [Xp, Yp, Zp]; targets_w:
-    bool [X, Y, Z], window layout, the voxels whose box is taken (the
-    occupied ones with the mask on, all of them with it off; of a slab, only
-    its rows); n_out: voxels of the output. It writes ten channels, reads
-    hit when it masks, reads n over the voxels that a target's box reaches
-    and the nine other channels where n > 0 there; about 52 operations per
-    (target, non-empty neighbour) term. Returns (bytes, terms, reach,
-    reach_nonempty)."""
-    import torch
-
-    from gvom_tpu_torch.ops import binning
-
-    r = binning.moment_pad(cfg)
-    pad = lambda t: torch.nn.functional.pad(t, (r[2], r[2], r[1], r[1], r[0], r[0]))
-    reach = box_counts(pad(pad(targets_w.to(torch.int32))), r) > 0
-    nz = n_w > 0
-    n_reach, n_reach_nz = int(reach.sum()), int((reach & nz).sum())
-    terms = int(box_counts(nz, r)[targets_w].sum())
-    f32 = 4
-    return ((n_out * f32 if mask else 0) + 10 * n_out * f32 + n_reach * f32 + 9 * n_reach_nz * f32, terms,
-            n_reach, n_reach_nz)
-
-
-def combine_bound(cfg, buf, world, target, new_hit):
-    """(bytes, voxel counts) that K4 must move on this data, as fuse_plain
-    reads its inputs: each slot's hit, miss and ten moment channels where it
-    is aligned and valid, its min_height where it is also occupied; the old
-    world's hit and evidence where it is aligned, its miss and min_height
-    where its occupied voxel stays occupied (new_hit > 0: the new world's
-    occupancy), its moments where it is aligned and the new world occupied;
-    all fourteen of its channels when no slot is valid (it passes through);
-    the meta vector and the ego; and the 14 channels and five [X, Y] maps
-    written."""
-    from gvom_tpu_torch.ops import grid as gridops
-
-    X, Y, Z = cfg.grid_shape
-    V, B, f32 = X * Y * Z, cfg.buffer_size, 4
-    g, w = buf.grids, world.grid
-    counts = dict(slot_aligned=[], slot_occupied=[])
-    if not bool(buf.slot_valid.any()):
-        words = 14 * V
-    else:
-        words = 0
-        for i in range(B):
-            al = gridops.overlap_mask(cfg, target, g.origin[i]) & buf.slot_valid[i]
-            n_al, n_occ = int(al.sum()), int((al & (g.hit[i] > 0)).sum())
-            counts["slot_aligned"].append(n_al)
-            counts["slot_occupied"].append(n_occ)
-            words += 12 * n_al + n_occ
-        oal = gridops.overlap_mask(cfg, target, w.origin) & world.valid
-        occ = new_hit > 0
-        counts.update(old_aligned=int(oal.sum()), old_kept=int((oal & (w.hit > 0) & occ).sum()),
-                      old_aligned_occupied=int((oal & occ).sum()))
-        words += 2 * counts["old_aligned"] + 2 * counts["old_kept"] + 10 * counts["old_aligned_occupied"]
-    words += (B + 2) * 4 + 3 + 14 * V + 5 * X * Y
-    return words * f32, counts
-
-
-def prep_bound(n_points, n_scans, transform):
-    """(bytes, seconds of operations) of the preparation, whatever
-    implements it: it reads the points (12 bytes), valid (1 byte) and the
-    egos, writes keep (1 byte) once, the origin and scan_ok, and with a
-    transform reads it once and writes the world points (12 bytes). PREP_OPS
-    f32 operations a point, PREP_TRANSFORM_OPS more with a transform."""
-    nbytes = n_points * 14 + n_scans * 13 + 2 * 12 + (64 + 12 * n_points if transform else 0)
-    return nbytes, n_points * (PREP_OPS + (PREP_TRANSFORM_OPS if transform else 0)) / F32_OPS_PER_S
-
-
-def plane_fit_bound(n_cells):
-    """(bytes, seconds of operations) of the plane fit with the window layout
-    as its load, whatever implements it: the two torus-layout maps read (8
-    bytes a cell) and the origin, the window height and inferred height and
-    the fit's three maps written (20 bytes a cell); PLANE_FIT_OPS f32
-    operations a cell."""
-    return n_cells * 28 + 12, n_cells * PLANE_FIT_OPS / F32_OPS_PER_S
-
-
-def guess_bound(n_cells):
-    """(bytes, seconds of operations) of the guess height with the maps'
-    products as its epilogue, whatever implements it: the height, inferred
-    height and two slopes read (16 bytes a cell), the band sums and band_ok
-    (12) and the origin, the delta and the three int32 maps written (16);
-    about GUESS_OPS operations a cell (the search only compares: one
-    subtraction; the products a square root, a division and a few
-    compares)."""
-    return n_cells * 44 + 12, n_cells * GUESS_OPS / F32_OPS_PER_S
-
-
-def phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log):
-    """ms, plain_ms, library_ms and bound_ms of each kernel at the upstream
-    shapes, on the last phase-1 scan and the phase-1 buffer and world, of
-    the slab forms on phase 1's slab, and of the preparation on phase 1's
-    scan (with and without its transform) and batch."""
-    import torch
-
-    from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.ops import binning, kernels, maps2d, moments, raycast
-    from gvom_tpu_torch.ops import grid as gridops
-    from gvom_tpu_torch.types import UNKNOWN_HEIGHT
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    X, Y, Z = cfg.grid_shape
-    V = X * Y * Z
-    B = cfg.buffer_size
-    p, origin, keep, bins, target, ego = (last[k] for k in ("p", "origin", "keep", "bins", "target", "ego"))
-    pn = gridops.map_local(cfg, p, origin)     # K2's map-local coordinates, for its library call
-    N = p.shape[0]
-    P = bins.n.numel()
-    passes = raycast.ray_pass_counts(cfg, p, keep, ego, origin)
-    n_pass = int(passes.sum())
-    n_kept = int(keep.sum())
-    n_occ = int((bins.hit > 0).sum())
-    slot = torch.zeros((1,), dtype=torch.int32, device=dev)
-    out = torch.empty((1, 10, X, Y, Z), dtype=torch.float32, device=dev)
-
-    # the same function in one PyTorch call, where there is one: K2's ten
-    # own-voxel sums are one index_add_ of the points' values
-    pflat, vals = index_add_inputs(cfg, pn, keep, origin)
-    sums_lib = torch.zeros((10, P), dtype=torch.float32, device=dev)
-    wconv = box_conv_weights(cfg, dev)
-    conv_in = clean_sums(bins.sums)[None]
-    conv = torch.nn.functional.conv3d(conv_in, wconv)[0]
-    err_conv = float((conv - moments.box_aggregate_moments(cfg, bins.sums)).abs().max())
-    log(f"library yardstick check: conv3d box vs plain box max abs err {err_conv}")
-
-    rows = []
-
-    def row(*a):
-        rows.append(kernel_row(*a, log))
-
-    # K1: reads the points, keep and the ego, builds each ray's geometry and
-    # writes the grid (k1_bound); beside it the floor of one int32 atomic
-    # per pass at the probe's rate, the bound of a design that merges no adds
-    p1, k1, e1 = p[None], keep[None], ego.reshape(1, 3)
-    row(kernels.RAY, lambda: kernels.ray_pass_counts(cfg, p1, k1, e1, origin),
-        lambda: raycast.pass_counts_plain(cfg, p1, k1, e1, origin), 100, 3, None,
-        *k1_bound(N, 1, n_kept, n_pass, V))
-    rows[-1]["atomic_floor_ms"] = 1e3 * n_pass / rates["int32"]
-    # K2: reads points and keep, writes hit, min_height, n and the nine
-    # other channels where n > 0 (k2_bound), on a scratch kept across its
-    # calls, as the facade's ring buffer keeps one; its library call is the
-    # index_add_ of the ten sums into a buffer zeroed outside the timing: it
-    # leaves out hit, min_height and every fill
-    n_grid = int(bins.hit.sum())
-    n_win = int(bins.n.sum())
-    n_nz = int((bins.n > 0).sum())
-    ks, ps = binning.moment_scratch(cfg, dev), binning.moment_scratch(cfg, dev)
-    row(kernels.BIN, lambda: kernels.bin_points(cfg, p, keep, origin, scratch=ks),
-        lambda: binning.bin_points(cfg, p, keep, origin, scratch=ps), 20, 5,
-        lambda: sums_lib.index_add_(1, pflat, vals), *k2_bound(N, n_kept, V, P, n_nz))
-    rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid, n_win, rates)
-    # the timed launches, each on the scratch the one before it left,
-    # computed what the wrapper computes on a fresh one
-    _, timed = graph_ms(lambda: kernels.bin_points(cfg, p, keep, origin, scratch=ks), 10)
-    exact("K2 timed launch vs the wrapper: hit", timed.hit, bins.hit)
-    sums_close("K2 timed launch vs the wrapper", timed.sums, bins.sums)
-    check(not binning.rest_channels(timed.rest, timed.n.shape[1:])[:, timed.n[0] == 0].any(),
-          "K2 timed launches: channels 1-9 not zero where n is 0")
-    del timed, ps
-    # K3: reads hit and writes the slot's ten channels everywhere; reads the
-    # sums only inside the ±r box of an occupied voxel (epilogue_bound)
-    occ_w = gridops.torus_to_window(bins.hit > 0, origin)
-    k3_bytes, terms, n_reach, n_reach_nz = epilogue_bound(cfg, bins.n[0], occ_w, V, True)
-    row(kernels.EPI, lambda: kernels.ingest_epilogue(cfg, bins.n, bins.rest, bins.hit, origin, out, slot),
-        lambda: moments.ingest_epilogue_plain(cfg, bins.n, bins.rest, bins.hit, origin, out, slot), 20, 5,
-        lambda: torch.nn.functional.conv3d(conv_in, wconv), k3_bytes, 52 * terms / F32_OPS_PER_S)
-    # K2 then K3, one scan into the slot, against a bound that no design moves
-    pair = pair_row("K2 then K3", lambda: kernels.ingest_epilogue(cfg, *binned(cfg, p, keep, origin, ks), origin, out,
-                                                                  slot),
-                    20, N, n_kept, V, terms, log)
-    # K4: the kernel alone (its meta vector and outputs made once, outside
-    # the timing), and the wrapper beside it; what the data makes it read
-    # (combine_bound), 4 + 10 channels and five [X, Y] maps written
-    launch, k4_out = kernels.combine_launch(cfg, buf, world, target, ego)
-    launch()
-    k4_bytes, k4_counts = combine_bound(cfg, buf, world, target, k4_out[0])
-    row(kernels.CMB, launch, lambda: pipeline.fuse_plain(cfg, buf, world, target, ego), 20, 3, None,
-        k4_bytes, 40 * V / F32_OPS_PER_S)
-    rows[-1]["wrapper_ms"] = cuda_ms(lambda: kernels.combine(cfg, buf, world, target, ego), 20, warm=5)
-    # the timed launches computed what the wrapper computes
-    for name, a, b in zip(COMBINE_OUTPUTS, k4_out, kernels.combine(cfg, buf, world, target, ego)):
-        exact(f"K4 timed launch vs the wrapper: {name}", a, b)
-    log(f"timing combine wrapper (meta vector, outputs, launch): {rows[-1]['wrapper_ms']:.4f} ms; K4 reads "
-        f"{k4_counts}")
-    del k4_out
-
-    # ---- the slab forms, on the slab that holds the window seam ----
-    sp, sego, so, skeep, sbins, yw = (slab[k] for k in ("p", "ego", "origin", "keep", "bins", "y_window"))
-    spn = gridops.map_local(cfg, sp, so)
-    ys0, Ys = yw
-    Vs = X * Ys * Z
-    Ps = sbins.n.numel()
-    # K1 slab: the same rays, the slab's grid; its passes are the steps that
-    # land in the slab (the march itself walks every step of every ray)
-    sp1, sk1, se1 = sp[None], skeep[None], sego.reshape(1, 3)
-    n_pass_s = int(kernels.ray_pass_counts(cfg, sp1, sk1, se1, so, y_window=yw).sum())
-    row(kernels.RAY_SLAB, lambda: kernels.ray_pass_counts(cfg, sp1, sk1, se1, so, y_window=yw),
-        lambda: raycast.pass_counts_plain(cfg, sp1, sk1, se1, so, yw), 100, 3, None,
-        *k1_bound(N, 1, int(skeep.sum()), n_pass_s, Vs))
-    rows[-1]["atomic_floor_ms"] = 1e3 * n_pass_s / rates["int32"]
-    # K2 slab: the same points, the slab's hit, min_height and scratch
-    sflat, svals = index_add_inputs(cfg, spn, skeep, so, yw)
-    s_lib = torch.zeros((10, Ps), dtype=torch.float32, device=dev)
-    n_grid_s, n_win_s = int(sbins.hit.sum()), int(sbins.n.sum())
-    kss, pss = binning.moment_scratch(cfg, dev, yw), binning.moment_scratch(cfg, dev, yw)
-    row(kernels.BIN_SLAB, lambda: kernels.bin_points(cfg, sp, skeep, so, yw, kss),
-        lambda: binning.bin_points(cfg, sp, skeep, so, yw, pss), 20, 5,
-        lambda: s_lib.index_add_(1, sflat, svals),
-        *k2_bound(N, int(skeep.sum()), Vs, Ps, int((sbins.n > 0).sum())))
-    del kss, pss
-    rows[-1]["atomic_floor_ms"] = k2_atomic_floor_ms(n_grid_s, n_win_s, rates)
-    # K5 slab, mask on (as ingest_scan calls it): K3's count on the slab's rows
-    in_slab = torch.zeros((Y,), dtype=torch.bool, device=dev)
-    in_slab[ys0:ys0 + Ys] = True
-    targets = gridops.torus_to_window((slab["full_hit"] > 0) & in_slab[None, :, None], so)
-    s_bytes, s_terms, _, _ = epilogue_bound(cfg, slab["full_n"], targets, Vs, True)
-    s_conv_in = clean_sums(sbins.sums)[None]
-    row(kernels.XBOX_SLAB, lambda: kernels.moments_epilogue(cfg, sbins.n, sbins.rest, sbins.hit, so, yw),
-        lambda: moments.moments_epilogue_plain(cfg, sbins.n, sbins.rest, sbins.hit, so, yw), 20, 5,
-        lambda: torch.nn.functional.conv3d(s_conv_in, wconv), s_bytes, 52 * s_terms / F32_OPS_PER_S)
-
-    # ---- the 2-D maps, on the last phase-1 combine's column maps ----
-    # The plane fit moves the torus-layout maps to the window layout as it
-    # loads them (plane_fit_bound); the guess height writes the obstacle maps
-    # and the visibility as its epilogue (guess_bound). No one PyTorch call
-    # computes either function (torch.log and torch.atan2 round otherwise).
-    # The window layout that the fit writes is torch.roll of the two torus
-    # maps by minus the origin: held exactly here
-    fit_in, guess_in = last["fit_in"], last["guess_in"]
-    hm, ihm = last["hm"], last["ihm"]
-    n_cells = hm.numel()
-    hm_t, ihm_t, target = fit_in
-    shifts = tuple(-int(v) for v in target[:2].cpu())
-    fitted = kernels.plane_fit(cfg, *fit_in)
-    exact("the plane fit's window layout against torch.roll", torch.stack(fitted[:2]),
-          torch.roll(torch.stack([hm_t, ihm_t]), shifts, (1, 2)))
-    row(kernels.PLANEFIT, lambda: kernels.plane_fit(cfg, *fit_in), lambda: maps2d.plane_fit_window_plain(cfg, *fit_in),
-        100, 5, None, *plane_fit_bound(n_cells))
-    rows[-1]["includes"] = TAIL_HOSTS["plane_fit"]
-    row(kernels.GUESS, lambda: kernels.guess_height(cfg, *guess_in), lambda: maps2d.guess_products_plain(cfg, *guess_in),
-        100, 5, None, *guess_bound(n_cells))
-    rows[-1]["includes"] = TAIL_HOSTS["guess_height"]
-
-    # the 2-D chain as a combine launches it: the plane fit, then the guess
-    def chain():
-        f = kernels.plane_fit(cfg, *fit_in)
-        return kernels.guess_height(cfg, f[0], f[1], f[3], f[4], *guess_in[4:])
-
-    chain_ms, _ = graph_ms(chain, 100)
-    chain_wrapper_ms = cuda_ms(chain, 100, warm=5)
-    chain_bound_ms = sum(1e3 * max(b / HBM_BYTES_PER_S, o) for b, o in (plane_fit_bound(n_cells),
-                                                                         guess_bound(n_cells)))
-    maps_chain = dict(launches=2, ms=chain_ms, wrapper_ms=chain_wrapper_ms, bound_ms=chain_bound_ms)
-    log(f"timing the 2-D chain (plane fit, then guess height): launches alone {chain_ms:.4f} ms, wrappers "
-        f"{chain_wrapper_ms:.4f} ms, bound {chain_bound_ms:.4f} ms")
-    # the tail alone (off the map path), on the sweep's cells: ok read at every
-    # cell, the residual and the three coefficients where the fit is ok, three
-    # outputs written; a log and two atan2 where it is ok
-    fit = last["tail_fit"]
-    n_sweep, n_ok = fit[0].numel(), int(fit[1].sum())
-    tail = kernel_row(kernels.PLANEFIT_TAIL, lambda: kernels.plane_fit_tail(*fit),
-                      lambda: maps2d.plane_fit_tail_plain(*fit), 100, 5, None,
-                      n_sweep * (1 + 3 * 4) + n_ok * 4 * 4, n_ok * PLANE_FIT_TAIL_OPS / F32_OPS_PER_S, log)
-    # ---- the preparation: one scan as the facade launches it (the row), the
-    # same scan with a quaternion transform, and a batch with the dead-scan mask ----
-    one, pego = prep["one"], prep["ego"]
-    row(kernels.PREP, lambda: kernels.prepare_points(cfg, *one.values(), frame_ego=pego),
-        lambda: binning.prepare_plain(cfg, *one.values(), frame_ego=pego), 100, 5, None,
-        *prep_bound(N, 1, False))
-    sensor, tf = prep["sensor"][None], prep["tf"]
-    tf_args = (sensor, one["valid"], one["egos"])
-    prep_forms = dict(transform=dict(bound=prep_bound(N, 1, True),
-                                     fn=lambda: kernels.prepare_points(cfg, *tf_args, frame_ego=pego, transform=tf),
-                                     plain=lambda: binning.prepare_plain(cfg, *tf_args, frame_ego=pego,
-                                                                         transform=tf)))
-    bpts, bvalid, begos = prep["batch"]
-    S, NB = bvalid.shape
-    prep_forms["batch"] = dict(
-        bound=prep_bound(S * NB, S, False),
-        fn=lambda: kernels.prepare_points(cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True),
-        plain=lambda: binning.prepare_plain(cfg, bpts, bvalid, begos, frame_ego=begos[-1], drop_dead=True))
-    prep_report = {}
-    for form, f in prep_forms.items():
-        ms, _ = graph_ms(f["fn"], 100)
-        wms, pms = cuda_ms(f["fn"], 100, warm=5), cuda_ms(f["plain"], 3)
-        nbytes, ops_s = f["bound"]
-        b_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops_s)
-        prep_report[form] = dict(ms=ms, wrapper_ms=wms, plain_ms=pms, bound_ms=b_ms, bytes=nbytes,
-                                 bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations")
-        log(f"timing prepare_points ({form}): launch alone {ms:.4f} ms, wrapper {wms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({prep_report[form]['bound_by']}, {nbytes / 1e6:.2f} MB), "
-            f"{100 * b_ms / ms:.0f} % of it")
-    # one launch a call, for one scan and for a batch with the dead-scan mask: no memset, no second kernel.
-    # The trace holds PROFILED_CALLS calls, each between two launches of PyTorch's own (the markers): a
-    # profile of one short call comes back empty on this card's profiler, the markers' launches too, and
-    # a longer one can lose the start of its first call (its first marker, or that and its kernel, or the
-    # whole call); nothing but the markers and the kernel launches, and one kernel launch a call
-    marker = torch.zeros(1, device=dev)
-
-    def between(fn):
-        def calls():
-            for _ in range(PROFILED_CALLS):
-                marker.add_(1)
-                fn()
-                marker.add_(1)
-        return calls
-
-    forms = dict(prepare_scan=between(lambda: kernels.prepare_points(cfg, *one.values(), frame_ego=pego)),
-                 prepare_batch=between(prep_forms["batch"]["fn"]))
-    for form, prof in profile_calls(forms, log).items():
-        markers = sum(t["count"] for t in prof["top"] if "CUDAFunctorOnSelf_add" in t["kernel"])
-        ours = sum(t["count"] for t in prof["top"] if "prepare_kernel" in t["kernel"])
-        check(prof["launches"] == markers + ours and abs(markers - 2 * ours) <= 1 and ours >= PROFILED_CALLS - 2,
-              f"{form}: {prof['launches']} launches on the card in {PROFILED_CALLS} calls between the markers "
-              f"({markers} markers traced, {ours} of the kernel); each call must launch the kernel once and nothing "
-              f"else")
-        prep_report[form + "_launches"] = dict(calls_traced=ours, launches_a_call=(prof["launches"] - markers) / ours)
-    launches0 = kernels.PREP.launches
-    prep_forms["batch"]["fn"]()
-    check(kernels.PREP.launches == launches0 + 1, "prepare_points: the batch's call counted other than one launch")
-    return rows, dict(prepare=prep_report, maps_chain=maps_chain, slab=dict(y_window=list(yw), passes=n_pass_s, points_in_grid=n_grid_s,
-                                points_in_scratch=n_win_s, box_terms=s_terms),
-                      points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win, passes=n_pass,
-                      scratch_nonempty=n_nz, pair_k2_k3=pair, occupied_voxels=n_occ, box_reach_voxels=n_reach, box_reach_nonempty=n_reach_nz,
-                      box_terms=terms, atomic_rates_per_s=rates, conv_vs_plain_max_abs_err=err_conv,
-                      map_cells=n_cells, known_cells=int((hm > UNKNOWN_HEIGHT).sum()),
-                      guess_cells=int(((hm <= UNKNOWN_HEIGHT) & (ihm != UNKNOWN_HEIGHT)).sum()),
-                      guess_routes=last["guess_routes"], plane_fit_tail=dict(tail, cells=n_sweep, ok=n_ok))
 
 
 def batched_cfg(cfg, batch):
@@ -2865,27 +2241,26 @@ def same_world(what, a, b, atol, err=None):
     return moments_close(f"{what}:", a.grid.mom, b.grid.mom, atol)
 
 
-def phase5_batched(cfg, scans, rates, dev, log, err):
+def phase5_batched(cfg, scans, dev, log, err):
     """The batched step at the upstream config. Two steps of BATCH_CHECK
     scans against the same step with the kernels swapped for their plain
-    versions; then two steps of BATCH scans, timed, with the launch counts
-    set to 0 just before and read just after, and one warm step traced
-    with torch.profiler; then K2 and K5 against their plain versions, and
-    their times and bounds, on the merged points of a whole batch."""
+    versions; then two steps of BATCH scans with the launch counts set to 0
+    just before and read just after, and one warm step traced with
+    torch.profiler (no float64 launch); then the merge (phase5_merge), K1 on
+    the whole batch (phase5_raycast_batch), and K2 and K5 against their
+    plain versions on the merged points of a whole batch, K2 on a scratch
+    kept across its calls."""
     import torch
 
     from gvom_tpu_torch import make_batched_step
     from gvom_tpu_torch.parallel.sharding import prepare_batch
     from gvom_tpu_torch.ops import binning, kernels, moments
-    from gvom_tpu_torch.ops import grid as gridops
     from gvom_tpu_torch.types import empty_world_state
 
     scans_dev = scans_on_device(scans, dev)
-    X, Y, Z = cfg.grid_shape
-    V = X * Y * Z
 
     # ---- against the plain versions, a batch small enough for the plain raycast ----
-    # (at the full batch's ray budget, so the kernel configuration that is held here is the one timed below)
+    # (at the full batch's ray budget, so the kernel configuration that is held here is the one launched below)
     batches = [make_batch(scans_dev, BATCH, i) for i in range(2)]
     cb = batched_cfg(cfg, batches[0])
     step4 = make_batched_step(cb)
@@ -2914,20 +2289,13 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     check(not per_point, f"batched path: float64 fma32 or sqrt32 on the card: {per_point[:3]}")
     del w_warm
     world = empty_world_state(cfg, dev)
-    step_ms, step_wall_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     for i, b in enumerate(batches):
-        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        a.record()
         world, products = step(world, *b)
-        z.record()
-        torch.cuda.synchronize()
-        step_wall_ms.append(1e3 * (time.perf_counter() - t0))
-        step_ms.append(a.elapsed_time(z))
         if i == 0:
             first_origin = world.grid.origin
+    torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     for name in BATCHED_KERNELS:
@@ -2942,33 +2310,30 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     check(int(products.visibility.sum()) > 0 and int((products.positive_obstacle > 0).sum()) > 0,
           "batched path: empty maps")
     check(bool((world.grid.mom[:, world.grid.hit == 0] == 0).all()), "batched path: moments outside the occupancy")
-    res = dict(batch=BATCH, ray_steps=cb.ray_steps, check_tolerance_share=share4, step_ms=step_ms, step_wall_ms=step_wall_ms,
-               scans_per_s=[1e3 * BATCH / t for t in step_wall_ms], peak_bytes=peak,
+    res = dict(batch=BATCH, ray_steps=cb.ray_steps, check_tolerance_share=share4, peak_bytes=peak,
                world_occupied=int((world.grid.hit > 0).sum()), kept_from_first_step=kept,
                visible_cells=int(products.visibility.sum()))
     log(f"phase 5 batched path: two steps of {BATCH} scans of {scans_dev[0].shape[1]} points (ray_steps "
-        f"{cb.ray_steps}); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}; step "
-        f"{step_ms[0]:.2f} and {step_ms[1]:.2f} ms (CUDA events), {step_wall_ms[0]:.2f} and {step_wall_ms[1]:.2f} ms "
-        f"(host clock with sync) = {res['scans_per_s'][1]:.1f} scans/s; peak device memory {peak / 2**30:.3f} GiB; "
-        f"world occupied {res['world_occupied']} ({kept} kept from the first step)")
+        f"{cb.ray_steps}); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}; peak device "
+        f"memory {peak / 2**30:.3f} GiB; world occupied {res['world_occupied']} ({kept} kept from the first step)")
     del fresh, world
 
-    # ---- one warm step's launches and float64 time, by torch.profiler ----
+    # ---- one warm step's launches, by torch.profiler: none float64 ----
     w0 = empty_world_state(cfg, dev)    # the step leaves its input world untouched
-    res["profile"] = profile_calls(dict(batched_step=lambda: step(w0, *batches[0])), log)
-    check(res["profile"]["batched_step"]["f64_launches"] == 0,
-          f"batched step: {res['profile']['batched_step']['f64_launches']} float64 launches on the card")
+    traced = traced_launches(lambda: step(w0, *batches[0]))
+    res["step_launches"] = sum(traced.values())
+    check(f64_launches(traced) == 0, f"batched step: {f64_launches(traced)} float64 launches on the card")
     del w0
 
     # ---- the merge kernel against its twin: the second step's 32-scan
     # contribution into the first step's live world, whose origin it moves ----
-    m_row, res["merge"] = phase5_merge(cb, step, batches, dev, log)
+    res["merge"] = phase5_merge(cb, step, batches, dev, log)
 
-    # ---- K2 and K5 on a whole batch's merged points: K2 on one scratch kept
-    # across its calls, as the batched step keeps one, over two batches in
-    # turn (the second's bins are the ones timed below) ----
+    # ---- K1 on the whole batch, and K2 and K5 on its merged points: K2 on one scratch kept
+    # across its calls, as the batched step keeps one, over two batches in turn, then the
+    # second batch's points again ----
     origin, pw, keep = prepare_batch(cb, *batches[1])
-    k1 = phase5_raycast_batch(cb, pw, keep, batches[1][2], origin, rates, log)
+    phase5_raycast_batch(cb, pw, keep, batches[1][2], origin, log)
     kept = binning.moment_scratch(cb, dev)
     for i in range(2):
         o, q, k = prepare_batch(cb, *batches[i])
@@ -2987,6 +2352,15 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
             f"{100 * tol_share(bins.sums[:, nz], pb.sums[:, nz], MOM_ATOL_BATCH):.1f} % of the tolerance (largest "
             f"voxel hit count {int(bins.hit.max())})")
         del pb, nz, q, k
+    # the same points again, call after call, on the scratch they left: n as the checked call's, channels 1-9
+    # zero where n is 0
+    n_checked = bins.n.clone()
+    for _ in range(3):
+        again = kernels.bin_points(cb, pw, keep, origin, scratch=kept)
+    exact("K2 called again on the kept scratch vs the checked call: n", again.n, n_checked)
+    check(not binning.rest_channels(kept.rest, again.n.shape[1:])[:, again.n[0] == 0].any(),
+          "K2 called again on the kept scratch: channels 1-9 not zero where n is 0")
+    del again, n_checked
     pm = moments.moments_epilogue_plain(cb, bins.n, bins.rest, bins.hit, origin, occupancy_mask=False)
     km = kernels.moments_epilogue(cb, bins.n, bins.rest, bins.hit, origin, occupancy_mask=False)
     e = moments_close(f"K5 mask off on {BATCH} scans' merged points", km, pm, MOM_ATOL_BATCH)
@@ -2998,57 +2372,10 @@ def phase5_batched(cfg, scans, rates, dev, log, err):
     nan_blind(f"K5 mask off on {BATCH} scans' merged points",
               lambda n, r: kernels.moments_epilogue(cb, n, r, bins.hit, origin, occupancy_mask=False),
               bins.n, bins.rest)
-    # the timed calls below leave the same points' sums in `kept`
-    wconv = box_conv_weights(cb, dev)
-    conv_in = clean_sums(bins.sums)[None]
-    everywhere = torch.ones((X, Y, Z), dtype=torch.bool, device=dev)
-    k5_bytes, k5_terms, _, k5_nz = epilogue_bound(cb, bins.n[0], everywhere, V, False)
-    row = kernel_row(kernels.XBOX,
-                     lambda: kernels.moments_epilogue(cb, bins.n, bins.rest, bins.hit, origin, occupancy_mask=False),
-                     lambda: moments.moments_epilogue_plain(cb, bins.n, bins.rest, bins.hit, origin,
-                                                            occupancy_mask=False),
-                     20, 5, lambda: torch.nn.functional.conv3d(conv_in, wconv), k5_bytes,
-                     52 * k5_terms / F32_OPS_PER_S, log)
-    # K2 at N = BATCH · max_points (its row in the kernels line is one scan's)
-    N, P = pw.shape[0], bins.n.numel()
-    n_kept, n_grid, n_win = int(keep.sum()), int(bins.hit.sum()), int(bins.n.sum())
-    n_nz = int((bins.n > 0).sum())
-    k2_ms, timed = graph_ms(lambda: kernels.bin_points(cb, pw, keep, origin, scratch=kept), 20)
-    exact("K2 timed launches on the kept scratch vs the checked call: n", timed.n, bins.n)
-    check(not binning.rest_channels(kept.rest, timed.n.shape[1:])[:, timed.n[0] == 0].any(),
-          "K2 timed launches: channels 1-9 not zero where n is 0")
-    del timed
-    k2_wrapper_ms = cuda_ms(lambda: kernels.bin_points(cb, pw, keep, origin, scratch=kept), 10)
-    plain_kept = binning.moment_scratch(cb, dev)
-    k2_plain_ms = cuda_ms(lambda: binning.bin_points(cb, pw, keep, origin, scratch=plain_kept), 3)
-    del plain_kept
-    k2_bytes, k2_ops_s = k2_bound(N, n_kept, V, P, n_nz)
-    k2_bound_ms = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops_s)
-    pflat, vals = index_add_inputs(cb, gridops.map_local(cb, pw, origin), keep, origin)
-    sums_lib = torch.zeros((10, P), dtype=torch.float32, device=dev)
-    k2_lib_ms = cuda_ms(lambda: sums_lib.index_add_(1, pflat, vals), 10)
-    del pflat, vals, sums_lib
-    k5_on_ms, _ = graph_ms(lambda: kernels.moments_epilogue(cb, bins.n, bins.rest, bins.hit, origin), 20)
-    log(f"timing bin_points on {N} merged points: launch alone {k2_ms:.4f} ms, wrapper {k2_wrapper_ms:.4f} ms; "
-        f"plain {k2_plain_ms:.4f} ms; index_add_ of the ten sums (hit, min_height and the fills left out) "
-        f"{k2_lib_ms:.4f} ms; bound {k2_bound_ms:.4f} ms (bytes {1e3 * k2_bytes / HBM_BYTES_PER_S:.4f} ms); one "
-        f"flush's atomics a point at the probe's rates {k2_atomic_floor_ms(n_grid, n_win, rates):.4f} ms; "
-        f"moments_epilogue with the mask on, same sums: launch alone {k5_on_ms:.4f} ms")
-    # K2 then K5, as the batched step launches them, against a bound that no design moves
-    pair = pair_row("K2 then K5 (mask off)",
-                    lambda: kernels.moments_epilogue(cb, *binned(cb, pw, keep, origin, kept), origin,
-                                                     occupancy_mask=False),
-                    20, N, n_kept, V, k5_terms, log)
-    res.update(merged=dict(points=N, points_kept=n_kept, points_in_grid=n_grid, points_in_window=n_win,
-                           scratch_nonempty=n_nz, nonempty_voxels=k5_nz, box_terms=k5_terms,
-                           max_voxel_count=int(bins.n.max()),
-                           bin_points_ms=k2_ms, bin_points_wrapper_ms=k2_wrapper_ms,
-                           bin_points_plain_ms=k2_plain_ms, bin_points_bound_ms=k2_bound_ms,
-                           bin_points_index_add_ms=k2_lib_ms,
-                           bin_points_atomic_floor_ms=k2_atomic_floor_ms(n_grid, n_win, rates),
-                           moments_epilogue_mask_on_ms=k5_on_ms, pair_k2_k5=pair),
-               ray_pass_counts_batch=k1)
-    return launches, [row, m_row], res
+    res.update(merged=dict(points=pw.shape[0], points_kept=int(keep.sum()), points_in_grid=int(bins.hit.sum()),
+                           points_in_window=int(bins.n.sum()), scratch_nonempty=int((bins.n > 0).sum()),
+                           max_voxel_count=int(bins.n.max())))
+    return launches, res
 
 
 def phase5_merge(cfg, step, batches, dev, log):
@@ -3056,12 +2383,11 @@ def phase5_merge(cfg, step, batches, dev, log):
     step's BATCH scans (the preparation, K1, K2 and K5 with the mask off, as
     the step computes it on one device) and the first step's world, at the
     moved origin. Every output bitwise its twin's, moments included; the
-    quarter slab y0 = 64 bitwise the full result's rows; timed, with its
-    bound from this data."""
+    quarter slab y0 = 64 bitwise the full result's rows."""
     import torch
 
     from gvom_tpu_torch.ops import kernels
-    from gvom_tpu_torch.parallel.sharding import merge_and_columns_plain, prepare_batch
+    from gvom_tpu_torch.parallel.sharding import prepare_batch
     from gvom_tpu_torch.types import VoxelGrid, empty_world_state
 
     world, _ = step(empty_world_state(cfg, dev), *batches[0])
@@ -3076,35 +2402,24 @@ def phase5_merge(cfg, step, batches, dev, log):
     full = merge_vs_plain(f"merge of {S} scans into a live world", cfg, world, contrib, ego)
     Ys = cfg.xy_size // 4
     merge_slab_vs_full(f"merge of {S} scans into a live world", cfg, world, contrib, ego, full, Ys, Ys)
-    nbytes, counts = merge_bound(cfg, world, contrib)
-    V = counts["voxels"]
-    # the timed calls merge over one copy again and again: each call's input
-    # is the previous call's output, so a later call also reads the batch
-    # moments of the voxels that the first one revived (merge_bound counts
-    # the first call's: the bound is, if anything, low)
-    timed = copy_grid(contrib)
-    row = kernel_row(kernels.MERGE, lambda: kernels.merge_batch(cfg, world, timed, ego),
-                     lambda: merge_and_columns_plain(cfg, world, contrib, ego), 20, 3, None, nbytes,
-                     MERGE_OPS * V / F32_OPS_PER_S, log)
+    occupied = int((full[0].hit > 0).sum())
     log(f"merge of {S} scans into a live world: bitwise its plain version (every merged channel, the moments, "
-        f"the evidence, the column maps) and on the quarter slab y0 = {Ys}; it reads {counts}")
-    return row, dict(counts, occupied=int((full[0].hit > 0).sum()), bytes=nbytes)
+        f"the evidence, the column maps) and on the quarter slab y0 = {Ys}; {occupied} voxels occupied")
+    return dict(occupied=occupied)
 
 
-def phase5_raycast_batch(cfg, pw, keep, egos, origin, rates, log):
-    """K1 on a whole batch of S scans in one launch: timed, with its bound,
-    and held bitwise against the plain twin (about a second a scan) and
-    the sum of its S one-scan launches over the same scans. From 9 scans
-    of 131,072 rays on an H100 the launch sorts 1,024 rays a block and a
-    one-scan launch 256 (kernels.ray_window): the two forms differ."""
+def phase5_raycast_batch(cfg, pw, keep, egos, origin, log):
+    """K1 on a whole batch of S scans in one launch, held bitwise against the
+    plain twin (about a second a scan) and the sum of its S one-scan
+    launches over the same scans. From 9 scans of 131,072 rays on an H100
+    the launch sorts 1,024 rays a block and a one-scan launch 256
+    (kernels.ray_window): the two forms differ."""
     import torch
 
     from gvom_tpu_torch.ops import kernels, raycast
 
     S = egos.shape[0]
     pts, kp = pw.view(S, -1, 3), keep.view(S, -1)
-    N = pts.shape[1]
-    V = cfg.voxel_count
     whole = kernels.ray_pass_counts(cfg, pts, kp, egos, origin)
     summed = torch.zeros_like(whole)
     for s in range(S):
@@ -3112,51 +2427,36 @@ def phase5_raycast_batch(cfg, pw, keep, egos, origin, rates, log):
     exact(f"K1 on {S} scans in one launch vs the sum of {S} one-scan launches", whole, summed)
     exact(f"K1 on {S} scans in one launch vs the plain twin", whole,
           raycast.pass_counts_plain(cfg, pts, kp, egos, origin))
-    n_pass, n_rays = int(whole.sum()), int(kp.sum())
-    ms = cuda_ms(lambda: kernels.ray_pass_counts(cfg, pts, kp, egos, origin), 10)
-    ms_per_scan = cuda_ms(lambda: [kernels.ray_pass_counts(cfg, pts[s:s + 1], kp[s:s + 1], egos[s:s + 1], origin,
-                                                           out=summed) for s in range(S)], 3)
-    nbytes, ops_s = k1_bound(S * N, S, n_rays, n_pass, V)
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops_s
-    r = dict(scans=S, rays=n_rays, passes=n_pass, ms=ms, one_launch_per_scan_ms=ms_per_scan,
-             bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-             bytes_ms=bytes_ms, ops_ms=ops_ms, atomic_floor_ms=1e3 * n_pass / rates["int32"])
-    log(f"timing ray_pass_counts on {S} scans ({n_rays} rays, {n_pass} passes, ray_steps {cfg.ray_steps}): one "
-        f"launch {ms:.4f} ms, {S} one-scan launches {ms_per_scan:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']}; bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms), one atomic a pass at the "
-        f"probe's rate {r['atomic_floor_ms']:.4f} ms; bitwise equal to the plain twin and the sum of the one-scan "
-        f"launches")
-    return r
+    log(f"K1 on {S} scans ({int(kp.sum())} rays, {int(whole.sum())} passes, ray_steps {cfg.ray_steps}) in one "
+        f"launch: bitwise equal to the plain twin and the sum of the one-scan launches")
 
 
-LAP_BATCH = (64, 128)    # phase5_raycast_lap: the benchmark lap's second batch of 64 scans
+LAP_BATCH = (64, 128)    # phase5_k1_lap: the benchmark lap's second batch of 64 scans
 LAP_SEED = 3_000_000_019  # the lap's run seed: its range noise
-LAP_SCAN = 100            # one scan of the batch, timed alone
-LAP_SLAB = (64, 64)       # the quarter slab the lap's times take
 
 
-def phase5_raycast_lap(rows, rates, dev, log):
+def phase5_k1_lap(dev, log):
     """K1 on the benchmark's drive (benchmark/scangen.make_lap at the
     OS1-128 deployment of benchmark/configs/os1_128.json): its 64-scan
     batch LAP_BATCH, sliced as the replay slices it and prepared as the
     batched step prepares it, in one launch (the window the main path
-    takes), bitwise the plain twin and the sum of its 64 one-scan
-    launches, timed against its bound;
-    the march's schedule (kernels.ray_march_stats) in launch order and
-    sorted by live steps, at the launch's window and at 256 rays a block:
-    lane utilisation and atomics after the warp merge; the one-scan and
-    slab rows of phase 4 beside it; and the times of the lap's scan
-    LAP_SCAN, of its slab LAP_SLAB and of the batch's slab."""
+    takes), bitwise the sum of its 64 one-scan launches; the march's
+    schedule (kernels.ray_march_stats) in launch order and sorted by live
+    steps, at the launch's window and at 256 rays a block, its passes
+    bitwise the launch's, with the lane utilisation and the atomics after
+    the warp merge; the sorted march at the launch's window keeps more than
+    0.6 of its issued lane-steps busy. The launch against the plain twin on
+    the same batch is tests/test_torch_raycast_card.py's
+    test_k1_lap_batch_bitwise_plain."""
     import torch
 
     from benchmark import scangen
     from gvom_tpu_torch import GvomConfig
     from gvom_tpu_torch.engine.replay import batched_ray_steps
-    from gvom_tpu_torch.ops import kernels, raycast
+    from gvom_tpu_torch.ops import kernels
 
-    root = Path(__file__).resolve().parent
-    conf = json.loads((root / "benchmark/configs/os1_128.json").read_text())
-    drive = json.loads((root / "benchmark/drives/lap.json").read_text())
+    conf = json.loads((ROOT / "benchmark/configs/os1_128.json").read_text())
+    drive = json.loads((ROOT / "benchmark/drives/lap.json").read_text())
     made = scangen.make_lap(conf["sensor"], drive, conf["gvom"]["ground_to_lidar_height"], LAP_SEED, dev)
     S = LAP_BATCH[1] - LAP_BATCH[0]
     cfg = GvomConfig.from_dict(conf["gvom"])
@@ -3166,26 +2466,12 @@ def phase5_raycast_lap(rows, rates, dev, log):
     p, keep, origin, _ = kernels.prepare_points(cfg, made["points"][b].contiguous(), made["valid"][b].contiguous(),
                                                 be, frame_ego=be[-1].contiguous(), drop_dead=True)
     del made
-    N, V = p.shape[1], cfg.voxel_count
     whole = kernels.ray_pass_counts(cfg, p, keep, be, origin)
     summed = torch.zeros_like(whole)
     for s in range(S):
         kernels.ray_pass_counts(cfg, p[s:s + 1], keep[s:s + 1], be[s:s + 1], origin, out=summed)
     exact(f"K1 on the lap's {S} scans in one launch vs the sum of {S} one-scan launches", whole, summed)
-    exact(f"K1 on the lap's {S} scans in one launch vs the plain twin", whole,
-          raycast.pass_counts_plain(cfg, p, keep, be, origin))
-    n_pass, n_rays = int(whole.sum()), int(keep.sum())
-    ms, _ = graph_ms(lambda: kernels.ray_pass_counts(cfg, p, keep, be, origin), 40)
-    nbytes, ops_s = k1_bound(S * N, S, n_rays, n_pass, V)
-    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops_s)
-    window = kernels.ray_window(S, N, torch.cuda.get_device_properties(dev).multi_processor_count)
-    one_scan = slice(LAP_SCAN - LAP_BATCH[0], LAP_SCAN - LAP_BATCH[0] + 1)
-    lap_ms = {}
-    for label, sl, yw in (("scan", one_scan, None), ("scan_slab", one_scan, LAP_SLAB),
-                          ("batch_slab", slice(None), LAP_SLAB)):
-        args = (p[sl].contiguous(), keep[sl].contiguous(), be[sl].contiguous(), origin)
-        lap_ms[label], _ = graph_ms(lambda args=args, yw=yw: kernels.ray_pass_counts(cfg, *args, y_window=yw),
-                                    400 if args[0].shape[0] == 1 else 40)
+    window = kernels.ray_window(S, p.shape[1], torch.cuda.get_device_properties(dev).multi_processor_count)
     schedule = {}
     for w in sorted({window, 256}):
         for sort in (False, True):
@@ -3198,22 +2484,12 @@ def phase5_raycast_lap(rows, rates, dev, log):
     at256 = "" if window == 256 else (f"; at 256 rays a block {schedule['256_sorted']['lane_utilisation']:.3f} and "
                                       f"{schedule['256_sorted']['atomics']} sorted")
     check(srt["lane_utilisation"] > 0.6, f"K1 sorted: lane utilisation {srt['lane_utilisation']:.3f} on the lap")
-    one = {r["name"]: r for r in rows if r["name"] in ("ray_pass_counts", "ray_pass_counts_slab")}
-    res = dict(scans=S, rays=n_rays, passes=n_pass, ray_steps=cfg.ray_steps, window=window, ms=ms, bound_ms=bound,
-               atomic_floor_ms=1e3 * n_pass / rates["int32"], schedule=schedule, lap_ms=lap_ms,
-               one_scan=dict(ms=one["ray_pass_counts"]["ms"], bound_ms=one["ray_pass_counts"]["bound_ms"]),
-               slab=dict(ms=one["ray_pass_counts_slab"]["ms"], bound_ms=one["ray_pass_counts_slab"]["bound_ms"]))
-    log(f"phase 5 K1 on the lap ({S} scans {LAP_BATCH[0]}-{LAP_BATCH[1] - 1}, {n_rays} rays, {n_pass} passes, "
-        f"ray_steps {cfg.ray_steps}, {window} rays a block): lane utilisation {old['lane_utilisation']:.3f} in "
-        f"launch order, {srt['lane_utilisation']:.3f} sorted; atomics after the warp merge {old['atomics']} in "
-        f"launch order, {srt['atomics']} sorted{at256}; bitwise the plain twin and the sum of its one-scan "
-        f"launches")
-    log(f"K1 times (launch alone) beside their bounds: one scan {res['one_scan']['ms']:.4f} ms (bound "
-        f"{res['one_scan']['bound_ms']:.4f}), the slab {res['slab']['ms']:.4f} ms "
-        f"(bound {res['slab']['bound_ms']:.4f}), "
-        f"the lap's {S} scans {ms:.4f} ms (bound {bound:.4f}, {100 * bound / ms:.1f} %; one atomic a pass at the "
-        f"probe's rate {res['atomic_floor_ms']:.4f} ms); on the lap, scan {LAP_SCAN} {lap_ms['scan']:.4f} ms, its "
-        f"slab {LAP_SLAB} {lap_ms['scan_slab']:.4f} ms, the batch's slab {lap_ms['batch_slab']:.4f} ms")
+    res = dict(scans=S, rays=int(keep.sum()), passes=int(whole.sum()), ray_steps=cfg.ray_steps, window=window,
+               schedule=schedule)
+    log(f"phase 5 K1 on the lap ({S} scans {LAP_BATCH[0]}-{LAP_BATCH[1] - 1}, {res['rays']} rays, {res['passes']} "
+        f"passes, ray_steps {cfg.ray_steps}, {window} rays a block): lane utilisation {old['lane_utilisation']:.3f} "
+        f"in launch order, {srt['lane_utilisation']:.3f} sorted; atomics after the warp merge {old['atomics']} in "
+        f"launch order, {srt['atomics']} sorted{at256}; bitwise the sum of its one-scan launches")
     return res
 
 
@@ -3285,30 +2561,19 @@ def os1_payload(points):
     return buf.tobytes(), CloudSpec(fields=fields, point_step=OS1_POINT_STEP, width=len(points))
 
 
-def decode_rates(payloads, log):
-    """Points and bytes a second of the native and the NumPy PointCloud2
-    decode over the payloads (host clock, best of three passes); both give
+def decode_paths(payloads, log):
+    """The native and the NumPy PointCloud2 decode over the payloads give
     bitwise the same points."""
     import numpy as np
 
     from gvom_tpu_torch.io.pointcloud2 import pointcloud2_to_xyz
 
-    out, res = {}, {}
-    for path in ("native", "numpy"):
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            out[path] = [pointcloud2_to_xyz(d, s, use_native=path == "native") for d, s in payloads]
-            best = min(best, time.perf_counter() - t0)
-        n = sum(len(x) for x in out[path])
-        res[path] = dict(s=best, points_per_s=n / best, bytes_per_s=sum(len(d) for d, _ in payloads) / best)
+    out = {path: [pointcloud2_to_xyz(d, s, use_native=path == "native") for d, s in payloads]
+           for path in ("native", "numpy")}
     for a, b in zip(out["native"], out["numpy"]):
         check(np.array_equal(a, b), "PointCloud2 decode: the native and the NumPy paths differ")
-    log(f"phase 7 decode: {len(payloads)} PointCloud2 payloads of {OS1_POINT_STEP}-byte points, native "
-        f"{res['native']['points_per_s'] / 1e6:.1f} M points/s ({res['native']['bytes_per_s'] / 1e9:.2f} GB/s), "
-        f"NumPy {res['numpy']['points_per_s'] / 1e6:.1f} M points/s ({res['numpy']['bytes_per_s'] / 1e9:.2f} GB/s); "
-        "the same points")
-    return res
+    log(f"phase 7 decode: {len(payloads)} PointCloud2 payloads of {OS1_POINT_STEP}-byte points ("
+        f"{sum(len(x) for x in out['native'])} points): the native and the NumPy paths give the same points")
 
 
 def ros_timer(period, callback, stop):
@@ -3342,7 +2607,7 @@ def phase7_node_under_load(cfg, scans, payloads, log):
     from gvom_tpu_torch.io.pointcloud2 import decode_path, pointcloud2_to_xyz
     from gvom_tpu_torch.ops import kernels
 
-    published, ticks = {}, []
+    published = {}
 
     def publisher(name, data, meta):   # called from the timer thread only
         published[name] = published.get(name, 0) + 1
@@ -3351,16 +2616,14 @@ def phase7_node_under_load(cfg, scans, payloads, log):
     paths = sorted({decode_path(spec) for _, spec in payloads})
     check(paths == ["native"], f"the sensor threads' decode path is {paths}, not the native one")
     n_per = int(NODE_SECONDS * SENSOR_HZ)
-    errors, decode_s = [], []
+    errors = []
 
     def sensor(tid):
         try:
             t0 = time.perf_counter()
             for k in range(n_per):
                 i = (2 * k + tid) % len(payloads)
-                t1 = time.perf_counter()
                 xyz = pointcloud2_to_xyz(*payloads[i], use_native=True)
-                decode_s.append(time.perf_counter() - t1)
                 node.on_odometry(scans[i][2])
                 node.on_pointcloud(xyz)
                 time.sleep(max(0.0, t0 + (k + 1) / SENSOR_HZ - time.perf_counter()))
@@ -3368,10 +2631,8 @@ def phase7_node_under_load(cfg, scans, payloads, log):
             errors.append(e)
 
     def cb_timer():
-        t1 = time.perf_counter()
         if node.publish_maps() is not None:
             node.publish_debug()
-            ticks.append(time.perf_counter() - t1)
 
     def timer(stop):
         try:
@@ -3382,7 +2643,6 @@ def phase7_node_under_load(cfg, scans, payloads, log):
     stop = threading.Event()
     torch.cuda.synchronize()
     kernels.reset_launches()
-    t0 = time.perf_counter()
     ticker = threading.Thread(target=timer, args=(stop,), name="timer")
     ticker.start()
     threads = [threading.Thread(target=sensor, args=(t,), name=f"sensor-{t}") for t in range(2)]
@@ -3392,13 +2652,11 @@ def phase7_node_under_load(cfg, scans, payloads, log):
         t.join(timeout=NODE_SECONDS + 60)
     stop.set()
     ticker.join(timeout=60)
-    elapsed = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
     check(not any(t.is_alive() for t in threads + [ticker]), "a sensor or the timer thread did not end")
     check(not errors, f"a sensor or the timer thread failed: {errors[0]!r}" if errors else "")
-    snap = node.metrics.snapshot()
-    counters, stats = snap["counters"], snap["timings"]
+    counters = node.metrics.snapshot()["counters"]
     scans_in, combines = counters.get("scans", 0), counters.get("combines", 0)
     check(scans_in == 2 * n_per, f"node: {scans_in} scans ingested of {2 * n_per}")
     check(combines > 0, "node: no map was published")
@@ -3408,18 +2666,10 @@ def phase7_node_under_load(cfg, scans, payloads, log):
     for name in ("hard_obstacle_map", "roughness_map", "debug/voxel", "debug/height_map", "debug/inferred_height_map"):
         check(published.get(name) == combines, f"node: {name} published {published.get(name)} times, "
               f"{combines} maps")
-    res = dict(seconds=elapsed, scans=scans_in, maps=combines, maps_per_s=combines / elapsed,
-               combine_freq=cfg.combine_freq, sensor_hz=SENSOR_HZ, sensors=2,
-               decode_ms_median=1e3 * statistics.median(decode_s),
-               tick_ms_median=1e3 * statistics.median(ticks), tick_ms_max=1e3 * max(ticks),
-               **{f"{k}_ms_{q}": 1e3 * stats[f"{k}_s"][q] for k in ("ingest", "combine") for q in ("median", "p95")})
-    log(f"phase 7 node: {scans_in} scans from two sensor threads at {SENSOR_HZ:g} Hz each (native decode, median "
-        f"{res['decode_ms_median']:.3f} ms), {combines} maps published with the debug clouds in {elapsed:.2f} s "
-        f"by the ROS node's timer callback on rospy.Timer's schedule ({res['maps_per_s']:.2f} Hz against "
-        f"combine_freq {cfg.combine_freq:g} Hz; a tick, maps and debug clouds, median {res['tick_ms_median']:.3f} "
-        f"ms, max {res['tick_ms_max']:.3f} ms); on_pointcloud median "
-        f"{res['ingest_ms_median']:.3f} ms p95 {res['ingest_ms_p95']:.3f} ms (enqueue, no sync), combine median "
-        f"{res['combine_ms_median']:.3f} ms p95 {res['combine_ms_p95']:.3f} ms (host clock, its sync included); "
+    res = dict(scans=scans_in, maps=combines, combine_freq=cfg.combine_freq, sensor_hz=SENSOR_HZ, sensors=2)
+    log(f"phase 7 node: {scans_in} scans from two sensor threads at {SENSOR_HZ:g} Hz each (native decode), "
+        f"{combines} maps published with the debug clouds by the ROS node's timer callback on rospy.Timer's "
+        f"schedule at combine_freq {cfg.combine_freq:g} Hz; "
         f"launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
     return node, launches, res
 
@@ -3434,7 +2684,7 @@ def phase7_determinism_and_exporters(node, scans, log):
     """reset, then the same scans single-threaded through the node, twice:
     the layers bitwise equal between the runs, and every MapProducts field
     bitwise equal to a fresh Gvom's fed the same scans. Then the three
-    exporters at the full grid, timed, against the same exporters on the
+    exporters at the full grid against the same exporters on the
     world and products copied to the CPU: the voxel map's columns 0-4 and
     the height maps bitwise, the eigen columns within EIGEN_ATOL. The
     second reset is called from a thread on another CUDA stream, and the
@@ -3493,15 +2743,10 @@ def phase7_determinism_and_exporters(node, scans, log):
     eng = node.engine
     cpu = Gvom(config=cfg, device="cpu")
     cpu._world, cpu._products = to_device(eng.world_state, "cpu"), to_device(eng.products, "cpu")
-    times, err = {}, 0.0
+    rows, err = {}, 0.0
     for name in ("make_debug_voxel_map", "make_debug_height_map", "make_debug_inferred_height_map"):
-        fn, reps = getattr(eng, name), []
-        for _ in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()                         # ends in copies to the host
-            reps.append(time.perf_counter() - t0)
-        times[name] = dict(ms_median_warm=1e3 * statistics.median(reps[1:]), rows=len(out))
+        out = getattr(eng, name)()
+        rows[name] = len(out)
         ref = getattr(cpu, name)()
         check(out.shape == ref.shape and out.dtype == ref.dtype, f"{name}: {out.shape} vs the CPU's {ref.shape}")
         bitwise = 5 if name == "make_debug_voxel_map" else out.shape[1]
@@ -3509,12 +2754,12 @@ def phase7_determinism_and_exporters(node, scans, log):
         if bitwise < out.shape[1]:
             err = float(np.abs(out[:, bitwise:] - ref[:, bitwise:]).max())
             check(err <= EIGEN_ATOL, f"{name}: eigen columns differ from the CPU by {err}")
-    check(times["make_debug_voxel_map"]["rows"] == int((eng.world_state.grid.hit > 0).sum()), "voxel map rows")
+    check(rows["make_debug_voxel_map"] == int((eng.world_state.grid.hit > 0).sum()), "voxel map rows")
     log(f"phase 7 reset: two runs of {len(scans)} scans after reset (the second from a thread on a side stream) "
         f"publish bitwise the same layers, and the "
         f"products equal a fresh Gvom's; exporters at the full grid match the CPU's (eigen max abs err {err:.3g}), "
-        + ", ".join(f"{k[len('make_debug_'):]} {v['rows']} rows {v['ms_median_warm']:.3f} ms" for k, v in times.items()))
-    return fresh.products, fresh_out, dict(exporters=times, eigen_max_abs_err=err)
+        + ", ".join(f"{k[len('make_debug_'):]} {v} rows" for k, v in rows.items()))
+    return fresh.products, fresh_out, dict(exporter_rows=rows, eigen_max_abs_err=err)
 
 
 def start_cli(*args):
@@ -3558,12 +2803,10 @@ def phase7_bag_round_trip(cfg, scans, fresh_products, fresh_out, log):
 
     with tempfile.TemporaryDirectory() as tmp:
         bag, out = os.path.join(tmp, "drive.bag"), os.path.join(tmp, "drive.npz")
-        t0 = time.perf_counter()
         rosbag.write_minimal_bag(bag, messages(lambda p: p), chunked="bz2")
         bag_mb = os.path.getsize(bag) / 1e6
         conv = cli_result("convert-bag", start_cli("convert-bag", bag, out), 600)
         slog = load_log(out)
-        convert_s = time.perf_counter() - t0
         small = os.path.join(tmp, "small.bag")
         rosbag.write_minimal_bag(small, messages(lambda p: p[:1000]), chunked="lz4")
         small_log = rosbag.bag_to_scanlog(small)
@@ -3579,9 +2822,9 @@ def phase7_bag_round_trip(cfg, scans, fresh_products, fresh_out, log):
         exact(f"replay of the converted bag: product {name}", getattr(engine.products, name),
               getattr(fresh_products, name))
     log(f"phase 7 bag: {len(scans)} scans in a bz2-chunked bag of {bag_mb:.1f} MB, written and converted by "
-        f"cli convert-bag in {convert_s:.2f} s; sequential_replay of the log gives bitwise the facade's outputs "
+        f"cli convert-bag; sequential_replay of the log gives bitwise the facade's outputs "
         f"and products; an lz4-chunked bag of {len(scans)} small scans reads back bitwise")
-    return dict(bag_mb=bag_mb, write_and_convert_s=convert_s)
+    return dict(bag_mb=bag_mb)
 
 
 def phase7_cli(procs, log):
@@ -3615,9 +2858,10 @@ def phase7_cli(procs, log):
 def phase7_host_path(cfg, scans, log):
     """The live mapper's host path: the node under load, reset and the
     exporters, the bag round trip, and the CLI (started as subprocesses
-    once the timed parts are done, and read at the end)."""
+    once the node and the exporters are done, and read at the end)."""
     payloads = [os1_payload(pad[mask]) for pad, mask, _ in scans]
-    res = dict(decode=decode_rates(payloads, log))
+    decode_paths(payloads, log)
+    res = {}
     node, launches, res["node"] = phase7_node_under_load(cfg, scans, payloads, log)
     products, outs, res["reset_and_exporters"] = phase7_determinism_and_exporters(node, scans, log)
     del node
@@ -3648,7 +2892,6 @@ def phase8_bench_and_entry(log):
 
     lines = {}
     for mode in BENCH_MODES:
-        t0 = time.perf_counter()
         try:
             r = subprocess.run([sys.executable, "-m", "gvom_tpu_torch.bench", "--mode", mode, "--steps", "8",
                                 "--repeats", "2"], cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -3662,15 +2905,15 @@ def phase8_bench_and_entry(log):
                   and x.get("raycast", x.get("impl", "cuda")) == "cuda", f"bench --mode {mode}: {x}")
             print(json.dumps(x), flush=True)
         check(mode != "perscan" or out[-1].get("combine_every") == 8, "bench: the contract line is not the last")
-        lines[mode] = dict(lines=out, command_s=time.perf_counter() - t0)
+        lines[mode] = out
     fn, args = entry()
     got = fn(*args)
     cfn, cargs = entry(device="cpu")
     for name, a, b in zip(("positive", "negative", "roughness", "visibility"), got, cfn(*cargs)):
         exact(f"entry() on the card vs the CPU: {name}", a.cpu(), b)
     check(int(got[3].sum()) > 0, "entry(): an empty visibility map")
-    took = ", ".join(f"{m} {v['command_s']:.1f} s" for m, v in lines.items())
-    log(f"phase 8: bench in {len(lines)} modes ({took}); entry()'s four maps on the card bitwise those on the CPU")
+    log(f"phase 8: bench in {len(lines)} modes ({', '.join(lines)}); entry()'s four maps on the card bitwise those "
+        f"on the CPU")
     return lines
 
 
@@ -3692,9 +2935,10 @@ def mesh_inputs(cfg, scans, dev):
 
 
 def mesh_steps(step, world, batches, mesh, ingest, barrier=lambda: None):
-    """Two timed steps on this rank (host clock, synchronized): the slab
-    worlds and products after each, the step ms, the step's own peak device
-    bytes, the launches and the bytes gloo moved through the host."""
+    """Two steps on this rank after a warm one, the ranks at a barrier
+    before each: the slab worlds and products after each, the steps' own
+    peak device bytes, the launches and the bytes gloo moved through the
+    host."""
     import torch
 
     from gvom_tpu_torch.ops import kernels
@@ -3706,16 +2950,13 @@ def mesh_steps(step, world, batches, mesh, ingest, barrier=lambda: None):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     mesh.host_bytes = 0
-    outs, ms = [], []
+    outs = []
     for b in batches:
         barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         world, products = step(world, *shard_batch(*b, mesh, ingest))
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
         outs.append((world, products))
-    stats = dict(step_ms=ms, max_memory_allocated=torch.cuda.max_memory_allocated(),
+    torch.cuda.synchronize()
+    stats = dict(max_memory_allocated=torch.cuda.max_memory_allocated(),
                  peak_step_bytes=torch.cuda.max_memory_allocated() - base,
                  launches={k.name: k.launches for k in kernels.KERNELS if k.launches}, host_bytes=mesh.host_bytes)
     return outs, stats
@@ -3787,7 +3028,6 @@ def phase9_mesh(cfg, scans, dev, log):
     from gvom_tpu_torch.parallel.sharding import gather_world, shard_world
     from gvom_tpu_torch.types import empty_world_state
 
-    t_phase = time.perf_counter()
     batches, cb = mesh_inputs(cfg, scans, dev)
     one = make_batched_step(cb, dev)
     world = empty_world_state(cfg, dev)
@@ -3821,9 +3061,7 @@ def phase9_mesh(cfg, scans, dev, log):
     log(f"phase 9 (a): a (1, 1) mesh over NCCL, two steps of {BATCH} scans: products, hit, miss, min_height, "
         f"evidence and n bitwise the one-rank step, the nine moment sums within MOM_ATOL_BATCH (max abs err "
         f"{res['nccl_1x1']['max_abs_err']}; {res['nccl_1x1']['moment_diffs']} elements differ, and "
-        f"{res['one_rank_rerun_moment_diffs']} between two runs of the one-rank step: the atomics' order); step "
-        f"{res['nccl_1x1']['step_ms'][1]:.2f} ms against {res['one_rank']['step_ms'][1]:.2f} ms with mesh=None "
-        f"(host clock)")
+        f"{res['one_rank_rerun_moment_diffs']} between two runs of the one-rank step: the atomics' order)")
 
     # ---- (b) four ranks on the card over gloo ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -3832,13 +3070,11 @@ def phase9_mesh(cfg, scans, dev, log):
         torch.save([(w, p) for w, p in refs], Path(tmp) / "refs.pt")
         del refs, single
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
         try:
             outs = run_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", tmp], MESH_RANKS,
                              timeout=300, cwd=str(ROOT))
         except RuntimeError as e:
             raise Failed(f"phase 9 (b): {e}")
-        ranks_s = time.perf_counter() - t0
     lines = [json.loads(x) for o in outs for x in o.splitlines() if x.startswith('{"mesh"')]
     meshes = {}
     for name, space, ingest in MESH_SHAPES:
@@ -3853,20 +3089,16 @@ def phase9_mesh(cfg, scans, dev, log):
                                                      f"{x['launches'].get(k, 0)} times in two steps")
         meshes[name] = per
         log(f"phase 9 (b) mesh {name} ({MESH_RANKS} ranks on one card, gloo): bitwise the one-rank step, "
-            f"moments max abs err {per[0]['max_abs_err']}; step ms per rank (host clock) "
-            f"{[round(x['step_ms'][1], 2) for x in per]}; max_memory_allocated per rank "
+            f"moments max abs err {per[0]['max_abs_err']}; max_memory_allocated per rank "
             f"{[x['max_memory_allocated'] for x in per]}, of it the steps' own "
             f"{[x['peak_step_bytes'] for x in per]} (one rank: {res['one_rank']['max_memory_allocated']}, "
             f"{res['one_rank']['peak_step_bytes']}); slab launches "
             f"per rank {[[x['launches'].get(k, 0) for k in ('ray_pass_counts_slab', 'bin_points_slab', 'moments_epilogue_slab')] for x in per]}; "
             f"bytes through the host per rank {[x['host_bytes'] for x in per]}")
-    res.update(gloo_4_ranks=meshes, gloo_4_ranks_s=ranks_s)
+    res.update(gloo_4_ranks=meshes)
 
     # ---- (c) dryrun_multichip, (d) bench --mode scaling ----
-    t0 = time.perf_counter()
     res["dryrun"] = dryrun_multichip(MESH_RANKS, backend="gloo", timeout=300)
-    res["dryrun_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     try:
         r = subprocess.run([sys.executable, "-m", "gvom_tpu_torch.bench", "--mode", "scaling", "--devices", "1",
                             "--steps", "4", "--repeats", "2"], cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -3877,158 +3109,16 @@ def phase9_mesh(cfg, scans, dev, log):
     check(len(line) == 1 and line[0]["devices"] == [1] and line[0]["backend"] == "nccl"
           and line[0]["scans_per_s"]["1"] > 0, f"bench --mode scaling: {r.stdout[-2000:]}")
     print(json.dumps(line[0]), flush=True)
-    res.update(bench_scaling=line[0], bench_scaling_s=time.perf_counter() - t0, phase_s=time.perf_counter() - t_phase)
-    log(f"phase 9 (c) {res['dryrun']} ({res['dryrun_s']:.1f} s); (d) bench --mode scaling --devices 1: "
-        f"{line[0]['scans_per_s']['1']} scans/s ({res['bench_scaling_s']:.1f} s); phase 9 took {res['phase_s']:.1f} s")
+    res["bench_scaling"] = line[0]
+    log(f"phase 9 (c) {res['dryrun']}; (d) bench --mode scaling --devices 1: {line[0]['scans_per_s']['1']} scans/s")
     return res
 
-
-
-def phase_end_to_end(cfg, scans, dev, log):
-    """Device time (CUDA events) of the warmed per-scan ingest and combine,
-    called through the pipeline on tensors already on the card."""
-    import torch
-
-    from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
-
-    buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
-    inputs = [(torch.from_numpy(p).to(dev), torch.from_numpy(v).to(dev),
-               torch.tensor(e, dtype=torch.float32, device=dev)) for p, v, e in scans]
-    state = dict(world=world, i=0)
-
-    def ingest():
-        p, v, e = inputs[state["i"] % len(inputs)]
-        state["i"] += 1
-        pipeline.ingest_and_insert(cfg, buf, p, v, e)
-
-    def combine():
-        state["world"] = pipeline.combine(cfg, buf, state["world"], inputs[0][2])[0]
-
-    ingest_ms = cuda_ms(ingest, 2 * len(inputs), warm=len(inputs))
-    combine_ms = cuda_ms(combine, 10, warm=2)
-    torch.cuda.reset_peak_memory_stats()
-    ingest()
-    combine()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"end to end (CUDA events, warm): ingest_and_insert {ingest_ms:.4f} ms/scan, combine "
-        f"{combine_ms:.4f} ms, peak device memory {peak / 2**30:.3f} GiB")
-    return dict(ingest_ms=ingest_ms, combine_ms=combine_ms, peak_bytes=peak)
-
-
-def profile_calls(steps, log):
-    """torch.profiler over one warm call of each function in `steps`: device
-    time by kernel, kernel launches, and the device's busy share of the
-    host-clock span."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
-    for name, fn in steps.items():
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kern = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(ev.time_range.elapsed_us() for ev in kern)
-        # float64 work: the kernels whose name (PyTorch's templates) names double
-        f64 = [ev for ev in kern if "double" in ev.name]
-        f64_us = sum(ev.time_range.elapsed_us() for ev in f64)
-        by_name = {}
-        for ev in kern:
-            by_name.setdefault(ev.name, [0, 0.0])
-            by_name[ev.name][0] += 1
-            by_name[ev.name][1] += ev.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-        out[name] = dict(wall_us=wall_us, device_us=dev_us, launches=len(kern), busy_share=dev_us / wall_us,
-                         f64_us=f64_us, f64_launches=len(f64),
-                         top=[dict(kernel=k[:120], count=c, device_us=t) for k, (c, t) in top])
-        log(f"profile {name}: host span {wall_us:.1f} us, device busy {dev_us:.1f} us "
-            f"({100 * dev_us / wall_us:.1f} %), {len(kern)} kernel launches, float64 {f64_us:.1f} us in "
-            f"{len(f64)}; top by device time:")
-        for k, (c, t) in top[:8]:
-            log(f"    {t:10.1f} us  x{c:<5d} {k[:100]}")
-    return out
-
-
-def profile_node(cfg, scans, log):
-    """torch.profiler over one warm tick of the node on the card (ingest a
-    scan, publish the maps, publish the debug clouds, the card synchronized
-    after each): the device time of each region that
-    utils.profiling.annotate marks (gvom/ingest, gvom/combine, gvom/export;
-    not the combine's sync and copy inside it)
-    and of the whole tick. A kernel belongs to the region whose host range
-    began last before it started: the synchronizations keep each region's
-    kernels after its start and before the next's. (The profiler ties the
-    kernels launched through ctypes to no region of its own.)"""
-    import bisect
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from gvom_tpu_torch import VoxelMapperNode
-
-    node = VoxelMapperNode(config=cfg)
-    pad, mask, ego = scans[0]
-
-    def tick():
-        node.on_odometry(ego)
-        for step in (lambda: node.on_pointcloud(pad[mask]), node.publish_maps, node.publish_debug):
-            step()
-            torch.cuda.synchronize()
-
-    tick()
-    tick()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tick()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.events()
-    marks = sorted((ev.time_range.start, ev.name) for ev in events
-                   if ev.name.startswith("gvom/") and ev.name.count("/") == 1
-                   and ev.device_type == torch.autograd.DeviceType.CPU)
-    starts = [t for t, _ in marks]
-    regions, dev_us = {}, 0.0
-    for ev in events:
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name.startswith("gvom/"):
-            continue   # host events, and the profiler's own spans of the regions on the device
-        i = bisect.bisect_right(starts, ev.time_range.start) - 1
-        name = marks[i][1] if i >= 0 else "before the first region"
-        regions[name] = regions.get(name, 0.0) + ev.time_range.elapsed_us()
-        dev_us += ev.time_range.elapsed_us()
-    out = dict(wall_us=wall_us, device_us=dev_us, regions_device_us=regions)
-    log(f"profile node tick (synchronized after each step): host span {wall_us:.1f} us, device busy {dev_us:.1f} us "
-        f"({100 * dev_us / wall_us:.1f} %); by region (device us): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(regions.items())))
-    return out
-
-
-def phase_profile(cfg, scans, dev, log):
-    """torch.profiler over one warm ingest_and_insert and one warm combine,
-    and one tick of the node by region."""
-    from gvom_tpu_torch.models import pipeline
-    from gvom_tpu_torch.types import empty_buffer_state, empty_world_state
-
-    buf, world = empty_buffer_state(cfg, dev), empty_world_state(cfg, dev)
-    p, v, e = scan_tensors(scans[0], dev)
-    out = profile_calls(dict(ingest=lambda: pipeline.ingest_and_insert(cfg, buf, p, v, e),
-                             combine=lambda: pipeline.combine(cfg, buf, world, e)), log)
-    out["node"] = profile_node(cfg, scans, log)
-    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--scans", type=int, default=8, help="scans of the facade drive (default 8)")
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace one ingest and one combine on the pipeline and one tick of the node with "
-                         "torch.profiler (a batched step and a process_pointcloud are traced in every run)")
     ap.add_argument("--mesh-rank", help=argparse.SUPPRESS)   # a phase-9 rank: the directory of its inputs
     args, extra = ap.parse_known_args(argv)
     if extra and not args.mesh_rank:
@@ -4065,69 +3155,57 @@ def run(args, torch) -> int:
         print(msg, flush=True)
 
     report = {}
-    t0 = time.perf_counter()
-    probe = kernels.CudaKernel("atomic_rate", "atomic_rate.cu", "gvom_atomic_rate",
-                               [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-                               "not a TPU kernel: a probe of the card's atomic rate")
-    probe_build = probe.start_build()
     # K4 for the ring buffers of entry() (2), of the bench's async mode (8), of
     # phase 1's other depths (7, 16) and of the configuration sweep, so that no
-    # timed or checked call waits for nvcc
+    # checked call waits for nvcc
     b0 = GvomConfig().buffer_size
     depths = [kernels.CMB.start_build((f"-DGVOM_COMBINE_B={b}",)) for b in sorted(
         {2, 7, 8, 16} | {f.get("buffer_size", b0) for _, f in SWEEP_CONFIGS.values()} - {b0})]
     reports = kernels.build_all()
-    reports[probe.name] = probe.finish_build(probe_build)
     for proc in depths:
         kernels.CMB.finish_build(proc)
-    report["build_s"] = time.perf_counter() - t0
-    for source, text in sorted({k.source.name: reports[k.name] for k in kernels.KERNELS + [probe]}.items()):
+    for source, text in sorted({k.source.name: reports[k.name] for k in kernels.KERNELS}.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {source}: {line.strip()}")
-    log(f"built {len({k.source for k in kernels.KERNELS + [probe]})} kernel libraries in {report['build_s']:.1f} s")
+    log(f"built {len({k.source for k in kernels.KERNELS})} kernel libraries")
 
     dev = torch.device(DEVICE)
     cfg = GvomConfig()
-    t0 = time.perf_counter()
     scans = make_scans(cfg, max(args.scans, 4), LIDAR)
-    log(f"made {len(scans)} scans of {int(scans[0][1].sum())} points in {time.perf_counter() - t0:.1f} s "
-        f"(grid {cfg.grid_shape}, buffer {cfg.buffer_size})")
+    log(f"made {len(scans)} scans of {int(scans[0][1].sum())} points (grid {cfg.grid_shape}, buffer "
+        f"{cfg.buffer_size})")
 
-    prep = phase1_prepare(cfg, scans, dev, log)
+    phase1_prepare(cfg, scans, dev, log)
     phase1_knife_edges(dev, log)
-    err, buf, world, last = phase1_kernels_vs_plain(cfg, scans[:4], dev, log)
+    err = phase1_kernels_vs_plain(cfg, scans[:4], dev, log)
     phase1_combine_other_b(dev, log)
-    slab_launches, slab = phase1_slabs(cfg, scans[0], dev, log, err)
+    slab_launches = phase1_slabs(cfg, scans[0], dev, log, err)
     phase1_near_tier(cfg, scans[1], dev, log)
     report["epilogue_radii"] = phase1_epilogue_radii(cfg, scans[0], dev, log, err)
     report["epilogue_radii"]["direct_past_passes"] = direct = phase1_epilogue_direct_wide(cfg, dev, log)
-    report["wide_forms"] = dict(phase1_merge_tall(cfg, dev, log), **phase1_wide_configs(cfg, scans, dev, log))
+    phase1_merge_tall(cfg, dev, log)
+    phase1_wide_configs(cfg, scans, dev, log)
     report["large_grid"] = phase1_large(dev, log, err)
     report["config_sweep"] = phase1_config_sweep(cfg, scans, dev, log, err)
-    launches, report["facade"], _ = phase2_facade(cfg, scans, log)
+    launches, report["facade"] = phase2_facade(cfg, scans, log)
     phase3_small_reference(cfg, scans, log)
-    rates = atomic_rates(probe, dev, log)
-    rows, report["inputs"] = phase4_timings(cfg, buf, world, last, slab, prep, rates, dev, log)
-    del buf, world, last, slab, prep
-    report["end_to_end"] = phase_end_to_end(cfg, scans, dev, log)
-    batched_launches, (k5_row, merge_row), report["batched"] = phase5_batched(cfg, scans, rates, dev, log, err)
-    report["batched"]["ray_pass_counts_lap"] = phase5_raycast_lap(rows, rates, dev, log)
+    batched_launches, report["batched"] = phase5_batched(cfg, scans, dev, log, err)
+    report["batched"]["ray_pass_counts_lap"] = phase5_k1_lap(dev, log)
     phase6_replay(log)
     node_launches, report["host_path"] = phase7_host_path(cfg, scans, log)
     report["bench"] = phase8_bench_and_entry(log)
     report["mesh"] = phase9_mesh(cfg, scans, dev, log)
-    if args.profile:
-        report["profile"] = phase_profile(cfg, scans, dev, log)
 
-    # each kernel's launches on the path that is its own: the facade's for
-    # K1-K4 and the 2-D stencils (the maps' tail is in theirs: "includes"),
-    # the batched step's for K5 and the merge, ingest_scan(y_window=)'s for
-    # the slabs. The plane fit's tail alone is off every path: its sweep and
-    # timing are in the report, not the line
-    rows += [k5_row, merge_row]
-    order = [k.name for k in kernels.KERNELS]
-    rows.sort(key=lambda r: order.index(r["name"]))
+    # a row for each kernel launched on a path, with its launches on the path
+    # that is its own: the facade's for K1-K4 and the 2-D stencils (the maps'
+    # tail is in theirs: "includes"), the batched step's for K5 and the
+    # merge, ingest_scan(y_window=)'s for the slabs. The plane fit's tail
+    # alone is off every path: its sweep is phase 1's
+    paths = (launches, batched_launches, slab_launches, node_launches)
+    rows = [dict(name=k.name, route="cuda", source=str(k.source.relative_to(ROOT)),
+                 replaces=", ".join(re.findall(r"[\w/]+\.py:\d+", k.replaces)))
+            for k in kernels.KERNELS if any(p[k.name] for p in paths)]
     mesh_kernels = ("ray_pass_counts_slab", "bin_points_slab", "moments_epilogue_slab", "merge_batch") + tuple(
         TAIL_HOSTS)
     for r in rows:
@@ -4139,24 +3217,22 @@ def run(args, torch) -> int:
         r["launches_node_path"] = node_launches[r["name"]]
         if r["name"] in mesh_kernels:
             r["launches_mesh_path"] = [x["launches"].get(r["name"], 0) for x in report["mesh"]["gloo_4_ranks"]["(1, 4) slab"]]
+        if r["name"] in TAIL_HOSTS:
+            r["includes"] = TAIL_HOSTS[r["name"]]
         r["max_abs_err"] = err[r["name"]]
         if r["name"] in direct["launches"]:
-            # the direct form past the passes' tile (phase 1): its own launches, times and errors
+            # the direct form past the passes' tile (phase 1): its own launches and errors
             forms = direct["K5" if r["name"] == "moments_epilogue" else "K3"]
-            keep = ("ms", "bound_ms", "max_abs_err", "max_rel_err")
             r["direct_past_passes"] = dict(eigen=direct["eigen"], grid=direct["grid"],
-                                           launches=direct["launches"][r["name"]],
-                                           **{k: {q: v[q] for q in keep if q in v} for k, v in forms.items()})
+                                           launches=direct["launches"][r["name"]], **forms)
         check(r["launches"] > 0, f"kernel {r['name']} was launched no time on its path")
         if r["name"] in FACADE_KERNELS:
             check(r["launches_node_path"] > 0, f"kernel {r['name']} was launched no time on the node's path")
     check([r["name"] for r in rows] == [k.name for k in kernels.KERNELS if k is not kernels.PLANEFIT_TAIL],
           "the kernels line misses a kernel")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    line = {"kernels": [{k: r[k] for k in keys + ("includes", "atomic_floor_ms", "wrapper_ms", "launches_node_path",
-                                                 "launches_mesh_path", "direct_past_passes") if k in r}
-                        for r in rows]}
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "includes", "launches_node_path",
+            "launches_mesh_path", "direct_past_passes")
+    line = {"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}
     smi = []
     if shutil.which("nvidia-smi"):
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

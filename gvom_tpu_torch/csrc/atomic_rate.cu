@@ -1,5 +1,5 @@
 // Probe of the card's rate of scattered global atomics. Not a kernel of the
-// main path: chip_smoke.py times it to give kernels K1 and K2, which are
+// main path: scripts/tree_timing.py times it to give kernels K1 and K2, which are
 // bounded by their atomics, a bound in time (atomics needed / this rate).
 //
 // Each of n_ops atomics adds to its own word of a 2^log2_words buffer: op i

@@ -27,7 +27,7 @@
 // Bound on the H100: bytes. Each voxel writes 4 + 10 channels and reads, of
 // each of the B slots and the old world, the channels that the data makes
 // it need (below): at most 1.34 GB at the upstream config (B = 4,
-// 256×256×64), 0.40 ms at 3.35 TB/s; chip_smoke.py counts a run's share of
+// 256×256×64), 0.40 ms at 3.35 TB/s; benchmark/roofline.py counts a run's share of
 // it (combine_bound). Reaching it takes about 20 KB in flight per SM (3.35 TB/s ×
 // ~0.8 µs of latency over 132 SMs), and the first version of this kernel
 // kept 3–6 KB: a runtime slot loop whose every load fed a __fadd_rn chain

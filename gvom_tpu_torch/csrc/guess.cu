@@ -65,8 +65,8 @@
 //     another, on 512 threads, so a warp's lanes run the same query and no
 //     lane idles on a cell that does not search; the four wedges of a cell
 //     meet in shared memory, where the walk's quirks are applied (below).
-// PERF.md §6 has its times beside the first version's (scripts/
-// time_guess_routes.py --parent). When the region would not fit in the
+// PERF.md §6 has its times beside the first version's (a parent build
+// timed in turns, scripts/tree_timing.py). When the region would not fit in the
 // shared memory left beside the static arrays (R > 27 on a map wider than
 // 71 cells) the blocks walk each wedge cell by cell, reading hm from global
 // memory (the map is L2-resident). The launcher chooses by R, so every

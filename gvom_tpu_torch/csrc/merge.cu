@@ -28,7 +28,7 @@
 // world's hit and evidence, and reads moments only where the function needs
 // them (the batch's where it occupies, the old world's where it overlaps and
 // stays occupied); about 0.32 GB at the upstream config, 0.095 ms at
-// 3.35 TB/s (chip_smoke.py merge_bound counts a run's share). The design is
+// 3.35 TB/s (benchmark/roofline.py merge_bound counts a run's share). The design is
 // K4's: one warp a column, each lane two adjacent z with 8-byte accesses
 // where Z <= 64 (ZC = 1; a 4-chunk, 4-byte path for other Z up to 256),
 // streaming hints, every load of a voxel issued before its first use, and

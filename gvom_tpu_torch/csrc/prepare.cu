@@ -33,8 +33,8 @@
 //     keep bytes (and three 16-byte stores of the world points with a
 //     transform); a thread takes two groups a step and issues both groups'
 //     loads before it computes either, so that twice the bytes are in flight
-//     (scripts/time_prepare_steps.py times it against one group a step,
-//     PERF.md §6);
+//     (timed against one group a step as a variant build in turns,
+//     scripts/tree_timing.py, PERF.md §6);
 //     A scan whose rows are not so aligned (n % 4 != 0 puts every other
 //     scan's rows off the 16-byte grid), and the last n % 4 points of every
 //     scan, take the scalar path, one point a thread;

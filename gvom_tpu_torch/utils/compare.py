@@ -1,5 +1,5 @@
 """Comparisons of a kernel's output with its plain version's, shared by the
-card checks (`python -m gvom_tpu_torch.cli selftest`, chip_smoke.py). Each
+card checks (`python -m gvom_tpu_torch.cli selftest`, chip_smoke.py, the `card` tests). Each
 raises Failed with what differs, and returns the max abs error where a
 tolerance applies."""
 

@@ -4,13 +4,14 @@ that share one NVIDIA GPU, with each of the step's collectives timed alone.
 
     python3 scripts/time_mesh_step.py [--root DIR] [--ranks 4] [--steps 6] [--batch-cache FILE.npz]
 
-Imports gvom_tpu_torch from DIR (default: this checkout), so that two
-commits unpacked side by side can be timed in one call, each by its own
-code. The batches are scripts/time_entry_points.py's: 8 synthetic OS1-128
-scans repeated to 32 with moving egos, at the upstream deployment
-(GvomConfig(): 256×256×64); --batch-cache keeps their points in a file.
-The meshes are chip_smoke.py's phase 9: (1, 4) slab, (2, 2) slab and
-(2, 2) scatter, --ranks processes over gloo on the one card.
+Imports gvom_tpu_torch from DIR (default: this checkout; tree_timing.use_root),
+so that two commits unpacked side by side can be timed in one call, each by
+its own code. The batches are scripts/tree_timing.py's (batch_points,
+make_batch): 8 synthetic OS1-128 scans repeated to 32 with moving egos, at
+the upstream deployment (GvomConfig(): 256×256×64); --batch-cache keeps
+their points in a file. The meshes are those of chip_smoke.py's phase 9:
+(1, 4) slab, (2, 2) slab and (2, 2) scatter, --ranks processes over gloo on
+the one card.
 
 On each rank and mesh, after a warm step into an empty world:
 
@@ -35,15 +36,14 @@ name and power limit.
 
 import argparse
 import json
-import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
-HERE = Path(__file__).resolve().parent
+import tree_timing as tt
+
 MESHES = (("(1, 4) slab", 4, "slab"), ("(2, 2) slab", 2, "slab"), ("(2, 2) scatter", 2, "scatter"))
 COLLECTIVES = ("all_gather", "all_reduce", "reduce_scatter")
 
@@ -87,8 +87,8 @@ def worker(argv) -> int:
     import torch
 
     rest = argv[argv.index("--worker") + 1:]
-    root, inputs = Path(rest[0]), Path(rest[1])
-    sys.path.insert(0, str(root))
+    tt.use_root(rest[0])
+    inputs = Path(rest[1])
     from gvom_tpu_torch import GvomConfig, make_batched_step
     from gvom_tpu_torch.parallel.mesh import init_distributed, make_mesh, rank_args, shutdown
     from gvom_tpu_torch.parallel.sharding import shard_batch, shard_world
@@ -148,7 +148,7 @@ def main(argv=None) -> int:
     if "--worker" in argv:
         return worker(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=str(HERE.parent), help="checkout whose gvom_tpu_torch is timed")
+    ap.add_argument("--root", default=str(tt.ROOT), help="checkout whose gvom_tpu_torch is timed")
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--batch-cache", help="npz file of the batch's eight distinct scans (read, or written if missing)")
@@ -159,18 +159,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("time_mesh_step: no CUDA device is available", file=sys.stderr)
         return 2
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(HERE))
-    sys.path.insert(0, str(root))
-    import time_entry_points as tep
+    root = tt.use_root(args.root)
     from gvom_tpu_torch import GvomConfig
     from gvom_tpu_torch.ops import kernels
     from gvom_tpu_torch.parallel.mesh import run_ranks
 
     cfg = GvomConfig()
     kernels.build_all()          # once here, so that the ranks find every library built
-    bp, bv, be = (torch.from_numpy(a) for a in tep.batch_points(str(root), cfg, args.batch_cache))
-    batches = [tep.make_batch(bp, bv, be, step_index=i) for i in range(args.steps + 1)]
+    bp, bv, be = (torch.from_numpy(a) for a in tt.batch_points(root, cfg, args.batch_cache))
+    batches = [tt.make_batch(bp, bv, be, step_index=i) for i in range(args.steps + 1)]
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "batches.pt"
         torch.save(batches, inputs)
@@ -185,12 +182,8 @@ def main(argv=None) -> int:
                                    collectives_ms_per_rank=[x["collectives_ms"] for x in per],
                                    tail_ms_per_rank=[x["tail_ms"] for x in per],
                                    bare_ms_per_rank=[x["bare_ms"] for x in per], collectives_rank0=per[0]["collectives"])
-    smi = ""
-    if shutil.which("nvidia-smi"):
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps(out))
-    print(smi.splitlines()[0] if smi else "nvidia-smi: no reading")
+    print(tt.card())
     return 0
 
 

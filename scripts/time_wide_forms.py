@@ -12,10 +12,13 @@ them bitwise (or within the f32 summation bound, the direct epilogue) at
 these shapes; this script times them, and the 3×3 plane fit
 (gvom_tpu_torch/csrc/planefit.cu) on the upstream maps, against the same
 sources of the checkout at DIR (unpack the parent commit there with git
-archive, built by scripts/tree_timing.py) in turns (parent, this tree, this
-tree, parent), each launch alone, ten captured in a CUDA graph
-(chip_smoke.graph_ms), and prints the compiler's registers and spills of
-each form, this tree's and the parent's:
+archive, built by tree_timing.parent_build) in turns (parent, this tree,
+this tree, parent), each launch alone, ten captured in a CUDA graph
+(tree_timing.graph_ms), each beside its bound where the bound's inputs are
+at hand (benchmark/roofline.py, and tree_timing.merge_slab_bound for the
+merge's slab; the epilogue's on the full grid only), and prints the compiler's
+registers and spills of each form, this tree's and the parent's. The scans
+are tree_timing.batch_points' eight synthetic OS1-128 scans:
 
   * the epilogue on one upstream scan's sums (256×256×64, an OS1-128 sweep)
     at eigen (xy, z) = (1, 9), (8, 1), (5, 8), mask off and mask on, on the
@@ -33,16 +36,15 @@ each form, this tree's and the parent's:
   * K4 at buffer_size 17 (256×256×64) and at z_size 320 (B = 4), on the
     state of the Gvom facade after two upstream scans (as chip_smoke.py's
     phase1_wide_configs) and with its ring buffer full (B + 1 scans, the 8
-    scans taken in turn), each against chip_smoke.combine_bound;
-  * the merge at z_size 320 (256×256×320) on a seeded world and
-    contribution (chip_smoke.seeded_merge_inputs), full grid and the quarter
-    slab y0 = 64, and on the contribution that the second of two batched
-    steps of BATCH scans (the 8 scans repeated) merges into its live world,
-    each timed call merging over the previous call's output, against
-    chip_smoke.merge_bound;
+    scans taken in turn), each against roofline.combine_bound;
+  * the merge at z_size 320 (256×256×320) on the contribution that the
+    second of two batched steps of tree_timing.BATCH scans (the 8 scans
+    repeated) merges into its live world, full grid and the quarter slab
+    y0 = 64 of both, each timed call merging over the previous call's
+    output, against roofline.merge_bound and tree_timing.merge_slab_bound;
   * the plane fit on the maps that the upstream facade's combine after two
     scans hands it and on those of a batched step of BATCH scans (the 8
-    scans repeated), each against chip_smoke.plane_fit_bound, with its parts
+    scans repeated), each against roofline.plane_fit_bound, with its parts
     beside them in the same turns, each a variant build of this tree's
     kernel: the floor (an empty body, the same grid launched ten times a
     graph), the load and the window stores alone, and the fit without its
@@ -59,14 +61,11 @@ import json
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "scripts"))
+import tree_timing as tt
 
 EIGEN_DISTS = ((1, 9), (8, 1), (5, 8))
 # mask-on boxes past the tiled kernel, (2rx+1)²(2rz+1) = 171, 225, 297, 369, 475, 625, 825, 867 and 931 voxels
 THRESHOLD_BOXES = ((1, 9), (1, 12), (1, 16), (1, 20), (2, 9), (2, 12), (2, 16), (8, 1), (3, 9))
-SCANS = 8
 WIDE = ((dict(buffer_size=17), 2), (dict(buffer_size=17), 18), (dict(z_size=320), 2), (dict(z_size=320), 5))
 BOX_DIRECT_MAX = r"constexpr int BOX_DIRECT_MAX = \d+;"
 # the parts of the committed plane fit and merge that the diagnostic builds change
@@ -93,22 +92,6 @@ def swapped(kernels, attr, k, fn):
     return run
 
 
-def recorded(kernels, name, fn, keep):
-    """keep(*args) of the last call of kernels.<name> that fn() makes."""
-    calls, wrapped = [], getattr(kernels, name)
-
-    def record(*args):
-        calls.append(keep(*args))
-        return wrapped(*args)
-
-    setattr(kernels, name, record)
-    try:
-        fn()
-    finally:
-        setattr(kernels, name, wrapped)
-    return calls[-1]
-
-
 def facade_maps(cfg, scans):
     """(hm_t, ihm_t, origin) that the Gvom facade's combine_maps hands the
     plane fit after two scans."""
@@ -122,19 +105,23 @@ def facade_maps(cfg, scans):
             g.process_pointcloud(pad[m], e)
             g.combine_maps()
 
-    return recorded(kernels, "plane_fit", drive, lambda cfg, *args: args)
+    return tt.recorded(kernels, "plane_fit", drive, lambda cfg, *args: args)
 
 
 def batch_steps(cfg, scans, dev, n):
-    """A function that runs n batched steps of chip_smoke.BATCH scans (the
-    scans repeated) from an empty world."""
-    import chip_smoke
+    """A function that runs n batched steps of tree_timing.BATCH scans (the
+    scans repeated) from an empty world, at the ray budget that
+    batched_replay gives the first step's egos."""
+    import torch
+
     from gvom_tpu_torch import make_batched_step
+    from gvom_tpu_torch.engine.replay import batched_ray_steps
     from gvom_tpu_torch.types import empty_world_state
 
-    scans_dev = chip_smoke.scans_on_device(scans, dev)
-    batches = [chip_smoke.make_batch(scans_dev, chip_smoke.BATCH, i) for i in range(n)]
-    step = make_batched_step(chip_smoke.batched_cfg(cfg, batches[0]))
+    bp, bv, be = (torch.from_numpy(a).to(dev) for a in scans)
+    batches = [tt.make_batch(bp, bv, be, step_index=i) for i in range(n)]
+    egos = batches[0][2].cpu().numpy()
+    step = make_batched_step(dataclasses.replace(cfg, ray_steps_override=batched_ray_steps(cfg, egos, len(egos))))
 
     def run():
         world = empty_world_state(cfg, dev)
@@ -148,17 +135,32 @@ def batch_maps(cfg, scans, dev):
     """(hm_t, ihm_t, origin) that a batched step hands the plane fit."""
     from gvom_tpu_torch.ops import kernels
 
-    return recorded(kernels, "plane_fit", batch_steps(cfg, scans, dev, 1), lambda cfg, *args: args)
+    return tt.recorded(kernels, "plane_fit", batch_steps(cfg, scans, dev, 1), lambda cfg, *args: args)
 
 
 def batch_merge_inputs(cfg, scans, dev):
     """(world, contrib, ego) that the second of two batched steps hands the
     merge (its contribution copied before the merge writes over it)."""
-    import chip_smoke
     from gvom_tpu_torch.ops import kernels
 
-    return recorded(kernels, "merge_batch", batch_steps(cfg, scans, dev, 2),
-                    lambda cfg, world, contrib, ego, y0=0: (world, chip_smoke.copy_grid(contrib), ego.clone()))
+    return tt.recorded(kernels, "merge_batch", batch_steps(cfg, scans, dev, 2),
+                       lambda cfg, world, contrib, ego, y0=0: (world, tt.copy_grid(contrib), ego.clone()))
+
+
+def merge_slab(world, contrib, y0, Ys):
+    """(world, contrib) of the merge on the y-slab [y0, y0+Ys): copies of
+    their rows, as a slab rank holds them."""
+    from gvom_tpu_torch.types import VoxelGrid, WorldState
+
+    def rows(t, dim):
+        return t.narrow(dim, y0, Ys).contiguous()
+
+    def grid(g):
+        return VoxelGrid(hit=rows(g.hit, 1), miss=rows(g.miss, 1), min_height=rows(g.min_height, 1),
+                         mom=rows(g.mom, 2), origin=g.origin)
+
+    return (WorldState(grid=grid(world.grid), evidence=rows(world.evidence, 1), valid=world.valid),
+            grid(contrib))
 
 
 def main() -> int:
@@ -171,15 +173,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_wide_forms: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke
+    from benchmark.reference.grid import torus_to_window
     from gvom_tpu_torch import Gvom, GvomConfig
     from gvom_tpu_torch.ops import binning, kernels, moments
     from gvom_tpu_torch.utils.compare import bitwise
-    from tree_timing import build, card, parent_build, ptxas, turns, variant_build
 
     dev = "cuda"
     reports = kernels.build_all(GvomConfig(buffer_size=17))
-    parents = {k.name: parent_build(kernels, k, args.parent)
+    parents = {k.name: tt.parent_build(kernels, k, args.parent)
                for k in (kernels.XBOX, kernels.CMB, kernels.MERGE, kernels.PLANEFIT)}
     pepi, pcmb, pmerge, ppf = parents.values()
     parent_text = pepi.source.read_text()
@@ -190,37 +191,38 @@ def main() -> int:
         pepi.argtypes = pepi.argtypes[:1] + pepi.argtypes[2:]
     if old_signature:
         pepi.argtypes = pepi.argtypes[:-2] + pepi.argtypes[-1:]
-    forced = {"direct": variant_build(kernels, kernels.XBOX, "epilogue_direct_all",
+    forced = {"direct": tt.variant_build(kernels, kernels.XBOX, "epilogue_direct_all",
                                       [(BOX_DIRECT_MAX, "constexpr int BOX_DIRECT_MAX = 1 << 30;")]),
-              "passes": variant_build(kernels, kernels.XBOX, "epilogue_passes_all",
+              "passes": tt.variant_build(kernels, kernels.XBOX, "epilogue_passes_all",
                                       [(BOX_DIRECT_MAX, "constexpr int BOX_DIRECT_MAX = 0;")])}
     # the plane fit's parts, for where its time goes: the floor (no work, the same grid), the load and
     # the window stores alone, the fit without its tail; the merge without its moment loads
-    parts = {"floor": variant_build(kernels, kernels.PLANEFIT, "plane_fit_floor",
+    parts = {"floor": tt.variant_build(kernels, kernels.PLANEFIT, "plane_fit_floor",
                                     [(PLANE_FIT_BODY, r"\g<0>\n    return;")]),
-             "load": variant_build(kernels, kernels.PLANEFIT, "plane_fit_load",
+             "load": tt.variant_build(kernels, kernels.PLANEFIT, "plane_fit_load",
                                    [(PLANE_FIT_STORES, r"\g<0>    return;\n")]),
-             "fit": variant_build(kernels, kernels.PLANEFIT, "plane_fit_no_tail",
+             "fit": tt.variant_build(kernels, kernels.PLANEFIT, "plane_fit_no_tail",
                                   [(PLANE_FIT_TAIL, "    rough[i] = err;\n    slope_x[i] = a0n;\n"
                                                     "    slope_y[i] = ok ? a1n : im;")])}
     # the merge without its moment loads, and with every moment loaded (its result the same): what the
     # moments' sectors cost
-    moment_loads = {"no moment loads": variant_build(
+    moment_loads = {"no moment loads": tt.variant_build(
         kernels, kernels.MERGE, "merge_no_moment_loads",
         [(MERGE_MOMENT_LOADS, "            cm[ch][0] = cm[ch][1] = ov[ch][0] = ov[ch][1] = 0.0f;\n")]),
-                    "every moment loaded": variant_build(
+                    "every moment loaded": tt.variant_build(
         kernels, kernels.MERGE, "merge_every_moment_loaded",
         [(MERGE_MOMENT_LOADS, "            ld2<PAIR>(a.mom + ch * V, v, q.in[0], q.in[1], cm[ch][0], cm[ch][1]);\n"
                               "            ld2<PAIR>(a.omom + ch * V, v, q.in[0], q.in[1], ov[ch][0], ov[ch][1]);\n")])}
-    for name, report in zip(parents, build(*parents.values(), *forced.values(), *parts.values(),
+    for name, report in zip(parents, tt.build(*parents.values(), *forced.values(), *parts.values(),
                                            *moment_loads.values())):
         for tree, rep in (("this", reports[name]), ("parent", report)):
-            for line in ptxas(rep, PTXAS_ENTRIES[name]):
+            for line in tt.ptxas(rep, PTXAS_ENTRIES[name]):
                 print(f"ptxas {name}, {tree}: {line}")
 
     cfg = GvomConfig()
-    scans = chip_smoke.make_scans(cfg, SCANS, chip_smoke.LIDAR)
-    pts, valid, ego = chip_smoke.scan_tensors(scans[0], dev)
+    points = tt.batch_points(tt.ROOT, cfg)
+    scans = list(zip(*points))      # (points [N, 3], valid [N], ego [3]) a scan
+    pts, valid, ego = (torch.from_numpy(a).to(dev) for a in scans[0])
     res = {"epilogue": {}, "box_direct_max": {}, "combine": {}, "merge": {}, "plane_fit": {}}
     for xye, ze in EIGEN_DISTS:
         c = dataclasses.replace(cfg, xy_eigen_dist=xye, z_eigen_dist=ze)
@@ -254,9 +256,14 @@ def main() -> int:
                     return kernels.moments_epilogue(c, b.n, b.rest, b.hit, origin, w, m)
 
                 diff = float((parent_run() - this_run()).abs().max())
-                t = turns({"parent": parent_run, "this": this_run}, ("parent", "this", "this", "parent"), 20)
+                t = tt.turns({"parent": parent_run, "this": this_run}, ("parent", "this", "this", "parent"), 20)
                 res["epilogue"][what] = dict(t, route=route, parent_max_abs_diff=diff)
-                print(f"epilogue {what} ({route}): " + ", ".join(f"{b} {v} ms" for b, v in t.items()), flush=True)
+                if window is None:      # the full grid's targets: every voxel, or the occupied ones
+                    targets = torus_to_window(bins.hit > 0, origin) if mask else torch.ones_like(bins.hit, dtype=bool)
+                    res["epilogue"][what]["bound_ms"] = tt.bound_ms(*tt.epilogue_bound(c, bins.n[0], targets,
+                                                                                       X * Y * Z, mask))
+                print(f"epilogue {what} ({route}): " + ", ".join(f"{b} {v} ms" for b, v in t.items())
+                      + (f", bound {res['epilogue'][what]['bound_ms']} ms" if window is None else ""), flush=True)
             del bins, ten, prest
         torch.cuda.empty_cache()
 
@@ -270,7 +277,7 @@ def main() -> int:
         bitwise(f"the separable passes at eigen ({xye}, {ze}) mask on", fns["passes"](), plain)
         got = fns["direct"]()
         bitwise(f"the direct kernel's n at eigen ({xye}, {ze}) mask on", got[0], plain[0])
-        t = turns(fns, ("direct", "passes", "passes", "direct"), 20)
+        t = tt.turns(fns, ("direct", "passes", "passes", "direct"), 20)
         box = (2 * xye + 1) ** 2 * (2 * ze + 1)
         res["box_direct_max"][f"({xye}, {ze})"] = dict(
             t, box=box, hits=int((bins.hit > 0).sum()), direct_max_abs_diff=float((got - plain).abs().max()),
@@ -293,34 +300,31 @@ def main() -> int:
         e = torch.tensor(scans[(n - 1) % len(scans)][2], dtype=torch.float32, device=dev)
         launch, outs = kernels.combine_launch(c, buf, world, target, e)
         launch()
-        nbytes, _ = chip_smoke.combine_bound(c, buf, world, target, outs[0])
-        t = turns({"parent": swapped(kernels, "CMB", pcmb, launch), "this": launch},
+        bound = tt.bound_ms(*tt.combine_bound(c, buf, world, target, outs[0]))
+        t = tt.turns({"parent": swapped(kernels, "CMB", pcmb, launch), "this": launch},
                   ("parent", "this", "this", "parent"), 20)
-        bound = 1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S
         res["combine"][what] = dict(t, bound_ms=bound)
         print(f"combine at {what}: " + ", ".join(f"{b} {v} ms" for b, v in t.items()) + f", bound {bound} ms",
               flush=True)
         del g, buf, world, launch, outs
         torch.cuda.empty_cache()
-    # ---- the merge past 256 z: full grid and the quarter slab, and a batched step's ----
+    # ---- the merge past 256 z: a batched step's contribution, full grid and the quarter slab ----
     c = dataclasses.replace(cfg, z_size=MERGE_Z)
-    world, contrib, ego = chip_smoke.seeded_merge_inputs(c, dev, 200, (3, -2, 1), True)
+    world, contrib, ego = batch_merge_inputs(c, points, dev)
     Y = c.xy_size
     cases = {"full": (0, world, contrib, ego),
-             f"slab y0 = {Y // 4}": (Y // 4, *chip_smoke.merge_slab(world, contrib, Y // 4, Y // 4), ego),
-             f"a {chip_smoke.BATCH}-scan batched step's": (0, *batch_merge_inputs(c, scans, dev))}
+             f"slab y0 = {Y // 4}": (Y // 4, *merge_slab(world, contrib, Y // 4, Y // 4), ego)}
     for where, (y0, w, cb, e) in cases.items():
-        nbytes, _ = chip_smoke.merge_bound(c, w, cb, y0)
+        bound = tt.bound_ms(*(tt.merge_slab_bound(c, w, cb, y0) if y0 else tt.merge_bound(c, w, cb)))
         fns, order = {}, ("parent", "this", "this", "parent")
         trees = (("parent", pmerge), ("this", kernels.MERGE))
         if where == "full":   # and the two moment-load builds (where its time goes)
             trees += tuple(moment_loads.items())
             order = ("parent", "this", *moment_loads, *reversed(list(moment_loads)), "this", "parent")
         for tree, k in trees:
-            timed = chip_smoke.copy_grid(cb)   # each timed call merges over the previous call's output
+            timed = tt.copy_grid(cb)   # each timed call merges over the previous call's output
             fns[tree] = swapped(kernels, "MERGE", k, lambda t=timed: kernels.merge_batch(c, w, t, e, y0))
-        t = turns(fns, order, 20)
-        bound = 1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S
+        t = tt.turns(fns, order, 20)
         res["merge"][f"{c.xy_size}×{Y}×{MERGE_Z} {where}"] = dict(t, bound_ms=bound)
         print(f"merge at {c.xy_size}×{Y}×{MERGE_Z} {where}: " + ", ".join(f"{b} {v} ms" for b, v in t.items())
               + f", bound {bound} ms", flush=True)
@@ -330,17 +334,16 @@ def main() -> int:
 
     # ---- the plane fit on the maps that a combine and a batched step hand it ----
     maps = {"the upstream combine's maps": facade_maps(cfg, scans),
-            f"a {chip_smoke.BATCH}-scan batched step's maps": batch_maps(cfg, scans, dev)}
+            f"a {tt.BATCH}-scan batched step's maps": batch_maps(cfg, points, dev)}
     for what, fit_in in maps.items():
         fns = {tree: swapped(kernels, "PLANEFIT", k, lambda f=fit_in: kernels.plane_fit(cfg, *f))
                for tree, k in (("parent", ppf), ("this", kernels.PLANEFIT), *parts.items())}
-        t = turns(fns, ("floor", "load", "fit", "parent", "this", "this", "parent", "fit", "load", "floor"), 200)
-        nbytes, ops_s = chip_smoke.plane_fit_bound(fit_in[0].numel())
-        bound = 1e3 * max(nbytes / chip_smoke.HBM_BYTES_PER_S, ops_s)
+        t = tt.turns(fns, ("floor", "load", "fit", "parent", "this", "this", "parent", "fit", "load", "floor"), 200)
+        bound = tt.bound_ms(*tt.plane_fit_bound(fit_in[0].numel()))
         res["plane_fit"][what] = dict(t, bound_ms=bound)
         print(f"plane fit on {what}: " + ", ".join(f"{b} {v} ms" for b, v in t.items()) + f", bound {bound} ms",
               flush=True)
-    smi = card()
+    smi = tt.card()
     line = json.dumps({"wide_forms_ms": res, "device": smi})
     if args.out:
         Path(args.out).write_text(line + "\n")
