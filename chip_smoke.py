@@ -212,6 +212,7 @@ sys.path.insert(0, str(ROOT))
 # batch of 4 (8 to 16 % of rtol·|b| + atol where it is largest) and 1.6e-2 to
 # 2.3e-2 for a batch of 32, at a voxel of 7,432 points (5 to 6 %)
 MOM_ATOL_BATCH = 1e-2
+NAN_BYTE = 0xFF              # a float32 of four such bytes is a NaN (int32 -1)
 BATCH = 32                   # scans per batched step, the JAX package's bench default
 BATCH_CHECK = 4              # scans per step of the batched step held against the plain versions
 NEAR_TIER_STEPS = 30         # the step-pair kernel of the JAX package covers steps 1..30
@@ -520,14 +521,17 @@ def bitwise_nan(name, a, b):
     bitwise(name, torch.where(nan, torch.zeros_like(a), a), torch.where(nan, torch.zeros_like(b), b))
 
 
-def poison_free_memory(n_bytes, dev):
-    """Fill n_bytes of the allocator's free memory with 0x02 bytes: an
-    output allocated next (torch.empty) then holds them wherever a kernel
-    does not write, and a bool byte 0x02 is neither value it writes."""
+def poison_free_memory(n_bytes, dev, byte=2):
+    """Fill n_bytes of the allocator's free memory with `byte` (0x02 by
+    default): an output allocated next (torch.empty) then holds them
+    wherever a kernel does not write, and a bool byte 0x02 is neither value
+    it writes. Returns their address."""
     import torch
 
-    junk = torch.full((n_bytes,), 2, dtype=torch.uint8, device=dev)
+    junk = torch.full((n_bytes,), byte, dtype=torch.uint8, device=dev)
+    ptr = junk.data_ptr()
     del junk
+    return ptr
 
 
 def prepare_same(what, got, ref):
@@ -1386,6 +1390,14 @@ def phase1_epilogue_radii(cfg, scan, dev, log, err):
             del km, pm, ref
             nan_blind(f"K5 slab at eigen ({xye}, {ze}) mask={mask}",
                       lambda n, r: kernels.moments_epilogue(c, n, r, sb.hit, origin, yw, mask), sb.n, sb.rest)
+        # targets only is the tiled kernel's mode alone: its launch is refused past it
+        if routes[f"({xye}, {ze}) full mask on"] != "tiled":
+            try:
+                kernels.moments_epilogue(c, kb.n, kb.rest, kb.hit, origin, occupancy_mask="targets")
+                refused = False
+            except RuntimeError:
+                refused = True
+            check(refused, f"K5 targets only at eigen ({xye}, {ze}) launched past the tiled kernel")
         launches[f"({xye}, {ze})"] = {k.name: k.launches for k in (kernels.EPI, kernels.XBOX, kernels.XBOX_SLAB)}
         for name, n in launches[f"({xye}, {ze})"].items():
             check(n > 0, f"eigen ({xye}, {ze}): {name} was launched no time")
@@ -2247,9 +2259,9 @@ def phase5_batched(cfg, scans, dev, log, err):
     versions; then two steps of BATCH scans with the launch counts set to 0
     just before and read just after, and one warm step traced with
     torch.profiler (no float64 launch); then the merge (phase5_merge), K1 on
-    the whole batch (phase5_raycast_batch), and K2 and K5 against their
-    plain versions on the merged points of a whole batch, K2 on a scratch
-    kept across its calls."""
+    the whole batch (phase5_raycast_batch), and K2 and K5 (mask off, and
+    targets only over NaN bytes) against their plain versions on the merged
+    points of a whole batch, K2 on a scratch kept across its calls."""
     import torch
 
     from gvom_tpu_torch import make_batched_step
@@ -2297,9 +2309,13 @@ def phase5_batched(cfg, scans, dev, log, err):
             first_origin = world.grid.origin
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS}
+    stores = dict(kernels.K5_STORES)
     peak = torch.cuda.max_memory_allocated()
     for name in BATCHED_KERNELS:
         check(launches[name] == 2, f"batched path: {name} launched {launches[name]} times, expected 2")
+    # one rank: K5 stores only the batch's hit voxels
+    check(stores == {"all": 0, "targets": 2}, f"batched path: K5's launches by store mode {stores}, expected "
+                                              "two in targets only")
     for name in PRODUCT_FIELDS[1:]:
         a = getattr(products, name)
         check(tuple(a.shape) == cfg.map_shape and bool(torch.isfinite(a.float()).all()), f"batched product {name}")
@@ -2314,8 +2330,9 @@ def phase5_batched(cfg, scans, dev, log, err):
                world_occupied=int((world.grid.hit > 0).sum()), kept_from_first_step=kept,
                visible_cells=int(products.visibility.sum()))
     log(f"phase 5 batched path: two steps of {BATCH} scans of {scans_dev[0].shape[1]} points (ray_steps "
-        f"{cb.ray_steps}); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}; peak device "
-        f"memory {peak / 2**30:.3f} GiB; world occupied {res['world_occupied']} ({kept} kept from the first step)")
+        f"{cb.ray_steps}); launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}; K5 by store "
+        f"mode {stores}; peak device memory {peak / 2**30:.3f} GiB; world occupied {res['world_occupied']} ({kept} "
+        f"kept from the first step)")
     del fresh, world
 
     # ---- one warm step's launches, by torch.profiler: none float64 ----
@@ -2372,6 +2389,25 @@ def phase5_batched(cfg, scans, dev, log, err):
     nan_blind(f"K5 mask off on {BATCH} scans' merged points",
               lambda n, r: kernels.moments_epilogue(cb, n, r, bins.hit, origin, occupancy_mask=False),
               bins.n, bins.rest)
+    # K5 in targets only (the one-rank step's form), its output over NaN bytes: at every hit voxel the mask-on
+    # plain version's moments, and not one byte stored off the hits
+    what = f"K5 targets only on {BATCH} scans' merged points"
+    occ = bins.hit > 0
+    pm = moments.moments_epilogue_plain(cb, bins.n, bins.rest, bins.hit, origin)
+    torch.cuda.empty_cache()
+    ptr = poison_free_memory(pm.numel() * 4, dev, NAN_BYTE)
+    km = kernels.moments_epilogue(cb, bins.n, bins.rest, bins.hit, origin, occupancy_mask="targets")
+    check(km.data_ptr() == ptr, f"{what}: the output was not allocated over the NaN bytes")
+    check(bool((km.view(torch.int32)[:, ~occ] == -1).all()), f"{what}: a voxel without a hit was written")
+    e = moments_close(f"{what} at the hits", km[:, occ], pm[:, occ], MOM_ATOL_BATCH)
+    err["moments_epilogue"] = max(err["moments_epilogue"], e)
+    log(f"{what} vs plain mask on, over NaN bytes: the {int(occ.sum())} hit voxels max abs err {e}, "
+        f"{100 * tol_share(km[:, occ], pm[:, occ], MOM_ATOL_BATCH):.1f} % of the tolerance; every other voxel left "
+        f"as allocated")
+    del pm, km
+    nan_blind(f"{what} at the hits",
+              lambda n, r: kernels.moments_epilogue(cb, n, r, bins.hit, origin, occupancy_mask="targets")[:, occ],
+              bins.n, bins.rest)
     res.update(merged=dict(points=pw.shape[0], points_kept=int(keep.sum()), points_in_grid=int(bins.hit.sum()),
                            points_in_window=int(bins.n.sum()), scratch_nonempty=int((bins.n > 0).sum()),
                            max_voxel_count=int(bins.n.max())))
@@ -2380,10 +2416,11 @@ def phase5_batched(cfg, scans, dev, log, err):
 
 def phase5_merge(cfg, step, batches, dev, log):
     """The merge kernel on a real batch: the contribution of the second
-    step's BATCH scans (the preparation, K1, K2 and K5 with the mask off, as
-    the step computes it on one device) and the first step's world, at the
-    moved origin. Every output bitwise its twin's, moments included; the
-    quarter slab y0 = 64 bitwise the full result's rows."""
+    step's BATCH scans (the preparation, K1, K2 and K5 in targets only, as
+    the step computes it on one rank, its voxels without a hit made NaN)
+    and the first step's world, at the moved origin. Every output bitwise
+    its twin's, moments included; the quarter slab y0 = 64 bitwise the full
+    result's rows."""
     import torch
 
     from gvom_tpu_torch.ops import kernels
@@ -2395,7 +2432,8 @@ def phase5_merge(cfg, step, batches, dev, log):
     S, N = valid.shape
     origin, pw, keep = prepare_batch(cfg, scans, valid, egos)
     miss = kernels.ray_pass_counts(cfg, pw.view(S, N, 3), keep.view(S, N), egos, origin)
-    hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, occupancy_mask=False)
+    hit, minh, mom = kernels.point_moments(cfg, pw, keep, origin, occupancy_mask="targets")
+    mom = torch.where(hit[None] > 0, mom, torch.full((), float("nan"), device=dev))   # what the merge never reads
     contrib = VoxelGrid(hit=hit, miss=miss, min_height=minh, mom=mom, origin=origin)
     ego = egos[-1].contiguous()
     check(not torch.equal(origin, world.grid.origin), "merge check: the batch did not move the origin")
@@ -2403,8 +2441,9 @@ def phase5_merge(cfg, step, batches, dev, log):
     Ys = cfg.xy_size // 4
     merge_slab_vs_full(f"merge of {S} scans into a live world", cfg, world, contrib, ego, full, Ys, Ys)
     occupied = int((full[0].hit > 0).sum())
-    log(f"merge of {S} scans into a live world: bitwise its plain version (every merged channel, the moments, "
-        f"the evidence, the column maps) and on the quarter slab y0 = {Ys}; {occupied} voxels occupied")
+    log(f"merge of {S} scans into a live world (K5 targets only, NaN off the batch's hits): bitwise its plain "
+        f"version (every merged channel, the moments, the evidence, the column maps) and on the quarter slab "
+        f"y0 = {Ys}; {occupied} voxels occupied")
     return dict(occupied=occupied)
 
 

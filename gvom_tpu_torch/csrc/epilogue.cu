@@ -22,7 +22,8 @@
 // scratch, NaN in a test) reaches no output.
 //
 // What bounds it on the H100: bytes. Every voxel of the output is written
-// (10 f32 channels, 168 MB at 256×256×64, 0.050 ms at 3.35 TB/s); n is read
+// (10 f32 channels, 168 MB at 256×256×64, 0.050 ms at 3.35 TB/s), or in
+// targets only (STORE_ALL below) only the hit voxels' sectors; n is read
 // where a target's box reaches and the nine other channels where n > 0
 // there. Its first version ran one thread per target with 64-bit index
 // division, loaded n at all 27 box neighbours from global memory (113 M loads
@@ -43,7 +44,7 @@
 //     column turns its n into a 64-bit mask of n > 0;
 //   * an early exit: __syncthreads_or over "some n > 0 in the halo" (with
 //     the mask on, first "some target has a hit") lets an empty tile do
-//     nothing but 16-byte zero stores;
+//     nothing but 16-byte zero stores (in targets only, nothing);
 //   * the channels 1-9 of the tile's non-empty voxels, and only those, are
 //     staged too, compacted in rank order (a voxel's rank from its column's
 //     mask; two 16-byte copies of its channels 1–8 and one of channel 9),
@@ -55,13 +56,21 @@
 //     only its neighbours with n > 0 (the column masks) and adds the terms in
 //     the order (ox, oy, oz) of the plain twin, so every form is bitwise what
 //     the first version wrote. The other targets get zeros, 16 bytes at a
-//     time where four neighbours in z need none.
+//     time where four neighbours in z need none (in targets only, nothing).
 //
 // MASK (template): with the mask on, a voxel without a hit of its own is
-// written as zero and its box is skipped. With it off (the batched step,
-// which masks later by the whole batch's occupancy) the box is computed at
-// EVERY voxel, since a voxel with no endpoint of its own still receives its
-// neighbours' sums.
+// written as zero and its box is skipped. With it off (the batched step on a
+// mesh of ranks, which masks later by the whole batch's occupancy) the box is
+// computed at EVERY voxel, since a voxel with no endpoint of its own still
+// receives its neighbours' sums.
+//
+// STORE_ALL (template, the tiled kernel only): with it, every voxel of the
+// output is written (the zeros above). Without it (mask on: "targets only",
+// the batched step on one rank, whose merge reads the batch's moments only
+// where the batch has a hit) only the targets are boxed and stored, with
+// the same bits, and every other voxel is left as it was: a tile without a
+// hit returns after its hit ballot, and no zero is stored. K3, K5 elsewhere
+// and the slab forms keep STORE_ALL.
 //
 // Any eigen distance: the tiled kernel stages a column's n bits in one
 // 64-bit word (TZ + 4rz <= 64) and the box's halo in shared memory, which
@@ -182,7 +191,7 @@ __device__ __forceinline__ void add_term(float (&acc)[10], const float (&v)[9], 
 // Four blocks an SM, in 64 registers: a voxel's index in the scratch is an
 // int (the entry refuses P >= 2^31, as K2 does); with 64-bit indices the
 // voxel-major reads spilled in the mask-on form (PERF.md §6)
-template <bool MASK>
+template <bool MASK, bool STORE_ALL>
 __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
     const float* __restrict__ sums,    // [Xp, Yp | Ys+4ry, Zp] own-voxel n, padded window layout
     const float* __restrict__ rest,    // channels 1-9 beside it (load_rest)
@@ -192,6 +201,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
     int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, bool vec4,
     float* __restrict__ out)           // [S, 10, X, Ys, Z] torus
 {
+    static_assert(MASK || STORE_ALL, "targets only needs the mask: with it off every voxel is a target");
     // shared: channels 1-9 of the non-empty voxels in rank order, 1–4 and
     // 5–8 as two [CAP] float4 planes (lanes on consecutive ranks, the usual
     // case, read consecutive 16-byte words: no bank conflict) and 9 as
@@ -259,6 +269,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
             any |= b;
         }
         empty = !__syncthreads_or(any != 0);
+        if (!STORE_ALL && empty) return;
     }
     if (!empty) {
         // stage n over the tile and its halo: every copy in flight at once
@@ -302,8 +313,9 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
     if (empty && threadIdx.x < TX * TY) act[threadIdx.x] = 0;
     __syncthreads();
 
-    // zeros where no box is taken: 16 bytes where four neighbours in z have none
-    if (vec4 && az.tv == TZ) {
+    // zeros where no box is taken (none in targets only): 16 bytes where four
+    // neighbours in z have none
+    if (STORE_ALL && vec4 && az.tv == TZ) {
         const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int idx = threadIdx.x; idx < 10 * TX * TY * (TZ / 4); idx += THREADS) {
             const int q = idx % (TZ / 4), col = (idx / (TZ / 4)) % (TX * TY), c = idx / (TX * TY * (TZ / 4));
@@ -318,7 +330,7 @@ __global__ void __launch_bounds__(THREADS, 4) epilogue_kernel(
                     if (!(b >> e & 1)) d[e] = 0.0f;
             }
         }
-    } else {
+    } else if (STORE_ALL) {
         for (int col = warp; col < TX * TY; col += WARPS) {
             if (!in_tile(col) || lane >= az.tv || act[col] >> lane & 1) continue;
             const int64_t t = torus_index(col / TY, col % TY, lane);
@@ -792,8 +804,8 @@ bool tiled(int X, int Ys, int rx, int ry, int rz, int* rc)
     const size_t optin = (size_t)smem_optin(rc);
     if (*rc) return false;
     if (!known) {
-        cudaFuncAttributes fa;
-        const cudaError_t e = cudaFuncGetAttributes(&fa, epilogue_kernel<MASK>);
+        cudaFuncAttributes fa;   // the static arrays: the same in every store mode
+        const cudaError_t e = cudaFuncGetAttributes(&fa, epilogue_kernel<MASK, true>);
         if (e != cudaSuccess) {
             *rc = (int)e;
             return false;
@@ -874,6 +886,11 @@ int64_t separable_floats(int X, int Z, int ry, int rz, int Ysc)
 // the epilogue's kernels, numbered as gvom_moments_epilogue_route answers
 enum Route { TILED = 0, SEPARABLE = 1, DIRECT = 2 };
 
+// the modes of the entries' `mask`: 0 the mask off, 1 on, 2 on with targets
+// only (STORE_ALL false: the tiled kernel alone; the queries answer for it
+// as for the mask on)
+enum Mode { MASK_OFF = 0, MASK_ON = 1, TARGETS = 2 };
+
 // Which kernel takes this shape; rc: a CUDA error of the queries
 template <bool MASK>
 Route route(int X, int Y, int rx, int ry, int rz, int ys0, int Ys, int* rc)
@@ -884,13 +901,16 @@ Route route(int X, int Y, int rx, int ry, int rz, int ys0, int Ys, int* rc)
     return separable_fits(X, scratch_rows(Y, ry, ys0, Ys), rx, ry, optin) ? SEPARABLE : DIRECT;
 }
 
-template <bool MASK>
+// STORE_ALL false (targets only) is the tiled kernel's mode alone: refused
+// where another kernel takes the shape
+template <bool MASK, bool STORE_ALL>
 int launch(const void* sums, const void* rest, const void* hit, const void* origin, const void* slot,
            int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, void* out, void* work, cudaStream_t st)
 {
     int rc = 0;
     const Route r = route<MASK>(X, Y, rx, ry, rz, ys0, Ys, &rc);
     if (rc) return rc;
+    if (!STORE_ALL && r != TILED) return (int)cudaErrorInvalidValue;
     if (r == DIRECT) {
         epilogue_direct_kernel<MASK><<<(unsigned)(((int64_t)X * Ys * Z + THREADS - 1) / THREADS), THREADS, 0, st>>>(
             (const float*)sums, (const float*)rest, (const int*)hit, (const int*)origin, (const int*)slot,
@@ -920,14 +940,15 @@ int launch(const void* sums, const void* rest, const void* hit, const void* orig
     static size_t set = 0;
     if (smem > set) {
         cudaFuncAttributes fa;
-        cudaError_t e = cudaFuncGetAttributes(&fa, epilogue_kernel<MASK>);
+        cudaError_t e = cudaFuncGetAttributes(&fa, epilogue_kernel<MASK, STORE_ALL>);
         if (e == cudaSuccess && smem + fa.sharedSizeBytes > 48 * 1024)
-            e = cudaFuncSetAttribute(epilogue_kernel<MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            e = cudaFuncSetAttribute(epilogue_kernel<MASK, STORE_ALL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
         if (e != cudaSuccess) return (int)e;
         set = smem;
     }
     const bool vec4 = Z % 4 == 0 && (uintptr_t)out % 16 == 0;
-    epilogue_kernel<MASK><<<grid, THREADS, smem, st>>>(
+    epilogue_kernel<MASK, STORE_ALL><<<grid, THREADS, smem, st>>>(
         (const float*)sums, (const float*)rest, (const int*)hit, (const int*)origin, (const int*)slot,
         X, Y, Z, rx, ry, rz, ys0, Ys, vec4, (float*)out);
     return (int)cudaGetLastError();
@@ -935,7 +956,8 @@ int launch(const void* sums, const void* rest, const void* hit, const void* orig
 
 }  // namespace
 
-// n at sums, channels 1-9 at rest (the contract above; 16-byte aligned)
+// n at sums, channels 1-9 at rest (the contract above; 16-byte aligned);
+// mask: a Mode
 extern "C" int gvom_moments_epilogue(
     const void* sums, const void* rest, const void* hit, const void* origin, const void* slot,
     int X, int Y, int Z, int rx, int ry, int rz, int ys0, int Ys, int mask,
@@ -944,8 +966,16 @@ extern "C" int gvom_moments_epilogue(
     if ((int64_t)(X + 2 * rx) * scratch_rows(Y, ry, ys0, Ys) * (Z + 2 * rz) >= INT_MAX)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    return mask ? launch<true>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st)
-                : launch<false>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st);
+    switch (mask) {
+    case MASK_OFF:
+        return launch<false, true>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st);
+    case MASK_ON:
+        return launch<true, true>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st);
+    case TARGETS:
+        return launch<true, false>(sums, rest, hit, origin, slot, X, Y, Z, rx, ry, rz, ys0, Ys, out, work, st);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
 }
 
 // The floats of workspace that gvom_moments_epilogue needs for this shape:

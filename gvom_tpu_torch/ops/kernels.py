@@ -9,7 +9,8 @@ cudaGetLastError() and the wrapper raises if it is not 0.
 
 Every wrapper checks dtype, shape, device and contiguity, takes the kernel's
 plain PyTorch twin only for tensors on the CPU, launches the kernel for CUDA
-tensors (there is no fallback), and counts its launches in `launches`.
+tensors (there is no fallback), and counts its launches in `launches`
+(and K5's by store mode in K5_STORES).
 
 | wrapper            | source       | replaces (gvom_tpu/ops/pallas_kernels.py) | plain twin                         |
 |--------------------|--------------|-------------------------------------------|------------------------------------|
@@ -73,7 +74,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -101,6 +102,7 @@ __all__ = [
     "combine_launch",
     "moments_epilogue",
     "epilogue_route",
+    "K5_STORES",
     "point_moments",
     "plane_fit",
     "plane_fit_tail",
@@ -318,6 +320,8 @@ RAY_MAX_SCANS = 65535
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    for store in K5_STORES:
+        K5_STORES[store] = 0
 
 
 # ----------------------------------------------------------------------
@@ -632,6 +636,13 @@ def _epilogue_workspace(k: CudaKernel, X: int, Y: int, Z: int, rx: int, ry: int,
 # the kernels of epilogue.cu, by the number its route query answers
 EPILOGUE_ROUTES = ("tiled", "separable", "direct")
 
+# K5's launches since reset_launches: "all" stores every voxel (the mask off
+# or on), "targets" only the voxels with a hit (occupancy_mask="targets")
+K5_STORES: Dict[str, int] = {"all": 0, "targets": 0}
+
+# moments_epilogue's occupancy_mask as epilogue.cu's Mode
+_EPILOGUE_MODES = {False: 0, True: 1, "targets": 2}
+
 
 def epilogue_route(cfg: GvomConfig, y_window=None, occupancy_mask: bool = True) -> str:
     """Which kernel of epilogue.cu takes this shape on the current card: its
@@ -657,14 +668,24 @@ def epilogue_route(cfg: GvomConfig, y_window=None, occupancy_mask: bool = True) 
 
 
 def moments_epilogue(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor, origin: torch.Tensor,
-                     y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
+                     y_window=None, occupancy_mask: Union[bool, str] = True) -> torch.Tensor:
     """Box-aggregate and crop a point set's own-voxel sums (K2's: n
     [1, ...] and channels 1-9 in a scratch's rest, binning.PointBins) into a fresh
     [10, X, Ys, Z] torus tensor. With occupancy_mask the moments are zero
     where `hit` is 0; without it the box is taken at every voxel. With
-    y_window = (ys0, Ys), the sums are the slab scratch and `hit` the slab."""
+    y_window = (ys0, Ys), the sums are the slab scratch and `hit` the slab.
+
+    occupancy_mask="targets" (the mask on, "targets only") writes only the
+    voxels where `hit` > 0, with the bits the mask-on form writes there;
+    every other voxel of the result is unspecified (on the card, what the
+    allocator gave; the plain twin on the CPU gives the mask-on zeros). It
+    is the tiled kernel's mode alone: on the card the launch fails where
+    epilogue_route(cfg, y_window) is not "tiled"."""
+    if occupancy_mask not in _EPILOGUE_MODES:
+        raise ValueError(f"K5: occupancy_mask is False, True or 'targets', not {occupancy_mask!r}")
     if _is_cpu(n):
         return moments.moments_epilogue_plain(cfg, n, rest, hit, origin, y_window, occupancy_mask)
+    mode = _EPILOGUE_MODES[occupancy_mask]
     dev = n.device
     X, Y, Z = cfg.grid_shape
     rx, ry, rz = binning.moment_pad(cfg)
@@ -676,14 +697,15 @@ def moments_epilogue(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: 
     _check("origin", origin, torch.int32, (3,), dev)
     out = torch.empty((10, X, Ys, Z), dtype=torch.float32, device=dev)
     k = XBOX_SLAB if binning.is_slab(cfg, y_window) else XBOX
-    work = _epilogue_workspace(k, X, Y, Z, rx, ry, rz, ys0, Ys, occupancy_mask, dev)
+    work = _epilogue_workspace(k, X, Y, Z, rx, ry, rz, ys0, Ys, mode != 0, dev)
     k.launch(_ptr(n), _ptr(rest), _ptr(hit), _ptr(origin), None, X, Y, Z, rx, ry, rz, ys0, Ys,
-             int(occupancy_mask), _ptr(out), work if work is None else _ptr(work), _stream())
+             mode, _ptr(out), work if work is None else _ptr(work), _stream())
+    K5_STORES["targets" if mode == 2 else "all"] += 1
     return out
 
 
 def point_moments(cfg: GvomConfig, points: torch.Tensor, keep: torch.Tensor, origin: torch.Tensor,
-                  y_window=None, occupancy_mask: bool = True):
+                  y_window=None, occupancy_mask: Union[bool, str] = True):
     """(hit [X,Ys,Z] int32, min_height [X,Ys,Z] f32, mom [10,X,Ys,Z] f32) of a
     flat point set [N,3] in the world frame: K2 then K5 (the contract of
     the JAX package's fused_point_moments), moments.point_moments on the CPU."""
@@ -838,9 +860,10 @@ def guess_height(cfg: GvomConfig, hm: torch.Tensor, ihm: torch.Tensor, slope_x: 
 
 
 def merge_batch(cfg: GvomConfig, world, contrib: VoxelGrid, ego: torch.Tensor, y0: int = 0):
-    """Merge a batch's contribution (hit, miss, min_height and RAW moments at
-    contrib.origin, for the torus rows [y0, y0+Ys) of a y-slab: [X, Ys, Z],
-    mom [10, X, Ys, Z]) with the old world's slab, and take the merged
+    """Merge a batch's contribution (hit, miss, min_height and moments at
+    contrib.origin, raw or K5's targets only: read only where contrib.hit >
+    0; for the torus rows [y0, y0+Ys) of a y-slab: [X, Ys, Z], mom [10, X,
+    Ys, Z]) with the old world's slab, and take the merged
     world's column maps. Returns (merged VoxelGrid, evidence [X, Ys, Z],
     cols [2, X, Ys] f32: height and inferred height, bands [3, X, Ys] int32:
     the band's hit sum, total sum and band_ok), torus layout:

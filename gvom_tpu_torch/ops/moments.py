@@ -11,7 +11,8 @@ terms are translated into the target's frame (the parallel-axis update
 kernel K3 (ops/kernels.py, csrc/epilogue.cu): box, crop, occupancy pre-mask
 and the write into the ring-buffer slot. `moments_epilogue_plain` is the plain
 twin of kernel K5 (the same source): the box into a fresh tensor, the mask
-optional, the full grid or a y-slab. `point_moments` is K2 then K5.
+optional, the full grid or a y-slab, every voxel stored or (its "targets
+only" store) the voxels with a hit. `point_moments` is K2 then K5.
 
 `mean_local`, `covariance` and `eigenvalues` read the stored moments back
 as the voxel's normalized mean, covariance and its sorted eigenvalues (the
@@ -106,13 +107,15 @@ def box_aggregate_moments(cfg: GvomConfig, sums: torch.Tensor, y_rows=None) -> t
 
 
 def moments_epilogue_plain(cfg: GvomConfig, n: torch.Tensor, rest: torch.Tensor, hit: torch.Tensor,
-                           origin: torch.Tensor, y_window=None, occupancy_mask: bool = True) -> torch.Tensor:
+                           origin: torch.Tensor, y_window=None, occupancy_mask=True) -> torch.Tensor:
     """Plain twin of K5: box-aggregate the padded sums (n [1, ...] and
     channels 1-9 in a scratch's rest layout, binning.PointBins), crop, move
     them into the torus layout and, with occupancy_mask, zero them where
     `hit` is 0. Returns a fresh [10, X, Ys, Z] tensor. With y_window the
     sums are the slab scratch and the result holds the torus rows
-    [ys0, ys0+Ys)."""
+    [ys0, ys0+Ys). occupancy_mask="targets" returns the mask-on result: its
+    zeros where `hit` is 0 are one form of what the kernel leaves
+    unspecified there."""
     sums = torch.cat([n, binning.rest_channels(rest, n.shape[1:])])
     if not binning.is_slab(cfg, y_window):
         mom = gridops.window_to_torus(box_aggregate_moments(cfg, sums), origin)

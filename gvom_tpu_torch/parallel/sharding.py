@@ -32,9 +32,12 @@ Per step and rank: the point preparation once for the rank's scans (the
 transform-free world points, keep with the dead scans masked out, the
 common origin); kernel K1 once for the rank's scans (each scan's rays
 from its own ego, all adding into one miss grid); kernels K2 and K5 once on
-the merged points of the rank's scans, the moments raw (no occupancy mask),
-channels 1-9 of K2's sums in a scratch that the step keeps across its
-calls (binning.MomentScratch);
+the merged points of the rank's scans, channels 1-9 of K2's sums in a
+scratch that the step keeps across its calls (binning.MomentScratch). On a
+mesh of ranks K5's moments are raw (no occupancy mask), since a voxel this
+rank does not hit may be hit on another; on one rank the batch's occupancy
+is K2's hit, and K5 boxes and stores only those voxels ("targets only"),
+the only ones at which the merge reads the batch's moments;
 then the merge kernel (the merge with the old world and the column maps,
 csrc/merge.cu), the plane fit (which moves the column maps to the window
 layout as it loads them) and the guess height (which writes the obstacle
@@ -63,8 +66,9 @@ __all__ = ["batched_step", "make_batched_step", "prepare_batch", "merge_batch_pl
 
 
 def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid, coords=None):
-    """Merge one batch's contribution (hit, miss, min_height and RAW moments
-    at contrib.origin) with the old world: masks only, no data moves.
+    """Merge one batch's contribution (hit, miss, min_height and moments
+    at contrib.origin: raw, or K5's targets only) with the old world: masks
+    only, no data moves; the batch's moments are read only where its hit > 0.
     Returns (merged VoxelGrid, evidence, occ2).
 
     The evidence formula is the batched step's own, not fuse_plain's
@@ -90,9 +94,10 @@ def merge_batch_plain(cfg: GvomConfig, world: WorldState, contrib: VoxelGrid, co
         hit=contrib.hit + torch.where(msel, old.hit, zero_i),
         miss=contrib.miss + torch.where(msel, old.miss, zero_i),
         min_height=torch.where(msel, torch.minimum(contrib.min_height, old.min_height), contrib.min_height),
-        # the batch's moments are raw, so the batch's occupancy masks them;
-        # the old world's are occupancy-masked by induction, so the overlap
-        # and the new occupancy are their only live factors
+        # the batch's moments count only where the batch occupies (raw, or
+        # stored only there); the old world's are occupancy-masked by
+        # induction, so the overlap and the new occupancy are their only live
+        # factors
         mom=torch.where(occ[None], contrib.mom, zero_f) + torch.where((omask & occ2)[None], old.mom, zero_f),
         origin=origin,
     )
@@ -235,6 +240,10 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
     seq = itertools.count()
     multi = mesh.size > 1
     scratch = []
+    # K5's form: targets only where no collective adds into hit after it (one
+    # rank) and the tiled kernel takes the shape; else the mask off
+    targets = not multi and (dev.type != "cuda" or kernels.epilogue_route(cfg) == "tiled")
+    k5_mask = "targets" if targets else False
 
     def step(world: WorldState, scans: torch.Tensor, valid: torch.Tensor,
              egos: torch.Tensor) -> Tuple[WorldState, MapProducts]:
@@ -264,14 +273,14 @@ def make_batched_step(cfg: GvomConfig, device="cuda", mesh: Mesh = None, ingest:
 
         # ---- merged endpoint metrics: ONE pass over the rank's points
         # (binning and moments are ego-free and additive over points). The
-        # moments come back raw; the batch's occupancy masks them in the merge ----
+        # merge reads the moments only where the batch's occupancy has a hit ----
         with annotate("step/moments"):
             if not scratch:
                 scratch.append(binning.moment_scratch(cfg, dev, ywin))
             bins = kernels.bin_points(cfg, pw, keep, origin, y_window=ywin, scratch=scratch[0])
             del pw, keep    # dead: keep's bytes are free again before K5 and the merge allocate
             hit, minh = bins.hit, bins.min_height
-            mom = kernels.moments_epilogue(cfg, bins.n, bins.rest, hit, origin, ywin, occupancy_mask=False)
+            mom = kernels.moments_epilogue(cfg, bins.n, bins.rest, hit, origin, ywin, k5_mask)
             del bins
 
         # ---- the rank's contributions reduced into its slab ----

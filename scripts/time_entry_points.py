@@ -46,6 +46,15 @@ the probe csrc/atomic_rate.cu. The rows:
                                   step keep one; the batch's merged points
   K3_scan                         the epilogue into a ring-buffer slot
   K5_batch_mask_off               the epilogue of the batch's sums
+  K5_<lap>_mask_off, K5_<lap>_mask_on, K5_<lap>_targets   the epilogue
+                                  of a batch of the benchmark's lap
+                                  (tree_timing.lap_batch; LAPS: lap, the
+                                  64 scans of os1_128.replay64; lap32 and
+                                  lap32_os1_64, the 32 of the batch-32
+                                  cells) with the mask off, on, and in
+                                  targets only (the one-rank batched
+                                  step's form, tree_timing.targets_bound),
+                                  which is timed only in this checkout
   K5_slab_mask_on                 the slab epilogue (ingest_scan's)
   K2_then_K3_scan, K2_then_K5_batch   the pairs (tree_timing.pair_bound)
   K4_combine                      the combine's launch alone
@@ -66,12 +75,17 @@ row, one JSON line, then the card's name and power limit.
 """
 
 import argparse
+import functools
 import json
+import math
 import statistics
 import sys
 import time
 
 import tree_timing as tt
+
+# the lap's batches of the K5 rows: (tag, configuration, scans), each a batch of its cell's replay
+LAPS = (("lap", "os1_128", (128, 192)), ("lap32", "os1_128", (128, 160)), ("lap32_os1_64", "os1_64", (128, 160)))
 
 
 def main(argv=None) -> int:
@@ -176,6 +190,12 @@ def main(argv=None) -> int:
             scratches[key] = binning.moment_scratch(cfg, dev, w)
         return kernels.bin_points(cfg, q, k, o, w, scratches[key])
 
+    laps = {}
+    for tag, config, scans in LAPS:
+        lcfg, lorigin, lpw, lkeep = tt.lap_batch(config, scans, dev)
+        lbins = kernels.bin_points(lcfg, lpw, lkeep, lorigin, scratch=binning.moment_scratch(lcfg, dev))
+        laps[tag] = (lcfg, lorigin, lbins, torus_to_window(lbins.hit > 0, lorigin))
+        del lpw, lkeep
     p1, k1, e1 = p[None], keep[None], ego.reshape(1, 3)
     bp3, bk3 = bpw.view(S, NB, 3), bkeep.view(S, NB)
     N, n_kept, n_kept_b = p.shape[0], int(keep.sum()), int(bkeep.sum())
@@ -260,7 +280,18 @@ def main(argv=None) -> int:
               "K1_batch": 1e3 * n_pass_b / rates["int32"]}
     for name, b in (("K2_scan", scan_bins), ("K2_slab", slab_bins), ("K2_batch", batch_bins)):
         floors[name] = tt.k2_atomic_floor_ms(int(b.hit.sum()), int(b.n.sum()), rates)
-    out.update(batch_points=S * NB, atomic_rates_per_s=rates, kernels={})
+    for tag, (lcfg, lorigin, lbins, occ) in laps.items():
+        n_out = math.prod(lcfg.grid_shape)
+        form = functools.partial(kernels.moments_epilogue, lcfg, lbins.n, lbins.rest, lbins.hit, lorigin, None)
+        rows[f"K5_{tag}_mask_off"] = (functools.partial(form, False), None,
+                                      tt.epilogue_bound(lcfg, lbins.n[0], torch.ones_like(occ), n_out, False))
+        rows[f"K5_{tag}_mask_on"] = (functools.partial(form, True), None,
+                                     tt.epilogue_bound(lcfg, lbins.n[0], occ, n_out, True))
+        if root == tt.ROOT:    # this checkout's mode: the parent's row to read it against is the mask on
+            rows[f"K5_{tag}_targets"] = (functools.partial(form, "targets"), None,
+                                         tt.targets_bound(lcfg, lbins.n[0], occ, n_out))
+    out.update(batch_points=S * NB, lap_hit_voxels={tag: int(lap[3].sum()) for tag, lap in laps.items()},
+               atomic_rates_per_s=rates, kernels={})
     for name, (fn, wrapper, bound) in rows.items():
         b_ms = bound if isinstance(bound, float) else tt.bound_ms(*bound)
         ms = tt.graph_ms(fn, args.reps)

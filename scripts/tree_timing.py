@@ -10,10 +10,11 @@ order such as parent, this, this, parent; atomic_rates, the card's rate of
 scattered global atomics (gvom_tpu_torch/csrc/atomic_rate.cu).
 
 Bounds: every bound that benchmark/roofline.py has is imported from there
-(a change to the program cannot move them); the three it lacks are here,
+(a change to the program cannot move them); the four it lacks are here,
 each stated as roofline.py's arithmetic with the difference named
-(merge_slab_bound, pair_bound, k2_atomic_floor_ms). A bound is
-roofline.bound_ms(bytes, seconds of operations).
+(merge_slab_bound, pair_bound, k2_atomic_floor_ms, targets_bound). A bound is
+roofline.bound_ms(bytes, seconds of operations). Inputs: batch_points and
+make_batch (a synthetic batch), lap_batch (a batch of the benchmark's lap).
 
 Trees: use_root(DIR) puts the checkout at DIR first on the path, so that
 gvom_tpu_torch imports from it (unpack the parent commit there with git
@@ -157,6 +158,15 @@ def pair_bound(n_points, n_kept, n_out, epilogue_ops_s):
     return n_points * 13 + 12 * n_out * F32, 30 * n_kept / F32_OPS_PER_S + epilogue_ops_s
 
 
+def targets_bound(cfg, n_w, targets_w, n_out):
+    """K5 in targets only (kernels.moments_epilogue(occupancy_mask="targets")):
+    roofline.epilogue_bound with the mask on, less the ten channels' stores
+    off the targets (targets_w, window layout), which it leaves unwritten.
+    Returns (bytes, seconds of operations)."""
+    nbytes, ops_s = epilogue_bound(cfg, n_w, targets_w, n_out, True)
+    return nbytes - 10 * (n_out - int(targets_w.sum())) * F32, ops_s
+
+
 def merge_slab_bound(cfg, world, contrib, y0):
     """roofline.merge_bound of the merge on a y-slab whose rows start at
     torus row y0 (world and contrib hold the slab's rows, as a slab rank
@@ -226,6 +236,28 @@ def make_batch(pts, valid, egos, step_index=1, batch=BATCH):
         [0.02, 0.01, 0.0], device=dev)
     shift = begos - egos[reps]
     return (pts[reps] + shift[:, None, :]).contiguous(), valid[reps].contiguous(), begos.contiguous()
+
+
+LAP_SEED = 3_000_000_019   # a seed of the benchmark lap's range noise (benchmark/scangen.py)
+
+
+def lap_batch(config, scans, dev, seed=LAP_SEED):
+    """(cfg, origin, points, keep) of the benchmark lap's scans [scans[0],
+    scans[1]) (benchmark/scangen.make_lap, the drive benchmark/drives/lap.json)
+    in the configuration benchmark/configs/<config>.json, prepared as the
+    batched step prepares them."""
+    import json
+
+    from benchmark import scangen
+    from gvom_tpu_torch import GvomConfig
+    from gvom_tpu_torch.parallel.sharding import prepare_batch
+
+    conf = json.loads((ROOT / "benchmark/configs" / f"{config}.json").read_text())
+    drive = json.loads((ROOT / "benchmark/drives/lap.json").read_text())
+    made = scangen.make_lap(conf["sensor"], drive, conf["gvom"]["ground_to_lidar_height"], seed, dev)
+    cfg = GvomConfig.from_dict(conf["gvom"])
+    b = slice(*scans)
+    return (cfg,) + tuple(prepare_batch(cfg, made["points"][b], made["valid"][b], made["egos"][b]))
 
 
 def recorded(kernels, name, fn, keep):

@@ -134,3 +134,73 @@ def test_merge_masks_raw_moments_by_batch_occupancy(drive):
     assert bool((evidence[occ2] == 0).all())
     only_new = (hit > 0) & ~(world.grid.hit > 0)
     np.testing.assert_array_equal(merged.mom[:, only_new].numpy(), contrib.mom[:, only_new].numpy())
+
+
+def small_batches(cfg, steps=2):
+    """`steps` batches of the drive (batch()) on cfg, as tensors."""
+    return [tuple(t(a) for a in batch(cfg, step)) for step in range(steps)]
+
+
+def test_k5_form_is_read_from_the_mesh(small_cfg, monkeypatch):
+    """The step asks K5 for targets only on one rank, where no collective
+    adds into the batch's hit after K5, and for the mask off on a mesh of
+    two ranks, under slab and under scatter ingest."""
+    import torch
+
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.parallel.mesh import Mesh
+
+    c = tcfg(small_cfg)
+    asked = []
+    real = kernels.moments_epilogue
+
+    def record(cfg, n, rest, hit, origin, y_window, occupancy_mask):
+        asked.append(occupancy_mask)
+        return real(cfg, n, rest, hit, origin, y_window, occupancy_mask)
+
+    monkeypatch.setattr(kernels, "moments_epilogue", record)
+    (scans, masks, egos), = small_batches(c, 1)
+    world = empty_world_state(c, "cpu")
+    make_batched_step(c, "cpu")(world, scans, masks, egos)
+    for ingest in ("slab", "scatter"):
+        # two ranks of a mesh made without a process group: its collectives return their input
+        mesh = Mesh((2, 1), 0, torch.device("cpu"), "gloo", None)
+        make_batched_step(c, "cpu", mesh=mesh, ingest=ingest)(world, scans, masks, egos)
+    assert asked == ["targets", False, False]
+
+
+def test_merge_reads_k5_only_at_the_batch_hits(small_cfg, monkeypatch):
+    """Two one-rank steps whose K5 returns NaN at every voxel without a hit
+    (what targets only leaves unspecified there) give the world and the
+    products of the unpatched steps, bit for bit."""
+    import torch
+
+    from gvom_tpu_torch.ops import kernels
+    from gvom_tpu_torch.utils.compare import bitwise
+
+    c = tcfg(small_cfg)
+    batches = small_batches(c)
+
+    def run():
+        step, world, out = make_batched_step(c, "cpu"), empty_world_state(c, "cpu"), []
+        for b in batches:
+            world, products = step(world, *b)
+            out.append((world, products))
+        return out
+
+    want = run()
+    real = kernels.moments_epilogue
+
+    def nan_off_the_hits(cfg, n, rest, hit, origin, *args, **kw):
+        mom = real(cfg, n, rest, hit, origin, *args, **kw)
+        return torch.where(hit[None] > 0, mom, torch.full((), float("nan")))
+
+    monkeypatch.setattr(kernels, "moments_epilogue", nan_off_the_hits)
+    got = run()
+    for i, ((w, p), (wg, pg)) in enumerate(zip(want, got)):
+        for name in ("hit", "miss", "min_height", "mom", "origin"):
+            bitwise(f"step {i} {name}", getattr(wg.grid, name), getattr(w.grid, name))
+        bitwise(f"step {i} evidence", wg.evidence, w.evidence)
+        for name, value in vars(p).items():
+            bitwise(f"step {i} {name}", getattr(pg, name), value)
+    assert int((want[-1][0].grid.hit > 0).sum()) > 50

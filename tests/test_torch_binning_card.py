@@ -6,7 +6,9 @@ call (channels 1-9 zero where n is 0, the touched bytes 1 where n > 0) and
 after calls over other scans (what a fresh scratch gives); the epilogues
 (K3, K5) on its n and channels 1-9 against their plain twins; two
 batched steps on one step's scratch, and a ring buffer's ingest after
-others, against fresh ones; and, on the scratch's layout (channels 1-8
+others, against fresh ones; K5's targets only (the one-rank batched
+step's form) over NaN-poisoned memory against its other forms, and three
+lap steps in it against the same steps with the mask off; and, on the scratch's layout (channels 1-8
 voxel-major, channel 9 apart, binning.rest_parts), K2 then K5 on the lap's
 batch, K3 through the ring buffer, a slab across the window seam, and the
 separable passes and the direct kernel of the wide boxes, each against
@@ -144,6 +146,92 @@ def test_epilogues_against_plain(lap, mask):
         slot = torch.ones((1,), dtype=torch.int32, device="cuda")
         kernels.ingest_epilogue(cfg, bins.n, bins.rest, bins.hit, origin, out, slot)
         bitwise("K3 slot vs K5", out[1], got)
+
+
+NAN_BYTE = 0xFF   # a float32 of four such bytes is a NaN
+
+
+def poison_free_memory(n_bytes):
+    """Hand the allocator's free memory back to the card, then fill n_bytes
+    of what it holds free with NaN bytes, so that the next allocations come
+    from them; returns their address."""
+    torch.cuda.empty_cache()
+    junk = torch.full((n_bytes,), NAN_BYTE, dtype=torch.uint8, device="cuda")
+    ptr = junk.data_ptr()
+    del junk
+    return ptr
+
+
+def test_targets_only_stores_the_hits_alone(lap):
+    """K5 in targets only, its output allocated over NaN bytes: NaN bytes
+    left at every voxel without a hit, and at every hit voxel the bits that
+    the mask-off and the mask-on forms write; one launch, counted under
+    its store mode."""
+    cfg, made = lap
+    scratch = binning.moment_scratch(cfg, "cuda")
+    p, keep, origin = prepared(cfg, made, BATCHES[0])
+    bins = kernels.bin_points(cfg, p, keep, origin, scratch=scratch)
+    assert kernels.epilogue_route(cfg) == "tiled"
+    forms = {mask: kernels.moments_epilogue(cfg, bins.n, bins.rest, bins.hit, origin, occupancy_mask=mask)
+             for mask in (False, True)}
+    kernels.reset_launches()
+    ptr = poison_free_memory(forms[True].numel() * 4)
+    got = kernels.moments_epilogue(cfg, bins.n, bins.rest, bins.hit, origin, occupancy_mask="targets")
+    assert got.data_ptr() == ptr, "the output was not allocated over the poisoned bytes"
+    assert kernels.XBOX.launches == 1 and kernels.K5_STORES == {"all": 0, "targets": 1}
+    occ = bins.hit > 0
+    assert int(occ.sum()) > 10_000
+    assert bool((got.view(torch.int32)[:, ~occ] == -1).all()), "targets only stored off the hits"
+    for mask, want in forms.items():
+        bitwise(f"targets only vs mask {mask} at the hits", got[:, occ], want[:, occ])
+
+
+def test_lap_steps_in_targets_only_equal_the_mask_off(lap, monkeypatch):
+    """Three consecutive lap steps of the one-rank step, each over free
+    memory poisoned with NaN bytes, and the same three steps with K5 forced
+    to the mask off on the same K2 sums (K2's float atomics differ from run
+    to run): world and products bit for bit. The first run's K5 launches
+    are one a step, all targets only."""
+    from gvom_tpu_torch.parallel import make_batched_step
+    from gvom_tpu_torch.types import empty_world_state
+
+    cfg, made = lap
+    real_bins, real_epilogue = kernels.bin_points, kernels.moments_epilogue
+    kept = []
+
+    def recorded(*args, **kw):
+        bins = real_bins(*args, **kw)
+        kept.append(binning.PointBins(*(x.clone() for x in bins)))
+        return bins
+
+    def run():
+        step, world, out = make_batched_step(cfg, "cuda"), empty_world_state(cfg, "cuda"), []
+        for b0 in (64, 128, 192):
+            poison_free_memory(1 << 30)
+            world, products = step(world, *raw(made, b0))
+            out.append((world, products))
+        torch.cuda.synchronize()
+        return out
+
+    monkeypatch.setattr(kernels, "bin_points", recorded)
+    kernels.reset_launches()
+    targets = run()
+    assert kernels.K5_STORES == {"all": 0, "targets": 3} and kernels.XBOX.launches == 3
+    replay = iter(kept)
+    monkeypatch.setattr(kernels, "bin_points", lambda *a, **kw: binning.PointBins(*(x.clone() for x in next(replay))))
+    monkeypatch.setattr(kernels, "moments_epilogue",
+                        lambda cfg, n, rest, hit, origin, y_window, mask: real_epilogue(
+                            cfg, n, rest, hit, origin, y_window, False))
+    kernels.reset_launches()
+    mask_off = run()
+    assert kernels.K5_STORES == {"all": 3, "targets": 0}
+    for i, ((w, p), (wm, pm)) in enumerate(zip(targets, mask_off)):
+        for name in ("hit", "miss", "min_height", "mom", "origin"):
+            bitwise(f"step {i} {name}", getattr(w.grid, name), getattr(wm.grid, name))
+        bitwise(f"step {i} evidence", w.evidence, wm.evidence)
+        for name, value in vars(p).items():
+            bitwise(f"step {i} {name}", value, getattr(pm, name))
+    assert not bool(torch.isnan(targets[-1][0].grid.mom).any())
 
 
 def test_batched_steps_on_one_scratch_equal_a_fresh_step(lap):
